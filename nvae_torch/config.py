@@ -1,7 +1,7 @@
 """Static configuration for the PyTorch port.
 
 A copy of ``nvae_tpu/config.py``'s ``ModelConfig``, ``StageShapes``,
-``shapes()``, ``debug_config`` and ``MNIST_CONFIG``, and of
+``shapes()``, ``TrainConfig``, ``debug_config`` and ``MNIST_CONFIG``, and of
 ``nvae_tpu/presets.py``'s MNIST presets.  The port keeps its own copy so that
 it imports nothing of the JAX package; the fields, defaults and shape algebra
 are the same, so one configuration means the same network in both packages.
@@ -169,6 +169,92 @@ class ModelConfig:
     def z0_shape(self) -> Tuple[int, int, int]:
         s = self.shapes()
         return (s.base_size, s.base_size, self.n_latent_per_group)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer / runtime configuration (reference ``train.py:145-297`` flags)."""
+
+    epochs: int = 400
+    batch_size: int = 144
+    learning_rate: float = 1e-3
+    dataset: str = "mnist"
+    seed: int = 1
+    # KL warm-up: beta ramps linearly to 1 over the first `warmup_fraction` of
+    # training (reference models.py:122 hardcodes 0.3).
+    warmup_fraction: float = 0.3
+    step_based_warmup: bool = False
+    # Reference defect parity: epoch-based warm-up divides the epoch counter by
+    # total *steps* (models.py:121-122 + train.py:124), making Epoch+SN warm up
+    # ~batches_per_epoch x slower than intended. False = fixed (divide epochs
+    # by total epochs); True = bug-for-bug parity.
+    parity_epoch_warmup_in_steps: bool = False
+    # Reference defect parity: datasets.py:13-15 binarizes with Bernoulli probs
+    # in [0,255] (a >0 threshold in practice). False = proper Bernoulli draw
+    # from probs in [0,1], redrawn each epoch on device; True = >0 threshold.
+    parity_binarize_255: bool = False
+    # Reference defect parity: the reference's custom ``train_step`` calls
+    # ``self(data)`` with NO ``training`` argument (models.py:117, copied from
+    # the keras.io VAE tutorial), and Keras 2 resolves the missing flag to
+    # inference mode all the way down.  The reference therefore TRAINS with
+    # BatchNorm in inference mode (moving statistics frozen at init 0/1,
+    # never updated) and with TFA's SpectralNormalization never running its
+    # power iteration (``if training:`` is falsy) — verified by executing the
+    # genuine reference code under tf_keras (tools/reference_oracle.py,
+    # phase D).  True reproduces that: the train step runs the forward with
+    # ``train=False`` (frozen batch_stats, no spectral-u update).  False
+    # (default) trains BN on batch statistics and runs the SN update — the
+    # intended semantics.
+    parity_frozen_norm: bool = False
+    binary: bool = True
+    debug: bool = False  # truncate dataset to 4 batches (reference train.py:103)
+    # Callback frequencies (epochs).
+    sample_frequency: int = 5
+    evaluate_frequency: int = 10
+    log_frequency: int = 1
+    model_save_frequency: int = 10
+    patience: int = 0  # 0 disables early stopping
+    resume_from: int = 0
+    n_samples: int = 10
+    binary_eval: bool = False
+    # Directories.
+    model_save_dir: str = "models"
+    sample_dir: str = "results"
+    tensorboard_log_dir: str = "logs"
+    data_dir: str = ""  # where to look for local dataset files
+    # Run each epoch as ONE XLA program (lax.scan over a device-resident
+    # dataset; zero host round-trips between steps). Requires the training
+    # set to fit in HBM as uint8 — true at reference scale.
+    scan_epochs: bool = False
+    # Exponential moving average of the post-update params (NVAE paper
+    # evaluates with EMA weights, decay 0.9999; the reference has no EMA).
+    # 0 disables.  Maintained inside the optimizer state (train/optim.py
+    # track_ema) so checkpoints/FSDP/scan-epochs inherit it; use
+    # --use_ema in test/sample/serve modes to run on the averaged weights.
+    ema_decay: float = 0.0
+    # Gradient accumulation: split each batch into N microbatches inside the
+    # jitted step (lax.scan) — activation memory scales with the microbatch,
+    # the optimizer sees the mean full-batch gradient.  Per-step path only
+    # (incompatible with scan_epochs, which keeps the reference step shape).
+    grad_accum: int = 1
+    # Parallelism: number of devices on the data axis (0 = all available).
+    data_parallel: int = 0
+    # Mesh axis sizes for (data, model); model axis reserved for future TP.
+    model_parallel: int = 1
+    # Pipeline parallelism (GPipe over the four stage modules,
+    # parallel/pipeline.py): >1 places each stage group on its own
+    # device(s).  Microbatches are the pipeline's gradient accumulation
+    # (0 = same as pipeline_stages); incompatible with scan_epochs and
+    # grad_accum>1.  In pipeline mode data_parallel is the DP width WITHIN
+    # each stage (0 = devices/stages).
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 0
+    # Pipeline dispatch schedule: "1f1b" interleaves one backward chain
+    # behind each forward chain (peak boundary-activation stash O(stages),
+    # independent of microbatch count); "gpipe" is the classic fill-drain
+    # (stash O(microbatches)).  Both accumulate per-stage gradients in the
+    # same microbatch order, so they are bitwise identical in result.
+    pipeline_schedule: str = "1f1b"
 
 
 # The default MNIST configuration.

@@ -1,9 +1,12 @@
-"""Load the JAX package's weights into the port.
+"""Move weights between the JAX package's Flax trees and the port.
 
-The input is a Flax variables tree as nested dicts of numpy arrays:
-``{"params": ..., "batch_stats": ..., "spectral": ...}`` (``spectral`` only in
-forward spectral mode), for the whole ``NVAE`` or for one block.  The output
-is the port module's ``state_dict``, every tensor filled exactly once.
+:func:`state_dict_from_flax` takes a Flax variables tree as nested dicts of
+numpy arrays, ``{"params": ..., "batch_stats": ..., "spectral": ...}``
+(``spectral`` only in forward spectral mode), for the whole ``NVAE`` or for
+one block, and gives the port module's ``state_dict``, every tensor filled
+exactly once from exactly one Flax leaf.  :func:`flax_tree_from_state_dict`
+is its inverse: tensors keyed like the ``state_dict`` (the weights, or their
+gradients) back to nested numpy dicts keyed like the Flax tree.
 
 Layout changes:
 
@@ -18,8 +21,7 @@ Layout changes:
 The module tree is walked through each module's ``flax_names`` (child
 attribute -> Flax submodule name; a ``ModuleList`` named ``x`` holds Flax's
 ``x_0``, ``x_1``, ... and a nested one ``x_0_0``, ...).  A Flax leaf that maps
-to no port tensor raises, unless it lies in a subtree that sampling never
-reads (:data:`SAMPLING_UNUSED`).
+to no port tensor raises.
 """
 
 from __future__ import annotations
@@ -34,35 +36,20 @@ from nvae_torch.models.nvae import Decoder
 from nvae_torch.nn.blocks import BatchNorm
 from nvae_torch.nn.spectral import DepthwiseConv, SNConv
 
-# Flax subtrees of the full model that the prior sampler never reads: the
-# encoder side (preprocess, encoder, enc-dec merges, posterior heads).
-SAMPLING_UNUSED = (
-    "preprocess",
-    "encoder",
-    "decoder/merges_",
-    "decoder/heads/enc_heads_",
-)
-
 FlaxPath = Tuple[str, ...]  # (collection, module..., leaf)
+# A layout change and its inverse, Flax -> port and port -> Flax.
+Transform = Tuple[Callable[[np.ndarray], np.ndarray],
+                  Callable[[np.ndarray], np.ndarray]]
+
+_identity: Transform = (lambda a: a, lambda a: a)
+_hwio_to_oihw: Transform = (lambda a: a.transpose(3, 2, 0, 1),
+                            lambda a: a.transpose(2, 3, 1, 0))
+_transpose: Transform = (lambda a: a.T, lambda a: a.T)
+_hwc_to_chw: Transform = (lambda a: a.transpose(2, 0, 1),
+                          lambda a: a.transpose(1, 2, 0))
 
 
-def _identity(a: np.ndarray) -> np.ndarray:
-    return a
-
-
-def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
-    return a.transpose(3, 2, 0, 1)
-
-
-def _transpose(a: np.ndarray) -> np.ndarray:
-    return a.T
-
-
-def _hwc_to_chw(a: np.ndarray) -> np.ndarray:
-    return a.transpose(2, 0, 1)
-
-
-def _leaves(module: nn.Module) -> Iterable[Tuple[str, str, FlaxPath, Callable]]:
+def _leaves(module: nn.Module) -> Iterable[Tuple[str, str, FlaxPath, Transform]]:
     """(port tensor name, collection, Flax leaf path below the module,
     transform) for the tensors a module owns itself."""
     if isinstance(module, SNConv):
@@ -106,10 +93,10 @@ def _children(module: nn.Module) -> Iterable[Tuple[str, nn.Module, str]]:
             yield attr, child, base
 
 
-def _flax_layout(module: nn.Module) -> Dict[FlaxPath, Tuple[str, Callable]]:
+def _flax_layout(module: nn.Module) -> Dict[FlaxPath, Tuple[str, Transform]]:
     """Map every Flax leaf path (collection first) to the port
     ``state_dict`` key it fills and the transform it needs."""
-    out: Dict[FlaxPath, Tuple[str, Callable]] = {}
+    out: Dict[FlaxPath, Tuple[str, Transform]] = {}
 
     def walk(m: nn.Module, prefix: str, fpath: Tuple[str, ...]):
         for name, coll, leaf, fn in _leaves(m):
@@ -129,25 +116,18 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()):
         yield prefix, tree
 
 
-def state_dict_from_flax(
-    variables, module: nn.Module, skip: Iterable[str] = ()
-) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(variables, module: nn.Module) -> Dict[str, torch.Tensor]:
     """The port ``module``'s state_dict from a Flax ``variables`` tree.
 
-    ``skip`` lists Flax subtree prefixes (below the collection, joined with
-    ``/``) to ignore.  Raises on any other leaf the port has no tensor for,
-    on a shape mismatch, and on any port tensor left unfilled."""
+    Raises on any Flax leaf the port has no tensor for, on a shape mismatch,
+    and on any port tensor left unfilled."""
     layout = _flax_layout(module)
     own = module.state_dict()
-    skip = tuple(skip)
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(variables):
-        sub = "/".join(path[1:])
         if path not in layout:
-            if any(sub.startswith(s) for s in skip):
-                continue
             raise KeyError(f"unknown Flax leaf {'/'.join(path)}")
-        key, fn = layout[path]
+        key, (fn, _) = layout[path]
         if key in sd:
             raise KeyError(f"{key} filled twice (second from {'/'.join(path)})")
         value = torch.from_numpy(np.array(fn(np.asarray(leaf)), copy=True))
@@ -163,7 +143,23 @@ def state_dict_from_flax(
     return sd
 
 
-def nvae_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """:func:`state_dict_from_flax` for a whole ``NVAE``, skipping the
-    subtrees sampling never reads."""
-    return state_dict_from_flax(variables, model, skip=SAMPLING_UNUSED)
+def flax_tree_from_state_dict(state_dict, module: nn.Module) -> dict:
+    """Nested numpy dicts keyed like the Flax variables tree (collection
+    first) from tensors keyed like ``module.state_dict()``: the inverse of
+    :func:`state_dict_from_flax`.  ``state_dict`` may hold a subset of the
+    keys (for example the gradients of the parameters alone); a key the
+    module has no Flax leaf for raises."""
+    by_key = {key: (path, inv) for path, (key, (_, inv))
+              in _flax_layout(module).items()}
+    tree: dict = {}
+    for key, value in state_dict.items():
+        if key not in by_key:
+            raise KeyError(f"{key} has no Flax leaf")
+        path, inv = by_key[key]
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        # A copy: ``.numpy()`` of a CPU tensor shares its memory.
+        node[path[-1]] = np.array(inv(value.detach().cpu().numpy()),
+                                  order="C", copy=True)
+    return tree

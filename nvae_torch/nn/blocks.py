@@ -1,6 +1,8 @@
-"""NVAE building blocks of the sampling path (counterpart of
-``nvae_tpu/nn/blocks.py``), in eval mode.
+"""NVAE building blocks (counterpart of ``nvae_tpu/nn/blocks.py``).
 
+Every block honours ``self.training`` as the JAX modules' ``train`` flag:
+BatchNorm normalizes with the batch statistics and updates its running
+statistics in place, and forward-mode spectral convolutions update ``u``.
 Tensors are NCHW in ``torch.channels_last`` memory.  Constructors take the
 input channel counts that Flax infers at the first call.  Each module's
 ``flax_names`` maps a child attribute to the name of the Flax submodule it
@@ -27,10 +29,18 @@ BN_EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over channels from the running statistics, eps 1e-5.
+    """BatchNorm over channels with Flax's semantics (``flax.linen.BatchNorm``
+    as ``blocks.py:53-59`` configures it), eps 1e-5.
 
-    Eval mode only: the training statistics (with Flax's biased batch
-    variance) come with the training slice."""
+    Eval mode normalizes with the running statistics.  Training mode
+    normalizes with the batch mean and the *biased* batch variance
+    ``E[x^2] - E[x]^2`` (clipped at 0), with gradients flowing through both,
+    and updates the running statistics in place as
+    ``ra <- 0.05 * ra + 0.95 * batch`` (biased variance).  This is not
+    ``F.batch_norm(training=True)``, whose momentum 0.05 would keep 95% of
+    the old value and which stores the unbiased variance."""
+
+    MOMENTUM = 0.05  # Flax's: the share of the old running value kept
 
     def __init__(self, channels: int):
         super().__init__()
@@ -48,10 +58,21 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=BN_EPS,
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, training=False, eps=BN_EPS,
+            )
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_((1.0 - m) * mean)
+            self.running_var.mul_(m).add_((1.0 - m) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
 
 
 class SqueezeExcitation(nn.Module):
@@ -79,23 +100,106 @@ class SqueezeExcitation(nn.Module):
 
 
 class Rescaler(nn.Module):
-    """BN -> swish -> nearest x``factor`` -> 3x3 ``SAME`` conv: the up form
-    of ``blocks.py:131-162``.  The strided down form belongs to the encoder
-    and comes with the training slice."""
+    """BN -> swish -> {up: nearest x``factor`` then a 3x3 ``SAME`` conv |
+    down: a stride-``factor`` 3x3 ``SAME`` conv} (``blocks.py:131-162``)."""
 
     flax_names = {"bn": "BatchNorm_0", "conv": "SNConv_0"}
 
     def __init__(self, in_ch: int, features: int, factor: int = 2,
-                 mode: str = "projection"):
+                 mode: str = "projection", up: bool = True):
         super().__init__()
         self.factor = factor
+        self.up = up
         self.bn = BatchNorm(in_ch)
-        self.conv = SNConv(in_ch, features, 3, mode=mode)
+        self.conv = SNConv(in_ch, features, 3, mode=mode,
+                           stride=1 if up else factor)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.bn(x))
-        x = F.interpolate(x, scale_factor=self.factor, mode="nearest")
+        if self.up:
+            x = F.interpolate(x, scale_factor=self.factor, mode="nearest")
         return self.conv(x)
+
+
+class FactorizedDownsample(nn.Module):
+    """Swish, then four 1x1 stride-2 convolutions over the input shifted by
+    (0, 0), (1, 1), (0, 1) and (1, 0) pixels (row, column), concatenated on
+    channels (``blocks.py:165-186``).  Factor 2 only."""
+
+    flax_names = {"convs": "SNConv"}
+
+    def __init__(self, in_ch: int, features: int, mode: str = "projection"):
+        super().__init__()
+        quarter = features // 4
+        widths = (quarter, quarter, quarter, features - 3 * quarter)
+        self.convs = nn.ModuleList(
+            SNConv(in_ch, f, 1, mode=mode, stride=2) for f in widths
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.silu(x)
+        views = (out, out[:, :, 1:, 1:], out[:, :, :, 1:], out[:, :, 1:, :])
+        return torch.cat([conv(v) for conv, v in zip(self.convs, views)],
+                         dim=1)
+
+
+class StemCell(nn.Module):
+    """Preprocess residual cell: ``n_nodes`` x (BN -> swish -> 3x3 conv, the
+    first one stride 2 when downsampling) -> SE; ``skip(x) + 0.1 * y`` with a
+    :class:`FactorizedDownsample` skip when downsampling
+    (``blocks.py:189-220``)."""
+
+    def __init__(self, in_ch: int, features: int, n_nodes: int = 2,
+                 downsample: bool = False, se_ratio: int = 16,
+                 mode: str = "projection"):
+        super().__init__()
+        if not downsample and in_ch != features:
+            raise ValueError("a stem cell that keeps its size keeps its width")
+        self.skip = (FactorizedDownsample(in_ch, features, mode=mode)
+                     if downsample else None)
+        self.bns = nn.ModuleList(
+            BatchNorm(in_ch if i == 0 else features) for i in range(n_nodes)
+        )
+        self.convs = nn.ModuleList(
+            SNConv(in_ch if i == 0 else features, features, 3, mode=mode,
+                   stride=2 if downsample and i == 0 else 1)
+            for i in range(n_nodes)
+        )
+        self.se = SqueezeExcitation(features, se_ratio)
+        self.flax_names = {"bns": "BatchNorm", "convs": "SNConv",
+                           "se": "SqueezeExcitation_0"}
+        if downsample:
+            self.flax_names["skip"] = "FactorizedDownsample_0"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skip = self.skip(x) if self.skip is not None else x
+        y = x
+        for bn, conv in zip(self.bns, self.convs):
+            y = conv(F.silu(bn(y)))
+        return skip + 0.1 * self.se(y)
+
+
+class EncoderResidualCell(nn.Module):
+    """(BN -> swish -> 3x3 conv) x 2 -> SE; ``0.1 * identity + residual``
+    (``blocks.py:223-241``)."""
+
+    flax_names = {"bn0": "BatchNorm_0", "conv0": "SNConv_0",
+                  "bn1": "BatchNorm_1", "conv1": "SNConv_1",
+                  "se": "SqueezeExcitation_0"}
+
+    def __init__(self, features: int, se_ratio: int = 16,
+                 mode: str = "projection"):
+        super().__init__()
+        self.bn0 = BatchNorm(features)
+        self.conv0 = SNConv(features, features, 3, mode=mode)
+        self.bn1 = BatchNorm(features)
+        self.conv1 = SNConv(features, features, 3, mode=mode)
+        self.se = SqueezeExcitation(features, se_ratio)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv0(F.silu(self.bn0(x)))
+        y = self.conv1(F.silu(self.bn1(y)))
+        return 0.1 * x + self.se(y)
 
 
 class GenerativeResidualCell(nn.Module):
@@ -129,6 +233,19 @@ class GenerativeResidualCell(nn.Module):
         y = self.project(F.silu(self.bn2(y)))
         y = self.se(self.bn3(y))
         return 0.1 * x + y
+
+
+class EncDecCombiner(nn.Module):
+    """Bidirectional merge ``enc_x + conv1x1(dec_x)`` (``blocks.py:279-293``)."""
+
+    flax_names = {"conv": "SNConv_0"}
+
+    def __init__(self, dec_ch: int, features: int, mode: str = "projection"):
+        super().__init__()
+        self.conv = SNConv(dec_ch, features, 1, mode=mode)
+
+    def forward(self, enc_x: torch.Tensor, dec_x: torch.Tensor) -> torch.Tensor:
+        return enc_x + self.conv(dec_x)
 
 
 class DecoderSampleCombiner(nn.Module):

@@ -10,16 +10,13 @@ current CUDA stream in order, so a dispatch enqueued before a swap still
 computes with the old weights: the swap boundary is a dispatch boundary, as
 in the JAX sampler.
 
-fp32 serving runs with cuDNN's TF32 off: ``torch.backends.cudnn.allow_tf32``
-defaults to True, which would round every convolution's inputs to TF32's
-10-bit mantissa.  Matrix products already run in full fp32 by default
-(``torch.backends.cuda.matmul.allow_tf32`` is False).  bf16 and int8 weight
-serving come with a later slice.
+fp32 serving runs with TF32 off and deterministic cuDNN algorithms
+(:func:`nvae_torch.device.fp32_math`).  bf16 and int8 weight serving come
+with a later slice.
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
 from typing import Optional, Sequence
 
@@ -27,7 +24,7 @@ import numpy as np
 import torch
 
 from nvae_torch.config import ModelConfig
-from nvae_torch.device import DeviceLike
+from nvae_torch.device import DeviceLike, fp32_math
 from nvae_torch.models.nvae import NVAE
 
 
@@ -44,19 +41,6 @@ def quantize_output(images: torch.Tensor, output_dtype: str) -> torch.Tensor:
     raise ValueError(f"unknown output_dtype {output_dtype!r}")
 
 
-@contextlib.contextmanager
-def fp32_convolutions():
-    """Run cuDNN convolutions in full fp32 (no TF32) and deterministically,
-    restoring the previous flags on exit.  The flags are process-wide."""
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
-    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = False, True, False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = saved
-
-
 class Sampler:
     """Hot-swappable ``(seed, temperature) -> images`` prior sampler.
 
@@ -71,8 +55,8 @@ class Sampler:
 
     ``device`` defaults to the card and raises if there is none.  The
     weights come from ``state_dict`` (for example
-    :func:`nvae_torch.convert.nvae_state_dict` of a JAX checkpoint), or from a
-    Flax-style initialisation seeded by ``init_seed``.
+    :func:`nvae_torch.convert.state_dict_from_flax` of a JAX checkpoint), or
+    from a Flax-style initialisation seeded by ``init_seed``.
     """
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
@@ -101,7 +85,8 @@ class Sampler:
             if temperature.ndim:
                 n = temperature.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with self._lock, torch.inference_mode(), fp32_convolutions():
+        with (self._lock, torch.inference_mode(),
+              fp32_math(deterministic=True)):
             images, _, _, _ = self.model.sample(
                 n, temperature, True, self._st, generator=gen
             )

@@ -42,6 +42,9 @@ def _imported_roots(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for mod in ("losses", "optim", "state", "step"):
+        assert os.path.join("nvae_torch", "train", f"{mod}.py") in rel
     bad = [
         (os.path.relpath(f, ROOT), mod)
         for f in files for mod in _imported_roots(f) if mod in FORBIDDEN
@@ -53,7 +56,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import nvae_torch, nvae_torch.convert, nvae_torch.serving, "
-        "nvae_torch.serving_runtime, nvae_torch.kernels._build\n"
+        "nvae_torch.serving_runtime, nvae_torch.kernels._build, "
+        "nvae_torch.train.losses, nvae_torch.train.optim, "
+        "nvae_torch.train.state, nvae_torch.train.step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -67,13 +72,21 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    from nvae_torch import TrainConfig
     from nvae_torch.models.nvae import NVAE
     from nvae_torch.serving import Sampler
+    from nvae_torch.train.state import create_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Sampler(debug_config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NVAE(debug_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(debug_config(), TrainConfig(), 10)
     # Asked for, the CPU works.
     assert Sampler(debug_config(), device="cpu").info["device"] == "cpu"
+    model, state, _ = create_train_state(debug_config(), TrainConfig(), 10,
+                                         device="cpu")
+    assert model.training and state.step == 0
+    assert model.decoder.h.device.type == "cpu"

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from nvae_torch import config as tcfg
-from nvae_torch.convert import SAMPLING_UNUSED, nvae_state_dict, state_dict_from_flax
+from nvae_torch.convert import state_dict_from_flax
 from nvae_torch.models.nvae import NVAE as TorchNVAE
 from nvae_torch.models.nvae import decoder_noise_shapes
 from nvae_torch.serving import Sampler, quantize_output
@@ -80,7 +80,7 @@ def _models(name):
         jm = JaxNVAE(jcfg.debug_config(**overrides))
         variables = random_flax_variables(jm)
         tm = TorchNVAE(tcfg.debug_config(**overrides), device="cpu")
-        tm.load_state_dict(nvae_state_dict(variables, tm))
+        tm.load_state_dict(state_dict_from_flax(variables, tm))
         _CACHE[name] = (jm, variables, tm)
     return _CACHE[name]
 
@@ -238,17 +238,11 @@ def test_sampler_swap_and_info():
 
 def test_converter_fills_every_tensor_and_counts_match():
     _, variables, tm = _models("forward_sn")
-    sd = nvae_state_dict(variables, tm)
+    sd = state_dict_from_flax(variables, tm)
     assert set(sd) == set(tm.state_dict())
     assert any(k.endswith(".u") for k in sd)
-    # Every JAX parameter that sampling reads has a port counterpart.
-    n_jax = 0
-    for path, leaf in jax.tree_util.tree_flatten_with_path(variables["params"])[0]:
-        sub = "/".join(k.key for k in path)
-        if sub.split("/")[0] in ("decoder", "postprocess") and not any(
-            sub.startswith(s) for s in SAMPLING_UNUSED
-        ):
-            n_jax += leaf.size
+    # Every JAX parameter of the full model has a port counterpart.
+    n_jax = sum(leaf.size for leaf in jax.tree_util.tree_leaves(variables["params"]))
     assert n_jax == sum(p.numel() for p in tm.parameters())
 
 
@@ -257,14 +251,16 @@ def test_converter_rejects_unknown_leaf():
     bad = jax.tree_util.tree_map(lambda a: a, variables)
     bad["params"]["decoder"]["cells_1_0"]["mystery"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError, match="unknown Flax leaf"):
-        nvae_state_dict(bad, tm)
-    # Without the sampling skip list the encoder side is unknown too.
+        state_dict_from_flax(bad, tm)
+    # A forward-mode tree's spectral ``u`` vectors are unknown to a
+    # projection-mode model.
+    _, other, _ = _models("forward_sn")
     with pytest.raises(KeyError, match="unknown Flax leaf"):
-        state_dict_from_flax(variables, tm)
+        state_dict_from_flax(other, tm)
     short = jax.tree_util.tree_map(lambda a: a, variables)
     del short["params"]["decoder"]["h"]
     with pytest.raises(KeyError, match="not filled"):
-        nvae_state_dict(short, tm)
+        state_dict_from_flax(short, tm)
 
 
 # ---- batching runtime -------------------------------------------------------
