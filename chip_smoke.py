@@ -12,10 +12,15 @@ each raising on failure (nothing is caught):
 1. build: compiles every CUDA source of the port with ``nvcc`` (one process
    per source, started together) into ``nvae_torch/kernels/_build/``;
 2. kernels: each kernel against its plain PyTorch version at every shape of
-   the sampling and training paths, batch 144, fp32: the forward and dx
-   (with swish' and in the form without it) at atol 2e-5, dW/db (with and
-   without bias) at 1e-4 of the largest |dW| and bitwise across two runs;
-   and the fused op's gradients on the card against the CPU Function;
+   the sampling and training paths, fp32, at every batch the paths give it
+   (the forwards at 144, 576, 12, 4 and 3; dx and dW/db at 144 and 4): the
+   forward and dx (with swish' and in the form without it) at atol 2e-5,
+   dW/db (with and without bias) at 1e-4 of the largest |dW| and bitwise
+   across two runs;
+   the fused op's gradients on the card against the CPU Function; and the
+   squeeze-excitation gate (#5) at the model's four SE shapes, JAX's test
+   shape and a ragged one at atol 1e-5, bitwise across two runs, refusing
+   an input that requires grad;
 3. sampler: the full-width MNIST sampler (``ModelConfig()``, seeded
    Flax-style init with random BatchNorm running statistics) in the default
    and the depthwise-postprocess configuration: the fused kernel's launches
@@ -33,14 +38,28 @@ each raising on failure (nothing is caught):
    dx and dW/db kernels; then one step at batch 4 on the card against the
    same step on the CPU in float32 and in float64, with injected noise
    (loss, gradients, BatchNorm running statistics);
-6. timing: images per second at batch 144 by direct calls and through the
-   server, ms per training step and images per second, and each kernel's
-   time at each path shape beside its bound, its plain version and the
-   library call (``F.conv2d(groups=C)``, ``torch.nn.grad.conv2d_input`` and
-   ``conv2d_weight``);
-7. profile: ``torch.profiler`` over one ``sample`` call and one training
-   step per configuration: device busy time against wall time, and the
-   costliest kernels.
+6. the gate's own entry point (a main path; the model does not call it, as
+   in the JAX package): one call at each of the model's SE shapes, counted;
+7. the training entry point (a main path): ``python -m nvae_torch.cli`` as
+   subprocesses at full width (``--preset mnist_step_sn --use_pallas``,
+   batch 144, synthetic data, ``--debug``): train 2 epochs with eval, image
+   hooks and a checkpoint per epoch, resume for a third, then ``--mode
+   sample``; exit codes, metrics, image directories, checkpoints, 144 PNGs
+   per temperature, and exact launch counts (14 of #2, #3 and #4 per step,
+   14 of #2 per eval, sampling and reconstruction forward); then, in
+   process, the state a Trainer restores equals the step-8 checkpoint;
+8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
+   batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
+   held to a float64 CPU run;
+9. timing: images per second at batch 144 by direct calls and through the
+   server, and each kernel's time at each path shape beside its bound, its
+   plain version and the library call (``F.conv2d(groups=C)``,
+   ``torch.nn.grad.conv2d_input`` and ``conv2d_weight``; for the gate, which
+   no single call computes, the eager ``SqueezeExcitation`` module), and #2
+   at the shapes of ``tools/bench_dw_kernel.py``;
+10. profile: ``torch.profiler`` over one ``sample`` call and one training
+    step per configuration: device busy time against wall time, and the
+    costliest kernels.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -53,8 +72,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +100,13 @@ PATH_SHAPES = [
     (16, 384, False, 0, 3),
     (32, 192, False, 0, 3),
 ]
+# Other batch sizes the main paths give the forward kernel (#2): the CLI's
+# sample mode draws its 4-temperature sweep of BATCH in one call of 4 x
+# BATCH rows, the trainer's sample hook 4 x 3 rows and its reconstruction 3;
+# the B=4 training step and NLL set against the CPU.  The backward kernels
+# run at BATCH and, in that step, at 4.
+FWD_BATCHES = (BATCH, 4 * BATCH, 12, 4, 3)
+BWD_BATCHES = (BATCH, 4)
 TRAIN_STEPS = 5
 # One full-width training step at batch 4, card against CPU: fp32 on both
 # sides, other summation orders through ~100 layers forward and back.  A
@@ -92,8 +120,25 @@ CARD_VS_CPU_ROUNDING = 1.5  # card's error vs float64 over the CPU fp32's
 LEAF_REL_L2 = 1e-2  # card vs float64, of each parameter's nonzero gradient
 BN_STATS_ATOL = 2e-3  # card vs CPU fp32, of max(1, |value|)
 BN_STATS_F64_ATOL = 1e-3  # card vs float64, of max(1, |value|)
-KERNEL_NAMES = ("fused_swish_depthwise5x5", "depthwise_conv5x5",
-                "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw")
+DW_KERNEL_NAMES = ("fused_swish_depthwise5x5", "depthwise_conv5x5",
+                   "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw")
+KERNEL_NAMES = DW_KERNEL_NAMES + ("se_gate",)
+# (H = W, C, hidden) of the model's squeeze-excitation blocks (kernel #5),
+# at batch BATCH; then JAX's test shape and a ragged one (B, H, W, C, hidden).
+SE_SHAPES = [(4, 256, 16), (8, 128, 8), (16, 64, 4), (32, 32, 4)]
+SE_EXTRA_SHAPES = [(4, 8, 8, 128, 8), (3, 7, 9, 40, 4)]
+SE_ATOL = 1e-5  # tests/test_kernels.py's limit
+# The shapes tools/bench_dw_kernel.py times kernel #2 at (no bias).
+TOOL_SHAPES = [(32, 192), (16, 192), (4, 1536)]
+# The training entry point: --debug truncates to 4 train and 4 test batches.
+CLI_EPOCHS = 2
+CLI_BATCHES = 4
+SAMPLE_TEMPERATURES = ("0.7", "0.8", "0.9", "1.0")
+# IWAE NLL: K attempts over NLL_BATCHES test batches at full width; one B=4
+# NLL card vs CPU at rtol 1e-4, each side also held to a float64 CPU run.
+NLL_ATTEMPTS = 10
+NLL_BATCHES = 2
+NLL_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -118,17 +163,22 @@ def expected_launches(cfg) -> int:
     return cells + (post if cfg.postprocess_5x5_depthwise else 0)
 
 
-def reset_counts():
+def counters() -> dict:
+    """Each kernel's wrapper, which counts its launches in ``launches``."""
     from nvae_torch.kernels import depthwise as dw
+    from nvae_torch.kernels.se_gate import se_gate
 
-    for name in KERNEL_NAMES:
-        getattr(dw, name).launches = 0
+    return {**{name: getattr(dw, name) for name in DW_KERNEL_NAMES},
+            "se_gate": se_gate}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from nvae_torch.kernels import depthwise as dw
-
-    return {name: getattr(dw, name).launches for name in KERNEL_NAMES}
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 # ---- phase 1 ----------------------------------------------------------------
@@ -149,11 +199,11 @@ def phase_build():
 # ---- phase 2 ----------------------------------------------------------------
 
 
-def path_inputs(h, c, bias, device, seed=0):
+def path_inputs(h, c, bias, device, seed=0, batch=BATCH):
     """x (B, H, H, C), taps as DepthwiseConv passes them (a (5, 5, 1, C)
     view of a channels_last (C, 1, 5, 5) weight), bias or None."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(BATCH, h, h, c, generator=gen, device=device)
+    x = torch.randn(batch, h, h, c, generator=gen, device=device)
     w = 0.2 * torch.randn(c, 1, 5, 5, generator=gen, device=device)
     k = w.contiguous(memory_format=torch.channels_last).permute(2, 3, 1, 0)
     b = torch.randn(c, generator=gen, device=device) * 0.1 if bias else None
@@ -161,38 +211,43 @@ def path_inputs(h, c, bias, device, seed=0):
 
 
 def phase_kernels(device) -> dict:
-    """Max abs error of each kernel against its plain version, per shape."""
+    """Max abs error of each forward kernel against its plain version at
+    every path shape and every batch in FWD_BATCHES; per shape, the worst
+    over the batches."""
     from nvae_torch.kernels import depthwise as dw
 
     errs = {"fused_swish_depthwise5x5": {}, "depthwise_conv5x5": {}}
     for h, c, bias, _, _ in PATH_SHAPES:
-        x, k, b = path_inputs(h, c, bias, device)
-        got = dw.fused_swish_depthwise5x5(x, k, b, fuse_swish=True)
-        want = dw.fused_swish_depthwise5x5_plain(x, k, b, fuse_swish=True)
-        thin = dw.depthwise_conv5x5(x, k.contiguous())
-        thin_want = dw.fused_swish_depthwise5x5_plain(x, k, None,
-                                                      fuse_swish=False)
-        torch.cuda.synchronize(device)
-        for name, a, r in (("fused_swish_depthwise5x5", got, want),
-                           ("depthwise_conv5x5", thin, thin_want)):
-            err = float((a - r).abs().max())
-            errs[name][(h, c)] = err
-            log(f"kernel {name} {BATCH}x{h}x{h}x{c}: max abs err {err:.3g} "
-                f"(atol {KERNEL_ATOL})")
+        for n in FWD_BATCHES:
+            x, k, b = path_inputs(h, c, bias, device, batch=n)
+            got = dw.fused_swish_depthwise5x5(x, k, b, fuse_swish=True)
+            want = dw.fused_swish_depthwise5x5_plain(x, k, b, fuse_swish=True)
+            thin = dw.depthwise_conv5x5(x, k.contiguous())
+            thin_want = dw.fused_swish_depthwise5x5_plain(x, k, None,
+                                                          fuse_swish=False)
+            torch.cuda.synchronize(device)
+            for name, a, r in (("fused_swish_depthwise5x5", got, want),
+                               ("depthwise_conv5x5", thin, thin_want)):
+                err = float((a - r).abs().max())
+                errs[name][(h, c)] = max(err, errs[name].get((h, c), 0.0))
+                log(f"kernel {name} {n}x{h}x{h}x{c}: max abs err {err:.3g} "
+                    f"(atol {KERNEL_ATOL})")
     return errs
 
 
 def phase_backward_kernels(device) -> dict:
     """dx (with swish' and without) and dW/db (with and without bias)
-    against their plain versions at every path shape; dW/db twice, for
-    bitwise repeatability.  Returns the errors per kernel and shape."""
+    against their plain versions at every path shape and every batch in
+    BWD_BATCHES; dW/db twice, for bitwise repeatability.  Returns the
+    errors per kernel and shape, the worst over the batches."""
     from nvae_torch.kernels import depthwise as dw
 
     errs = {"fused_swish_depthwise5x5_dx": {},
             "fused_swish_depthwise5x5_dw": {}}
-    for h, c, _, _, _ in PATH_SHAPES:
-        x, k, _ = path_inputs(h, c, False, device)
-        g = path_inputs(h, c, False, device, seed=1)[0]
+    for (h, c, _, _, _), n in ((s, n) for s in PATH_SHAPES
+                               for n in BWD_BATCHES):
+        x, k, _ = path_inputs(h, c, False, device, batch=n)
+        g = path_inputs(h, c, False, device, seed=1, batch=n)[0]
         dx_err = 0.0
         for fuse in (True, False):
             got = dw.fused_swish_depthwise5x5_dx(g, k, x if fuse else None,
@@ -200,8 +255,9 @@ def phase_backward_kernels(device) -> dict:
             want = dw.fused_swish_depthwise5x5_dx_plain(g, k, x,
                                                         fuse_swish=fuse)
             dx_err = max(dx_err, float((got - want).abs().max()))
-        errs["fused_swish_depthwise5x5_dx"][(h, c)] = dx_err
-        log(f"kernel dx {BATCH}x{h}x{h}x{c}: max abs err {dx_err:.3g} "
+        errs["fused_swish_depthwise5x5_dx"][(h, c)] = max(
+            dx_err, errs["fused_swish_depthwise5x5_dx"].get((h, c), 0.0))
+        log(f"kernel dx {n}x{h}x{h}x{c}: max abs err {dx_err:.3g} "
             f"(atol {KERNEL_ATOL}, with and without swish')")
         worst = 0.0
         for fuse, bias in ((True, True), (True, False), (False, True)):
@@ -221,14 +277,15 @@ def phase_backward_kernels(device) -> dict:
             if bias:
                 err = max(err, float((a[1] - db_want).abs().max()))
                 scale = max(scale, float(db_want.abs().max()))
-            log(f"kernel dW/db {BATCH}x{h}x{h}x{c} swish={fuse} bias={bias}: "
+            log(f"kernel dW/db {n}x{h}x{h}x{c} swish={fuse} bias={bias}: "
                 f"max abs err {err:.3g}, max |dW| {scale:.4g} "
                 f"(limit {DW_RTOL * scale:.3g}), bitwise repeatable")
             if not err <= DW_RTOL * scale:
                 raise AssertionError(f"dW/db {h}x{c}: err {err} > "
                                      f"{DW_RTOL} x {scale}")
             worst = max(worst, err)
-        errs["fused_swish_depthwise5x5_dw"][(h, c)] = worst
+        errs["fused_swish_depthwise5x5_dw"][(h, c)] = max(
+            worst, errs["fused_swish_depthwise5x5_dw"].get((h, c), 0.0))
     return errs
 
 
@@ -489,6 +546,297 @@ def phase_train_vs_cpu(cfg, device) -> dict:
             "cpu_vs_f64": grad_errors(cpu, ref)}
 
 
+# ---- kernel #5: the squeeze-excitation gate ---------------------------------
+
+
+def se_inputs(b, h, w, c, hd, device, seed=0):
+    """x (B, H, W, C) and the gate's w1 (C, Hd), b1, w2 (Hd, C), b2."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=gen, device=device)
+    weights = [0.1 * torch.randn(s, generator=gen, device=device)
+               for s in ((c, hd), (hd,), (hd, c), (c,))]
+    return (x, *weights)
+
+
+def phase_se_gate(device) -> dict:
+    """Kernel #5 against its plain version at the model's SE shapes (batch
+    BATCH), JAX's test shape and a ragged shape: atol SE_ATOL, bitwise
+    across two runs; an input that requires grad raises.  Returns the
+    errors per shape."""
+    from nvae_torch.device import fp32_math
+    from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
+
+    errs = {}
+    shapes = [(BATCH, h, h, c, hd) for h, c, hd in SE_SHAPES] + SE_EXTRA_SHAPES
+    for shape in shapes:
+        args = se_inputs(*shape, device)
+        got, again = se_gate(*args), se_gate(*args)
+        with fp32_math():
+            want = se_gate_reference(*args)
+        torch.cuda.synchronize(device)
+        err = float((got - want).abs().max())
+        log(f"kernel se_gate {shape}: max abs err {err:.3g} (atol {SE_ATOL})"
+            f", bitwise repeatable {torch.equal(got, again)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"se_gate {shape}: two runs differ")
+        if not err <= SE_ATOL:
+            raise AssertionError(f"se_gate {shape}: err {err} > {SE_ATOL}")
+        errs[shape] = err
+    x = args[0].clone().requires_grad_()
+    try:
+        se_gate(x, *args[1:])
+    except RuntimeError as e:
+        log(f"kernel se_gate: an input that requires grad raises ({e})")
+    else:
+        raise AssertionError("se_gate took an input that requires grad")
+    return errs
+
+
+def phase_se_entry(device) -> dict:
+    """Kernel #5's own entry point (the model does not call it, as in the
+    JAX package): one ``se_gate`` call at each of the model's SE shapes,
+    with every count set to 0 just before and read just after."""
+    from nvae_torch.kernels.se_gate import se_gate
+
+    sets = [se_inputs(BATCH, h, h, c, hd, device, seed=9)
+            for h, c, hd in SE_SHAPES]
+    torch.cuda.synchronize(device)
+    reset_counts()
+    outs = [se_gate(*args) for args in sets]
+    torch.cuda.synchronize(device)
+    counts = read_counts()
+    if counts["se_gate"] != len(SE_SHAPES):
+        raise AssertionError(f"se_gate entry: counts {counts}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("se_gate entry: non-finite output")
+    log(f"se_gate entry: {len(SE_SHAPES)} calls, counts {counts}")
+    return counts
+
+
+# ---- the training entry point ----------------------------------------------
+
+
+# ``python -m nvae_torch.cli`` run by ``runpy`` (the same module run the
+# same way), after which the process writes this script's ``read_counts()``
+# to the file named by its first argument.
+CLI_WITH_COUNTS = """
+import json, runpy, sys
+path = sys.argv.pop(1)
+try:
+    runpy.run_module("nvae_torch.cli", run_name="__main__", alter_sys=True)
+finally:
+    import chip_smoke
+    with open(path, "w") as f:
+        json.dump(chip_smoke.read_counts(), f)
+"""
+
+
+def run_cli(label: str, argv, workdir: str) -> dict:
+    """``python -m nvae_torch.cli`` as a user runs it, in a subprocess that
+    writes its kernel launch counts to a file; fails on a non-zero exit."""
+    counts_path = os.path.join(workdir, f"{label}_counts.json")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_WITH_COUNTS, counts_path, *argv],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=900)
+    seconds = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {label} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    last = proc.stdout.strip().splitlines()[-1]
+    log(f"cli {label}: exit 0 in {seconds:.1f} s, launches {counts}; {last}")
+    return {"seconds": seconds, "counts": counts, "stdout": proc.stdout}
+
+
+def check_cli_counts(label, counts, per_forward, steps, forwards):
+    """#3 and #4 ``per_forward`` times per step; #2 that often per step and
+    per eval, sampling and reconstruction forward; no other kernel."""
+    want = {"fused_swish_depthwise5x5": per_forward * (steps + forwards),
+            "fused_swish_depthwise5x5_dx": per_forward * steps,
+            "fused_swish_depthwise5x5_dw": per_forward * steps,
+            "depthwise_conv5x5": 0, "se_gate": 0}
+    if counts != want:
+        raise AssertionError(f"cli {label}: launches {counts}, expected {want}")
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_args(workdir: str) -> list:
+    return ["--preset", "mnist_step_sn", "--dataset", "synthetic",
+            "--use_pallas", "--batch_size", str(BATCH), "--debug",
+            "--evaluate_frequency", "1", "--sample_frequency", "1",
+            "--model_save_frequency", "1",
+            "--model_save_dir", os.path.join(workdir, "models"),
+            "--sample_dir", os.path.join(workdir, "results"),
+            "--tensorboard_log_dir", os.path.join(workdir, "logs")]
+
+
+def phase_cli(workdir: str) -> dict:
+    """The training entry point at full width (the ``mnist_step_sn``
+    preset, batch 144, synthetic data, ``--debug``): train 2 epochs, resume
+    for a third, then ``--mode sample``, each a subprocess whose exit code,
+    artifacts and exact kernel launch counts are checked."""
+    from nvae_torch.config import ModelConfig
+    from nvae_torch.train import checkpoint as ckpt
+
+    per_fwd = expected_launches(ModelConfig(use_pallas_kernels=True))
+    args = cli_args(workdir)
+    models = os.path.join(workdir, "models")
+    logs = os.path.join(workdir, "logs")
+    steps = CLI_EPOCHS * CLI_BATCHES
+
+    train = run_cli("train", ["--mode", "train", "--epochs", str(CLI_EPOCHS),
+                              *args], workdir)
+    # Per epoch: 4 eval forwards, one sampling call, one reconstruction.
+    check_cli_counts("train", train["counts"], per_fwd, steps,
+                     CLI_EPOCHS * (CLI_BATCHES + 2))
+    lines = read_jsonl(os.path.join(logs, "metrics.jsonl"))
+    tr = [r for r in lines if "train/loss" in r]
+    te = [r for r in lines if "test/elbo" in r]
+    if (len(tr) != CLI_EPOCHS or len(te) != CLI_EPOCHS or not all(
+            math.isfinite(v) for r in tr + te for v in r.values())):
+        raise AssertionError(f"cli train: metrics {tr} {te}")
+    images = os.listdir(os.path.join(logs, "images"))
+    for e in range(CLI_EPOCHS):
+        want = [f"samples_t{t}_step{e}" for t in SAMPLE_TEMPERATURES]
+        want.append(f"test_reconstruction_step{e}")
+        if not set(want) <= set(images):
+            raise AssertionError(f"cli train: image dirs {sorted(images)}")
+    if ckpt.all_steps(models) != [CLI_BATCHES, steps]:
+        raise AssertionError(f"cli train: checkpoints {ckpt.all_steps(models)}")
+    if "Training done: best_loss=" not in train["stdout"]:
+        raise AssertionError("cli train: no 'Training done' line")
+
+    resume = run_cli("resume", ["--mode", "train",
+                                "--epochs", str(CLI_EPOCHS + 1), *args],
+                     workdir)
+    check_cli_counts("resume", resume["counts"], per_fwd, CLI_BATCHES,
+                     CLI_BATCHES + 2)
+    new = read_jsonl(os.path.join(logs, "metrics.jsonl"))[len(lines):]
+    epochs = [r["step"] for r in new if "train/loss" in r]
+    if epochs != [CLI_EPOCHS] or ckpt.all_steps(models) != [
+            CLI_BATCHES, steps, steps + CLI_BATCHES]:
+        raise AssertionError(f"cli resume: epochs {epochs}, checkpoints "
+                             f"{ckpt.all_steps(models)}")
+
+    sample = run_cli("sample", ["--mode", "sample", "--n_samples", str(BATCH),
+                                *args], workdir)
+    check_cli_counts("sample", sample["counts"], per_fwd, 0, 1)
+    for t in SAMPLE_TEMPERATURES:
+        d = os.path.join(workdir, "results", f"t_{t}")
+        n = len([f for f in os.listdir(d) if f.endswith(".png")])
+        if n != BATCH:
+            raise AssertionError(f"cli sample: {n} PNGs in {d}")
+    counts = {k: train["counts"][k] + resume["counts"][k] + sample["counts"][k]
+              for k in KERNEL_NAMES}
+    return {"train": train, "resume": resume, "sample": sample,
+            "metrics": lines + new, "counts": counts}
+
+
+def report_cli(rec: dict) -> None:
+    """The training entry point's own numbers, from its metrics.jsonl."""
+    for r in rec["metrics"]:
+        if "train/loss" in r:
+            log(f"cli epoch {r['step']}: {r['train/epoch_seconds']:.3f} s, "
+                f"{r['train/images_per_sec']:.1f} img/s, loss "
+                f"{r['train/loss']:.3f}, peak memory "
+                f"{r.get('train/peak_memory_gb', math.nan):.2f} GB")
+        elif "test/elbo" in r:
+            log(f"cli eval epoch {r['step']}: elbo {r['test/elbo']:.3f}, "
+                f"{r['test/eval_ms_per_batch']:.2f} ms per batch of {BATCH}")
+        elif "checkpoint/total_ms" in r:
+            log(f"cli checkpoint step {r['step']}: blocking "
+                f"{r['checkpoint/blocking_ms']:.1f} ms, total "
+                f"{r['checkpoint/total_ms']:.1f} ms")
+
+
+def phase_restored_state(workdir: str, device):
+    """In-process: a Trainer built from the same flags restores epoch 2
+    (``--resume_from 2``, the resume run's path) and holds exactly the
+    step-8 checkpoint's tensors.  Returns the trainer."""
+    from nvae_torch import cli
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.trainer import Trainer
+
+    args = cli.parse_args(["--mode", "train", "--epochs", str(CLI_EPOCHS + 1),
+                           "--resume_from", str(CLI_EPOCHS),
+                           *cli_args(workdir)])
+    model_cfg, train_cfg, _ = cli.configs_from_args(args)
+    trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
+    start = trainer.maybe_resume()
+    step = CLI_EPOCHS * CLI_BATCHES
+    want = ckpt.load_payload(train_cfg.model_save_dir, step)
+    got = ckpt.flatten_state(trainer.state)
+    same = set(got) == set(want) and all(
+        torch.equal(v.cpu(), want[k]) if isinstance(v, torch.Tensor)
+        else v == want[k] for k, v in got.items())
+    log(f"restore: epoch {start}, step {trainer.state.step}, {len(got)} "
+        f"entries, equal to the step-{step} checkpoint: {same}")
+    if start != CLI_EPOCHS or trainer.state.step != step or not same:
+        raise AssertionError("the restored state differs from the checkpoint")
+    return trainer
+
+
+def nll_errors(card: float, cpu: float, f64: float) -> dict:
+    return {"card_vs_cpu": abs(card - cpu) / abs(cpu),
+            "card_vs_f64": abs(card - f64) / abs(f64),
+            "cpu_vs_f64": abs(cpu - f64) / abs(f64)}
+
+
+def phase_nll(trainer, device) -> dict:
+    """IWAE NLL on the restored full-width model: K=NLL_ATTEMPTS over
+    NLL_BATCHES test batches of BATCH (seconds per batch); then one B=4 NLL
+    (K=3) with injected noise on the card, on the CPU in float32 and in
+    float64."""
+    from nvae_torch.data import make_iterators, synthetic_dataset
+    from nvae_torch.eval.nll import make_nll_fn
+    from nvae_torch.models.nvae import NVAE, posterior_noise_shapes
+
+    model = trainer.model
+    bundle = synthetic_dataset(n_train=BATCH, n_test=NLL_BATCHES * BATCH,
+                               seed=0)
+    _, test_iter = make_iterators(bundle, BATCH, seed=0, device=device)
+    nll_fn = make_nll_fn(model, NLL_ATTEMPTS, crop=2)
+    values, seconds = [], []
+    batches = list(test_iter.epoch(0))
+    for i, batch in enumerate(batches):
+        gen = torch.Generator(device=device).manual_seed(i)
+        torch.cuda.synchronize(device)
+        t0 = time.monotonic()
+        values.append(float(nll_fn(batch, generator=gen)))
+        seconds.append(time.monotonic() - t0)
+    log(f"nll: K={NLL_ATTEMPTS}, batch {BATCH}: {values} nats, "
+        f"{seconds} s per batch")
+    if len(values) != NLL_BATCHES or not all(map(math.isfinite, values)):
+        raise AssertionError(f"nll: {values}")
+
+    x = batches[0][:4].cpu()
+    rng = np.random.RandomState(6)
+    eps = [[rng.randn(*s).astype(np.float32)
+            for s in posterior_noise_shapes(model.cfg, 4)] for _ in range(3)]
+    card = float(make_nll_fn(model, 3)(x.to(device), eps=eps))
+    host = NVAE(model.cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = float(make_nll_fn(host, 3)(x, eps=eps))
+    host.double()
+    f64 = float(make_nll_fn(host, 3)(x.double(), eps=eps))
+    errs = nll_errors(card, cpu, f64)
+    log(f"nll B=4 card {card!r}, CPU fp32 {cpu!r}, CPU fp64 {f64!r}: {errs}")
+    if not (errs["card_vs_f64"] <= NLL_RTOL and (
+            errs["card_vs_cpu"] <= NLL_RTOL
+            or errs["card_vs_f64"] <= CARD_VS_CPU_ROUNDING
+            * errs["cpu_vs_f64"])):
+        raise AssertionError(f"nll: card vs CPU {errs}")
+    return {"values": values, "seconds": seconds, "b4": errs}
+
+
 # ---- phases 6 and 7 --------------------------------------------------------
 
 
@@ -684,6 +1032,75 @@ def phase_timing(device, samplers) -> dict:
     return out
 
 
+def phase_se_timing(device) -> list:
+    """Kernel #5 at the model's SE shapes beside its bound (x read and y
+    written once, the weights read once; the pool's adds, the gate's
+    multiplies and the dense layers' 4 C Hd per row, over the fp32 rate),
+    its plain version and the port's eager ``SqueezeExcitation`` module on
+    the same map.  No single PyTorch call computes the gate."""
+    from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
+    from nvae_torch.nn.blocks import SqueezeExcitation
+
+    rows = []
+    with torch.no_grad():
+        for h, c, hd in SE_SHAPES:
+            n = BATCH * h * h * c
+            n_sets = max(2, min(8, math.ceil(200e6 / (8 * n))))
+            sets = [se_inputs(BATCH, h, h, c, hd, device, seed=s)
+                    for s in range(n_sets)]
+            module = SqueezeExcitation(c).to(device)
+            nchw = [(x.permute(0, 3, 1, 2),) for x, *_ in sets]
+            ms, eager = time_ms(se_gate, sets)
+            nbytes = 4 * (2 * n + 2 * c * hd + hd + c)
+            flops = 2 * n + BATCH * (4 * c * hd + hd + 5 * c)
+            row = {"shape": [BATCH, h, h, c, hd], "ms": ms, "eager_ms": eager,
+                   "plain_ms": time_ms(se_gate_reference, sets)[0],
+                   "module_ms": time_ms(module, nchw)[0],
+                   "bound": (1e3 * nbytes / HBM_BYTES_PER_S,
+                             1e3 * flops / FP32_FLOP_PER_S)}
+            log(f"timing se_gate {BATCH}x{h}x{h}x{c} (hidden {hd}): kernel "
+                f"{ms * 1e3:.2f} us (eager {eager * 1e3:.2f} us), bound "
+                f"{max(row['bound']) * 1e3:.2f} us, plain "
+                f"{row['plain_ms'] * 1e3:.2f} us, SqueezeExcitation "
+                f"{row['module_ms'] * 1e3:.2f} us")
+            rows.append(row)
+            del sets, nchw
+    return rows
+
+
+def phase_tool_timing(device) -> list:
+    """Kernel #2 (swish, no bias) at the shapes ``tools/bench_dw_kernel.py``
+    times its TPU tuning variants at, beside its bound, its plain version
+    and ``F.conv2d(groups=C)``."""
+    from nvae_torch.device import fp32_math
+    from nvae_torch.kernels import depthwise as dw
+
+    rows = []
+    with fp32_math(deterministic=True):
+        for h, c in TOOL_SHAPES:
+            n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
+            sets = [path_inputs(h, c, False, device, seed=s)
+                    for s in range(n_sets)]
+            nchw = [(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), None)
+                    for x, k, _ in sets]
+            row = {"shape": [BATCH, h, h, c],
+                   "ms": time_ms(lambda x, k, b: dw.fused_swish_depthwise5x5(
+                       x, k, None), sets)[0],
+                   "plain_ms": time_ms(
+                       lambda x, k, b: dw.fused_swish_depthwise5x5_plain(
+                           x, k, None), sets)[0],
+                   "library_ms": time_ms(lambda x, w, b: F.conv2d(
+                       x, w, None, padding=2, groups=c), nchw)[0],
+                   "bound": bound(h, c, False, True)}
+            log(f"timing fused (tool shape) {BATCH}x{h}x{h}x{c}: kernel "
+                f"{row['ms'] * 1e3:.1f} us, bound {max(row['bound']) * 1e3:.1f}"
+                f" us, plain {row['plain_ms'] * 1e3:.1f} us, conv2d(groups=C)"
+                f" {row['library_ms'] * 1e3:.1f} us")
+            rows.append(row)
+            del sets, nchw
+    return rows
+
+
 def profile_call(label: str, fn) -> dict:
     """Where one warm call's time goes: ``torch.profiler`` over ``fn()``;
     device busy time (sum of kernel times) against the call's wall time,
@@ -748,6 +1165,31 @@ def phase_profile(samplers, trainers) -> dict:
 
         out[f"train {name}"] = profile_call(f"train step {name}", one_step)
     return out
+
+
+def se_record(se_errs, launches, se_timing) -> dict:
+    """Kernel #5's record: times and bounds summed over one call at each of
+    the model's four SE shapes."""
+    b_bytes = sum(r["bound"][0] for r in se_timing)
+    b_ops = sum(r["bound"][1] for r in se_timing)
+    return {
+        "name": "se_gate", "route": "cuda",
+        "source": "nvae_torch/kernels/csrc/se_gate.cu",
+        "replaces": "nvae_tpu/kernels/se_gate.py:53",
+        "launches": launches["se_gate"],
+        "max_abs_err": max(se_errs.values()),
+        "ms": sum(r["ms"] for r in se_timing),
+        "plain_ms": sum(r["plain_ms"] for r in se_timing),
+        "bound_ms": sum(max(r["bound"]) for r in se_timing),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": None,
+        "per": f"one call at each of the model's SE shapes at batch {BATCH}",
+        "module_ms": sum(r["module_ms"] for r in se_timing),
+        "shapes": [{"shape": r["shape"], "ms": r["ms"],
+                    "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
+                    "module_ms": r["module_ms"],
+                    "bound_ms": max(r["bound"])} for r in se_timing],
+    }
 
 
 def kernel_records(errs, launches, timing, bwd_timing) -> list:
@@ -827,6 +1269,7 @@ def main() -> int:
         raise AssertionError(f"dx: max abs err {worst} > {KERNEL_ATOL}")
     errs.update(bwd_errs)
     phase_function_grads(device)
+    se_errs = phase_se_gate(device)
 
     samplers = {}
     for name, cfg in configs().items():
@@ -880,11 +1323,6 @@ def main() -> int:
         for k, v in rec["counts"].items():
             launches[k] += v
         trainers[name] = rec
-    for k in ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
-              "fused_swish_depthwise5x5_dw"):
-        if launches[k] == 0:
-            raise AssertionError(f"the main paths never launched {k}")
-
     for name, cfg in configs().items():
         rec = phase_train_vs_cpu(cfg, device)
         for pair, r in rec.items():
@@ -899,10 +1337,34 @@ def main() -> int:
                 or vs_f64["bn_stats_err"] > BN_STATS_F64_ATOL):
             raise AssertionError(f"train {name}: card vs CPU {rec}")
 
+    for k, v in phase_se_entry(device).items():
+        launches[k] += v
+    workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_")
+    try:
+        cli_rec = phase_cli(workdir)
+        for k, v in cli_rec["counts"].items():
+            launches[k] += v
+        report_cli(cli_rec)
+        phase_nll(phase_restored_state(workdir, device), device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for k in ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
+              "fused_swish_depthwise5x5_dw", "se_gate"):
+        if launches[k] == 0:
+            raise AssertionError(f"the main paths never launched {k}")
+
     timing = phase_timing(device, samplers)
     bwd_timing = phase_backward_timing(device)
+    se_timing = phase_se_timing(device)
+    tool_timing = phase_tool_timing(device)
     phase_profile(samplers, trainers)
     records = kernel_records(errs, launches, timing, bwd_timing)
+    fused = next(r for r in records if r["name"] == "fused_swish_depthwise5x5")
+    fused["tool_shapes"] = [
+        {"shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "library_ms": r["library_ms"], "bound_ms": max(r["bound"])}
+        for r in tool_timing]
+    records.append(se_record(se_errs, launches, se_timing))
     log(f"total {time.monotonic() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -1,0 +1,398 @@
+"""Command-line entry point of the port, with the JAX CLI's flag names
+(``nvae_tpu/cli.py``, itself the reference's ``train.py:145-297``).
+
+Modes:
+  train   run the training loop with checkpoints and image hooks
+  sample  write sample PNGs at temperatures {0.7, 0.8, 0.9, 1.0}
+          (and, with --scale_temperatures, t_annealed/)
+  test    waits for the metric suite (ROADMAP.md Queue 1 #8)
+  serve   waits for the HTTP front end (ROADMAP.md Queue 1 #5)
+
+It runs on the card unless --cpu asks for the CPU, and raises if there is
+no card.  A flag whose path is not ported yet stops the run with a message
+naming what it waits for; the JAX CLI's serving and metric-suite flags are
+not declared, so argparse rejects them.  --workers, --multiprocessing and
+--verbose are accepted as no-ops, as in the JAX CLI.  With --preset the
+flags compose exactly as the JAX CLI composes them: the preset's batch
+size, warm-up, parity and EMA settings win over those flags.
+
+Usage:
+  python -m nvae_torch.cli --mode train --dataset synthetic --debug --epochs 2
+  python -m nvae_torch.cli --mode train --dataset synthetic --debug --cpu \\
+      --n_encoder_channels 8 --n_decoder_channels 8 --n_groups_per_scale 1 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import os
+import random
+
+import numpy as np
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    # -- reference flags (train.py:145-297), same names and defaults --------
+    p.add_argument("--epochs", type=int, default=400)
+    p.add_argument("--batch_size", type=int, default=144)
+    p.add_argument("--mode", type=str,
+                   choices=["train", "test", "sample", "serve"],
+                   default="train")
+    p.add_argument("--n_encoder_channels", type=int, default=32)
+    p.add_argument("--n_decoder_channels", type=int, default=32)
+    p.add_argument("--res_cells_per_group", type=int, default=1)
+    p.add_argument("--n_preprocess_blocks", type=int, default=2)
+    p.add_argument("--n_preprocess_cells", type=int, default=3)
+    p.add_argument("--n_postprocess_blocks", type=int, default=2)
+    p.add_argument("--n_postprocess_cells", type=int, default=3)
+    p.add_argument("--n_latent_per_group", type=int, default=20)
+    p.add_argument("--n_groups_per_scale", nargs="+", type=int, default=[5, 10])
+    p.add_argument("--sr_lambda", type=float, default=0.01)
+    p.add_argument("--scale_factor", type=int, default=2)
+    # Default None (= mnist without a preset) so an explicit "--dataset
+    # mnist" can override a preset's dataset.
+    p.add_argument("--dataset", type=str, default=None,
+                   choices=["mnist", "fashion_mnist", "omniglot", "cifar10",
+                            "celeba", "synthetic", "synthetic_rgb",
+                            "synthetic_rgb64"])
+    p.add_argument("--cpu", action="store_true",
+                   help="Run on the CPU (default: the CUDA card)")
+    p.add_argument("--debug", action="store_true",
+                   help="Use only the first 4 batches of data")
+    p.add_argument("--n_samples", type=int, default=10)
+    p.add_argument("--verbose", action="store_true",
+                   help="Accepted for reference CLI parity; no-op")
+    p.add_argument("--model_save_dir", type=str, default="models")
+    p.add_argument("--sample_dir", type=str, default="results")
+    p.add_argument("--resume_from", type=int, default=0)
+    p.add_argument("--tensorboard_log_dir", type=str, default="logs")
+    p.add_argument("--sample_frequency", type=int, default=5)
+    p.add_argument("--evaluate_frequency", type=int, default=10)
+    p.add_argument("--log_frequency", type=int, default=1)
+    p.add_argument("--binary_eval", action="store_true")
+    p.add_argument("--patience", type=int, default=0)
+    p.add_argument("--model_save_frequency", type=int, default=10)
+    p.add_argument("--step_based_warmup", action="store_true")
+    p.add_argument("--workers", type=int, default=1,
+                   help="Accepted for reference CLI parity; no-op")
+    p.add_argument("--multiprocessing", action="store_true",
+                   help="Accepted for reference CLI parity; no-op")
+    p.add_argument("--seed", type=int, default=1)
+    # -- extras of the JAX CLI ----------------------------------------------
+    p.add_argument("--data_dir", type=str, default="",
+                   help="Directory with local dataset files")
+    p.add_argument("--spectral_mode", type=str, default="projection",
+                   choices=["projection", "forward", "penalty", "none"])
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--bn_apply_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--likelihood", type=str, default="",
+                   help="bernoulli|dml; default picks by dataset")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="Devices on the data axis (0 = all; the port runs "
+                        "on one)")
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="Write a torch.profiler trace of one epoch here")
+    p.add_argument("--parity_binarize_255", action="store_true",
+                   help="Reproduce the reference's >0-threshold binarization")
+    p.add_argument("--parity_frozen_norm", action="store_true",
+                   help="Reproduce the reference's training-mode defect: "
+                        "BatchNorm and spectral normalization run in "
+                        "inference mode during training")
+    p.add_argument("--temperature_all_groups", action="store_true",
+                   help="Apply sampling temperature to every latent group "
+                        "(the reference only scales z0)")
+    p.add_argument("--scale_temperatures", nargs="+", type=float,
+                   default=None, metavar="T",
+                   help="Annealed sampling: one temperature per decoder "
+                        "scale, top-down; sample mode writes an extra "
+                        "t_annealed/ directory with this schedule")
+    p.add_argument("--preset", type=str, default="",
+                   help="Named experiment preset (nvae_torch/presets.py); "
+                        "runtime flags (epochs, dirs, seed, debug, ...) "
+                        "still apply")
+    p.add_argument("--scan_epochs", action="store_true")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="Exponential moving average of the params inside "
+                        "the optimizer (e.g. 0.9999); 0 disables. Sample on "
+                        "the average with --use_ema")
+    p.add_argument("--use_ema", action="store_true",
+                   help="sample mode: run on the EMA weights from the "
+                        "checkpoint (requires --ema_decay training)")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="Microbatches per optimizer step")
+    p.add_argument("--pp_stages", type=int, default=1)
+    p.add_argument("--postprocess_depthwise", action="store_true",
+                   help="Depthwise postprocess 5x5 (non-parity, faster)")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="The hand-written fused swish->depthwise-5x5 CUDA "
+                        "kernels on the hot spots (the JAX flag's name)")
+    p.add_argument("--serve_dtype", type=str, default="",
+                   choices=["", "bfloat16", "int8"])
+    return p.parse_args(argv)
+
+
+# What a mode or flag the port does not run yet waits for.
+_HTTP = "the HTTP front end (ROADMAP.md Queue 1 #5)"
+_METRICS = "the metric suite (ROADMAP.md Queue 1 #8)"
+_PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
+_WAITING_MODES = {"test": _METRICS, "serve": _HTTP}
+_WAITING_FLAGS = {
+    "the device-resident epoch (ROADMAP.md Queue 1 #6)": ("scan_epochs",),
+    _PARALLEL: ("fsdp",),
+    "rematerialization (ROADMAP.md Queue 1 #1)": ("remat",),
+    "bf16 and int8 serving (ROADMAP.md Queue 1 #3)": ("serve_dtype",),
+}
+
+
+def refuse_unported(args) -> None:
+    """Stop with ``SystemExit`` on a mode or flag the port does not run
+    yet, naming what it waits for."""
+    if args.mode in _WAITING_MODES:
+        raise SystemExit(f"--mode {args.mode} is not ported yet: it waits "
+                         f"for {_WAITING_MODES[args.mode]}")
+    defaults = vars(parse_args([]))
+    reasons = [f"--{k} waits for {why}" for why, flags in _WAITING_FLAGS.items()
+               for k in flags if getattr(args, k) != defaults[k]]
+    for k in ("pp_stages", "data_parallel"):
+        if getattr(args, k) > 1:
+            reasons.append(f"--{k} > 1 waits for {_PARALLEL}")
+    if reasons:
+        raise SystemExit("not ported yet: " + "; ".join(reasons))
+
+
+def refuse_unported_model(model_cfg) -> None:
+    """Stop with ``SystemExit`` on a model configuration the port does not
+    run yet (the dtype flags, or a dataset whose likelihood is DML)."""
+    reasons = []
+    if model_cfg.compute_dtype != "float32":
+        reasons.append("compute_dtype bfloat16 waits for bf16 "
+                       "(ROADMAP.md Queue 1 #3)")
+    if model_cfg.bn_apply_dtype != "float32":
+        reasons.append("bn_apply_dtype bfloat16 waits for bf16 "
+                       "(ROADMAP.md Queue 1 #3)")
+    if model_cfg.likelihood != "bernoulli":
+        reasons.append(f"likelihood {model_cfg.likelihood!r} waits for the "
+                       "DML head (ROADMAP.md Queue 1 #4)")
+    if reasons:
+        raise SystemExit("not ported yet: " + "; ".join(reasons))
+
+
+def build_configs(args, bundle):
+    from nvae_torch.config import ModelConfig, TrainConfig
+
+    likelihood = args.likelihood or (
+        "dml" if bundle.channels == 3 else "bernoulli"
+    )
+    target = 32 if bundle.image_size <= 32 else bundle.image_size
+    model_cfg = ModelConfig(
+        image_size=target,
+        in_channels=bundle.channels,
+        n_encoder_channels=args.n_encoder_channels,
+        n_decoder_channels=args.n_decoder_channels,
+        res_cells_per_group=args.res_cells_per_group,
+        n_preprocess_blocks=args.n_preprocess_blocks,
+        n_preprocess_cells=args.n_preprocess_cells,
+        n_postprocess_blocks=args.n_postprocess_blocks,
+        n_postprocess_cells=args.n_postprocess_cells,
+        n_latent_per_group=args.n_latent_per_group,
+        n_groups_per_scale=tuple(args.n_groups_per_scale),
+        scale_factor=args.scale_factor,
+        sr_lambda=args.sr_lambda,
+        likelihood=likelihood,
+        spectral_mode=args.spectral_mode,
+        compute_dtype=args.compute_dtype or "float32",
+        bn_apply_dtype=args.bn_apply_dtype or "float32",
+        temperature_all_groups=args.temperature_all_groups,
+        remat=args.remat,
+        postprocess_5x5_depthwise=args.postprocess_depthwise,
+        use_pallas_kernels=args.use_pallas,
+    )
+    train_cfg = TrainConfig(
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        dataset=args.dataset,
+        seed=args.seed,
+        step_based_warmup=args.step_based_warmup,
+        parity_binarize_255=args.parity_binarize_255,
+        parity_frozen_norm=args.parity_frozen_norm,
+        binary=likelihood == "bernoulli",
+        debug=args.debug,
+        sample_frequency=args.sample_frequency,
+        evaluate_frequency=args.evaluate_frequency,
+        log_frequency=args.log_frequency,
+        model_save_frequency=args.model_save_frequency,
+        patience=args.patience or 0,
+        resume_from=args.resume_from,
+        n_samples=args.n_samples,
+        binary_eval=args.binary_eval,
+        model_save_dir=args.model_save_dir,
+        sample_dir=args.sample_dir,
+        tensorboard_log_dir=args.tensorboard_log_dir,
+        data_dir=args.data_dir,
+        # --use_ema alone (sampling an EMA checkpoint) must still build the
+        # optimizer chain WITH the EMA slot, or the checkpoint's optimizer
+        # state will not fit the template; the decay itself is unused.
+        ema_decay=args.ema_decay or (0.9999 if args.use_ema else 0.0),
+        grad_accum=args.grad_accum,
+        data_parallel=args.data_parallel,
+        pipeline_stages=args.pp_stages,
+    )
+    return model_cfg, train_cfg
+
+
+def preset_configs(args):
+    """(model_cfg, train_cfg) of ``--preset`` composed with the flags
+    exactly as the JAX CLI composes them: the preset fixes the
+    architecture and its training settings (batch size, warm-up, parity
+    switches, EMA); the dtype flags override it only when given, and the
+    other performance switches can only turn a feature on; the runtime
+    flags and an explicit ``--dataset`` apply as given."""
+    from nvae_torch.presets import get_preset
+
+    try:
+        model_cfg, preset_train = get_preset(args.preset)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
+    model_cfg = dataclasses.replace(
+        model_cfg,
+        compute_dtype=args.compute_dtype or model_cfg.compute_dtype,
+        bn_apply_dtype=args.bn_apply_dtype or model_cfg.bn_apply_dtype,
+        postprocess_5x5_depthwise=(
+            model_cfg.postprocess_5x5_depthwise or args.postprocess_depthwise),
+        use_pallas_kernels=model_cfg.use_pallas_kernels or args.use_pallas,
+        remat=model_cfg.remat or args.remat,
+    )
+    train_cfg = dataclasses.replace(
+        preset_train,
+        dataset=args.dataset or preset_train.dataset,
+        epochs=args.epochs,
+        seed=args.seed,
+        debug=args.debug,
+        sample_frequency=args.sample_frequency,
+        evaluate_frequency=args.evaluate_frequency,
+        log_frequency=args.log_frequency,
+        model_save_frequency=args.model_save_frequency,
+        patience=args.patience or 0,
+        resume_from=args.resume_from,
+        n_samples=args.n_samples,
+        model_save_dir=args.model_save_dir,
+        sample_dir=args.sample_dir,
+        tensorboard_log_dir=args.tensorboard_log_dir,
+        data_dir=args.data_dir,
+        scan_epochs=args.scan_epochs,
+        grad_accum=args.grad_accum,
+        data_parallel=args.data_parallel,
+        pipeline_stages=args.pp_stages,
+    )
+    return model_cfg, train_cfg
+
+
+def configs_from_args(args):
+    """``(model_cfg, train_cfg, dataset)`` of parsed flags, as a run takes
+    them: from ``--preset`` composed with the flags, or from the flags and
+    the dataset's shape.  Fills in ``args.dataset`` and ``args.batch_size``
+    (the preset's batch size wins, as in the JAX CLI) and stops on a model
+    configuration the port does not run yet."""
+    from nvae_torch.data import load_dataset
+
+    if args.preset:
+        model_cfg, train_cfg = preset_configs(args)
+        bundle = load_dataset(train_cfg.dataset, args.data_dir)
+        args.dataset = train_cfg.dataset
+        args.batch_size = train_cfg.batch_size
+    else:
+        args.dataset = args.dataset or "mnist"
+        bundle = load_dataset(args.dataset, args.data_dir)
+        model_cfg, train_cfg = build_configs(args, bundle)
+    refuse_unported_model(model_cfg)
+    return model_cfg, train_cfg, bundle
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported(args)
+    print(f"Args: {vars(args)}")
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    from nvae_torch.data import make_iterators
+    from nvae_torch.device import resolve_device
+    from nvae_torch.train.trainer import Trainer
+    from nvae_torch.utils.logging import MetricsLogger
+
+    model_cfg, train_cfg, bundle = configs_from_args(args)
+    device = resolve_device("cpu" if args.cpu else "cuda")
+
+    if args.scale_temperatures is not None and len(
+            args.scale_temperatures) != model_cfg.n_latent_scales:
+        raise SystemExit(
+            f"--scale_temperatures needs one value per decoder scale "
+            f"({model_cfg.n_latent_scales} for this config), got "
+            f"{len(args.scale_temperatures)}"
+        )
+
+    train_iter, test_iter = make_iterators(
+        bundle, args.batch_size, target_size=model_cfg.image_size,
+        binarize=train_cfg.binary if args.mode == "train" else args.binary_eval,
+        parity_binarize_255=args.parity_binarize_255, seed=args.seed,
+        device=device, debug=args.debug,
+    )
+    print(f"Dataset {bundle.name}: {len(bundle.train_x)} train / "
+          f"{len(bundle.test_x)} test, {len(train_iter)} batches/epoch")
+
+    logger = MetricsLogger(args.tensorboard_log_dir)
+    try:
+        trainer = Trainer(model_cfg, train_cfg,
+                          steps_per_epoch=len(train_iter), logger=logger,
+                          device=device)
+        if args.mode == "train":
+            result = trainer.fit(train_iter, test_iter,
+                                 profile_dir=args.profile_dir or None)
+            last = result.history[-1] if result.history else {}
+            print(f"Training done: best_loss={result.best_loss:.3f} "
+                  f"last_throughput={last.get('images_per_sec', 0):.1f} img/s")
+        else:  # sample
+            _sample(args, trainer)
+    finally:
+        logger.close()
+
+
+def _sample(args, trainer) -> None:
+    from nvae_torch.train.trainer import SAMPLE_TEMPERATURES
+    from nvae_torch.utils.images import sample_sweep_to_dirs, sample_to_dir
+
+    start = trainer.maybe_resume()
+    if args.use_ema:
+        trainer.swap_in_ema()
+    print(f"Sampling the checkpoint of epoch {start} (step "
+          f"{trainer.state.step}){' with EMA weights' if args.use_ema else ''}")
+
+    def sample_fn(n, t, b, scale_temperatures=None):
+        # Every batch index draws from the step's sampling seed, as the
+        # JAX CLI does, so a second batch repeats the first.
+        images = trainer.sample_images(n, t,
+                                       scale_temperatures=scale_temperatures)
+        return images[0].cpu().numpy()
+
+    # The whole sweep rides one sampling call per batch index.
+    written = sample_sweep_to_dirs(sample_fn, args.batch_size, args.n_samples,
+                                   SAMPLE_TEMPERATURES, args.sample_dir)
+    for t, n in written.items():
+        print(f"Wrote {n} samples at T={t} to "
+              f"{os.path.join(args.sample_dir, f't_{t:.1f}')}")
+    if args.scale_temperatures:
+        st = tuple(args.scale_temperatures)
+        out_dir = os.path.join(args.sample_dir, "t_annealed")
+        n = sample_to_dir(functools.partial(sample_fn, scale_temperatures=st),
+                          args.batch_size, args.n_samples, 1.0, out_dir)
+        print(f"Wrote {n} annealed samples (per-scale T={st}) to {out_dir}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """Static configuration for the PyTorch port.
 
 A copy of ``nvae_tpu/config.py``'s ``ModelConfig``, ``StageShapes``,
-``shapes()``, ``TrainConfig``, ``debug_config`` and ``MNIST_CONFIG``, and of
-``nvae_tpu/presets.py``'s MNIST presets.  The port keeps its own copy so that
+``shapes()``, ``TrainConfig``, ``debug_config`` and ``MNIST_CONFIG``; the
+presets are in ``nvae_torch/presets.py``.  The port keeps its own copy so that
 it imports nothing of the JAX package; the fields, defaults and shape algebra
 are the same, so one configuration means the same network in both packages.
 
@@ -277,32 +277,3 @@ def debug_config(**overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
-
-
-MNIST_PRESETS = (
-    "mnist_step_sn",
-    "mnist_step_sn_parity",
-    "mnist_step_sr",
-    "mnist_epoch_sn",
-)
-
-
-def get_preset(name: str) -> ModelConfig:
-    """The model half of the JAX package's MNIST presets.
-
-    The presets differ from each other in the spectral-norm strategy and in
-    training settings; the training half waits for the port's training
-    slice, so this returns the ``ModelConfig`` alone.
-    """
-    name = name.lower()
-    modes = {
-        "mnist_step_sn": "projection",
-        "mnist_step_sn_parity": "forward",
-        "mnist_step_sr": "penalty",
-        "mnist_epoch_sn": "projection",
-    }
-    if name not in modes:
-        raise ValueError(
-            f"unknown preset {name!r}; available: {', '.join(MNIST_PRESETS)}"
-        )
-    return ModelConfig(spectral_mode=modes[name])

@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 # Library name -> source file under csrc/.
-SOURCES = {"depthwise5x5": "depthwise5x5.cu"}
+SOURCES = {"depthwise5x5": "depthwise5x5.cu", "se_gate": "se_gate.cu"}
 
 # sm_90a (not sm_90) keeps wgmma/setmaxnreg available to later kernels.
 NVCC_FLAGS = (

@@ -2,8 +2,9 @@
 
 Ported so far: the posterior pass that training runs (``NVAE.forward``:
 preprocess -> bottom-up encoder -> top-down decoder sampling every z from the
-posterior -> postprocess -> Bernoulli logits) and the prior sampler
-(``NVAE.sample``).  The DML head comes with a later slice.
+posterior -> postprocess -> Bernoulli logits), its eval-mode reconstruction
+(``NVAE.reconstruct``) and the prior sampler (``NVAE.sample``).  The DML
+head comes with a later slice.
 
 Layout: internally every feature map is NCHW in ``torch.channels_last``
 memory, so the fused depthwise kernel reads it as NHWC without a transpose.
@@ -21,6 +22,7 @@ packages the same noise.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -527,7 +529,8 @@ class NVAE(nn.Module):
 
     - ``forward(x, nll)`` -> :class:`ForwardOutput`: the posterior pass;
     - ``sample(n, temperature)`` -> (images, last_s, z1, z2);
-    - ``sample_with_z(z, s)`` -> images.
+    - ``sample_with_z(z, s)`` -> images;
+    - ``reconstruct(x)`` -> images (an eval-mode posterior pass).
 
     ``self.training`` is the JAX model's ``train`` flag.  The model is built
     in eval mode; a trainer calls ``.train()``.  ``device`` defaults to the
@@ -625,12 +628,57 @@ class NVAE(nn.Module):
         return _nhwc(images), _nhwc(last_s), _nhwc(z1), _nhwc(z2)
 
     @torch.no_grad()
+    def reconstruct(self, x, *, generator: Optional[torch.Generator] = None,
+                    eps: Optional[Sequence] = None) -> torch.Tensor:
+        """Reconstructions of images ``x`` (B, H, W, C) in [0, 1]
+        (``NVAE.reconstruct``): a posterior pass in eval mode (running
+        BatchNorm statistics, no buffer written) whose Bernoulli
+        probabilities are returned, NHWC.  ``eps`` injects the posterior
+        noise, else each draw comes from ``generator``.  The model's mode is
+        put back afterwards."""
+        was = self.training
+        self.eval()
+        try:
+            out = self(x, generator=generator, eps=eps)
+        finally:
+            self.train(was)
+        return torch.sigmoid(out.logits)
+
+    @torch.no_grad()
     def sample_with_z(self, z: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         """Images (probabilities) from the final group's (z, s), NHWC."""
         dev = self.decoder.h.device
         z, s = _nchw(_as_tensor(z, dev)), _nchw(_as_tensor(s, dev))
         logits = self.postprocess(self.decoder.generate_from_z(z, s))
         return _nhwc(torch.sigmoid(logits))
+
+
+@contextlib.contextmanager
+def discard_buffer_updates(model: nn.Module, train: bool = True):
+    """Run passes in training mode (``train``; else eval mode) and throw
+    their buffer updates away, as the JAX package's ``mutable=[...]`` passes
+    discard theirs: on exit every buffer (BatchNorm running statistics,
+    forward-mode spectral ``u``) holds the bits it held on entry and the
+    model is back in its old mode.  Yields a function that puts the buffers
+    back early, between passes that must each start from them."""
+    was = model.training
+    buffers = list(model.buffers())
+    saved = [torch.empty_like(b) for b in buffers]
+    with torch.no_grad():
+        if buffers:
+            torch._foreach_copy_(saved, buffers)
+
+    def restore() -> None:
+        with torch.no_grad():
+            if buffers:
+                torch._foreach_copy_(buffers, saved)
+
+    model.train(train)
+    try:
+        yield restore
+    finally:
+        restore()
+        model.train(was)
 
 
 def posterior_noise_shapes(cfg: ModelConfig, batch: int) -> List[tuple]:

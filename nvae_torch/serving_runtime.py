@@ -28,7 +28,6 @@ Usage::
 
 from __future__ import annotations
 
-import hashlib
 import queue
 import threading
 import time
@@ -39,18 +38,17 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from nvae_torch.utils.seeds import derive_seed
+
 PAD_TEMPERATURE = 1.0
 
 
 def dispatch_seed(seed: int, dispatch_idx: int) -> int:
     """Generator seed of dispatch ``dispatch_idx`` of a server seeded with
-    ``seed``: the first 8 bytes, little-endian, of the BLAKE2b digest of
-    ``f"{seed}:{dispatch_idx}"``, masked to 63 bits.  A pure function of the
-    pair, so any dispatch can be replayed."""
-    digest = hashlib.blake2b(
-        f"{int(seed)}:{int(dispatch_idx)}".encode(), digest_size=8
-    ).digest()
-    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+    ``seed``: :func:`derive_seed` of the pair, the BLAKE2b digest of
+    ``f"{seed}:{dispatch_idx}"``.  A pure function of the pair, so any
+    dispatch can be replayed."""
+    return derive_seed(seed, dispatch_idx)
 
 
 def _to_numpy(images) -> np.ndarray:

@@ -1,12 +1,13 @@
-"""One training step (counterpart of ``nvae_tpu/train/step.py``): the
-posterior pass, the ELBO with KL warm-up and balancing, the penalties, the
-backward pass (through the fused depthwise kernels' backward on the card),
-and one optimizer update.  The eval step comes with a later slice."""
+"""One training step and the eval step (counterpart of
+``nvae_tpu/train/step.py``).  The step: the posterior pass, the ELBO with KL
+warm-up and balancing, the penalties, the backward pass (through the fused
+depthwise kernels' backward on the card), and one optimizer update.  The
+eval step: the ELBO's pieces on a held-out batch, leaving the model as it
+was."""
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,7 +16,7 @@ from torch.profiler import record_function
 
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.device import fp32_math
-from nvae_torch.models.nvae import NVAE
+from nvae_torch.models.nvae import NVAE, discard_buffer_updates
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
     GradientTransformation,
@@ -25,17 +26,15 @@ from nvae_torch.train.optim import (
     spectral_penalty,
 )
 from nvae_torch.train.state import TrainState
+from nvae_torch.utils.seeds import derive_seed
 
 
 def step_seed(seed: int, step: int, microbatch: int) -> int:
     """Generator seed of the posterior noise of ``microbatch`` in step
-    ``step`` of a run seeded with ``seed``: the first 8 bytes, little-endian,
-    of the BLAKE2b digest of ``f"{seed}:{step}:{microbatch}"``, masked to 63
-    bits.  A pure function of the triple, so any step can be replayed."""
-    digest = hashlib.blake2b(
-        f"{int(seed)}:{int(step)}:{int(microbatch)}".encode(), digest_size=8
-    ).digest()
-    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+    ``step`` of a run seeded with ``seed``: :func:`derive_seed` of the
+    triple, the BLAKE2b digest of ``f"{seed}:{step}:{microbatch}"``.  A pure
+    function of the triple, so any step can be replayed."""
+    return derive_seed(seed, step, microbatch)
 
 
 def make_train_step(
@@ -152,3 +151,45 @@ def make_train_step(
                                    opt_state=opt_state), totals
 
     return step
+
+
+def make_eval_step(model: NVAE, train_cfg: TrainConfig,
+                   bn_batch_stats: bool = True):
+    """Returns ``eval_fn(state, batch, *, generator=None, eps=None) ->
+    metrics``: ``reconstruction_loss``, ``kl_loss`` (the unbalanced KL sum)
+    and ``elbo``, batch means as tensors on the device, from one posterior
+    pass over ``state.model`` under ``no_grad`` and
+    :func:`~nvae_torch.device.fp32_math`.
+
+    ``bn_batch_stats`` (the default) normalizes with the batch's own
+    statistics, in training mode, and throws the buffer updates away (JAX
+    runs it with ``mutable=["batch_stats", "spectral"]`` and discards the
+    mutations; see its docstring for why running-average BatchNorm corrupts
+    the held-out KL).  Otherwise the pass runs in eval mode.  Either way
+    every buffer keeps its bits and the model its mode.  Noise as in the
+    train step: ``generator``, or ``eps`` (one list of NHWC draws in the
+    posterior pass's order).
+    """
+    model_cfg: ModelConfig = model.cfg
+
+    def eval_fn(state: TrainState, batch, *,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[Sequence] = None) -> dict:
+        m = state.model
+        with (torch.no_grad(), fp32_math(),
+              discard_buffer_updates(m, train=bn_batch_stats)):
+            h = m.decoder.h
+            if not isinstance(batch, torch.Tensor):
+                batch = torch.from_numpy(np.array(batch, dtype=np.float32))
+            batch = batch.to(device=h.device, dtype=h.dtype)
+            out = m(batch, generator=generator, eps=eps)
+            rl = losses.recon_loss(out.logits, batch, model_cfg.likelihood,
+                                   model_cfg.n_mix)
+            kl = losses.kl_per_group(out.latents).sum(dim=0)
+            return {
+                "reconstruction_loss": rl.mean(),
+                "kl_loss": kl.mean(),
+                "elbo": (rl + kl).mean(),
+            }
+
+    return eval_fn

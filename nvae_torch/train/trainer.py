@@ -1,0 +1,350 @@
+"""The training run loop (counterpart of ``nvae_tpu/train/trainer.py``).
+
+Epoch loop over the port's train step with:
+
+- per-epoch means of the step's metrics, seconds and images per second
+  (and peak device memory on the card), logged as ``train/``;
+- held-out evaluation over the whole test set every ``evaluate_frequency``
+  epochs (``test/``: the ELBO's pieces and ms per eval batch);
+- sample and reconstruction image dumps every ``sample_frequency`` epochs,
+  the whole temperature sweep in one sampling call;
+- periodic and final full-state checkpoints written in the background, and
+  resume from the latest one (their timings are logged as
+  ``checkpoint/`` once the run ends);
+- early stopping that restores the best state from a copy on the device;
+- SIGTERM/SIGINT: finish the step, save, return with ``interrupted=True``;
+- an optional ``torch.profiler`` trace of one epoch.
+
+The step's metrics stay on the device through an epoch and are fetched once
+at its end, as the JAX loop fetches them once: a fetch per step would stall
+the host between steps.  The JAX package's mesh, pipeline and scan-epochs
+paths are not ported yet: their settings raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from nvae_torch.config import ModelConfig, TrainConfig
+from nvae_torch.data.pipeline import BatchIterator
+from nvae_torch.device import DeviceLike, fp32_math
+from nvae_torch.train import checkpoint as ckpt
+from nvae_torch.train.optim import find_ema_params
+from nvae_torch.train.state import TrainState, create_train_state
+from nvae_torch.train.step import make_eval_step, make_train_step
+from nvae_torch.utils.logging import MetricsLogger
+from nvae_torch.utils.seeds import derive_seed
+
+SAMPLE_TEMPERATURES = (0.7, 0.8, 0.9, 1.0)  # reference evaluate.py:16
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    history: list
+    best_loss: float
+    # True when training stopped early on SIGTERM/SIGINT; the final
+    # checkpoint holds the full state at that step and a fresh Trainer
+    # resumes from it.
+    interrupted: bool = False
+
+
+def _check_supported(tc: TrainConfig) -> None:
+    waiting = []
+    if tc.scan_epochs:
+        waiting.append("scan_epochs (ROADMAP.md Queue 1 #6)")
+    if tc.pipeline_stages > 1:
+        waiting.append("pipeline_stages > 1 (ROADMAP.md Queue 1 #9)")
+    if tc.data_parallel > 1 or tc.model_parallel > 1:
+        waiting.append("data_parallel or model_parallel > 1 "
+                       "(ROADMAP.md Queue 1 #9)")
+    if waiting:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(waiting)}; the port trains on one "
+            "device"
+        )
+
+
+def _means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
+    """Each sum over ``n``, fetched to the host in one transfer."""
+    if not sums or not n:
+        return {}
+    keys = list(sums)
+    values = torch.stack([sums[k].to(torch.float32) for k in keys]).tolist()
+    return {k: v / n for k, v in zip(keys, values)}
+
+
+def _accumulate(sums: Dict[str, torch.Tensor], metrics: dict) -> None:
+    for k, v in metrics.items():
+        v = v.detach()
+        sums[k] = v if k not in sums else sums[k] + v
+
+
+class Trainer:
+    """Builds the model, optimizer and train step on ``device`` (the card
+    unless ``"cpu"`` is asked for; raises if there is no card) and runs the
+    epoch loop."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        train_cfg: TrainConfig,
+        steps_per_epoch: int,
+        logger: Optional[MetricsLogger] = None,
+        device: DeviceLike = "cuda",
+    ):
+        _check_supported(train_cfg)
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.steps_per_epoch = steps_per_epoch
+        self.total_steps = steps_per_epoch * train_cfg.epochs
+        self.logger = logger
+        self.model, self.state, self.tx = create_train_state(
+            model_cfg, train_cfg, self.total_steps, device=device
+        )
+        self.device = self.model.decoder.h.device
+        self.step_fn = make_train_step(
+            self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch
+        )
+        self._eval_fn = None
+        self._interrupted = False
+
+    # ---- EMA --------------------------------------------------------------
+
+    def ema_params(self):
+        """The EMA parameters from the optimizer state, or None when
+        training ran without ``ema_decay``."""
+        return find_ema_params(self.state.opt_state)
+
+    def swap_in_ema(self) -> None:
+        """Copy the EMA average into the model's parameters (``--use_ema``).
+        Raises if the state carries no EMA."""
+        ema = self.ema_params()
+        if ema is None:
+            raise ValueError(
+                "no EMA in the optimizer state: train with --ema_decay"
+            )
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(ema[name])
+
+    # ---- sampling helpers -------------------------------------------------
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def sample_images(self, n: int, temperature, seed: Optional[int] = None,
+                      scale_temperatures=None):
+        """``(images, last_s, z1, z2)`` from the prior on the current
+        weights, in eval mode, fp32.  ``temperature`` is a float or a
+        per-sample ``(n,)`` vector; ``scale_temperatures`` (one per decoder
+        scale) selects the annealed path.  The noise comes from a generator
+        seeded with ``seed``, by default ``derive_seed(run seed, "sample",
+        step)``."""
+        if seed is None:
+            seed = derive_seed(self.state.seed, "sample", self.state.step)
+        was = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad(), fp32_math():
+                return self.model.sample(n, temperature, True,
+                                         scale_temperatures,
+                                         generator=self._generator(seed))
+        finally:
+            self.model.train(was)
+
+    def sample_images_sweep(self, n_per_t: int, temperatures,
+                            seed: Optional[int] = None) -> dict:
+        """A whole temperature sweep in one sampling call: a per-sample
+        temperature vector with ``n_per_t`` rows per entry of
+        ``temperatures``.  Returns ``{temperature: images[n_per_t]}``."""
+        temperatures = [float(t) for t in temperatures]
+        temps = np.repeat(np.asarray(temperatures, np.float32), n_per_t)
+        images, *_ = self.sample_images(len(temps), temps, seed=seed)
+        return {t: images[i * n_per_t:(i + 1) * n_per_t]
+                for i, t in enumerate(temperatures)}
+
+    def reconstruct_images(self, batch) -> torch.Tensor:
+        """Eval-mode reconstructions of the first 3 images of ``batch``,
+        fp32, with noise seeded 0."""
+        with fp32_math():
+            return self.model.reconstruct(batch[:3],
+                                          generator=self._generator(0))
+
+    def evaluate(self, test_iter: BatchIterator, epoch: int) -> dict:
+        """The eval step over the whole test set: means of
+        ``reconstruction_loss``, ``kl_loss`` and ``elbo``, and
+        ``eval_ms_per_batch``.  Batch ``i`` draws its noise from
+        ``derive_seed(run seed, "eval", epoch, i)``."""
+        if self._eval_fn is None:
+            self._eval_fn = make_eval_step(self.model, self.train_cfg)
+        t0 = time.perf_counter()
+        sums: Dict[str, torch.Tensor] = {}
+        n = 0
+        for i, batch in enumerate(test_iter.epoch(0)):
+            gen = self._generator(
+                derive_seed(self.state.seed, "eval", epoch, i))
+            _accumulate(sums, self._eval_fn(self.state, batch, generator=gen))
+            n += 1
+        out = _means(sums, n)
+        out["eval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / max(n, 1)
+        return out
+
+    # ---- checkpointing ----------------------------------------------------
+
+    @property
+    def ckpt_dir(self) -> str:
+        return os.path.abspath(self.train_cfg.model_save_dir)
+
+    def maybe_resume(self) -> int:
+        """Restore the checkpoint of epoch ``resume_from``, else the latest
+        one, if present; returns the epoch to start from."""
+        tc = self.train_cfg
+        if tc.resume_from > 0:
+            step = tc.resume_from * self.steps_per_epoch
+        else:
+            step = ckpt.latest_step(self.ckpt_dir)
+        if step is None:
+            return 0
+        try:
+            self.state = ckpt.restore_checkpoint(self.ckpt_dir, self.state,
+                                                 step)
+        except FileNotFoundError:
+            return 0
+        return int(step) // self.steps_per_epoch
+
+    # ---- main loop --------------------------------------------------------
+
+    def fit(
+        self,
+        train_iter: BatchIterator,
+        test_iter: Optional[BatchIterator] = None,
+        on_epoch_end: Optional[Callable] = None,
+        profile_dir: Optional[str] = None,
+    ) -> TrainResult:
+        tc = self.train_cfg
+        history = []
+        best_loss, best_state, patience_left = float("inf"), None, tc.patience
+        start_epoch = self.maybe_resume()
+        writer = ckpt.AsyncCheckpointWriter(self.ckpt_dir)
+        # Preemption: on SIGTERM/SIGINT finish the step, save the full
+        # state and return.  A handler can only be set from the main thread.
+        self._interrupted = False
+        prev_handlers = {}
+
+        def on_signal(signum, frame):
+            self._interrupted = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(sig, on_signal)
+            except ValueError:  # not the main thread
+                pass
+        cuda = self.device.type == "cuda"
+        try:
+            for epoch in range(start_epoch, tc.epochs):
+                t0 = time.perf_counter()
+                profiler = None
+                if profile_dir and epoch == start_epoch + 1:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    acts = [ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA] if cuda else [])
+                    profiler = profile(activities=acts)
+                    profiler.start()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                sums: Dict[str, torch.Tensor] = {}
+                n_batches = 0
+                for batch in train_iter.epoch(epoch):
+                    self.state, metrics = self.step_fn(self.state, batch)
+                    n_batches += 1
+                    _accumulate(sums, metrics)
+                    if self._interrupted:
+                        break
+                means = _means(sums, n_batches)  # the epoch's one fetch
+                if profiler is not None:
+                    profiler.stop()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    profiler.export_chrome_trace(
+                        os.path.join(profile_dir, f"epoch{epoch}.json"))
+                dt = time.perf_counter() - t0
+                means["epoch_seconds"] = dt
+                means["images_per_sec"] = n_batches * train_iter.batch_size / dt
+                if cuda:
+                    means["peak_memory_gb"] = (
+                        torch.cuda.max_memory_allocated(self.device) / 1e9)
+                history.append(means)
+                if self.logger and epoch % max(tc.log_frequency, 1) == 0:
+                    self.logger.scalars(epoch, means, prefix="train/")
+
+                # Preemption exit: skip the hooks, drop to the final save.
+                if self._interrupted:
+                    break
+
+                if (self.logger and test_iter is not None
+                        and tc.evaluate_frequency
+                        and epoch % tc.evaluate_frequency == 0):
+                    self.logger.scalars(epoch, self.evaluate(test_iter, epoch),
+                                        prefix="test/")
+
+                if (self.logger and tc.sample_frequency
+                        and epoch % tc.sample_frequency == 0):
+                    sweep = self.sample_images_sweep(3, SAMPLE_TEMPERATURES)
+                    for t, images in sweep.items():
+                        self.logger.images(epoch, f"samples_t{t:.1f}",
+                                           images.cpu().numpy())
+                    if test_iter is not None:
+                        test_batch = next(iter(test_iter.epoch(0)))
+                        recon = self.reconstruct_images(test_batch)
+                        pair = np.concatenate(
+                            [test_batch[:3].cpu().numpy(),
+                             recon.cpu().numpy()], axis=2)
+                        self.logger.images(epoch, "test_reconstruction", pair)
+
+                if (tc.model_save_frequency
+                        and epoch % tc.model_save_frequency == 0):
+                    writer.save(self.state.step, self.state)
+
+                if on_epoch_end is not None:
+                    on_epoch_end(epoch, self, means)
+
+                # Early stopping on the training loss (the reference's
+                # EarlyStopping), restoring the best state from a device copy.
+                if tc.patience:
+                    if means["loss"] < best_loss - 1e-9:
+                        best_loss, patience_left = means["loss"], tc.patience
+                        best_state = {
+                            k: v.clone() if isinstance(v, torch.Tensor) else v
+                            for k, v in ckpt.flatten_state(self.state).items()
+                        }
+                    else:
+                        patience_left -= 1
+                        if patience_left <= 0:
+                            if best_state is not None:
+                                self.state = ckpt.load_flat_state(self.state,
+                                                                  best_state)
+                            break
+                else:
+                    best_loss = min(best_loss, means["loss"])
+
+            writer.save(self.state.step, self.state)
+        finally:
+            writer.close()
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+        if self.logger:
+            for step, blocking_ms, total_ms in writer.timings:
+                self.logger.scalars(step, {"blocking_ms": blocking_ms,
+                                           "total_ms": total_ms},
+                                    prefix="checkpoint/")
+        return TrainResult(state=self.state, history=history,
+                           best_loss=best_loss,
+                           interrupted=self._interrupted)

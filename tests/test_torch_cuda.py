@@ -12,7 +12,9 @@ B*H*W products in another order) and bitwise across two runs; the
 debug-size sampler on the card against the same weights and injected noise
 on the CPU at atol 1e-4; one debug-size training step on the card against
 the CPU: metrics at rtol 1e-4, parameters at atol 1e-6 (SGD at lr 1e-5),
-BatchNorm running statistics at atol 1e-4.
+BatchNorm running statistics at atol 1e-4.  The squeeze-excitation gate
+against its plain version at atol 1e-5 and bitwise across two runs; a
+debug-size ``Trainer.fit`` on the card with its launch counts and hooks.
 """
 
 import numpy as np
@@ -201,3 +203,71 @@ def test_cuda_train_step_matches_cpu(cuda_device, depthwise):
     for k in sd_cpu:
         tol = 1e-4 if "running" in k else 1e-6
         assert float((sd_gpu[k] - sd_cpu[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 8, 8, 128, 8), (6, 4, 4, 256, 16), (5, 32, 32, 32, 4),
+    (3, 7, 9, 40, 4),  # channels not a multiple of 32, odd H * W
+    (2, 1, 1, 5, 4),
+])
+def test_cuda_se_gate_matches_plain(cuda_device, shape):
+    from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
+
+    b, h, w, c, hd = shape
+    rng = np.random.RandomState(c)
+    arrays = (rng.randn(b, h, w, c), 0.1 * rng.randn(c, hd),
+              0.1 * rng.randn(hd), 0.1 * rng.randn(hd, c), 0.1 * rng.randn(c))
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+            for a in arrays]
+    before = se_gate.launches
+    got, again = se_gate(*args), se_gate(*args)
+    assert se_gate.launches == before + 2
+    want = se_gate_reference(*args)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+    with pytest.raises(RuntimeError, match="forward only"):
+        se_gate(args[0].clone().requires_grad_(), *args[1:])
+    strided = torch.zeros(b, h, w, 2 * c, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        se_gate(strided, *args[1:])
+    with pytest.raises(TypeError):
+        se_gate(args[0].double(), *args[1:])
+
+
+def test_cuda_trainer_fit(cuda_device, tmp_path):
+    """Two debug-size epochs on the card through ``Trainer.fit``: finite
+    metrics, the hooks' images, a checkpoint per epoch, and the fused
+    kernels' launches: per step 3 of each of #2, #3, #4; per eval forward,
+    sampling call and reconstruction 3 of #2."""
+    from nvae_torch.data import make_iterators, synthetic_dataset
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.trainer import Trainer
+    from nvae_torch.utils.logging import MetricsLogger
+
+    cfg = debug_config(use_pallas_kernels=True)
+    tc = TrainConfig(epochs=2, batch_size=8, step_based_warmup=True,
+                     sample_frequency=1, evaluate_frequency=1,
+                     model_save_frequency=1,
+                     model_save_dir=str(tmp_path / "models"),
+                     tensorboard_log_dir=str(tmp_path / "logs"))
+    bundle = synthetic_dataset(n_train=32, n_test=16, seed=0)
+    train_iter, test_iter = make_iterators(bundle, 8, device=cuda_device)
+    logger = MetricsLogger(tc.tensorboard_log_dir, tensorboard=False)
+    trainer = Trainer(cfg, tc, len(train_iter), logger=logger,
+                      device=cuda_device)
+    names = ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
+             "fused_swish_depthwise5x5_dw")
+    before = [getattr(tdw, n).launches for n in names]
+    result = trainer.fit(train_iter, test_iter)
+    logger.close()
+    launches = [getattr(tdw, n).launches - b for n, b in zip(names, before)]
+    steps, evals = 2 * 4, 2 * 2
+    assert launches == [3 * (steps + evals + 2 + 2), 3 * steps, 3 * steps]
+    assert trainer.state.step == steps
+    assert all(np.isfinite(v) for h in result.history for v in h.values())
+    assert result.history[-1]["peak_memory_gb"] > 0
+    assert ckpt.all_steps(trainer.ckpt_dir) == [4, 8]
+    images = tmp_path / "logs" / "images"
+    assert (images / "samples_t1.0_step1").is_dir()
+    assert (images / "test_reconstruction_step1").is_dir()

@@ -43,8 +43,13 @@ def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10 and os.path.exists(files[0])
     rel = {os.path.relpath(f, ROOT) for f in files}
-    for mod in ("losses", "optim", "state", "step"):
+    for mod in ("losses", "optim", "state", "step", "checkpoint", "trainer"):
         assert os.path.join("nvae_torch", "train", f"{mod}.py") in rel
+    for path in (("data", "datasets.py"), ("data", "pipeline.py"),
+                 ("eval", "nll.py"), ("utils", "images.py"),
+                 ("utils", "logging.py"), ("utils", "seeds.py"),
+                 ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",)):
+        assert os.path.join("nvae_torch", *path) in rel
     bad = [
         (os.path.relpath(f, ROOT), mod)
         for f in files for mod in _imported_roots(f) if mod in FORBIDDEN
@@ -58,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
         "import nvae_torch, nvae_torch.convert, nvae_torch.serving, "
         "nvae_torch.serving_runtime, nvae_torch.kernels._build, "
         "nvae_torch.train.losses, nvae_torch.train.optim, "
-        "nvae_torch.train.state, nvae_torch.train.step\n"
+        "nvae_torch.train.state, nvae_torch.train.step, "
+        "nvae_torch.train.checkpoint, nvae_torch.train.trainer, "
+        "nvae_torch.data, nvae_torch.eval.nll, nvae_torch.utils.images, "
+        "nvae_torch.utils.logging, nvae_torch.kernels.se_gate, "
+        "nvae_torch.cli, nvae_torch.presets\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -90,3 +99,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                          device="cpu")
     assert model.training and state.step == 0
     assert model.decoder.h.device.type == "cpu"
+
+
+def test_trainer_and_cli_default_to_the_card(monkeypatch, tmp_path):
+    from nvae_torch import TrainConfig, cli
+    from nvae_torch.data import make_iterators, synthetic_dataset
+    from nvae_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(debug_config(), TrainConfig(epochs=1), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_iterators(synthetic_dataset(n_train=8, n_test=8), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--mode", "train", "--dataset", "synthetic", "--debug",
+                  "--model_save_dir", str(tmp_path / "m"),
+                  "--tensorboard_log_dir", str(tmp_path / "l")])
+    assert not (tmp_path / "l").exists()  # it stopped before writing
+    trainer = Trainer(debug_config(), TrainConfig(epochs=1), 4, device="cpu")
+    assert trainer.device.type == "cpu" and trainer.model.training

@@ -1,0 +1,448 @@
+"""The port's training entry point on the CPU at a tiny size: the Trainer
+(fit, artifacts, bitwise resume, early stopping, preemption, the sampling
+sweep), checkpoints (round trip, the async writer's snapshot) and the CLI
+(train and sample with --cpu, presets, unported modes and flags).  Mirrors
+``tests/test_trainer.py``, ``tests/test_data.py``'s checkpoint tests and
+``tests/test_cli.py`` of the JAX package."""
+
+import json
+import os
+import shutil
+import signal
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nvae_torch import cli
+from nvae_torch.config import TrainConfig, debug_config
+from nvae_torch.data import make_iterators, synthetic_dataset
+from nvae_torch.train import checkpoint as ckpt
+from nvae_torch.train.state import create_train_state
+from nvae_torch.train.step import make_train_step
+from nvae_torch.train.trainer import Trainer
+from nvae_torch.utils.logging import MetricsLogger
+
+TINY_ARCH = [
+    "--n_encoder_channels", "8", "--n_decoder_channels", "8",
+    "--n_groups_per_scale", "1", "1", "--n_latent_per_group", "2",
+    "--n_preprocess_blocks", "1", "--n_preprocess_cells", "2",
+    "--n_postprocess_blocks", "1", "--n_postprocess_cells", "2",
+]
+
+
+def _tiny_cfg():
+    return debug_config(n_groups_per_scale=(1, 1), n_latent_per_group=2,
+                        use_pallas_kernels=True)
+
+
+def _train_cfg(tmp_path, **kw):
+    base = dict(batch_size=8, step_based_warmup=True,
+                model_save_dir=str(tmp_path / "models"),
+                tensorboard_log_dir=str(tmp_path / "logs"))
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _iters(n_train=32, n_test=16, seed=0):
+    bundle = synthetic_dataset(n_train=n_train, n_test=n_test, seed=seed)
+    return make_iterators(bundle, 8, seed=seed, device="cpu")
+
+
+def _flat(state):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in ckpt.flatten_state(state).items()}
+
+
+def _assert_same(a, b):
+    assert set(a) == set(b)
+    for k, v in a.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v.cpu(), b[k].cpu()), k
+        else:
+            assert v == b[k], k
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_fit_artifacts_and_bitwise_resume(tmp_path):
+    """A 3-epoch run, and the same run resumed from its step-8 checkpoint,
+    end in the same state bit for bit: the image and eval hooks change
+    nothing, and the checkpoint holds all of the state."""
+    tc = _train_cfg(tmp_path, epochs=3, sample_frequency=1,
+                    evaluate_frequency=1, model_save_frequency=1)
+    train_iter, test_iter = _iters()
+    logger = MetricsLogger(tc.tensorboard_log_dir, tensorboard=False)
+    trainer = Trainer(_tiny_cfg(), tc, len(train_iter), logger=logger,
+                      device="cpu")
+    result = trainer.fit(train_iter, test_iter)
+    logger.close()
+    assert len(result.history) == 3 and trainer.state.step == 12
+    assert not result.interrupted and np.isfinite(result.best_loss)
+    assert ckpt.all_steps(trainer.ckpt_dir) == [4, 8, 12]
+    lines = _jsonl(tmp_path / "logs" / "metrics.jsonl")
+    train = [r for r in lines if "train/loss" in r]
+    test = [r for r in lines if "test/elbo" in r]
+    saves = [r for r in lines if "checkpoint/total_ms" in r]
+    assert [r["step"] for r in train] == [r["step"] for r in test] == [0, 1, 2]
+    assert all(np.isfinite(v) for r in train + test for v in r.values())
+    assert all(r["train/images_per_sec"] > 0 for r in train)
+    assert [r["step"] for r in saves] == [4, 8, 12]
+    dirs = os.listdir(tmp_path / "logs" / "images")
+    for t in ("0.7", "0.8", "0.9", "1.0"):
+        assert f"samples_t{t}_step2" in dirs
+    assert len(os.listdir(tmp_path / "logs" / "images"
+                          / "test_reconstruction_step0")) == 3
+    final = _flat(trainer.state)
+
+    # Resume from step 8 in a fresh trainer: epoch 2 again, the same end.
+    shutil.rmtree(os.path.join(trainer.ckpt_dir, "12"))
+    again = Trainer(_tiny_cfg(), tc, len(train_iter), device="cpu")
+    assert again.maybe_resume() == 2 and again.state.step == 8
+    _assert_same(_flat(again.state), ckpt.load_payload(trainer.ckpt_dir, 8))
+    again.fit(*_iters())
+    _assert_same(_flat(again.state), final)
+
+
+def test_early_stopping_restores_the_best_state(tmp_path):
+    # Epoch-based warm-up: beta rises each epoch, and so does the loss on a
+    # tiny fixed set after the first epochs.
+    tc = _train_cfg(tmp_path, epochs=20, patience=1, sample_frequency=1000,
+                    model_save_frequency=1000, evaluate_frequency=0,
+                    step_based_warmup=False)
+    train_iter, _ = _iters(n_train=16, n_test=8, seed=1)
+    trainer = Trainer(_tiny_cfg(), tc, len(train_iter), device="cpu")
+    seen = []
+    result = trainer.fit(train_iter, on_epoch_end=lambda e, tr, m: seen.append(
+        (m["loss"], _flat(tr.state))))
+    assert len(result.history) < 20  # stopped early
+    best = min(range(len(seen)), key=lambda i: seen[i][0])
+    assert best == len(seen) - 2 and result.best_loss == seen[best][0]
+    _assert_same(_flat(trainer.state), seen[best][1])
+
+
+def test_sigterm_preemption_checkpoints_and_resumes(tmp_path):
+    tc = _train_cfg(tmp_path, epochs=20, sample_frequency=1000,
+                    model_save_frequency=1000, evaluate_frequency=0)
+    train_iter, _ = _iters(n_train=16, n_test=8, seed=3)
+    trainer = Trainer(_tiny_cfg(), tc, len(train_iter), device="cpu")
+
+    def preempt_at_epoch_1(epoch, tr, means):
+        if epoch == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    prev_handler = signal.getsignal(signal.SIGTERM)
+    result = trainer.fit(train_iter, on_epoch_end=preempt_at_epoch_1)
+    assert result.interrupted and len(result.history) < 20
+    assert signal.getsignal(signal.SIGTERM) is prev_handler
+    assert ckpt.latest_step(trainer.ckpt_dir) == result.state.step
+    fresh = Trainer(_tiny_cfg(), tc, len(train_iter), device="cpu")
+    assert fresh.maybe_resume() == result.state.step // len(train_iter)
+    _assert_same(_flat(fresh.state), _flat(result.state))
+
+
+def test_sample_images_sweep_matches_per_temperature_semantics(tmp_path):
+    """The sweep returns one n_per_t block per temperature, bitwise the
+    per-sample-vector call with the same seed; sampling leaves the model in
+    training mode with its buffers untouched."""
+    trainer = Trainer(_tiny_cfg(), _train_cfg(tmp_path, epochs=1), 1,
+                      device="cpu")
+    before = _flat(trainer.state)
+    sweep = trainer.sample_images_sweep(2, (0.7, 1.0), seed=3)
+    assert set(sweep) == {0.7, 1.0}
+    assert all(b.shape == (2, 32, 32, 1) for b in sweep.values())
+    direct, *_ = trainer.sample_images(
+        4, torch.tensor([0.7, 0.7, 1.0, 1.0]), seed=3)
+    assert torch.equal(direct[:2], sweep[0.7])
+    assert torch.equal(direct[2:], sweep[1.0])
+    assert trainer.model.training
+    _assert_same(_flat(trainer.state), before)
+    recon = trainer.reconstruct_images(next(iter(_iters()[1])))
+    assert recon.shape == (3, 32, 32, 1)
+    _assert_same(_flat(trainer.state), before)
+    with pytest.raises(ValueError, match="no EMA"):
+        trainer.swap_in_ema()
+
+
+def _stepped_state(tc, steps=1):
+    model, state, tx = create_train_state(_tiny_cfg(), tc, 10, device="cpu")
+    step = make_train_step(model, tx, tc, 10, 5)
+    batch = (np.random.RandomState(0).rand(8, 32, 32, 1) > 0.5).astype(
+        np.float32)
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    return state, step, batch
+
+
+def test_checkpoint_round_trip(tmp_path):
+    tc = TrainConfig(batch_size=8, step_based_warmup=True, ema_decay=0.9)
+    state, _, _ = _stepped_state(tc)
+    d = str(tmp_path / "ckpt")
+    ckpt.save_checkpoint(d, 5, state)
+    assert ckpt.latest_step(d) == 5 and ckpt.all_steps(d) == [5]
+    # No pickled class: the file loads with weights_only.
+    raw = torch.load(os.path.join(d, "5", ckpt.FILE), weights_only=True)
+    assert raw["step"] == 1 and any(k.startswith("opt/") for k in raw)
+    template = create_train_state(_tiny_cfg(), tc, 10, device="cpu", seed=9)[1]
+    restored = ckpt.restore_checkpoint(d, template)
+    _assert_same(_flat(restored), _flat(state))
+    assert restored.model is template.model
+    # A template without the EMA slot does not fit the checkpoint.
+    no_ema = create_train_state(_tiny_cfg(), TrainConfig(), 10,
+                                device="cpu")[1]
+    with pytest.raises(ValueError, match="optimizer state differs"):
+        ckpt.restore_checkpoint(d, no_ema)
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore_checkpoint(d, template, step=6)
+    assert ckpt.latest_step(str(tmp_path / "none")) is None
+
+
+def test_async_checkpoint_writer_snapshot_semantics(tmp_path):
+    """``save`` snapshots the state before it returns: the next step updates
+    the parameters in place while the write may be in flight, and the
+    checkpoint still holds the state at the save; a re-save of the same step
+    is skipped."""
+    tc = TrainConfig(batch_size=8, step_based_warmup=True)
+    state, step, batch = _stepped_state(tc)
+    snapshot = _flat(state)
+    d = str(tmp_path / "ckpt")
+    with ckpt.AsyncCheckpointWriter(d) as w:
+        assert w.save(1, state)
+        state, _ = step(state, batch)  # writes the parameters in place
+        assert not w.save(1, state)  # same step: skipped, not clobbered
+        w.wait()
+        assert [t[0] for t in w.timings] == [1]
+        assert 0.0 <= w.timings[0][1] <= w.timings[0][2]
+    _assert_same(ckpt.load_payload(d, 1), snapshot)
+    assert not _flat(state)["model/decoder.h"].equal(snapshot["model/decoder.h"])
+    # A new writer knows the steps on disk.
+    with ckpt.AsyncCheckpointWriter(d) as w:
+        assert not w.save(1, state) and w.save(2, state)
+    assert ckpt.all_steps(d) == [1, 2]
+
+
+def _cli_argv(tmp_path, *extra):
+    return [
+        "--dataset", "synthetic", "--debug", "--cpu", "--batch_size", "4",
+        "--seed", "0", *TINY_ARCH, "--use_pallas", "--step_based_warmup",
+        "--model_save_dir", str(tmp_path / "models"),
+        "--sample_dir", str(tmp_path / "results"),
+        "--tensorboard_log_dir", str(tmp_path / "logs"), *extra,
+    ]
+
+
+@pytest.fixture
+def no_tensorboard(monkeypatch):
+    """Keep the logger's optional TensorBoard mirror out of the CLI tests."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+
+def _kernel_wrappers():
+    from nvae_torch.kernels import depthwise
+    from nvae_torch.kernels.se_gate import se_gate
+
+    return [getattr(depthwise, name) for name in (
+        "fused_swish_depthwise5x5", "depthwise_conv5x5",
+        "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw")] + [
+        se_gate]
+
+
+def test_cli_train_then_sample_on_the_cpu(tmp_path, capsys, monkeypatch,
+                                          no_tensorboard):
+    for fn in _kernel_wrappers():
+        monkeypatch.setattr(fn, "launches", 0)
+    cli.main(["--mode", "train", "--epochs", "1", "--evaluate_frequency", "1",
+              "--sample_frequency", "1", "--model_save_frequency", "1",
+              *_cli_argv(tmp_path)[:]])
+    out = capsys.readouterr().out
+    assert "Training done: best_loss=" in out and "img/s" in out
+    assert ckpt.all_steps(str(tmp_path / "models")) == [4]
+    lines = _jsonl(tmp_path / "logs" / "metrics.jsonl")
+    assert sum("train/loss" in r for r in lines) == 1
+    assert sum("test/elbo" in r for r in lines) == 1
+    # The CPU runs the kernels' plain versions: no launch is counted.
+    assert [fn.launches for fn in _kernel_wrappers()] == [0] * 5
+
+    cli.main(["--mode", "sample", "--n_samples", "8",
+              "--scale_temperatures", "0.6", "0.9", *_cli_argv(tmp_path)])
+    out = capsys.readouterr().out
+    assert "(step 4)" in out
+    for t in ("t_0.7", "t_0.8", "t_0.9", "t_1.0", "t_annealed"):
+        pngs = [(tmp_path / "results" / t / f).read_bytes()
+                for f in os.listdir(tmp_path / "results" / t)
+                if f.endswith(".png")]
+        assert len(pngs) == 8, t
+        assert pngs[0][:8] == b"\x89PNG\r\n\x1a\n"
+        # As in the JAX CLI, every batch index draws from the step's
+        # sampling key: the second batch of 4 repeats the first.
+        assert len(set(pngs)) <= 4, t
+    with pytest.raises(SystemExit, match="one value per decoder scale"):
+        cli.main(["--mode", "sample", "--scale_temperatures", "1", "1", "1",
+                  *_cli_argv(tmp_path)])
+
+
+def _configs_seen_by_cli(pkg, argv, monkeypatch, fast_preset):
+    """Run ``pkg``'s CLI (``"nvae_torch"`` or ``"nvae_tpu"``) on ``argv``
+    up to its Trainer; returns the model and training configs it builds
+    and the settings it hands ``make_iterators``, as plain dicts."""
+    import dataclasses
+    import importlib
+
+    cli_mod = importlib.import_module(f"{pkg}.cli")
+    presets = importlib.import_module(f"{pkg}.presets")
+    data = importlib.import_module(f"{pkg}.data")
+    trainer_mod = importlib.import_module(f"{pkg}.train.trainer")
+    logging_mod = importlib.import_module(f"{pkg}.utils.logging")
+    if fast_preset:
+        # A preset that turns a switch on, which unset flags must keep.
+        base_model, base_train = presets.get_preset("mnist_step_sn")
+        fast = dataclasses.replace(base_model, postprocess_5x5_depthwise=True)
+        monkeypatch.setattr(presets, "get_preset",
+                            lambda name: (fast, base_train))
+    seen = {}
+
+    class _StopEarly(Exception):
+        pass
+
+    class _CapturingTrainer:
+        def __init__(self, model_cfg, train_cfg, **kw):
+            seen.update(model=dataclasses.asdict(model_cfg),
+                        train=dataclasses.asdict(train_cfg))
+            raise _StopEarly
+
+    class _NoLogger:
+        def __init__(self, *a, **kw):
+            pass
+
+        def close(self):
+            pass
+
+    def capture_iterators(bundle, batch_size, **kw):
+        seen["iterators"] = {"batch_size": batch_size, **{
+            k: kw[k] for k in ("target_size", "binarize",
+                               "parity_binarize_255", "seed", "debug")}}
+        return [None] * 4, [None] * 4
+
+    monkeypatch.setattr(trainer_mod, "Trainer", _CapturingTrainer)
+    monkeypatch.setattr(data, "make_iterators", capture_iterators)
+    monkeypatch.setattr(logging_mod, "MetricsLogger", _NoLogger)
+    if pkg == "nvae_tpu":
+        from nvae_tpu.utils import compile_cache
+
+        monkeypatch.setattr(compile_cache, "enable_compile_cache",
+                            lambda *a, **kw: None)
+    with pytest.raises(_StopEarly):
+        cli_mod.main(list(argv))
+    return seen
+
+
+@pytest.mark.parametrize("extra,fast_preset", [
+    # A preset's switches survive unset flags; explicit switches turn
+    # features on; the preset's batch size, warm-up and parity settings win
+    # over the flags, and the data pipeline takes --parity_binarize_255.
+    (["--preset", "mnist_step_sn_parity", "--batch_size", "16",
+      "--use_pallas", "--parity_frozen_norm"], False),
+    (["--preset", "mnist_step_sn", "--parity_binarize_255",
+      "--ema_decay", "0.99", "--step_based_warmup"], True),
+    (["--preset", "mnist_epoch_sn", "--mode", "sample", "--binary_eval",
+      "--use_ema", "--n_samples", "7"], False),
+    (["--batch_size", "8", *TINY_ARCH, "--parity_binarize_255",
+      "--ema_decay", "0.5", "--spectral_mode", "forward"], False),
+])
+def test_preset_flags_not_clobbered(tmp_path, monkeypatch, extra,
+                                    fast_preset):
+    """The port's CLI builds the same model and training configs, and
+    hands the data pipeline the same settings, as the JAX CLI does for the
+    same command line, with and without a preset."""
+    monkeypatch.setenv("JAX_PLATFORMS", os.environ.get("JAX_PLATFORMS",
+                                                       "cpu"))
+    argv = ["--mode", "train", "--dataset", "synthetic", "--debug", "--cpu",
+            "--epochs", "3", "--seed", "5",
+            "--model_save_dir", str(tmp_path / "m"),
+            "--sample_dir", str(tmp_path / "s"),
+            "--tensorboard_log_dir", str(tmp_path / "l"), *extra]
+    port = _configs_seen_by_cli("nvae_torch", argv, monkeypatch, fast_preset)
+    ref = _configs_seen_by_cli("nvae_tpu", argv, monkeypatch, fast_preset)
+    assert port == ref
+    if fast_preset:
+        assert port["model"]["postprocess_5x5_depthwise"]
+
+
+def test_three_scale_presets_build_and_dml_presets_wait():
+    from nvae_torch.presets import PRESETS, WAITING, get_preset
+
+    for name in PRESETS:
+        if name in WAITING:
+            with pytest.raises(NotImplementedError, match="Queue 1 #4"):
+                get_preset(name)
+            continue
+        model_cfg, train_cfg = get_preset(name)
+        assert model_cfg.shapes().base_size >= 1 and train_cfg.dataset
+    m, t = get_preset("omniglot_deep")
+    assert m.n_groups_per_scale == (4, 8, 12) and t.dataset == "omniglot"
+    m, t = get_preset("mnist_step_sr")
+    assert m.spectral_mode == "penalty" and t.step_based_warmup
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--mode", "test"], "metric suite"),
+    (["--mode", "serve"], "HTTP front end"),
+    (["--scan_epochs"], "Queue 1 #6"),
+    (["--fsdp"], "parallel tiers"),
+    (["--pp_stages", "2"], "parallel tiers"),
+    (["--data_parallel", "2"], "parallel tiers"),
+    (["--remat"], "rematerialization"),
+    (["--serve_dtype", "int8"], "bf16 and int8"),
+    (["--preset", "celeba64"], "Queue 1 #4"),
+    (["--compute_dtype", "bfloat16"], "bf16"),
+    (["--bn_apply_dtype", "bfloat16"], "bf16"),
+    (["--likelihood", "dml"], "DML head"),
+    (["--preset", "cifar10_dml"], "Queue 1 #4"),
+])
+def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--serve_port", "9000"], ["--eval_attempts", "3"],
+    ["--pp_schedule", "gpipe"],
+])
+def test_flags_of_unported_paths_are_unknown(tmp_path, capsys, extra):
+    """The JAX CLI's serving, metric-suite and pipeline-schedule flags are
+    not declared: argparse stops the run on them."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
+    assert e.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_png_writer_and_tiles_match_the_jax_package(tmp_path):
+    """The stdlib PNG encoder's files decode (PIL) to the bytes written;
+    ``tile_images`` and ``to_uint8`` equal the JAX package's."""
+    from PIL import Image
+
+    from nvae_torch.utils import images as timg
+    from nvae_tpu.utils import images as jimg
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(5, 6, 7, 1).astype(np.float32)
+    np.testing.assert_array_equal(timg.tile_images(x), jimg.tile_images(x))
+    np.testing.assert_array_equal(timg.to_uint8(x), jimg.to_uint8(x))
+    for c in (1, 3):
+        img = rng.randint(0, 256, size=(6, 7, c)).astype(np.uint8)
+        path = tmp_path / f"rgb{c}.png"
+        path.write_bytes(timg.encode_png(img))
+        back = np.asarray(Image.open(path))
+        np.testing.assert_array_equal(back.reshape(6, 7, c), img)
+    timg.save_images_to_dir(x, str(tmp_path / "dir"))
+    files = sorted(os.listdir(tmp_path / "dir"))
+    decoded = sorted(np.asarray(Image.open(tmp_path / "dir" / f)).tobytes()
+                     for f in files)
+    assert decoded == sorted(a[..., 0].tobytes() for a in timg.to_uint8(x))
+    with pytest.raises(ValueError, match="uint8"):
+        timg.encode_png(x[0])
