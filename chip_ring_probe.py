@@ -1,0 +1,210 @@
+#!/usr/bin/env python3
+"""What holds the depthwise ring kernels back, measured on one NVIDIA GPU.
+
+Run from the repository root (needs a CUDA card and ``nvcc``)::
+
+    python3 chip_ring_probe.py
+
+It builds variants of ``nvae_torch/kernels/csrc/depthwise5x5.cu`` next to
+each other, into a temporary directory, and times each kernel (#1 thin
+forward, #2 fused forward, #3 dx, #4 dW/db) at the path shapes (B=144, fp32,
+CUDA-graph replay as in ``chip_smoke.py``), calling the C entry points
+directly with the launch geometry of ``depthwise.geometry``:
+
+- ``as_is``: the source as it is;
+- ``no_copy``: the ring copies of x (dy for dx) are not issued, so the
+  kernel computes on zeros: the time of everything but those loads;
+- ``no_compute``: the items are skipped (nothing is stored): the time of the
+  copy pipeline alone;
+- ``regs80``: ``__launch_bounds__`` for 3 blocks per SM (up to 85 registers)
+  instead of 4 (64).
+
+First it prints each ring kernel's SASS instruction counts
+(``cuobjdump -sass``); then ``as_is`` runs over a sweep of slots per pass G
+and passes ahead P.  Prints one line per measurement and, last, the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SHAPES = [(4, 1536), (8, 768), (16, 384), (32, 192)]
+BATCH = 144
+VARIANTS = {
+    "as_is": [],
+    "no_copy": [("        copy_async(dst + px * kChunk + cl,",
+                 "        if (W < 0) copy_async(dst + px * kChunk + cl,")],
+    "no_compute": [("  auto compute = [&](const Cursor& cur) {\n"
+                    "    if (!live) return;",
+                    "  auto compute = [&](const Cursor& cur) {\n"
+                    "    if (live) return;")],
+    "regs80": [("constexpr int kMinBlocks = 4;",
+                "constexpr int kMinBlocks = 3;")],
+}
+
+
+def build(tmp: str) -> dict:
+    from nvae_torch.kernels import _build
+
+    src = open(os.path.join(_build.CSRC_DIR, "depthwise5x5.cu")).read()
+    procs = {}
+    for name, subs in VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: source text not found")
+            text = text.replace(old, new)
+        path = os.path.join(tmp, name)
+        with open(f"{path}.cu", "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", f"{path}.so",
+             f"{path}.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs = {}
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    geo = ctypes.POINTER(ctypes.c_int)
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
+        lib.nvae_dw5x5_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                       i64, i64, i64, i32, geo, i32, ptr]
+        lib.nvae_dw5x5_dx.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      i64, i64, i64, geo, i32, ptr]
+        lib.nvae_dw5x5_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      i32, i32, i32, geo, i32, ptr]
+        libs[name] = lib
+    return libs
+
+
+def sass_counts(so_path: str) -> None:
+    """Per ring kernel in ``so_path`` (``cuobjdump -sass``): its static
+    instructions, FFMA and LDS, and the instructions of one item (from the
+    first shared load before its first FFMA to the last global store after
+    its last FFMA; the item's code appears once, fully unrolled)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    sass = subprocess.run([os.path.join(cuda_home, "bin", "cuobjdump"),
+                           "-sass", so_path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n")[0].strip()
+        ops = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            block)]
+        fma = [i for i, op in enumerate(ops) if op.startswith("FFMA")]
+        if not fma or "dw5x5_ring" not in name:
+            continue
+        start = max((i for i in range(max(0, fma[0] - 80), fma[0])
+                     if ops[i].startswith("LDS")), default=fma[0])
+        end = max((i for i in range(fma[-1], min(len(ops), fma[-1] + 120))
+                   if ops[i].startswith("STG")), default=fma[-1])
+        count = lambda prefix: sum(op.startswith(prefix) for op in ops)
+        print(f"sass {name[name.find('dw5x5_ring'):][:40]}: {len(ops)} "
+              f"instructions, {count('FFMA')} FFMA, {count('LDS')} LDS; one "
+              f"item {end - start + 1} instructions", flush=True)
+
+
+def call(lib, kind, geo, x, k, g):
+    """One launch of kernel ``kind`` through the C entry, as the wrappers."""
+    b, h, w, c = x.shape
+    s = torch.cuda.current_stream().cuda_stream
+    ga = geo.c_array()
+    strides = (k.stride(0), k.stride(1), k.stride(3))
+    if kind in ("thin", "fused"):
+        y = torch.empty_like(x)
+        err = lib.nvae_dw5x5_fwd(x.data_ptr(), k.data_ptr(), None,
+                                 y.data_ptr(), b, h, w, c, *strides,
+                                 int(kind == "fused"), ga, 0, s)
+    elif kind == "dx":
+        y = torch.empty_like(x)
+        err = lib.nvae_dw5x5_dx(g.data_ptr(), k.data_ptr(), x.data_ptr(),
+                                y.data_ptr(), b, h, w, c, *strides, ga, 0, s)
+    else:
+        part = torch.empty(geo.blocks_per_chunk, 26, c, device=x.device)
+        dk = torch.empty(25, c, device=x.device)
+        db = torch.empty(c, device=x.device)
+        err = lib.nvae_dw5x5_dw(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                                dk.data_ptr(), db.data_ptr(), b, h, w, c,
+                                geo.blocks_per_chunk, 1, ga, 0, s)
+    if err:
+        raise RuntimeError(f"{kind} launch failed ({err})")
+
+
+def with_passes(geo, kind, shape, per_pass, ahead):
+    """``geo`` with another (G, P), its blocks laid out as geometry() does;
+    None where the ring does not fit a block."""
+    from nvae_torch.kernels import depthwise as dw
+
+    smem = dw._smem_bytes(kind, shape[2], per_pass, ahead)
+    if smem > dw._MAX_SMEM:
+        return None
+    per_sm = min(dw._MIN_BLOCKS, dw._SM_SMEM // (smem + dw._BLOCK_RESERVED_SMEM))
+    cap = min(shape[0], max(1, dw._SMS * per_sm // geo.chunks))
+    rows = -(-shape[0] // cap)
+    return dataclasses.replace(geo, slots_per_pass=per_pass, ahead=ahead,
+                               smem_bytes=smem,
+                               blocks_per_chunk=-(-shape[0] // rows))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_ring_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from nvae_torch.kernels import depthwise as dw
+
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(tmp)
+        sass_counts(os.path.join(tmp, "as_is.so"))
+        for h, c in SHAPES:
+            shape = (BATCH, h, h, c)
+            n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
+            sets = []
+            for s in range(n_sets):
+                x, k, _ = cs.path_inputs(h, c, False, device, seed=s)
+                g = cs.path_inputs(h, c, False, device, seed=100 + s)[0]
+                sets.append((x, k, g))
+            for kind in ("thin", "fused", "dx", "dw"):
+                gkind = "fwd" if kind in ("thin", "fused") else kind
+                geo = dw.geometry(gkind, shape)
+                for name, lib in libs.items():
+                    ms = cs.time_ms(lambda x, k, g: call(lib, kind, geo, x, k,
+                                                         g), sets)[0]
+                    print(f"{kind} {BATCH}x{h}x{h}x{c} {name} "
+                          f"G={geo.slots_per_pass} P={geo.ahead}: "
+                          f"{ms * 1e3:.1f} us", flush=True)
+                for per_pass in (2, 4, 6, 8, 12, 16, 24, 32):
+                    for ahead in (1, 2):
+                        alt = with_passes(geo, gkind, shape, per_pass, ahead)
+                        if alt is None or alt == geo:
+                            continue
+                        ms = cs.time_ms(lambda x, k, g: call(
+                            libs["as_is"], kind, alt, x, k, g), sets)[0]
+                        print(f"{kind} {BATCH}x{h}x{h}x{c} sweep G={per_pass}"
+                              f" P={ahead} blocks={alt.blocks}: "
+                              f"{ms * 1e3:.1f} us", flush=True)
+            del sets
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

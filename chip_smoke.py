@@ -10,7 +10,9 @@ It needs one CUDA card, the CUDA toolkit (``nvcc``) and the repository's
 each raising on failure (nothing is caught):
 
 1. build: compiles every CUDA source of the port with ``nvcc`` (one process
-   per source, started together) into ``nvae_torch/kernels/_build/``;
+   per source, started together) into ``nvae_torch/kernels/_build/``, and
+   logs each kernel's registers, spills and static shared bytes (``ptxas
+   -v``) and the depthwise ring's launch geometry at each path shape;
 2. kernels: each kernel against its plain PyTorch version at every shape of
    the sampling and training paths, fp32, at every batch the paths give it
    (the forwards at 144, 576, 12, 4 and 3; dx and dW/db at 144 and 4): the
@@ -52,8 +54,10 @@ each raising on failure (nothing is caught):
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
    held to a float64 CPU run;
 9. timing: images per second at batch 144 by direct calls and through the
-   server, and each kernel's time at each path shape beside its bound, its
-   plain version and the library call (``F.conv2d(groups=C)``,
+   server, and each kernel's time at each path shape beside its bound (and
+   the bound's share of the kernel's time), its plain version and the
+   library call (and the kernel's time over the library's;
+   ``F.conv2d(groups=C)``,
    ``torch.nn.grad.conv2d_input`` and ``conv2d_weight``; for the gate, which
    no single call computes, the eager ``SqueezeExcitation`` module), and #2
    at the shapes of ``tools/bench_dw_kernel.py``;
@@ -65,6 +69,10 @@ The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
+
+``python3 chip_smoke.py --kernel-times ROOT`` only builds and times kernels
+#1-#4 of the tree at ROOT (phase 9's kernel timing), printing one JSON line;
+run it on two trees in one call to compare two versions on one card.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -184,16 +193,51 @@ def read_counts() -> dict:
 # ---- phase 1 ----------------------------------------------------------------
 
 
+def ptxas_entries(text: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared bytes) of each entry in ``nvcc -Xptxas -v`` output."""
+    entries = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entries.append([m.group(1), 0, 0, 0, 0])
+        elif entries and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            entries[-1][2:4] = [int(m.group(1)), int(m.group(2))]
+        elif entries and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[-1][1] = int(regs.group(1))
+            entries[-1][4] = int(smem.group(1)) if smem else 0
+    if shutil.which("c++filt") and entries:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in entries), capture_output=True, text=True,
+            check=True, timeout=60).stdout.splitlines()
+        for e, name in zip(entries, names):
+            e[0] = name.replace("(anonymous namespace)::", "")
+    return entries
+
+
 def phase_build():
     from nvae_torch.kernels import _build
+    from nvae_torch.kernels import depthwise as dw
 
     t0 = time.monotonic()
     logs = _build.build()
     log(f"build: {sorted(logs)} in {time.monotonic() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, regs, st, ld, smem in ptxas_entries(text):
+            log(f"  {name}: {kernel}: {regs} registers, spills {st} B "
+                f"stored / {ld} B loaded, {smem} B static shared")
+    # The ring kernels' dynamic shared memory and schedule at each path shape.
+    for h, c, _, _, _ in PATH_SHAPES:
+        for kind in ("fwd", "dx", "dw"):
+            g = dw.geometry(kind, (BATCH, h, h, c))
+            log(f"  ring {kind} {BATCH}x{h}x{h}x{c}: {g.smem_bytes} B "
+                f"dynamic shared, {g.blocks} blocks ({g.blocks_per_chunk} "
+                f"per chunk), {g.slots_per_pass} rows per pass, {g.ahead} "
+                "passes ahead")
 
 
 # ---- phase 2 ----------------------------------------------------------------
@@ -897,6 +941,17 @@ def bwd_bound(h, c, kind, bias):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOP_PER_S
 
 
+def log_timing(label: str, r: dict, library: str) -> None:
+    """One kernel timing line: card, bound, plain and library times, the
+    bound's share of the card time and the card time over the library's."""
+    log(f"timing {label}: kernel {r['ms'] * 1e3:.1f} us (eager "
+        f"{r['eager_ms'] * 1e3:.1f} us), bound {max(r['bound']) * 1e3:.1f} us"
+        f" (share {max(r['bound']) / r['ms']:.2f}), plain "
+        f"{r['plain_ms'] * 1e3:.1f} us, {library} "
+        f"{r['library_ms'] * 1e3:.1f} us (kernel / library "
+        f"{r['ms'] / r['library_ms']:.2f})")
+
+
 def phase_backward_timing(device) -> list:
     """Each backward kernel's time at each path shape (the forms the
     training path runs: dx with swish', dW/db with swish and the shape's
@@ -945,23 +1000,16 @@ def phase_backward_timing(device) -> list:
                     "library_ms": time_ms(lib, nchw)[0],
                     "bound": bwd_bound(h, c, kind, bias),
                 }
-                r = row[kind]
-                log(f"timing {kind} {BATCH}x{h}x{h}x{c}: kernel "
-                    f"{r['ms'] * 1e3:.1f} us (eager {r['eager_ms'] * 1e3:.1f}"
-                    f" us), bound {max(r['bound']) * 1e3:.1f} us, plain "
-                    f"{r['plain_ms'] * 1e3:.1f} us, library "
-                    f"{r['library_ms'] * 1e3:.1f} us")
+                log_timing(f"{kind} {BATCH}x{h}x{h}x{c}", row[kind], "library")
             rows.append(row)
             del sets, nchw
     return rows
 
 
 def phase_timing(device, samplers) -> dict:
-    from nvae_torch.kernels import depthwise as dw
-    from nvae_torch.device import fp32_math
     from nvae_torch.serving_runtime import BatchingSampler
 
-    out = {"img_per_s": {}, "shapes": []}
+    out = {"img_per_s": {}}
     for name, sampler in samplers.items():
         t = torch.ones(BATCH)
         for i in range(2):
@@ -984,7 +1032,18 @@ def phase_timing(device, samplers) -> dict:
             server = 8 * BATCH / (time.monotonic() - t0)
         log(f"timing {name}: {out['img_per_s'][name]:.1f} img/s at batch "
             f"{BATCH} by direct calls, {server:.1f} img/s through the server")
+    out["shapes"] = phase_forward_timing(device)
+    return out
 
+
+def phase_forward_timing(device) -> list:
+    """Each forward kernel (#2 with swish and the shape's bias, #1) at each
+    path shape beside its bound, its plain version and
+    ``F.conv2d(groups=C)``."""
+    from nvae_torch.kernels import depthwise as dw
+    from nvae_torch.device import fp32_math
+
+    rows = []
     with fp32_math(deterministic=True):
         for h, c, bias, _, _ in PATH_SHAPES:
             n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
@@ -1021,15 +1080,11 @@ def phase_timing(device, samplers) -> dict:
                     "bound": bnd,
                 }
             for kind in ("fused", "thin"):
-                r = row[kind]
-                log(f"timing {kind} {BATCH}x{h}x{h}x{c}: kernel "
-                    f"{r['ms'] * 1e3:.1f} us (eager {r['eager_ms'] * 1e3:.1f}"
-                    f" us), bound {max(r['bound']) * 1e3:.1f} us, plain "
-                    f"{r['plain_ms'] * 1e3:.1f} us, conv2d(groups=C) "
-                    f"{r['library_ms'] * 1e3:.1f} us")
-            out["shapes"].append(row)
+                log_timing(f"{kind} {BATCH}x{h}x{h}x{c}", row[kind],
+                           "conv2d(groups=C)")
+            rows.append(row)
             del sets, nchw, plain_sets
-    return out
+    return rows
 
 
 def phase_se_timing(device) -> list:
@@ -1226,6 +1281,8 @@ def kernel_records(errs, launches, timing, bwd_timing) -> list:
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "bound_share": max(b_bytes, b_ops) / r["ms"],
+                "vs_library": r["ms"] / r["library_ms"],
                 "max_abs_err": errs[name][(h, c)],
             })
         records.append({
@@ -1243,11 +1300,39 @@ def kernel_records(errs, launches, timing, bwd_timing) -> list:
     return records
 
 
-def main() -> int:
+def kernel_times(root: str) -> None:
+    """Times kernels #1-#4 of the ``nvae_torch`` found under ``root`` at the
+    path shapes, as phase 9 does, and prints them as one JSON line: run it
+    on two trees in one call (parent, change, change, parent) to compare
+    two versions of the kernels on one card."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import nvae_torch  # noqa: F401
+    from nvae_torch.kernels import _build
+
+    log(f"kernel times of {os.path.dirname(nvae_torch.__file__)}")
+    _build.build(["depthwise5x5"])
+    device = torch.device("cuda", 0)
+    out = {"root": root, "forward": phase_forward_timing(device),
+           "backward": phase_backward_timing(device)}
+    print(json.dumps(out), flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--kernel-times", metavar="ROOT",
+        help="only time kernels #1-#4 of the repository tree at ROOT")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
         return 1
+    if args.kernel_times:
+        kernel_times(args.kernel_times)
+        return 0
     sys.path.insert(0, ROOT)
     import nvae_torch  # noqa: F401  (fails outside the repository)
 

@@ -1,76 +1,89 @@
 // Fused swish -> depthwise 5x5 convolution (+ bias) for Hopper: the forward
-// and both halves of its backward.
+// and both halves of its backward, on one streaming core.
 //
 // Replaces the TPU kernels of nvae_tpu/kernels/depthwise.py:
-// - dw5x5_stencil<kSwish, kBias, false, false>: _fused_fwd_kernel (launched
-//   by _make_fused_dw.fwd_call) and, with swish and bias off, the plain
+// - dw5x5_ring<kFwd, kSwish, kBias, false>: _fused_fwd_kernel (launched by
+//   _make_fused_dw.fwd_call) and, with swish and bias off, the plain
 //   _dw_kernel behind depthwise_conv5x5.  It computes
 //     y[b, h, w, c] = sum_{dy, dx} s(x)[b, h + dy - 2, w + dx - 2, c] * k[dy, dx, c]
 //                     (+ bias[c])
 //   with s = swish or the identity, SAME zero padding, NHWC fp32 in and out.
-// - dw5x5_stencil<false, false, true, kSwishGrad>: _fused_dx_kernel and
+// - dw5x5_ring<kDx, false, false, kSwishGrad>: _fused_dx_kernel and
 //   _fused_dx_nox_kernel (launched by _make_fused_dw.dx_call), the same
 //   stencil over dy with the taps flipped, k[4 - dy, 4 - dx, c], times
 //     swish'(x) = sig(x) * (1 + x * (1 - sig(x)))
 //   read at the output position; the nox form (kSwishGrad off) never reads x.
-// - dw5x5_dw_partial<kSwish> + dw5x5_dw_reduce: _fused_dw_kernel (launched by
-//   _make_fused_dw.dw_call),
+// - dw5x5_ring<kDw, kSwish, false, false> + dw5x5_dw_reduce: _fused_dw_kernel
+//   (launched by _make_fused_dw.dw_call),
 //     dW[dy, dx, c] = sum_{b, h, w} s(x)[b, h + dy - 2, w + dx - 2, c] * g[b, h, w, c]
 //     db[c]         = sum_{b, h, w} g[b, h, w, c]
 //   in fp32.
 //
 // What bounds them on the card: HBM bytes.  The stencils do 25 multiply-adds
-// (50 FLOP) per output against 8 bytes of device memory (12 with the
-// swish' epilogue, which reads x too), under 7 FLOP per byte, far below the
-// H100's fp32 ridge of 67 TFLOP/s over 3.35 TB/s = 20 FLOP per byte.  dW/db
-// does 25 multiply-adds per element of x against 8 bytes (x and g read once),
-// also under 7 FLOP per byte.  Each input element read once and each output
-// element written once is the bound.
+// (50 FLOP) per output against 8 bytes of device memory (12 with the swish'
+// epilogue, which reads x too), and dW/db 25 per element of x against 8
+// bytes: under 7 FLOP per byte, far below the H100's fp32 ridge of 67
+// TFLOP/s over 3.35 TB/s = 20 FLOP per byte.  No tensor cores: a depthwise
+// 5x5 is a per-channel dot product of 25 terms, not a matrix product.  To
+// run at the HBM rate the card needs enough bytes in flight: by Little's
+// law 3.35 TB/s at about 1 us of loaded latency is ~3.4 MB over 132 SMs,
+// about 25 KB of loads outstanding on every SM at all times.
 //
-// Stencil design: one block per (batch row, tile of up to kTileH = 8 output
-// rows, chunk of 32 channels).  The 4x4 and 8x8 planes of the generative
-// cells are one tile; the 16x16 and 32x32 postprocess planes are 2 and 4.  A
-// whole 32x32 plane per block would need 166 KB of shared memory, one block
-// per SM, whose loads and arithmetic never overlap; a tile needs at most
-// 58 KB, so several blocks share an SM.
-// - The chunk's 25 x 32 taps are staged in shared memory with coalesced
-//   loads for either weight layout (channel-fastest, as JAX stores it, or
-//   taps-fastest, as a (C, 1, 5, 5) PyTorch weight is), then each thread
-//   keeps its channel's 25 taps (flipped for dx) and its bias in registers.
-// - The block reads the tile's input rows plus a 2-row halo from NHWC memory
-//   (32 neighbouring channels are one 128-byte line per pixel, read by one
-//   warp; each thread issues kLoads independent loads before it stores any),
-//   applies swish, and keeps them zero-padded in shared memory as a
-//   (th + 4) x (W + 4) x 32 fp32 tile: at most 12 x 36 x 32 x 4 B = 55 KB.
-//   Halo rows are read twice, from L2 for the most part.
-// - Each thread owns one channel and walks strips of kStrip output rows in
-//   one column: each staged row of the strip is read from shared memory once
-//   (5 values) and feeds every accumulator it touches, so a strip of 4
-//   outputs costs 8 x 5 = 40 shared loads instead of 100.
-// Every output sums its taps in fp32 in the order dy-major, dx-minor, as the
-// TPU kernels do, and the bias (or the swish' factor) comes last.
-//
-// dW/db design: the TPU kernel keeps its (25, C-block) output resident in
-// VMEM across a sequential grid axis over batch tiles.  Hopper runs blocks in
-// no order, so the reduction takes two launches and no atomics, and two runs
-// on the same input give the same bits:
-// - dw5x5_dw_partial: grid (32-channel chunk, n_parts).  Block y walks the
-//   (batch row, row tile) units y, y + n_parts, ... in order; for each it
-//   stages s(x) with its halo as the stencil does, and each thread (one
-//   channel) walks strips of output positions, reading the strip's g values
-//   straight from HBM (each is read once) and keeping 25 tap sums and the
-//   bias sum in registers.  At the end the warps' sums are added in shared
-//   memory in warp order and the block writes one (26, 32) slice of the
-//   (n_parts, 26, C) partials buffer.
-// - dw5x5_dw_reduce: one thread per (tap or bias, channel) adds the n_parts
-//   partials in order into dW (25, C) and db (C).
-// Shared-memory rows are 32 floats wide (25 for the taps), so a warp's
-// accesses hit 32 distinct banks.
-// What holds the stencils back (PERF.md): about 10 shared loads and a dozen
-// index instructions per output on top of its 25 FMAs, and a block that
-// stages, then computes, with nothing in flight in between.
+// Design: one streaming "row ring" shared by all three kernels.
+// - Persistent blocks on a fixed schedule.  Block i is channel chunk
+//   i / parts (32 channels, one per lane) and walks the contiguous batch rows
+//   [j * B / parts, (j + 1) * B / parts) of part j = i % parts, in order.
+//   The launch geometry (parts, slots per pass G, passes ahead P, threads,
+//   shared bytes) is computed on the host from the shape alone
+//   (nvae_torch/kernels/depthwise.py, geometry()), so one shape gets one
+//   schedule, and the same dW bits, on any card; the entry points check it
+//   against their own shared-memory formula.  At most one wave of blocks.
+// - The block's images form one stream of "slots": per image its H rows
+//   with two zero rows above and two below (H + 4 slots).  Slot q lives in
+//   ring row q % ((P + 1) G + 4), each (W' + 4) x 32 fp32 with W rounded up
+//   to whole runs W'; the ring starts at zero and its pad columns stay so.
+//   Output row r of an image needs slots r .. r + 4 of that image and is
+//   computed in the pass that holds slot r + 4.  The stream crosses from one
+//   image into the next without a break, so every input row is read from
+//   HBM once: no re-staged halo.
+// - Rows are filled with cp.async, a pass of G slots per commit group:
+//   16-byte copies, eight lanes per pixel's 128-byte channel chunk (4-byte
+//   copies where C % 4 != 0 or a pointer is not 16-byte aligned), the
+//   zero-fill form (src-size 0) for halo rows and for channels past C.  The
+//   copy mapping (a thread owns one pixel-segment column) is independent of
+//   the compute mapping.  Right after the barrier that publishes pass p,
+//   the block starts pass p + P into the rows pass p - 1 read, then
+//   computes pass p: one __syncthreads per pass is all the ordering.  The
+//   host sizes P and G for >= 8 KB of copies in flight per block, about
+//   24 / 32 / 38 / 57 KB per SM at the 4x4 / 8x8 / 16x16 / 32x32 shapes.
+// - Swish (forward, dW/db) is applied once per staged element, in place, by
+//   the thread that copied it, after its cp.async.wait_group and before the
+//   barrier that publishes the pass (__expf and __fdividef: a few ulp).
+// - A second "aux" ring of (P + 1) G rows of W' x 32 fp32 carries, per
+//   output row, the operand read at the output position: x for dx's swish'
+//   epilogue (turned into swish'(x) in place by its copier) and g for
+//   dW/db.  No kernel reads device memory synchronously while it computes.
+// - Taps (flipped for dx) and the bias go to registers once per block.
+// - Compute: an item is two adjacent output rows x a run of kRun = 4
+//   outputs along W; a lane is one channel.  It reads 6 ring rows of 8
+//   values from shared memory (32 lanes, 32 banks) for 8 outputs, 200 FMAs,
+//   with no bounds checks (the pad).  Warp w takes items w, w + 8, ... of a
+//   pass; a pass holds enough slots for one item per warp.  Outputs go
+//   straight to HBM, 128 contiguous bytes per warp per pixel.  Every output
+//   sums its taps in fp32 in the order dy-major, dx-minor, as the TPU
+//   kernels do, and the bias (or the swish' factor) comes last.
+// - dW/db: each thread keeps 25 tap sums and the bias sum for its channel
+//   over all its items; at the end the warps' sums are added in warp order
+//   in shared memory that aliases the ring, and the block writes one
+//   (26, 32) slice of the (parts, 26, C) partials.  dw5x5_dw_reduce adds
+//   the parts in order: two launches, no atomics, bitwise repeatable.
+// What holds them back now (PERF.md, PR 4): not the loads, which the ring
+// hides (a build that skips the copies runs as fast), but the stencil's
+// own instruction issue and latency at 32 warps per SM.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -78,14 +91,36 @@ constexpr int kTaps = 5;
 constexpr int kTaps2 = kTaps * kTaps;
 constexpr int kSums = kTaps2 + 1;  // 25 tap sums and the bias sum
 constexpr int kPad = 2;
-constexpr int kChunk = 32;     // channels per block, one per lane of a warp
-constexpr int kStrip = 4;      // output rows per thread item
-constexpr int kTileH = 8;      // output rows per block, at most
-constexpr int kMaxWarps = 8;   // warps per block
-constexpr int kLoads = 8;      // global loads in flight per thread (staging)
+constexpr int kHalo = 2 * kPad;  // zero slots per image, and zero columns
+constexpr int kChunk = 32;       // channels per block, one per lane
+constexpr int kRun = 4;          // adjacent outputs along W per item
+constexpr int kRows = 2;         // adjacent output rows per item
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * kChunk;
+constexpr int kMinBlocks = 4;    // per SM: at most 64 registers a thread
+constexpr int kMaxAhead = 8;     // passes in flight, at most
+constexpr long long kMaxSmem = 232448;
 
+enum Kind { kFwd = 0, kDx = 1, kDw = 2 };
+
+struct Args {
+  const float* src;  // the ring's rows: x (forward, dW/db) or dy (dx)
+  const float* aux;  // per output row: g (dW/db) or x (dx's swish'), or null
+  const float* w;    // taps (forward, dx)
+  const float* bias;
+  float* out;        // y, dx, or the (parts, 26, C) partials
+  long long sdy, sdx, sc;
+  int batch, H, W, C;
+  int parts;     // blocks per channel chunk
+  int per_pass;  // slots filled per pass (G)
+  int ahead;     // passes in flight ahead of the one computed (P)
+  int vec;       // 16-byte copies
+};
+
+// __expf and __fdividef: a few ulp from expf and IEEE division, far inside
+// the kernels' limits (atol 2e-5), at a quarter of the instructions.
 __device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
+  return __fdividef(1.0f, 1.0f + __expf(-v));
 }
 
 __device__ __forceinline__ float swish(float v) { return v * sigmoid(v); }
@@ -95,258 +130,370 @@ __device__ __forceinline__ float swish_grad(float v) {
   return s * (1.0f + v * (1.0f - s));
 }
 
-// Zero the padding columns of a (th + 4) x (W + 4) x 32 tile and stage rows
-// h0 - 2 .. h0 + th + 1 of one image's channel column `src` (zero outside
-// the image), through swish if kSwish.  Each thread visits pixels
-// threadIdx.y + k * blockDim.y, row-major; (row, column) advance by
-// (step / W, step % W) with one carry, so no division runs per element.
-template <bool kSwish>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ src,
-                                           float* plane, int H, int W, int C,
-                                           int h0, int th, bool live) {
-  const int lane = threadIdx.x;
-  const int row_stride = (W + 2 * kPad) * kChunk;
-  for (int r = threadIdx.y; r < th + 2 * kPad; r += blockDim.y) {
-#pragma unroll
-    for (int s = 0; s < kPad; ++s) {
-      plane[r * row_stride + s * kChunk + lane] = 0.0f;
-      plane[r * row_stride + (W + kPad + s) * kChunk + lane] = 0.0f;
-    }
-  }
-  const int step = blockDim.y;
-  const int step_r = step / W;
-  const int step_c = step - step_r * W;
-  const int n_stage = (th + 2 * kPad) * W;
-  int sr = threadIdx.y / W;
-  int sc = threadIdx.y - sr * W;
-  for (int q0 = threadIdx.y; q0 < n_stage; q0 += kLoads * step) {
-    float v[kLoads];
-    int r = sr;
-    int s = sc;
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int ih = h0 - kPad + r;
-      const bool in = live && q0 + u * step < n_stage && ih >= 0 && ih < H;
-      v[u] = in ? src[(size_t)(ih * W + s) * C] : 0.0f;
-      r += step_r;
-      s += step_c;
-      if (s >= W) {
-        s -= W;
-        ++r;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      if (q0 + u * step < n_stage) {
-        plane[sr * row_stride + (sc + kPad) * kChunk + lane] =
-            kSwish ? swish(v[u]) : v[u];
-      }
-      sr += step_r;
-      sc += step_c;
-      if (sc >= W) {
-        sc -= W;
-        ++sr;
-      }
-    }
+// Copy 16 (vec) or 4 bytes global -> shared; zero-fill when !valid.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool valid, bool vec) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
   }
 }
 
-// Forward (kFlip off) or dx (kFlip on) stencil; see the header.  `xres` is
-// the pre-activation x read by the swish' epilogue (kSwishGrad), else unused.
-template <bool kSwish, bool kBias, bool kFlip, bool kSwishGrad>
-__global__ void __launch_bounds__(kChunk * kMaxWarps)
-dw5x5_stencil(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ bias, const float* __restrict__ xres,
-              float* __restrict__ y, int H, int W, int C, int tile_h,
-              long long w_stride_dy, long long w_stride_dx,
-              long long w_stride_c) {
-  extern __shared__ float smem[];
-  float* wts = smem;                      // [kChunk][25]
-  float* plane = smem + kChunk * kTaps2;  // [(tile_h + 4) * (W + 4)][kChunk]
-  const int lane = threadIdx.x;
-  const int tid = threadIdx.y * kChunk + lane;
-  const int nthreads = blockDim.y * kChunk;
-  const int c0 = blockIdx.x * kChunk;
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// wait_group takes an immediate: at most n of this thread's groups pending.
+__device__ __forceinline__ void wait_pending(int n) {
+  switch (n) {
+    case 7: wait_group<7>(); break;
+    case 6: wait_group<6>(); break;
+    case 5: wait_group<5>(); break;
+    case 4: wait_group<4>(); break;
+    case 3: wait_group<3>(); break;
+    case 2: wait_group<2>(); break;
+    case 1: wait_group<1>(); break;
+    default: wait_group<0>(); break;
+  }
+}
+
+// Where slots live.  A cursor is the first slot q of a pass: its image (in
+// the block's list), its slot within the image (0 .. H + 3), its ring row
+// and its aux ring row.  Moving on by a pass and finding slot q + gi take
+// no division.
+struct Slot {
+  int img, s, ring, aux;
+};
+
+struct Cursor {
+  int q, img, s, ring, aux;
+};
+
+struct Stream {
+  int hs, ring_rows, aux_rows, G;
+
+  __device__ __forceinline__ Cursor at(int q) const {
+    return Cursor{q, q / hs, q % hs, q % ring_rows, q % aux_rows};
+  }
+  __device__ __forceinline__ void next(Cursor& c) const {
+    c.q += G;
+    c.s += G;
+    while (c.s >= hs) {
+      c.s -= hs;
+      ++c.img;
+    }
+    c.ring += G;
+    if (c.ring >= ring_rows) c.ring -= ring_rows;
+    c.aux += G;
+    if (c.aux >= aux_rows) c.aux -= aux_rows;
+  }
+  // Slot q + gi, 0 <= gi < G (G < aux_rows < ring_rows).
+  __device__ __forceinline__ Slot slot(const Cursor& c, int gi) const {
+    Slot t{c.img, c.s + gi, c.ring + gi, c.aux + gi};
+    while (t.s >= hs) {
+      t.s -= hs;
+      ++t.img;
+    }
+    if (t.ring >= ring_rows) t.ring -= ring_rows;
+    if (t.aux >= aux_rows) t.aux -= aux_rows;
+    return t;
+  }
+};
+
+// The shared core; see the header.  kSwish: swish on the ring's rows
+// (forward, dW/db).  kAuxOp: dx's swish' epilogue.
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dw5x5_ring(const Args a) {
+  constexpr bool kAux = kKind == kDw || kAuxOp;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & (kChunk - 1);
+  const int warp = tid / kChunk;
+  const int chunk = blockIdx.x / a.parts;
+  const int part = blockIdx.x - chunk * a.parts;
+  const int H = a.H, W = a.W, C = a.C, G = a.per_pass;
+  const int c0 = chunk * kChunk;
   const int c = c0 + lane;
   const bool live = c < C;
-  const int tiles = (H + tile_h - 1) / tile_h;
-  const int row = blockIdx.y / tiles;                // batch row
-  const int h0 = (blockIdx.y - row * tiles) * tile_h;  // first output row
-  const int th = min(tile_h, H - h0);                // output rows here
-  const int row_stride = (W + 2 * kPad) * kChunk;  // floats per staged row
+  const int first = (int)((long long)part * a.batch / a.parts);
+  const int last = (int)((long long)(part + 1) * a.batch / a.parts);
+  const int n_slots = (last - first) * (H + kHalo);
+  const int n_pass = (n_slots + G - 1) / G;
+  const Stream st{H + kHalo, (a.ahead + 1) * G + kHalo, (a.ahead + 1) * G, G};
+  // Rows are padded to whole runs of kRun outputs, so an item's loads need
+  // no bounds; the pad columns stay zero.
+  const int runs = (W + kRun - 1) / kRun;
+  const int row_f = (runs * kRun + kHalo) * kChunk;  // floats per ring row
+  const int aux_f = runs * kRun * kChunk;
+  float* ring = smem;
+  float* aux = smem + (size_t)st.ring_rows * row_f;
+  const bool vec = a.vec;
 
-  // Taps: consecutive threads take consecutive addresses of whichever
-  // layout has a unit stride.
-  const bool channel_fastest = w_stride_c == 1;
-  for (int e = tid; e < kChunk * kTaps2; e += nthreads) {
-    const int ln = channel_fastest ? e % kChunk : e / kTaps2;
-    const int t = channel_fastest ? e / kChunk : e % kTaps2;
-    const int cc = c0 + ln;
-    wts[ln * kTaps2 + t] =
-        cc < C ? w[(t / kTaps) * w_stride_dy + (t % kTaps) * w_stride_dx +
-                   cc * w_stride_c]
-               : 0.0f;
+  // Copy mapping: a slot is per_slot copies (pixel, seg floats of the
+  // chunk).  With per_slot <= 256 a thread owns one copy column and the
+  // slots g0, g0 + gstep, ... of each pass; wider rows give each thread the
+  // columns tid, tid + 256, ... of every slot.
+  const int seg = vec ? 4 : 1;
+  const int px_shift = vec ? 3 : 5;  // copies per pixel: 8 or 32
+  const int per_slot = W << px_shift;
+  int g0 = 0, gstep = 1, col0 = tid, colstep = kThreads;
+  if (per_slot <= kThreads) {
+    gstep = kThreads / per_slot;
+    g0 = tid / per_slot;
+    col0 = tid - g0 * per_slot;
+    colstep = per_slot;
+    if (g0 >= gstep) g0 = G;  // a leftover thread: no copies
   }
-  const size_t img = (size_t)row * H * W * C + c;
-  stage_tile<kSwish>(x + img, plane, H, W, C, h0, th, live);
-  __syncthreads();
-  if (!live) return;  // no barrier follows
-  // Flipping both tap axes maps tap dy * 5 + dx to 24 - (dy * 5 + dx).
+
+  // The whole ring starts at zero: the halo columns and the pad stay so,
+  // and rows not yet filled hold finite values.
+  const int n_zero =
+      st.ring_rows * row_f + (kKind != kFwd ? st.aux_rows * aux_f : 0);
+  for (int e = tid; e < n_zero; e += kThreads) {
+    smem[e] = 0.0f;
+  }
+  __syncthreads();  // before any copy lands on these words
+
   float tap[kTaps2];
+  float sum[kSums];
 #pragma unroll
   for (int t = 0; t < kTaps2; ++t) {
-    tap[t] = wts[lane * kTaps2 + (kFlip ? kTaps2 - 1 - t : t)];
+    // Flipping both tap axes maps tap dy * 5 + dx to 24 - (dy * 5 + dx).
+    const int u = kKind == kDx ? kTaps2 - 1 - t : t;
+    tap[t] = kKind != kDw && live
+                 ? a.w[(u / kTaps) * a.sdy + (u % kTaps) * a.sdx +
+                       (long long)c * a.sc]
+                 : 0.0f;
   }
-  const float b = kBias ? bias[c] : 0.0f;
-  float* yrow = y + img;
+#pragma unroll
+  for (int t = 0; t < kSums; ++t) sum[t] = 0.0f;
+  const float b = kBias && live ? a.bias[c] : 0.0f;
 
-  // Items (strip, column), visited like the staged pixels.
-  const int step = blockDim.y;
-  const int step_r = step / W;
-  const int step_c = step - step_r * W;
-  const int strips = (th + kStrip - 1) / kStrip;
-  int st = threadIdx.y / W;
-  int ow = threadIdx.y - st * W;
-  while (st < strips) {
-    const int oh0 = st * kStrip;  // first output row of the strip, in tile
-    const float* src = plane + oh0 * row_stride + ow * kChunk + lane;
-    float acc[kStrip];
-#pragma unroll
-    for (int j = 0; j < kStrip; ++j) acc[j] = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kStrip + kTaps - 1; ++r) {
-      // Staged row oh0 + r feeds output row oh0 + j through tap row r - j.
-      // Rows past the stage only occur in a ragged last strip, where they
-      // feed outputs past the tile that are never stored.
-      if (oh0 + r < th + 2 * kPad) {
-        float v[kTaps];
-#pragma unroll
-        for (int dx = 0; dx < kTaps; ++dx) {
-          v[dx] = src[r * row_stride + dx * kChunk];
+  // Start the copies of the pass at `cur`: ring row ih = s - 2 of each slot
+  // (zero-filled outside the image), and for dx / dW/db the aux row
+  // s - 4 of each slot that ends an output row.
+  auto issue = [&](const Cursor& cur) {
+    for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
+      const Slot t = st.slot(cur, gi);
+      const int ih = t.s - kPad;
+      const bool row_in = ih >= 0 && ih < H;
+      const size_t img_row = (size_t)(first + t.img) * H;
+      const float* src =
+          row_in ? a.src + (img_row + ih) * W * C + c0 : a.src;
+      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
+      const bool has_aux = kAux && t.s >= kHalo;
+      const float* asrc =
+          has_aux ? a.aux + (img_row + t.s - kHalo) * W * C + c0 : a.aux;
+      float* adst = aux + (size_t)t.aux * aux_f;
+      for (int col = col0; col < per_slot; col += colstep) {
+        const int px = col >> px_shift;
+        const int cl = (col - (px << px_shift)) * seg;
+        const bool in_c = c0 + cl < C;
+        const size_t off = (size_t)px * C + cl;
+        copy_async(dst + px * kChunk + cl, row_in && in_c ? src + off : a.src,
+                   row_in && in_c, vec);
+        if (has_aux) {
+          copy_async(adst + px * kChunk + cl, in_c ? asrc + off : a.aux, in_c,
+                     vec);
         }
-#pragma unroll
-        for (int j = 0; j < kStrip; ++j) {
-          const int dy = r - j;
-          if (dy >= 0 && dy < kTaps) {
-#pragma unroll
-            for (int dx = 0; dx < kTaps; ++dx) {
-              acc[j] = fmaf(v[dx], tap[dy * kTaps + dx], acc[j]);
-            }
+      }
+    }
+    commit_group();
+  };
+  // Swish on this thread's landed ring elements of the pass at `cur`, and
+  // swish' on its aux elements (dx).
+  auto transform = [&](const Cursor& cur) {
+    if (!(kSwish || kAuxOp)) return;
+    for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
+      const Slot t = st.slot(cur, gi);
+      const bool row_in = t.s >= kPad && t.s < H + kPad;
+      const bool has_aux = kAuxOp && t.s >= kHalo;
+      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
+      float* adst = aux + (size_t)t.aux * aux_f;
+      for (int col = col0; col < per_slot; col += colstep) {
+        const int px = col >> px_shift;
+        const int at = px * kChunk + (col - (px << px_shift)) * seg;
+        if (kSwish && row_in) {
+          if (vec) {
+            float4* p = reinterpret_cast<float4*>(dst + at);
+            float4 v = *p;
+            v.x = swish(v.x);
+            v.y = swish(v.y);
+            v.z = swish(v.z);
+            v.w = swish(v.w);
+            *p = v;
+          } else {
+            dst[at] = swish(dst[at]);
+          }
+        }
+        if (has_aux) {
+          if (vec) {
+            float4* p = reinterpret_cast<float4*>(adst + at);
+            float4 v = *p;
+            v.x = swish_grad(v.x);
+            v.y = swish_grad(v.y);
+            v.z = swish_grad(v.z);
+            v.w = swish_grad(v.w);
+            *p = v;
+          } else {
+            adst[at] = swish_grad(adst[at]);
           }
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < kStrip; ++j) {
-      if (oh0 + j < th) {
-        const size_t at = (size_t)((h0 + oh0 + j) * W + ow) * C;
-        float out = kBias ? acc[j] + b : acc[j];
-        if (kSwishGrad) out *= swish_grad(xres[img + at]);
-        yrow[at] = out;
+  };
+
+  // Compute mapping: an item is (kRows slots gi .. gi + kRows - 1 with gi a
+  // multiple of kRows, run of kRun columns); warp w takes items w, w + 8,
+  // ... of a pass, the same for every pass.  An item reads ring slots
+  // gi - 4 .. gi + kRows - 1 (kRows + 4 rows of kRun + 4 values) and
+  // computes the output rows that end at those slots.  A slot that is a
+  // halo row, or lies in the next image (then it is one of its top halo
+  // rows), or past the stream, ends no output row: its row is not stored,
+  // and dW/db weighs it by g = 0.  So the stored rows are consecutive rows
+  // of one image.
+  const int groups = G / kRows;
+  const int gr_first = warp / runs;
+  const int run_first = warp - gr_first * runs;
+  const int gr_step = kWarps / runs;
+  const int run_step = kWarps - gr_step * runs;
+  auto compute = [&](const Cursor& cur) {
+    if (!live) return;
+    int run = run_first;
+    for (int gr = gr_first; gr < groups && cur.q + gr * kRows < n_slots;) {
+      const int gi = gr * kRows;
+      const Slot t = st.slot(cur, gi);
+      const int w0 = run * kRun;
+      run += run_step;
+      gr += gr_step;
+      if (run >= runs) {
+        run -= runs;
+        ++gr;
       }
-    }
-    st += step_r;
-    ow += step_c;
-    if (ow >= W) {
-      ow -= W;
-      ++st;
-    }
-  }
-}
-
-// Stage 1 of dW/db: per-block partial sums; see the header.
-template <bool kSwish>
-__global__ void __launch_bounds__(kChunk * kMaxWarps)
-dw5x5_dw_partial(const float* __restrict__ x, const float* __restrict__ g,
-                 float* __restrict__ partial, int H, int W, int C, int tile_h,
-                 int units) {
-  extern __shared__ float smem[];
-  float* plane = smem;  // [(tile_h + 4) * (W + 4)][kChunk]
-  float* red = smem + (tile_h + 2 * kPad) * (W + 2 * kPad) * kChunk;
-  const int lane = threadIdx.x;
-  const int c0 = blockIdx.x * kChunk;
-  const int c = c0 + lane;
-  const bool live = c < C;
-  const int tiles = (H + tile_h - 1) / tile_h;
-  const int row_stride = (W + 2 * kPad) * kChunk;
-  const int step = blockDim.y;
-  const int step_r = step / W;
-  const int step_c = step - step_r * W;
-  float acc[kSums];
+      bool out[kRows];
+      bool any = false;
 #pragma unroll
-  for (int t = 0; t < kSums; ++t) acc[t] = 0.0f;
-
-  for (int unit = blockIdx.y; unit < units; unit += gridDim.y) {
-    const int row = unit / tiles;
-    const int h0 = (unit - row * tiles) * tile_h;
-    const int th = min(tile_h, H - h0);
-    const size_t img = (size_t)row * H * W * C + c;
-    stage_tile<kSwish>(x + img, plane, H, W, C, h0, th, live);
-    __syncthreads();
-    if (live) {
-      const float* grow = g + img;
-      const int strips = (th + kStrip - 1) / kStrip;
-      int st = threadIdx.y / W;
-      int ow = threadIdx.y - st * W;
-      while (st < strips) {
-        const int oh0 = st * kStrip;
-        float gv[kStrip];
+      for (int o = 0; o < kRows; ++o) {
+        out[o] = t.s + o >= kHalo && t.s + o < st.hs &&
+                 cur.q + gi + o < n_slots;
+        any = any || out[o];
+      }
+      if (!any) continue;
+      const int n_out = min(kRun, W - w0);
+      float acc[kRows][kRun];
+      float gv[kRows][kRun];
+      // Row o's aux row: g (dW/db) or swish'(x) (dx) at its outputs.
+      auto aux_at = [&](int o) {
+        int ar = t.aux + o;
+        if (ar >= st.aux_rows) ar -= st.aux_rows;
+        return aux + (size_t)ar * aux_f + w0 * kChunk + lane;
+      };
 #pragma unroll
-        for (int j = 0; j < kStrip; ++j) {
-          gv[j] = oh0 + j < th
-                      ? grow[(size_t)((h0 + oh0 + j) * W + ow) * C]
-                      : 0.0f;
+      for (int o = 0; o < kRows; ++o) {
+        const float* at = aux_at(o);
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          acc[o][i] = 0.0f;
+          gv[o][i] = kKind == kDw && out[o] ? at[i * kChunk] : 0.0f;
+          if (kKind == kDw) sum[kTaps2] += gv[o][i];
         }
+      }
+      int rr = t.ring - kHalo;  // slot gi - 4: tap row 0 of output row 0
+      if (rr < 0) rr += st.ring_rows;
 #pragma unroll
-        for (int j = 0; j < kStrip; ++j) acc[kTaps2] += gv[j];
-        const float* src = plane + oh0 * row_stride + ow * kChunk + lane;
+      for (int jr = 0; jr < kRows + kTaps - 1; ++jr) {
+        const float* row = ring + (size_t)rr * row_f + w0 * kChunk + lane;
+        float v[kRun + kTaps - 1];
 #pragma unroll
-        for (int r = 0; r < kStrip + kTaps - 1; ++r) {
-          // Rows past the stage only meet outputs past the tile (g = 0).
-          if (oh0 + r < th + 2 * kPad) {
-            float v[kTaps];
+        for (int j = 0; j < kRun + kTaps - 1; ++j) v[j] = row[j * kChunk];
+        // dx outermost: consecutive FMAs go to different sums (each sum
+        // still takes its taps in dx order).
 #pragma unroll
-            for (int dx = 0; dx < kTaps; ++dx) {
-              v[dx] = src[r * row_stride + dx * kChunk];
-            }
+        for (int dx = 0; dx < kTaps; ++dx) {
 #pragma unroll
-            for (int j = 0; j < kStrip; ++j) {
-              const int dy = r - j;
-              if (dy >= 0 && dy < kTaps) {
+          for (int o = 0; o < kRows; ++o) {
+            const int dy = jr - o;
+            if (dy < 0 || dy >= kTaps) continue;
 #pragma unroll
-                for (int dx = 0; dx < kTaps; ++dx) {
-                  acc[dy * kTaps + dx] =
-                      fmaf(v[dx], gv[j], acc[dy * kTaps + dx]);
-                }
+            for (int i = 0; i < kRun; ++i) {
+              if (kKind == kDw) {
+                sum[dy * kTaps + dx] =
+                    fmaf(v[i + dx], gv[o][i], sum[dy * kTaps + dx]);
+              } else {
+                acc[o][i] = fmaf(v[i + dx], tap[dy * kTaps + dx], acc[o][i]);
               }
             }
           }
         }
-        st += step_r;
-        ow += step_c;
-        if (ow >= W) {
-          ow -= W;
-          ++st;
+        if (++rr == st.ring_rows) rr = 0;
+      }
+      if (kKind != kDw) {
+        // Row o of the item is image row t.s - 4 + o (negative only for
+        // rows that are not stored).
+        const long long row0 = (long long)(first + t.img) * H + t.s - kHalo;
+#pragma unroll
+        for (int o = 0; o < kRows; ++o) {
+          if (!out[o]) continue;
+          float* dst = a.out + ((row0 + o) * W + w0) * C + c;
+          const float* at = aux_at(o);
+#pragma unroll
+          for (int i = 0; i < kRun; ++i) {
+            if (i < n_out) {
+              float r = kBias ? acc[o][i] + b : acc[o][i];
+              if (kAuxOp) r *= at[i * kChunk];
+              dst[i * C] = r;
+            }
+          }
         }
       }
     }
-    __syncthreads();  // the next unit overwrites the plane
-  }
+  };
 
-  // The warps' sums, added in warp order.
-#pragma unroll
-  for (int t = 0; t < kSums; ++t) {
-    red[(threadIdx.y * kSums + t) * kChunk + lane] = acc[t];
+  Cursor fill = st.at(0);
+  for (int p = 0; p < a.ahead; ++p) {
+    issue(fill);
+    st.next(fill);
   }
-  __syncthreads();
-  const int tid = threadIdx.y * kChunk + lane;
-  for (int e = tid; e < kSums * kChunk; e += blockDim.y * kChunk) {
-    const int t = e / kChunk;
-    const int ln = e - t * kChunk;
-    float s = 0.0f;
-    for (int wp = 0; wp < blockDim.y; ++wp) s += red[(wp * kSums + t) * kChunk + ln];
-    if (c0 + ln < C) {
-      partial[((size_t)blockIdx.y * kSums + t) * C + c0 + ln] = s;
+  Cursor cur = st.at(0);
+  for (int p = 0; p < n_pass; ++p) {
+    wait_pending(a.ahead - 1);  // this thread's copies of pass p landed
+    transform(cur);
+    __syncthreads();  // pass p visible to all; pass p - 1 read by all
+    issue(fill);  // pass p + P, into the rows pass p - 1 read
+    st.next(fill);
+    compute(cur);
+    st.next(cur);
+  }
+  wait_group<0>();
+
+  if (kKind == kDw) {
+    // The warps' sums, added in warp order, in shared memory that aliases
+    // the ring (every read of it is behind this barrier).
+    __syncthreads();
+    float* red = smem;
+#pragma unroll
+    for (int t = 0; t < kSums; ++t) {
+      red[(warp * kSums + t) * kChunk + lane] = sum[t];
+    }
+    __syncthreads();
+    for (int e = tid; e < kSums * kChunk; e += kThreads) {
+      const int t = e / kChunk;
+      const int ln = e - t * kChunk;
+      float s = 0.0f;
+      for (int wp = 0; wp < kWarps; ++wp) s += red[(wp * kSums + t) * kChunk + ln];
+      if (c0 + ln < C) a.out[((size_t)part * kSums + t) * C + c0 + ln] = s;
     }
   }
 }
@@ -368,92 +515,93 @@ __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
   }
 }
 
-int tile_rows(int H) { return H < kTileH ? H : kTileH; }
-
-// Warps per block: one per (strip, column) item of a full tile, at most 8.
-int warps_for(int tile_h, int W) {
-  const int items = ((tile_h + kStrip - 1) / kStrip) * W;
-  return items < kMaxWarps ? items : kMaxWarps;
+// Shared bytes of one block: the ring and the aux ring (dx, dW/db), rows
+// padded to whole runs, and for
+// dW/db at least the warps' sums.  The same formula as geometry() on the
+// host, which the entry points hold it to.
+long long smem_bytes(int kind, int W, int G, int P) {
+  const long long rows = (long long)(P + 1) * G;
+  const long long padded = (long long)(W + kRun - 1) / kRun * kRun;
+  long long f = (rows + kHalo) * (padded + kHalo) * kChunk;
+  if (kind != kFwd) f += rows * padded * kChunk;
+  if (kind == kDw && f < kWarps * kSums * kChunk) f = kWarps * kSums * kChunk;
+  return 4 * f;
 }
 
-template <bool kSwish, bool kBias, bool kFlip, bool kSwishGrad>
-cudaError_t launch_stencil(const float* x, const float* w, const float* bias,
-                           const float* xres, float* y, int batch, int H,
-                           int W, int C, long long sdy, long long sdx,
-                           long long sc, cudaStream_t stream) {
-  const int tile_h = tile_rows(H);
-  const int tiles = (H + tile_h - 1) / tile_h;
-  const size_t smem =
-      (kChunk * kTaps2 + (size_t)(tile_h + 2 * kPad) * (W + 2 * kPad) * kChunk) *
-      sizeof(float);
-  auto kernel = dw5x5_stencil<kSwish, kBias, kFlip, kSwishGrad>;
+// geo: {parts, slots per pass (a multiple of kRows), passes ahead, threads,
+// shared bytes}.
+bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C) {
+  if (batch <= 0 || H <= 0 || W <= 0 || C <= 0 || geo == nullptr) return true;
+  const int parts = geo[0], G = geo[1], P = geo[2];
+  const long long chunks = (C + kChunk - 1) / kChunk;
+  return parts < 1 || parts > batch || G < kRows || G % kRows || P < 1 ||
+         P > kMaxAhead || geo[3] != kThreads ||
+         (long long)geo[4] != smem_bytes(kind, W, G, P) ||
+         geo[4] > kMaxSmem || chunks * parts > 0x7fffffffLL ||
+         (long long)batch * (H + kHalo) + G > 0x7fffffffLL;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
+cudaError_t launch(Args a, const int* geo, cudaStream_t stream) {
+  a.parts = geo[0];
+  a.per_pass = geo[1];
+  a.ahead = geo[2];
+  a.vec = a.C % 4 == 0 && aligned16(a.src) && aligned16(a.aux) &&
+          aligned16(a.out);
+  auto kernel = dw5x5_ring<kKind, kSwish, kBias, kAuxOp>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo[4]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + kChunk - 1) / kChunk, batch * tiles);
-  const dim3 block(kChunk, warps_for(tile_h, W));
-  kernel<<<grid, block, smem, stream>>>(x, w, bias, xres, y, H, W, C, tile_h,
-                                        sdy, sdx, sc);
+  const int chunks = (a.C + kChunk - 1) / kChunk;
+  kernel<<<chunks * a.parts, kThreads, geo[4], stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool kSwish>
-cudaError_t launch_dw(const float* x, const float* g, float* partial,
-                      float* dw, float* db, int batch, int H, int W, int C,
-                      int n_parts, cudaStream_t stream) {
-  const int tile_h = tile_rows(H);
-  const int units = batch * ((H + tile_h - 1) / tile_h);
-  const int warps = warps_for(tile_h, W);
-  const size_t smem = ((size_t)(tile_h + 2 * kPad) * (W + 2 * kPad) * kChunk +
-                       (size_t)warps * kSums * kChunk) *
-                      sizeof(float);
-  auto kernel = dw5x5_dw_partial<kSwish>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((C + kChunk - 1) / kChunk, n_parts);
-  kernel<<<grid, dim3(kChunk, warps), smem, stream>>>(x, g, partial, H, W, C,
-                                                      tile_h, units);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 256;
-  const int blocks = (kSums * C + threads - 1) / threads;
-  dw5x5_dw_reduce<<<blocks, threads, 0, stream>>>(partial, dw, db, C, n_parts);
-  return cudaGetLastError();
-}
-
-bool bad_shape(int batch, int H, int W, int C) {
-  return batch <= 0 || H <= 0 || W <= 0 || C <= 0 ||
-         (long long)batch * ((H + kTileH - 1) / kTileH) > 65535;
+Args make_args(const void* src, const void* aux, const void* w,
+               const void* bias, void* out, int batch, int H, int W, int C,
+               long long sdy, long long sdx, long long sc) {
+  Args a{};
+  a.src = static_cast<const float*>(src);
+  a.aux = static_cast<const float*>(aux);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
+  a.sdy = sdy;
+  a.sdx = sdx;
+  a.sc = sc;
+  a.batch = batch;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  return a;
 }
 
 }  // namespace
 
 // x, y: (batch, H, W, C) contiguous fp32.  w: fp32 taps, element (dy, dx, c)
-// at w + dy * sdy + dx * sdx + c * sc.  bias: (C,) fp32 or null.
+// at w + dy * sdy + dx * sdx + c * sc.  bias: (C,) fp32 or null.  geo: the
+// launch geometry of the forward for this shape (see bad_launch).
 // Launches on `stream` of `device` and returns the cudaError_t of the launch.
 extern "C" int nvae_dw5x5_fwd(const void* x, const void* w, const void* bias,
                               void* y, int batch, int H, int W, int C,
                               long long sdy, long long sdx, long long sc,
-                              int fuse_swish, int device, void* stream) {
-  if (bad_shape(batch, H, W, C)) return (int)cudaErrorInvalidValue;
+                              int fuse_swish, const int* geo, int device,
+                              void* stream) {
+  if (bad_launch(geo, kFwd, batch, H, W, C)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(bias);
-  float* yf = static_cast<float*>(y);
+  const Args a = make_args(x, nullptr, w, bias, y, batch, H, W, C, sdy, sdx, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fuse_swish) {
-    err = bf ? launch_stencil<true, true, false, false>(
-                   xf, wf, bf, nullptr, yf, batch, H, W, C, sdy, sdx, sc, s)
-             : launch_stencil<true, false, false, false>(
-                   xf, wf, bf, nullptr, yf, batch, H, W, C, sdy, sdx, sc, s);
+    err = bias ? launch<kFwd, true, true, false>(a, geo, s)
+               : launch<kFwd, true, false, false>(a, geo, s);
   } else {
-    err = bf ? launch_stencil<false, true, false, false>(
-                   xf, wf, bf, nullptr, yf, batch, H, W, C, sdy, sdx, sc, s)
-             : launch_stencil<false, false, false, false>(
-                   xf, wf, bf, nullptr, yf, batch, H, W, C, sdy, sdx, sc, s);
+    err = bias ? launch<kFwd, false, true, false>(a, geo, s)
+               : launch<kFwd, false, false, false>(a, geo, s);
   }
   return (int)err;
 }
@@ -464,44 +612,42 @@ extern "C" int nvae_dw5x5_fwd(const void* x, const void* w, const void* bias,
 extern "C" int nvae_dw5x5_dx(const void* dy, const void* w, const void* x,
                              void* dx, int batch, int H, int W, int C,
                              long long sdy, long long sdx, long long sc,
-                             int device, void* stream) {
-  if (bad_shape(batch, H, W, C)) return (int)cudaErrorInvalidValue;
+                             const int* geo, int device, void* stream) {
+  if (bad_launch(geo, kDx, batch, H, W, C)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const float* gf = static_cast<const float*>(dy);
-  const float* wf = static_cast<const float*>(w);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(dx);
+  const Args a = make_args(dy, x, w, nullptr, dx, batch, H, W, C, sdy, sdx, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = xf ? launch_stencil<false, false, true, true>(
-                 gf, wf, nullptr, xf, of, batch, H, W, C, sdy, sdx, sc, s)
-           : launch_stencil<false, false, true, false>(
-                 gf, wf, nullptr, nullptr, of, batch, H, W, C, sdy, sdx, sc, s);
+  err = x ? launch<kDx, false, false, true>(a, geo, s)
+          : launch<kDx, false, false, false>(a, geo, s);
   return (int)err;
 }
 
 // dW/db of the fused op, in two launches.  x, dy: (batch, H, W, C)
-// contiguous fp32; partial: (n_parts, 26, C) fp32 scratch, 1 <= n_parts <=
-// 65535; dw: (25, C) fp32, tap dy * 5 + dx first; db: (C,) fp32 or null.
+// contiguous fp32; partial: (n_parts, 26, C) fp32 scratch, n_parts the
+// geometry's parts; dw: (25, C) fp32, tap dy * 5 + dx first; db: (C,) fp32
+// or null.
 extern "C" int nvae_dw5x5_dw(const void* x, const void* dy, void* partial,
                              void* dw, void* db, int batch, int H, int W,
-                             int C, int n_parts, int fuse_swish, int device,
-                             void* stream) {
-  if (bad_shape(batch, H, W, C) || n_parts < 1 || n_parts > 65535) {
+                             int C, int n_parts, int fuse_swish,
+                             const int* geo, int device, void* stream) {
+  if (bad_launch(geo, kDw, batch, H, W, C) || n_parts != geo[0]) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const float* xf = static_cast<const float*>(x);
-  const float* gf = static_cast<const float*>(dy);
-  float* pf = static_cast<float*>(partial);
-  float* wf = static_cast<float*>(dw);
-  float* bf = static_cast<float*>(db);
+  const Args a = make_args(x, dy, nullptr, nullptr, partial, batch, H, W, C,
+                           0, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = fuse_swish
-            ? launch_dw<true>(xf, gf, pf, wf, bf, batch, H, W, C, n_parts, s)
-            : launch_dw<false>(xf, gf, pf, wf, bf, batch, H, W, C, n_parts, s);
-  return (int)err;
+  err = fuse_swish ? launch<kDw, true, false, false>(a, geo, s)
+                   : launch<kDw, false, false, false>(a, geo, s);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  const int blocks = (kSums * C + threads - 1) / threads;
+  dw5x5_dw_reduce<<<blocks, threads, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw),
+      static_cast<float*>(db), C, n_parts);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* nvae_cuda_error_string(int err) {

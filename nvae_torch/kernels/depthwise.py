@@ -31,6 +31,7 @@ The kernels take fp32 only, for now: the bf16 path comes later.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -39,14 +40,26 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 K = 5
-_CHUNK = 32  # channels per block in the CUDA kernels
-_TILE_H = 8  # output rows per block in the CUDA kernels, at most
-_STRIP = 4  # output rows per thread item
-_MAX_WARPS = 8
+_CHUNK = 32  # channels per block in the CUDA kernels, one per lane
+_RUN = 4  # adjacent outputs along W per thread item
+_ROWS = 2  # adjacent output rows per thread item
+_HALO = K - 1  # zero ring slots per image (two above, two below)
+_WARPS = 8
+_THREADS = _WARPS * _CHUNK
 _SUMS = K * K + 1  # dW/db partials per channel: 25 taps and the bias
 _MAX_SMEM = 232_448  # bytes of shared memory one block may use on Hopper
-# dW/db stage 1 aims at this many blocks: 8 per SM of an H100's 132.
-_DW_TARGET_BLOCKS = 8 * 132
+# The H100 the schedule is laid out for: 132 SMs of 233,472 bytes of shared
+# memory, of which the runtime keeps 1 KB per block, and at most 4 blocks of
+# 256 threads per SM (``__launch_bounds__``: 64 registers a thread).
+_SMS = 132
+_SM_SMEM = 233_472
+_BLOCK_RESERVED_SMEM = 1024
+_MIN_BLOCKS = 4
+_MAX_AHEAD = 8  # passes of copies in flight, at most
+_IN_FLIGHT = 8_192  # bytes of copies a block keeps in flight, at least
+# A block's shared memory that still lets three share an SM.
+_OCC_SMEM = _SM_SMEM // 3 - _BLOCK_RESERVED_SMEM
+_KINDS = ("fwd", "dx", "dw")
 
 
 def _swish_grad(x: torch.Tensor) -> torch.Tensor:
@@ -112,14 +125,16 @@ def _lib() -> ctypes.CDLL:
 
     lib = library("depthwise5x5")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    geo = ctypes.POINTER(ctypes.c_int)
     lib.nvae_dw5x5_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, geo, i32,
+        ptr,
     ]
     lib.nvae_dw5x5_dx.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, geo, i32, ptr,
     ]
     lib.nvae_dw5x5_dw.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, geo, i32, ptr,
     ]
     for fn in (lib.nvae_dw5x5_fwd, lib.nvae_dw5x5_dx, lib.nvae_dw5x5_dw):
         fn.restype = ctypes.c_int
@@ -134,12 +149,103 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"depthwise5x5 {what} launch failed: {msg} ({err})")
 
 
-def _tile_h(h: int) -> int:
-    return min(h, _TILE_H)
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Launch geometry of one kernel at one (B, H, W, C) shape; see
+    ``csrc/depthwise5x5.cu``.  Block ``i`` of the grid is channel chunk
+    ``i // blocks_per_chunk`` and walks, in order, the batch rows of part
+    ``i % blocks_per_chunk``; its ring is filled ``slots_per_pass`` rows per
+    pass, ``ahead`` passes in flight."""
+
+    batch: int
+    chunks: int
+    blocks_per_chunk: int
+    slots_per_pass: int
+    ahead: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.blocks_per_chunk
+
+    def batch_rows(self, part: int) -> range:
+        """The batch rows part ``part`` walks, in order (as the kernel)."""
+        n = self.blocks_per_chunk
+        return range(part * self.batch // n, (part + 1) * self.batch // n)
+
+    def c_array(self):
+        """The geometry as the C entry points take it."""
+        return (ctypes.c_int * 5)(self.blocks_per_chunk, self.slots_per_pass,
+                                  self.ahead, self.threads, self.smem_bytes)
 
 
-def _warps(h: int, w: int) -> int:
-    return min(-(-_tile_h(h) // _STRIP) * w, _MAX_WARPS)
+def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int) -> int:
+    """A block's shared memory: the ring of (P + 1) G + 4 rows of (W' + 4) x
+    32 fp32, the aux ring of (P + 1) G rows of W' x 32 (dx, dW/db), W
+    rounded up to W' = whole runs of 4 outputs, and for dW/db at least the
+    warps' 26 sums (they alias the ring)."""
+    rows = (ahead + 1) * per_pass
+    padded = -(-w // _RUN) * _RUN
+    floats = (rows + _HALO) * (padded + _HALO) * _CHUNK
+    if kind != "fwd":
+        floats += rows * padded * _CHUNK
+    if kind == "dw":
+        floats = max(floats, _WARPS * _SUMS * _CHUNK)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(kind: str, shape: Tuple[int, int, int, int]) -> Geometry:
+    """The launch geometry of kernel ``kind`` at (B, H, W, C) ``shape``: a
+    pure function of the shape and of the constants above, so one shape
+    gets one schedule (and one set of dW bits) on any card.  The wrappers,
+    :func:`_check` and :func:`dw_parts` read it, and the C entry points
+    refuse a geometry whose shared bytes disagree with their own formula.
+
+    - slots per pass G (even: an item is two rows' run of 4 columns):
+      enough items for one per warp: 32 at 4x4 (four images), 12 at 8x8, 6
+      at 16x16, 4 at 32x32;
+    - passes ahead P: at least ``_IN_FLIGHT`` bytes of copies in flight;
+    - then G shrinks (2 at a time) until three blocks fit an SM
+      (``_OCC_SMEM``), and P and G until one fits at all;
+    - blocks: at most one wave at the occupancy the shared memory allows
+      (at most ``_MIN_BLOCKS`` per SM), the batch rows split evenly: as
+      few blocks as give the least rows per block, since a block's rows
+      set the kernel's time.  Part j of a chunk walks rows
+      [j B / n, (j + 1) B / n)."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    b, h, w, c = (int(s) for s in shape)
+    chunks = -(-c // _CHUNK)
+    runs = -(-w // _RUN)
+    per_pass = _ROWS * -(-_WARPS * (h + _HALO) // (h * runs))
+    # Bytes a pass copies from HBM: its H / (H + 4) real rows, and g or x
+    # beside them for dx and dW/db.
+    row_bytes = w * _CHUNK * 4 * (1 if kind == "fwd" else 2)
+    ahead = -(-_IN_FLIGHT * (h + _HALO) // (per_pass * h * row_bytes))
+    ahead = min(_MAX_AHEAD, max(1, ahead))
+
+    def smem():
+        return _smem_bytes(kind, w, per_pass, ahead)
+
+    while smem() > _OCC_SMEM and per_pass > _ROWS:
+        per_pass -= _ROWS
+    while smem() > _MAX_SMEM and (ahead > 1 or per_pass > _ROWS):
+        if ahead > 1:
+            ahead -= 1
+        else:
+            per_pass -= _ROWS
+    if smem() > _MAX_SMEM:
+        raise ValueError(
+            f"width {w} needs {smem()} B of shared memory per block, more "
+            f"than the {_MAX_SMEM} B a Hopper block may use"
+        )
+    per_sm = min(_MIN_BLOCKS, _SM_SMEM // (smem() + _BLOCK_RESERVED_SMEM))
+    cap = min(b, max(1, _SMS * per_sm // chunks))
+    rows = -(-b // cap)
+    return Geometry(b, chunks, -(-b // rows), per_pass, ahead, _THREADS,
+                    smem())
 
 
 def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
@@ -178,17 +284,8 @@ def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous in (B, H, W, C) order")
-    th = _tile_h(h)
-    if b * -(-h // th) > 65535:
-        raise ValueError(f"batch {b} x {h} rows exceeds the kernel's grid")
-    plane = (th + K - 1) * (w + K - 1) * _CHUNK
-    smem = 4 * max(K * K * _CHUNK + plane,  # the stencils
-                   plane + _warps(h, w) * _SUMS * _CHUNK)  # dW/db stage 1
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"width {w} needs {smem} B of shared memory per block, more "
-            f"than the {_MAX_SMEM} B a Hopper block may use"
-        )
+    for kind in _KINDS:
+        geometry(kind, (b, h, w, c))  # raises where the ring does not fit
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -210,7 +307,8 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor,
         x.data_ptr(), kernel.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         b, h, w, c, kernel.stride(0), kernel.stride(1), kernel.stride(3),
-        int(fuse_swish), x.device.index, _stream(x),
+        int(fuse_swish), geometry("fwd", (b, h, w, c)).c_array(),
+        x.device.index, _stream(x),
     )
     _raise_on(err, "forward")
     return y
@@ -248,7 +346,7 @@ def fused_swish_depthwise5x5_dx(
         dy.data_ptr(), kernel.data_ptr(),
         x.data_ptr() if fuse_swish else None, dx.data_ptr(),
         b, h, w, c, kernel.stride(0), kernel.stride(1), kernel.stride(3),
-        dy.device.index, _stream(dy),
+        geometry("dx", (b, h, w, c)).c_array(), dy.device.index, _stream(dy),
     )
     _raise_on(err, "dx")
     fused_swish_depthwise5x5_dx.launches += 1
@@ -259,13 +357,9 @@ fused_swish_depthwise5x5_dx.launches = 0
 
 
 def dw_parts(x_shape) -> int:
-    """Blocks along the batch axis of dW/db stage 1 (the partials' leading
-    size): enough, with the channel chunks, for ``_DW_TARGET_BLOCKS``, and no
-    more than there are (batch row, row tile) units."""
-    b, h, _, c = x_shape
-    units = b * -(-h // _tile_h(h))
-    chunks = -(-c // _CHUNK)
-    return max(1, min(units, -(-_DW_TARGET_BLOCKS // chunks)))
+    """Blocks per channel chunk of dW/db stage 1 (the partials' leading
+    size), from the dW/db launch geometry."""
+    return geometry("dw", tuple(int(s) for s in x_shape)).blocks_per_chunk
 
 
 def fused_swish_depthwise5x5_dw(
@@ -274,8 +368,8 @@ def fused_swish_depthwise5x5_dw(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dL/dkernel (5, 5, 1, C), dL/dbias (C,) or None) of the fused op,
     fp32, from its input ``x`` and ``dy``, NHWC.  On the card: two kernel
-    launches with no atomics (partial sums over (batch row, row tile) units
-    per block, then their sum in a fixed order), so two runs on the same
+    launches with no atomics (partial sums over each block's batch rows, then
+    their sum in a fixed order), so two runs on the same
     input give the same bits."""
     if x.device.type == "cpu":
         dk, db = fused_swish_depthwise5x5_dw_plain(x, dy, fuse_swish=fuse_swish)
@@ -283,7 +377,8 @@ def fused_swish_depthwise5x5_dw(
     _require_cuda(x)
     b, h, w, c = x.shape
     _check(x, None, None, dy)
-    n_parts = dw_parts(x.shape)
+    geo = geometry("dw", (b, h, w, c))
+    n_parts = geo.blocks_per_chunk
     partial = torch.empty(n_parts, _SUMS, c, device=x.device,
                           dtype=torch.float32)
     dk = torch.empty(K, K, 1, c, device=x.device, dtype=torch.float32)
@@ -292,7 +387,7 @@ def fused_swish_depthwise5x5_dw(
     err = _lib().nvae_dw5x5_dw(
         x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dk.data_ptr(),
         db.data_ptr() if with_bias else None, b, h, w, c, n_parts,
-        int(fuse_swish), x.device.index, _stream(x),
+        int(fuse_swish), geo.c_array(), x.device.index, _stream(x),
     )
     _raise_on(err, "dW/db")
     fused_swish_depthwise5x5_dw.launches += 1

@@ -47,8 +47,12 @@ def _inputs(shape, device, seed=0):
 @pytest.mark.parametrize("shape,with_bias", [
     ((4, 4, 4, 1536), True), ((4, 8, 8, 768), True),
     ((4, 16, 16, 384), False), ((4, 32, 32, 192), False),
-    ((3, 6, 10, 40), True),  # ragged strip and channel chunk
-    ((2, 21, 9, 32), False),  # ragged tile
+    ((3, 6, 10, 40), True),  # ragged run and channel chunk
+    ((2, 21, 9, 32), False),  # ragged run, odd H
+    ((1, 3, 7, 6), True),  # batch 1, H < 5, C % 4 != 0 (4-byte copies)
+    ((2, 9, 3, 36), False),  # W < 5
+    ((3, 2, 2, 70), True),  # H and W < 5, C % 4 != 0
+    ((3, 13, 14, 40), True),  # four runs, odd H: pairs cross images
 ])
 def test_cuda_kernel_matches_plain(cuda_device, shape, with_bias):
     x, k, b = _inputs(shape, cuda_device)
@@ -97,8 +101,12 @@ def test_cuda_sampler_matches_cpu(cuda_device, depthwise):
 BACKWARD_SHAPES = [
     ((4, 4, 4, 1536), True), ((4, 8, 8, 768), True),
     ((4, 16, 16, 384), False), ((4, 32, 32, 192), False),
-    ((3, 6, 10, 40), True),  # ragged strip and channel chunk
-    ((2, 21, 9, 32), False),  # ragged tile
+    ((3, 6, 10, 40), True),  # ragged run and channel chunk
+    ((2, 21, 9, 32), False),  # ragged run, odd H
+    ((1, 3, 7, 6), True),  # batch 1, H < 5, C % 4 != 0 (4-byte copies)
+    ((2, 9, 3, 36), False),  # W < 5
+    ((3, 2, 2, 70), True),  # H and W < 5, C % 4 != 0
+    ((3, 13, 14, 40), True),  # four runs, odd H: pairs cross images
 ]
 
 

@@ -1,6 +1,6 @@
-"""The port stands alone: nothing in ``nvae_torch`` or ``chip_smoke.py``
-imports JAX or the JAX package, importing the port loads no JAX, and no entry
-point runs on the CPU unless asked to."""
+"""The port stands alone: nothing in ``nvae_torch``, ``chip_smoke.py`` or
+``chip_ring_probe.py`` imports JAX or the JAX package, importing the port
+loads no JAX, and no entry point runs on the CPU unless asked to."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nvae_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, n)
+             for n in ("chip_smoke.py", "chip_ring_probe.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "nvae_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -161,8 +161,8 @@ def test_wrapper_checks(case, exc, match):
         x = x.double()
     elif case == "strided_x":
         x = torch.zeros(2, 32, 8, 8).permute(0, 2, 3, 1)
-    elif case == "plane":
-        x = torch.zeros(1, 8, 512, 32)
+    elif case == "plane":  # the first width whose dW/db ring does not fit
+        x = torch.zeros(1, 8, 149, 32)
     elif case == "operand_shape":
         others = (torch.zeros(2, 8, 4, 32),)
     elif case == "operand_strided":
@@ -173,10 +173,71 @@ def test_wrapper_checks(case, exc, match):
 
 def test_path_shapes_fit_one_block():
     """Every shape of the sampling and training path fits the kernels'
-    shared memory, and dW/db's stage 1 has between 1 and one block per
-    (batch row, row tile) unit along its batch axis."""
+    shared memory (the rings of the geometry), and dW/db's stage 1 has
+    between 1 and one block per batch row along its batch axis."""
     for h, c in ((4, 1536), (8, 768), (16, 384), (32, 192)):
         x = torch.empty(144, h, h, c, device="meta")
         tdw._check(x, torch.empty(5, 5, 1, c, device="meta"), None, x)
-        units = 144 * -(-h // min(h, 8))
-        assert 1 <= tdw.dw_parts(x.shape) <= units
+        for kind in ("fwd", "dx", "dw"):
+            geo = tdw.geometry(kind, tuple(x.shape))
+            assert geo.smem_bytes == tdw._smem_bytes(
+                kind, h, geo.slots_per_pass, geo.ahead) <= tdw._MAX_SMEM
+        assert 1 <= tdw.dw_parts(x.shape) <= 144
+    # The widest plane every kind takes: 148 columns (dW/db's two rings of
+    # 2 slots per pass, 1 pass ahead).
+    tdw._check(torch.empty(1, 8, 148, 32, device="meta"), None, None)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdw._check(torch.empty(1, 8, 149, 32, device="meta"), None, None)
+
+
+# The path shapes at every batch the paths give the kernels, and ragged ones
+# (channel chunk, W not a multiple of the run, C % 4 != 0, H and W < 5).
+GEOMETRY_SHAPES = [
+    (n, h, h, c) for h, c in ((4, 1536), (8, 768), (16, 384), (32, 192))
+    for n in (144, 576, 12, 4, 3)
+] + [(3, 6, 10, 40), (2, 21, 9, 32), (1, 3, 7, 6), (2, 9, 3, 36),
+     (3, 2, 2, 70), (3, 13, 14, 40), (1, 8, 148, 32)]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
+def test_geometry_covers_every_row_once(shape, kind):
+    """The grid's blocks cover each (batch row, channel chunk) exactly once,
+    each block its rows in increasing order; the ring fits a block and the
+    grid is at most one wave at the occupancy its shared memory allows
+    (unless the chunks alone need more)."""
+    geo = tdw.geometry(kind, shape)
+    b, _, _, c = shape
+    # Grid block i: chunk i // blocks_per_chunk, part i % blocks_per_chunk.
+    work = [(i // geo.blocks_per_chunk,
+             geo.batch_rows(i % geo.blocks_per_chunk))
+            for i in range(geo.blocks)]
+    pairs = [(chunk, row) for chunk, rows in work for row in rows]
+    assert sorted(pairs) == [(k, r) for k in range(-(-c // 32))
+                             for r in range(b)]
+    assert len(set(pairs)) == len(pairs)
+    assert all(list(rows) == sorted(rows) and len(rows) > 0
+               for _, rows in work)
+    assert geo.smem_bytes < 232_448
+    assert geo.threads == 256 and 1 <= geo.ahead <= 8
+    assert geo.slots_per_pass >= 2 and geo.slots_per_pass % 2 == 0
+    per_sm = min(4, 233_472 // (geo.smem_bytes + 1024))
+    assert geo.blocks <= max(132 * per_sm, geo.chunks)
+    assert tdw.geometry.__wrapped__(kind, shape) == geo
+
+
+def test_geometry_needs_no_device(monkeypatch):
+    """The schedule is a function of the shape alone: computed with every
+    device query broken, it equals the cached one."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("geometry queried a device")
+
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device", "get_device_name"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    for shape in GEOMETRY_SHAPES:
+        for kind in ("fwd", "dx", "dw"):
+            assert tdw.geometry.__wrapped__(kind, shape) == tdw.geometry(
+                kind, shape)
+    with pytest.raises(ValueError, match="kind"):
+        tdw.geometry("dy", (1, 4, 4, 32))
