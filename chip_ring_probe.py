@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What holds the depthwise ring kernels back, measured on one NVIDIA GPU.
+"""What holds the depthwise ring kernels and the SE gate back, on one NVIDIA GPU.
 
 Run from the repository root (needs a CUDA card and ``nvcc``)::
 
@@ -21,8 +21,30 @@ directly with the launch geometry of ``depthwise.geometry``:
 
 First it prints each ring kernel's SASS instruction counts
 (``cuobjdump -sass``); then ``as_is`` runs over a sweep of slots per pass G
-and passes ahead P.  Prints one line per measurement and, last, the card's
-name and power limit.
+and passes ahead P.
+
+Then, the same way, variants of ``nvae_torch/kernels/csrc/se_gate.cu``
+(kernel #5) at the model's four SE shapes at B=144, through its C entry with
+``se_gate.geometry``:
+
+- ``as_is``: the source as it is;
+- ``no_exchange``: the cluster barriers become block barriers and no
+  first-layer sum is sent or awaited (the other rows of ``hpart`` are left
+  as they are): the time without the exchange;
+- ``no_loads``: the pixel slice is not copied, so the block pools and
+  gates whatever its shared memory holds: the time without reading x;
+- ``no_store``: y is not written;
+- ``empty``: the kernel returns at once: the launch alone;
+- ``no_weights``: w1 and w2 are not copied;
+- ``no_pool``: the pool's loop over the slice is skipped;
+- ``no_dense``: both dense layers' products are skipped (the exchange
+  still runs);
+- ``skeleton``: ``no_exchange``, ``no_loads`` and ``no_store`` together.
+
+``as_is`` and ``skeleton`` also run at other cluster and block sizes.
+
+``python3 chip_ring_probe.py --se`` runs only the gate's part.  Prints one
+line per measurement and, last, the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,18 +76,63 @@ VARIANTS = {
 }
 
 
-def build(tmp: str) -> dict:
+SE_VARIANTS = {
+    "as_is": [],
+    "no_exchange": [
+        ("        send_async(map_rank(smem_addr(own + j), r), s, "
+         "map_rank(xbar, r));\n", ""),
+        ("  if (k > 1) wait_parity0(xbar);\n", ""),
+        ('asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: '
+         '"memory");', "__syncthreads();"),
+        ('asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: '
+         '"memory");', ""),
+    ],
+    "no_loads": [("if (a.vec_in && t == 0) {", "if (a.vec_in && t < 0) {"),
+                 ("if (a.vec_in) wait_parity0(bar);", ""),
+                 ("if (!a.vec_in) {", "if (false) {")],
+    "no_store": [("reinterpret_cast<float4*>(yr)[i] = v;",
+                  "if (v.x == 1234.5f) reinterpret_cast<float4*>(yr)[i] = v;")],
+}
+SE_VARIANTS["empty"] = [
+    ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n",
+     "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+     "  if (a.k > 0) return;\n")]
+SE_VARIANTS["no_weights"] = [
+    ("  for (int i = t; i < C * Hd; i += kThreads) copy4_async(w1s + i, "
+     "a.w1 + i);\n", ""),
+    ("  for (int i = t; i < Hd * C; i += kThreads) copy4_async(w2s + i, "
+     "a.w2 + i);\n", "")]
+SE_VARIANTS["no_pool"] = [
+    ("    for (int col = t - g * W; col < W; col += kThreads) {",
+     "    for (int col = t - g * W; col < 0; col += kThreads) {")]
+# The exchange's loop stays: a block that sends nothing would leave the
+# others waiting.
+SE_VARIANTS["no_dense"] = [
+    ("  for (int f = t; f < Q * Hd; f += kThreads) {",
+     "  for (int f = t; f < 0; f += kThreads) {"),
+    ("  for (int c = t; c < C; c += kThreads) {\n    const float* w = w2s",
+     "  for (int c = t; c < 0; c += kThreads) {\n    const float* w = w2s")]
+# All three at once: the launch, the weight copies and the arithmetic.
+SE_VARIANTS["skeleton"] = (SE_VARIANTS["no_exchange"] + SE_VARIANTS["no_loads"]
+                           + SE_VARIANTS["no_store"])
+
+
+def compile_variants(tmp: str, source: str, variants: dict) -> dict:
+    """Each variant of ``csrc/<source>`` (text substitutions) built into
+    ``tmp``, one ``nvcc`` each, all started together; returns the loaded
+    libraries by variant name."""
     from nvae_torch.kernels import _build
 
-    src = open(os.path.join(_build.CSRC_DIR, "depthwise5x5.cu")).read()
+    src = open(os.path.join(_build.CSRC_DIR, source)).read()
+    stem = source.split(".")[0]
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name}: source text not found")
             text = text.replace(old, new)
-        path = os.path.join(tmp, name)
+        path = os.path.join(tmp, f"{stem}_{name}")
         with open(f"{path}.cu", "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
@@ -73,21 +140,72 @@ def build(tmp: str) -> dict:
              f"{path}.cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
     libs = {}
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    geo = ctypes.POINTER(ctypes.c_int)
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
+            raise RuntimeError(f"nvcc failed for {stem} {name}:\n{out}")
+        libs[name] = ctypes.CDLL(os.path.join(tmp, f"{stem}_{name}.so"))
+    return libs
+
+
+def build(tmp: str) -> dict:
+    libs = compile_variants(tmp, "depthwise5x5.cu", VARIANTS)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    geo = ctypes.POINTER(ctypes.c_int)
+    for lib in libs.values():
         lib.nvae_dw5x5_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                        i64, i64, i64, i32, geo, i32, ptr]
         lib.nvae_dw5x5_dx.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                       i64, i64, i64, geo, i32, ptr]
         lib.nvae_dw5x5_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                       i32, i32, i32, geo, i32, ptr]
-        libs[name] = lib
     return libs
+
+
+def se_probe(tmp: str, device) -> None:
+    """Kernel #5's variants at the model's SE shapes, as ``chip_smoke.py``
+    times the gate (input sets over twice the L2 cache)."""
+    import chip_smoke as cs
+    from nvae_torch.kernels import se_gate as se
+
+    libs = compile_variants(tmp, "se_gate.cu", SE_VARIANTS)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.nvae_se_gate.argtypes = [ptr] * 6 + [i32] * 4 + [
+            ctypes.POINTER(ctypes.c_int), i32, ptr]
+
+    def call(lib, geo, x, w1, b1, w2, b2):
+        y = torch.empty_like(x)
+        err = lib.nvae_se_gate(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), y.data_ptr(), geo.batch, geo.hw, geo.c, geo.hd,
+            geo.c_array(), 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"se_gate launch failed ({err})")
+
+    for h, c, hd in cs.SE_SHAPES:
+        n = BATCH * h * h * c
+        n_sets = int(2 * cs.L2_BYTES // (4 * n)) + 1
+        sets = [cs.se_inputs(BATCH, h, h, c, hd, device, seed=s)
+                for s in range(n_sets)]
+        geo = se.geometry(BATCH, h * h, c, hd)
+        # The rule's (cluster size, threads), then the others.
+        rule = (geo.cluster, geo.threads)
+        for k, threads in dict.fromkeys((rule, (1, 256), (1, 128), (2, 128),
+                                         (4, 128), (8, 128))):
+            for name, lib in libs.items():
+                if (k, threads) != rule and name not in ("as_is", "skeleton"):
+                    continue
+                alt = dataclasses.replace(
+                    geo, cluster=k, threads=threads,
+                    smem_bytes=se._smem_bytes(h * h, c, hd, k, threads))
+                ms = cs.time_ms(lambda *a: call(lib, alt, *a), sets,
+                                max(40, n_sets))[0]
+                print(f"se_gate {BATCH}x{h}x{h}x{c} {name} k={k} "
+                      f"threads={threads}: "
+                      f"{ms * 1e3:.2f} us (resident clusters "
+                      f"{se.max_active_clusters(alt)})", flush=True)
+        del sets
 
 
 def sass_counts(so_path: str) -> None:
@@ -164,46 +282,53 @@ def main() -> int:
         print("chip_ring_probe: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    from nvae_torch.kernels import depthwise as dw
-
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp)
-        sass_counts(os.path.join(tmp, "as_is.so"))
-        for h, c in SHAPES:
-            shape = (BATCH, h, h, c)
-            n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
-            sets = []
-            for s in range(n_sets):
-                x, k, _ = cs.path_inputs(h, c, False, device, seed=s)
-                g = cs.path_inputs(h, c, False, device, seed=100 + s)[0]
-                sets.append((x, k, g))
-            for kind in ("thin", "fused", "dx", "dw"):
-                gkind = "fwd" if kind in ("thin", "fused") else kind
-                geo = dw.geometry(gkind, shape)
-                for name, lib in libs.items():
-                    ms = cs.time_ms(lambda x, k, g: call(lib, kind, geo, x, k,
-                                                         g), sets)[0]
-                    print(f"{kind} {BATCH}x{h}x{h}x{c} {name} "
-                          f"G={geo.slots_per_pass} P={geo.ahead}: "
-                          f"{ms * 1e3:.1f} us", flush=True)
-                for per_pass in (2, 4, 6, 8, 12, 16, 24, 32):
-                    for ahead in (1, 2):
-                        alt = with_passes(geo, gkind, shape, per_pass, ahead)
-                        if alt is None or alt == geo:
-                            continue
-                        ms = cs.time_ms(lambda x, k, g: call(
-                            libs["as_is"], kind, alt, x, k, g), sets)[0]
-                        print(f"{kind} {BATCH}x{h}x{h}x{c} sweep G={per_pass}"
-                              f" P={ahead} blocks={alt.blocks}: "
-                              f"{ms * 1e3:.1f} us", flush=True)
-            del sets
+        if "--se" not in sys.argv[1:]:
+            ring_probe(tmp, device)
+        se_probe(tmp, device)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     return 0
+
+
+def ring_probe(tmp: str, device) -> None:
+    """Kernels #1-#4: SASS counts, the variants, and the (G, P) sweep."""
+    import chip_smoke as cs
+    from nvae_torch.kernels import depthwise as dw
+
+    libs = build(tmp)
+    sass_counts(os.path.join(tmp, "depthwise5x5_as_is.so"))
+    for h, c in SHAPES:
+        shape = (BATCH, h, h, c)
+        n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
+        sets = []
+        for s in range(n_sets):
+            x, k, _ = cs.path_inputs(h, c, False, device, seed=s)
+            g = cs.path_inputs(h, c, False, device, seed=100 + s)[0]
+            sets.append((x, k, g))
+        for kind in ("thin", "fused", "dx", "dw"):
+            gkind = "fwd" if kind in ("thin", "fused") else kind
+            geo = dw.geometry(gkind, shape)
+            for name, lib in libs.items():
+                ms = cs.time_ms(lambda x, k, g: call(lib, kind, geo, x, k,
+                                                     g), sets)[0]
+                print(f"{kind} {BATCH}x{h}x{h}x{c} {name} "
+                      f"G={geo.slots_per_pass} P={geo.ahead}: "
+                      f"{ms * 1e3:.1f} us", flush=True)
+            for per_pass in (2, 4, 6, 8, 12, 16, 24, 32):
+                for ahead in (1, 2):
+                    alt = with_passes(geo, gkind, shape, per_pass, ahead)
+                    if alt is None or alt == geo:
+                        continue
+                    ms = cs.time_ms(lambda x, k, g: call(
+                        libs["as_is"], kind, alt, x, k, g), sets)[0]
+                    print(f"{kind} {BATCH}x{h}x{h}x{c} sweep G={per_pass}"
+                          f" P={ahead} blocks={alt.blocks}: "
+                          f"{ms * 1e3:.1f} us", flush=True)
+        del sets
 
 
 if __name__ == "__main__":

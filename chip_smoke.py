@@ -12,7 +12,9 @@ each raising on failure (nothing is caught):
 1. build: compiles every CUDA source of the port with ``nvcc`` (one process
    per source, started together) into ``nvae_torch/kernels/_build/``, and
    logs each kernel's registers, spills and static shared bytes (``ptxas
-   -v``) and the depthwise ring's launch geometry at each path shape;
+   -v``), the depthwise ring's launch geometry at each path shape, and the
+   gate's clusters at each SE shape beside the clusters the card holds at
+   once (``cudaOccupancyMaxActiveClusters``);
 2. kernels: each kernel against its plain PyTorch version at every shape of
    the sampling and training paths, fp32, at every batch the paths give it
    (the forwards at 144, 576, 12, 4 and 3; dx and dW/db at 144 and 4): the
@@ -20,9 +22,11 @@ each raising on failure (nothing is caught):
    dW/db (with and without bias) at 1e-4 of the largest |dW| and bitwise
    across two runs;
    the fused op's gradients on the card against the CPU Function; and the
-   squeeze-excitation gate (#5) at the model's four SE shapes, JAX's test
-   shape and a ragged one at atol 1e-5, bitwise across two runs, refusing
-   an input that requires grad;
+   squeeze-excitation gate (#5) at the model's four SE shapes, the extra
+   shapes (ragged pixel counts, C % 4 != 0, batch 1, the most channels a
+   block takes) and with x off 16-byte alignment, at atol 1e-5, bitwise
+   across two runs, refusing an input that requires grad and one channel
+   too many;
 3. sampler: the full-width MNIST sampler (``ModelConfig()``, seeded
    Flax-style init with random BatchNorm running statistics) in the default
    and the depthwise-postprocess configuration: the fused kernel's launches
@@ -71,7 +75,7 @@ The last three lines of standard output are the card's name and power limit
 prints no result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` only builds and times kernels
-#1-#4 of the tree at ROOT (phase 9's kernel timing), printing one JSON line;
+#1-#5 of the tree at ROOT (phase 9's kernel timing), printing one JSON line;
 run it on two trees in one call to compare two versions on one card.
 """
 
@@ -96,6 +100,8 @@ BATCH = 144
 # NVIDIA H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+L2_BYTES = 50e6
+SMS = 132
 KERNEL_ATOL = 2e-5
 DW_RTOL = 1e-4  # of the largest |dW|: sums of up to 147k products
 # Card against CPU through the whole 40-layer chain: fp32 on both, other
@@ -133,9 +139,15 @@ DW_KERNEL_NAMES = ("fused_swish_depthwise5x5", "depthwise_conv5x5",
                    "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw")
 KERNEL_NAMES = DW_KERNEL_NAMES + ("se_gate",)
 # (H = W, C, hidden) of the model's squeeze-excitation blocks (kernel #5),
-# at batch BATCH; then JAX's test shape and a ragged one (B, H, W, C, hidden).
+# at batch BATCH; then (B, H, W, C, hidden): JAX's test shape; H * W = 63
+# and 25, not multiples of the cluster size; C % 4 != 0 at 32x32 (the
+# 4-byte copies); batch 1; and the most channels a block takes at 8x8 with
+# hidden 4 (SE_MAX_C + 1 is refused).
 SE_SHAPES = [(4, 256, 16), (8, 128, 8), (16, 64, 4), (32, 32, 4)]
-SE_EXTRA_SHAPES = [(4, 8, 8, 128, 8), (3, 7, 9, 40, 4)]
+SE_MAX_C = 2896
+SE_EXTRA_SHAPES = [(4, 8, 8, 128, 8), (3, 7, 9, 40, 4), (2, 5, 5, 64, 4),
+                   (2, 32, 32, 5, 4), (1, 16, 16, 64, 4),
+                   (1, 8, 8, SE_MAX_C, 4)]
 SE_ATOL = 1e-5  # tests/test_kernels.py's limit
 # The shapes tools/bench_dw_kernel.py times kernel #2 at (no bias).
 TOOL_SHAPES = [(32, 192), (16, 192), (4, 1536)]
@@ -222,6 +234,7 @@ def ptxas_entries(text: str) -> list:
 def phase_build():
     from nvae_torch.kernels import _build
     from nvae_torch.kernels import depthwise as dw
+    from nvae_torch.kernels import se_gate as se
 
     t0 = time.monotonic()
     logs = _build.build()
@@ -238,6 +251,15 @@ def phase_build():
                 f"dynamic shared, {g.blocks} blocks ({g.blocks_per_chunk} "
                 f"per chunk), {g.slots_per_pass} rows per pass, {g.ahead} "
                 "passes ahead")
+    # The gate's clusters at each SE shape, and how many the card holds at
+    # once against the rows that need one each.
+    for h, c, hd in SE_SHAPES:
+        g = se.geometry(BATCH, h * h, c, hd)
+        log(f"  se_gate {BATCH}x{h}x{h}x{c} (hidden {hd}): clusters of "
+            f"{g.cluster} blocks of {g.threads} threads, {g.blocks} blocks "
+            f"({g.blocks / SMS:.2f} per SM), {g.smem_bytes} B dynamic shared, "
+            f"pixels per block {len(g.pixels(0))}-{len(g.pixels(g.cluster - 1))}"
+            f"; resident clusters {se.max_active_clusters(g)} for {BATCH} rows")
 
 
 # ---- phase 2 ----------------------------------------------------------------
@@ -602,30 +624,45 @@ def se_inputs(b, h, w, c, hd, device, seed=0):
     return (x, *weights)
 
 
+def offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a buffer one float longer, starting at its second
+    float: contiguous, but 4 bytes off the 16-byte alignment."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view_as(x)
+    out.copy_(x)
+    return out
+
+
 def phase_se_gate(device) -> dict:
     """Kernel #5 against its plain version at the model's SE shapes (batch
-    BATCH), JAX's test shape and a ragged shape: atol SE_ATOL, bitwise
-    across two runs; an input that requires grad raises.  Returns the
-    errors per shape."""
+    BATCH), then the SE_EXTRA_SHAPES, then the model's 8x8 shape with x 4
+    bytes off alignment (the 4-byte copy path): atol SE_ATOL, bitwise
+    across two runs.  An input that requires grad raises, and so does one
+    channel more than SE_MAX_C.  Returns the errors per case."""
     from nvae_torch.device import fp32_math
     from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
 
     errs = {}
-    shapes = [(BATCH, h, h, c, hd) for h, c, hd in SE_SHAPES] + SE_EXTRA_SHAPES
-    for shape in shapes:
+    cases = [((BATCH, h, h, c, hd), False) for h, c, hd in SE_SHAPES]
+    cases += [(shape, False) for shape in SE_EXTRA_SHAPES]
+    cases.append(((BATCH, 8, 8, 128, 8), True))
+    for shape, offset in cases:
         args = se_inputs(*shape, device)
+        if offset:
+            args = (offset_copy(args[0]), *args[1:])
         got, again = se_gate(*args), se_gate(*args)
         with fp32_math():
             want = se_gate_reference(*args)
         torch.cuda.synchronize(device)
         err = float((got - want).abs().max())
-        log(f"kernel se_gate {shape}: max abs err {err:.3g} (atol {SE_ATOL})"
+        label = f"{shape}{' x 4 bytes off alignment' if offset else ''}"
+        log(f"kernel se_gate {label}: max abs err {err:.3g} (atol {SE_ATOL})"
             f", bitwise repeatable {torch.equal(got, again)}")
         if not torch.equal(got, again):
-            raise AssertionError(f"se_gate {shape}: two runs differ")
+            raise AssertionError(f"se_gate {label}: two runs differ")
         if not err <= SE_ATOL:
-            raise AssertionError(f"se_gate {shape}: err {err} > {SE_ATOL}")
-        errs[shape] = err
+            raise AssertionError(f"se_gate {label}: err {err} > {SE_ATOL}")
+        errs[(*shape, offset)] = err
     x = args[0].clone().requires_grad_()
     try:
         se_gate(x, *args[1:])
@@ -633,6 +670,12 @@ def phase_se_gate(device) -> dict:
         log(f"kernel se_gate: an input that requires grad raises ({e})")
     else:
         raise AssertionError("se_gate took an input that requires grad")
+    try:
+        se_gate(*se_inputs(1, 8, 8, SE_MAX_C + 1, 4, device))
+    except ValueError as e:
+        log(f"kernel se_gate: {SE_MAX_C + 1} channels at 8x8 raise ({e})")
+    else:
+        raise AssertionError(f"se_gate took {SE_MAX_C + 1} channels at 8x8")
     return errs
 
 
@@ -1092,7 +1135,9 @@ def phase_se_timing(device) -> list:
     written once, the weights read once; the pool's adds, the gate's
     multiplies and the dense layers' 4 C Hd per row, over the fp32 rate),
     its plain version and the port's eager ``SqueezeExcitation`` module on
-    the same map.  No single PyTorch call computes the gate."""
+    the same map.  No single PyTorch call computes the gate.  The input
+    sets hold more than twice the L2 cache of x, and every set is called
+    once per cycle, so each call reads its x from HBM."""
     from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
     from nvae_torch.nn.blocks import SqueezeExcitation
 
@@ -1100,22 +1145,26 @@ def phase_se_timing(device) -> list:
     with torch.no_grad():
         for h, c, hd in SE_SHAPES:
             n = BATCH * h * h * c
-            n_sets = max(2, min(8, math.ceil(200e6 / (8 * n))))
+            n_sets = int(2 * L2_BYTES // (4 * n)) + 1
+            iters = max(40, n_sets)
             sets = [se_inputs(BATCH, h, h, c, hd, device, seed=s)
                     for s in range(n_sets)]
             module = SqueezeExcitation(c).to(device)
             nchw = [(x.permute(0, 3, 1, 2),) for x, *_ in sets]
-            ms, eager = time_ms(se_gate, sets)
+            ms, eager = time_ms(se_gate, sets, iters)
             nbytes = 4 * (2 * n + 2 * c * hd + hd + c)
             flops = 2 * n + BATCH * (4 * c * hd + hd + 5 * c)
             row = {"shape": [BATCH, h, h, c, hd], "ms": ms, "eager_ms": eager,
-                   "plain_ms": time_ms(se_gate_reference, sets)[0],
-                   "module_ms": time_ms(module, nchw)[0],
+                   "sets": n_sets, "x_mb_in_sets": 4 * n * n_sets / 1e6,
+                   "plain_ms": time_ms(se_gate_reference, sets, iters)[0],
+                   "module_ms": time_ms(module, nchw, iters)[0],
                    "bound": (1e3 * nbytes / HBM_BYTES_PER_S,
                              1e3 * flops / FP32_FLOP_PER_S)}
-            log(f"timing se_gate {BATCH}x{h}x{h}x{c} (hidden {hd}): kernel "
+            log(f"timing se_gate {BATCH}x{h}x{h}x{c} (hidden {hd}), {n_sets} "
+                f"sets ({row['x_mb_in_sets']:.1f} MB of x): kernel "
                 f"{ms * 1e3:.2f} us (eager {eager * 1e3:.2f} us), bound "
-                f"{max(row['bound']) * 1e3:.2f} us, plain "
+                f"{max(row['bound']) * 1e3:.2f} us (share "
+                f"{max(row['bound']) / ms:.2f}), plain "
                 f"{row['plain_ms'] * 1e3:.2f} us, SqueezeExcitation "
                 f"{row['module_ms'] * 1e3:.2f} us")
             rows.append(row)
@@ -1222,6 +1271,16 @@ def phase_profile(samplers, trainers) -> dict:
     return out
 
 
+def se_geometry(shape) -> dict:
+    """The gate's launch geometry at a (B, H, W, C, hidden) shape."""
+    from nvae_torch.kernels.se_gate import geometry
+
+    b, h, w, c, hd = shape
+    g = geometry(b, h * w, c, hd)
+    return {"cluster": g.cluster, "blocks": g.blocks, "threads": g.threads,
+            "smem_bytes": g.smem_bytes}
+
+
 def se_record(se_errs, launches, se_timing) -> dict:
     """Kernel #5's record: times and bounds summed over one call at each of
     the model's four SE shapes."""
@@ -1243,7 +1302,8 @@ def se_record(se_errs, launches, se_timing) -> dict:
         "shapes": [{"shape": r["shape"], "ms": r["ms"],
                     "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
                     "module_ms": r["module_ms"],
-                    "bound_ms": max(r["bound"])} for r in se_timing],
+                    "bound_ms": max(r["bound"]), "sets": r["sets"],
+                    "geometry": se_geometry(r["shape"])} for r in se_timing],
     }
 
 
@@ -1301,20 +1361,21 @@ def kernel_records(errs, launches, timing, bwd_timing) -> list:
 
 
 def kernel_times(root: str) -> None:
-    """Times kernels #1-#4 of the ``nvae_torch`` found under ``root`` at the
-    path shapes, as phase 9 does, and prints them as one JSON line: run it
-    on two trees in one call (parent, change, change, parent) to compare
-    two versions of the kernels on one card."""
+    """Times kernels #1-#5 of the ``nvae_torch`` found under ``root`` at the
+    path and SE shapes, as phase 9 does, and prints them as one JSON line:
+    run it on two trees in one call (parent, change, change, parent) to
+    compare two versions of the kernels on one card."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import nvae_torch  # noqa: F401
     from nvae_torch.kernels import _build
 
     log(f"kernel times of {os.path.dirname(nvae_torch.__file__)}")
-    _build.build(["depthwise5x5"])
+    _build.build(["depthwise5x5", "se_gate"])
     device = torch.device("cuda", 0)
     out = {"root": root, "forward": phase_forward_timing(device),
-           "backward": phase_backward_timing(device)}
+           "backward": phase_backward_timing(device),
+           "se_gate": phase_se_timing(device)}
     print(json.dumps(out), flush=True)
 
 
@@ -1324,7 +1385,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--kernel-times", metavar="ROOT",
-        help="only time kernels #1-#4 of the repository tree at ROOT")
+        help="only time kernels #1-#5 of the repository tree at ROOT")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",

@@ -213,20 +213,37 @@ def test_cuda_train_step_matches_cpu(cuda_device, depthwise):
         assert float((sd_gpu[k] - sd_cpu[k]).abs().max()) <= tol, k
 
 
-@pytest.mark.parametrize("shape", [
-    (4, 8, 8, 128, 8), (6, 4, 4, 256, 16), (5, 32, 32, 32, 4),
-    (3, 7, 9, 40, 4),  # channels not a multiple of 32, odd H * W
-    (2, 1, 1, 5, 4),
-])
-def test_cuda_se_gate_matches_plain(cuda_device, shape):
-    from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
-
+def _se_args(shape, device):
     b, h, w, c, hd = shape
     rng = np.random.RandomState(c)
     arrays = (rng.randn(b, h, w, c), 0.1 * rng.randn(c, hd),
               0.1 * rng.randn(hd), 0.1 * rng.randn(hd, c), 0.1 * rng.randn(c))
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device)
-            for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+SE_MAX_C = 2896  # the most channels the gate takes at 8x8 with hidden 4
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((4, 8, 8, 128, 8), False), ((6, 4, 4, 256, 16), False),
+    ((5, 32, 32, 32, 4), False),
+    ((3, 7, 9, 40, 4), False),  # channels not a multiple of 32, odd H * W
+    ((2, 1, 1, 5, 4), False),
+    ((2, 5, 5, 64, 4), False),  # H * W = 25: not a multiple of the cluster
+    ((2, 32, 32, 5, 4), False),  # C % 4 != 0 at a large H * W: 4-byte copies
+    ((1, 16, 16, 64, 4), False),  # batch 1
+    ((3, 8, 8, 128, 8), True),  # x 4 bytes off alignment: 4-byte copies
+    ((1, 8, 8, SE_MAX_C, 4), False),  # the most channels a block takes
+])
+def test_cuda_se_gate_matches_plain(cuda_device, shape, offset):
+    from nvae_torch.kernels.se_gate import se_gate, se_gate_reference
+
+    b, h, w, c, hd = shape
+    args = _se_args(shape, cuda_device)
+    if offset:
+        buf = torch.empty(args[0].numel() + 1, device=cuda_device)
+        args[0] = buf[1:].view_as(args[0]).copy_(args[0])
+        assert args[0].data_ptr() % 16 == 4
     before = se_gate.launches
     got, again = se_gate(*args), se_gate(*args)
     assert se_gate.launches == before + 2
@@ -241,6 +258,15 @@ def test_cuda_se_gate_matches_plain(cuda_device, shape):
         se_gate(strided, *args[1:])
     with pytest.raises(TypeError):
         se_gate(args[0].double(), *args[1:])
+
+
+def test_cuda_se_gate_refuses_one_channel_too_many(cuda_device):
+    from nvae_torch.kernels.se_gate import se_gate
+
+    before = se_gate.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        se_gate(*_se_args((1, 8, 8, SE_MAX_C + 1, 4), cuda_device))
+    assert se_gate.launches == before
 
 
 def test_cuda_trainer_fit(cuda_device, tmp_path):
