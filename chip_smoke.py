@@ -27,6 +27,10 @@ each raising on failure (nothing is caught):
    block takes) and with x off 16-byte alignment, at atol 1e-5, bitwise
    across two runs, refusing an input that requires grad and one channel
    too many;
+   and kernel #2's bf16 instance at every path shape and at batches 144,
+   576 and 8 (the serving paths'): within one bf16 ulp of its plain
+   version's result plus 32 fp32 ulps of its products' sum, at least
+   99.9% of outputs bitwise equal to it, and bitwise across two runs;
 3. sampler: the full-width MNIST sampler (``ModelConfig()``, seeded
    Flax-style init with random BatchNorm running statistics) in the default
    and the depthwise-postprocess configuration: the fused kernel's launches
@@ -36,6 +40,12 @@ each raising on failure (nothing is caught):
    three requests of different size and temperature in each configuration,
    with every launch counter set to 0 just before and read just after; one
    dispatch is replayed bitwise;
+   then the sampler matrix (a main path): in each configuration, weights in
+   fp32, bf16 and int8 at fp32 compute and bf16 and int8 at bf16 compute
+   (compute and BatchNorm apply), batch 144: exact launches of #2 per call
+   (fp32 or bf16 as the compute dtype says), ms per call, weights bytes on
+   the card, a call's peak memory, the host ms of int8 dequantization, and
+   the card against the CPU at batch 8 with injected noise;
 5. training (a main path): in each configuration, 5 full-width training
    steps (``make_train_step``, Adamax + spectral projection, batch 144,
    synthetic binarized images from a numpy seed) with every counter set to
@@ -57,17 +67,29 @@ each raising on failure (nothing is caught):
 8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
    held to a float64 CPU run;
+   then ``--mode serve`` (a main path) as a subprocess over the CLI's
+   checkpoint, int8 weights, bf16 compute, batches 144 and 576: concurrent
+   npy and PNG requests, /healthz, /stats answering while a dispatch is in
+   flight, /reload to step 8 and to the latest, the load of
+   ``tools/bench_serving_http.py`` (32 clients, n in [1, 16], a 10 ms
+   window) for 10 s after 1 s of warm-up (img/s, req/s, p50 and p99
+   latency, occupancy), SIGTERM drain with exit 0 and exact launch counts;
+   and the serving artifact: fp32, bf16 and int8 exports (bytes), the int8
+   one checked bitwise against the live sampler, served by ``python -m
+   nvae_torch.serving_http --artifact`` for one request, SIGTERM, exact
+   launch counts;
 9. timing: images per second at batch 144 by direct calls and through the
    server, and each kernel's time at each path shape beside its bound (and
    the bound's share of the kernel's time), its plain version and the
    library call (and the kernel's time over the library's;
    ``F.conv2d(groups=C)``,
    ``torch.nn.grad.conv2d_input`` and ``conv2d_weight``; for the gate, which
-   no single call computes, the eager ``SqueezeExcitation`` module), and #2
-   at the shapes of ``tools/bench_dw_kernel.py``;
-10. profile: ``torch.profiler`` over one ``sample`` call and one training
-    step per configuration: device busy time against wall time, and the
-    costliest kernels.
+   no single call computes, the eager ``SqueezeExcitation`` module), #2's
+   bf16 instance beside its bound and ``F.conv2d(groups=C)`` in bf16, and
+   #2 at the shapes of ``tools/bench_dw_kernel.py``;
+10. profile: ``torch.profiler`` over one ``sample`` call (fp32, and bf16
+    weights with bf16 compute) and one training step per configuration:
+    device busy time against wall time, and the costliest kernels.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -75,12 +97,14 @@ The last three lines of standard output are the card's name and power limit
 prints no result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` only builds and times kernels
-#1-#5 of the tree at ROOT (phase 9's kernel timing), printing one JSON line;
-run it on two trees in one call to compare two versions on one card.
+#1-#5 (and #2's bf16 instance, where the tree has it) of the tree at ROOT
+(phase 9's kernel timing), printing one JSON line; run it on two trees in
+one call to compare two versions on one card.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -136,7 +160,8 @@ LEAF_REL_L2 = 1e-2  # card vs float64, of each parameter's nonzero gradient
 BN_STATS_ATOL = 2e-3  # card vs CPU fp32, of max(1, |value|)
 BN_STATS_F64_ATOL = 1e-3  # card vs float64, of max(1, |value|)
 DW_KERNEL_NAMES = ("fused_swish_depthwise5x5", "depthwise_conv5x5",
-                   "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw")
+                   "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw",
+                   "fused_swish_depthwise5x5_bf16")
 KERNEL_NAMES = DW_KERNEL_NAMES + ("se_gate",)
 # (H = W, C, hidden) of the model's squeeze-excitation blocks (kernel #5),
 # at batch BATCH; then (B, H, W, C, hidden): JAX's test shape; H * W = 63
@@ -160,6 +185,37 @@ SAMPLE_TEMPERATURES = ("0.7", "0.8", "0.9", "1.0")
 NLL_ATTEMPTS = 10
 NLL_BATCHES = 2
 NLL_RTOL = 1e-4
+# Kernel #2's bf16 instance: the batches the serving paths give it (the
+# server's --serve_batches 144 576; the sampler matrix's CPU check at 8).
+# Its limits against the plain version are BF16_SUM_ULPS and
+# BF16_MIN_EQUAL_SHARE in nvae_torch/kernels/depthwise.py.
+BF16_BATCHES = (BATCH, 4 * BATCH, 8)
+BF16_FLOP_PER_S = 989e12  # tensor cores, dense: the library call's rate
+# The sampler matrix: (serve_dtype, compute dtype) at full width, B=BATCH.
+# "bfloat16" compute sets compute_dtype and bn_apply_dtype.  Card against
+# CPU at MATRIX_CPU_BATCH rows: a full-width model on the host's cores takes
+# seconds a call in fp32 and more in bf16, so 8 rows, with injected noise.
+MATRIX = (("float32", "float32"), ("bfloat16", "float32"),
+          ("int8", "float32"), ("bfloat16", "bfloat16"),
+          ("int8", "bfloat16"))
+MATRIX_CPU_BATCH = 8
+MATRIX_CALLS = 10  # timed calls per row, each ending in a sync
+BF16_PROB_ATOL = 3e-2
+# The HTTP phase: --mode serve over the CLI's checkpoint, under the load of
+# the repo's serving benchmark (tools/bench_serving_http.py, its defaults):
+# SERVE_CLIENTS clients, each on one persistent connection sending requests
+# back to back, n drawn uniformly from [1, SERVE_MAX_N] and the temperature
+# from SERVE_TEMPERATURES, a SERVE_MAX_DELAY_MS batching window, one second
+# of warm-up, then a timed window of SERVE_SECONDS (the benchmark's 20 s
+# halved to hold this script's run time).
+SERVE_BATCHES = (BATCH, 4 * BATCH)
+SERVE_CLIENTS = 32
+SERVE_MAX_N = 16
+SERVE_TEMPERATURES = (0.6, 0.7, 0.8, 0.9, 1.0)
+SERVE_MAX_DELAY_MS = 10
+SERVE_WARMUP_S = 1.0
+SERVE_SECONDS = 10.0
+SERVER_FLAGS = []  # further flags of the artifact server
 
 
 def log(msg: str) -> None:
@@ -411,7 +467,6 @@ def phase_sampler(cfg, device):
     card against the CPU with injected noise.  Returns (sampler, record)."""
     from nvae_torch.kernels import depthwise as dw
     from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
-    from nvae_torch.device import fp32_math
     from nvae_torch.serving import Sampler
 
     cpu_model = NVAE(cfg, device="cpu", seed=0)
@@ -429,12 +484,9 @@ def phase_sampler(cfg, device):
     eps = [rng.randn(*s).astype(np.float32)
            for s in decoder_noise_shapes(cfg, 4)]
     t = torch.tensor([0.6, 0.8, 1.0, 1.2])
+    gpu = sampler.apply(lambda m: logits(m, 4, t.to(device), eps)).cpu()
     with torch.inference_mode():
-        with fp32_math(deterministic=True):
-            feats, *_ = sampler.model.decoder.generate(4, t.to(device), eps=eps)
-            gpu = sampler.model.postprocess(feats).cpu()
-        feats, *_ = cpu_model.decoder.generate(4, t, eps=eps)
-        cpu = cpu_model.postprocess(feats)
+        cpu = logits(cpu_model, 4, t, eps)
     scale = float(cpu.abs().max())
     logit_err = float((gpu - cpu).abs().max())
     prob_err = float((torch.sigmoid(gpu) - torch.sigmoid(cpu)).abs().max())
@@ -445,6 +497,12 @@ def phase_sampler(cfg, device):
         "prob_err": prob_err,
         "finite": bool(torch.isfinite(gpu).all()),
     }
+
+
+def logits(model, n, t, eps):
+    """The likelihood head's logits of a prior pass with injected noise."""
+    feats, *_ = model.decoder.generate(n, t, eps=eps)
+    return model.postprocess(feats)
 
 
 def check_images(a: np.ndarray, n: int) -> None:
@@ -703,14 +761,16 @@ def phase_se_entry(device) -> dict:
 # ---- the training entry point ----------------------------------------------
 
 
-# ``python -m nvae_torch.cli`` run by ``runpy`` (the same module run the
-# same way), after which the process writes this script's ``read_counts()``
-# to the file named by its first argument.
-CLI_WITH_COUNTS = """
+# A module of the port (``python -m <module>``) run by ``runpy`` (the same
+# module run the same way), after which the process writes this script's
+# ``read_counts()`` to the file named by its first argument; the module is
+# the second.
+RUN_WITH_COUNTS = """
 import json, runpy, sys
 path = sys.argv.pop(1)
+module = sys.argv.pop(1)
 try:
-    runpy.run_module("nvae_torch.cli", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
     import chip_smoke
     with open(path, "w") as f:
@@ -718,16 +778,24 @@ finally:
 """
 
 
+def module_command(module: str, counts_path: str, argv) -> list:
+    return [sys.executable, "-c", RUN_WITH_COUNTS, counts_path, module, *argv]
+
+
+def port_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
 def run_cli(label: str, argv, workdir: str) -> dict:
     """``python -m nvae_torch.cli`` as a user runs it, in a subprocess that
     writes its kernel launch counts to a file; fails on a non-zero exit."""
     counts_path = os.path.join(workdir, f"{label}_counts.json")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.monotonic()
     proc = subprocess.run(
-        [sys.executable, "-c", CLI_WITH_COUNTS, counts_path, *argv],
-        cwd=workdir, env=env, capture_output=True, text=True, timeout=900)
+        module_command("nvae_torch.cli", counts_path, argv),
+        cwd=workdir, env=port_env(), capture_output=True, text=True,
+        timeout=900)
     seconds = time.monotonic() - t0
     if proc.returncode != 0:
         raise AssertionError(f"cli {label} exited {proc.returncode}:\n"
@@ -745,7 +813,8 @@ def check_cli_counts(label, counts, per_forward, steps, forwards):
     want = {"fused_swish_depthwise5x5": per_forward * (steps + forwards),
             "fused_swish_depthwise5x5_dx": per_forward * steps,
             "fused_swish_depthwise5x5_dw": per_forward * steps,
-            "depthwise_conv5x5": 0, "se_gate": 0}
+            "depthwise_conv5x5": 0, "fused_swish_depthwise5x5_bf16": 0,
+            "se_gate": 0}
     if counts != want:
         raise AssertionError(f"cli {label}: launches {counts}, expected {want}")
 
@@ -1054,6 +1123,8 @@ def phase_timing(device, samplers) -> dict:
 
     out = {"img_per_s": {}}
     for name, sampler in samplers.items():
+        if name.endswith("bf16"):
+            continue  # the matrix timed it
         t = torch.ones(BATCH)
         for i in range(2):
             sampler(100 + i, t)
@@ -1307,6 +1378,620 @@ def se_record(se_errs, launches, se_timing) -> dict:
     }
 
 
+# ---- bf16: kernel #2's bf16 instance, the sampler matrix, serving ---------
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 steps between two bf16 tensors, element by element (their bit
+    patterns mapped to integers in value order)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(i >= 0x8000, 0x8000 - (i & 0x7FFF), i + 0x8000)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_inputs(h, c, bias, device, seed=0, batch=BATCH):
+    """path_inputs with x and the taps in bf16 (the bias stays fp32)."""
+    x, k, b = path_inputs(h, c, bias, device, seed, batch)
+    return x.to(torch.bfloat16), k.to(torch.bfloat16), b
+
+
+def phase_bf16_kernel(device) -> dict:
+    """Kernel #2's bf16 instance against its plain version at every path
+    shape and every batch in BF16_BATCHES, bitwise across two runs: no
+    output more than ``BF16_SUM_ULPS`` fp32 ulps of its products' sum
+    (``bf16_sum_ulps``) past one bf16 ulp of the result, and at least
+    ``BF16_MIN_EQUAL_SHARE`` of them bitwise equal.  Logs both, and the
+    distance in bf16 steps of the results themselves.  Returns per shape
+    the worst of each."""
+    from nvae_torch.kernels import depthwise as dw
+
+    out = {}
+    for h, c, bias, _, _ in PATH_SHAPES:
+        for n in BF16_BATCHES:
+            x, k, b = bf16_inputs(h, c, bias, device, batch=n)
+            got = dw.fused_swish_depthwise5x5(x, k, b)
+            again = dw.fused_swish_depthwise5x5(x, k, b)
+            want = dw.fused_swish_depthwise5x5_plain(x, k, b)
+            torch.cuda.synchronize(device)
+            if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+                raise AssertionError(f"bf16 #2 {n}x{h}x{c}: two runs differ")
+            ulps = bf16_ulps(got, want)
+            worst, equal = int(ulps.max()), float((ulps == 0).float().mean())
+            err = float((got.float() - want.float()).abs().max())
+            sum_ulps = float(dw.bf16_sum_ulps(
+                got, want, dw.bf16_sum_scale(x, k, b)).max())
+            log(f"kernel fused bf16 {n}x{h}x{h}x{c}: max abs err {err:.3g}, "
+                f"{sum_ulps:.3g} fp32 ulps of the products' sum past one "
+                f"bf16 ulp (limit {dw.BF16_SUM_ULPS}); {100 * equal:.4f}% "
+                f"bitwise equal (limit {100 * dw.BF16_MIN_EQUAL_SHARE}%); "
+                f"results {worst} bf16 steps apart at most; bitwise "
+                f"repeatable")
+            if not (sum_ulps <= dw.BF16_SUM_ULPS
+                    and equal >= dw.BF16_MIN_EQUAL_SHARE):
+                raise AssertionError(f"bf16 #2 {n}x{h}x{c}: {sum_ulps} fp32 "
+                                     f"ulps of the sum, {equal} equal")
+            r = out.setdefault((h, c), {"ulps": 0, "err": 0.0, "equal": 1.0,
+                                        "sum_ulps": 0.0})
+            r["ulps"] = max(r["ulps"], worst)
+            r["err"] = max(r["err"], err)
+            r["equal"] = min(r["equal"], equal)
+            r["sum_ulps"] = max(r["sum_ulps"], sum_ulps)
+    return out
+
+
+def phase_bf16_timing(device) -> list:
+    """Kernel #2's bf16 instance at each path shape (B=BATCH) beside its
+    bound (x read and y written once in bf16, the taps in bf16 and the fp32
+    bias read once; 55 fp32 operations per output), its plain version and
+    ``F.conv2d(groups=C)`` in bf16 without the swish."""
+    from nvae_torch.kernels import depthwise as dw
+
+    rows = []
+    for h, c, bias, _, _ in PATH_SHAPES:
+        n = BATCH * h * h * c
+        # More than twice the L2 of bf16 x, each set called once a cycle.
+        n_sets = int(2 * L2_BYTES // (2 * n)) + 1
+        iters = max(40, n_sets)
+        sets = [bf16_inputs(h, c, bias, device, seed=s) for s in range(n_sets)]
+        nchw = [(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                 None if b is None else b.to(torch.bfloat16))
+                for x, k, b in sets]
+        nbytes = 2 * (2 * n + 25 * c) + (4 * c if bias else 0)
+        flops = n * (50 + 4 + (1 if bias else 0))
+        ms, eager = time_ms(lambda x, k, b: dw.fused_swish_depthwise5x5(
+            x, k, b), sets, iters)
+        row = {"shape": [BATCH, h, h, c], "bias": bias, "ms": ms,
+               "eager_ms": eager, "sets": n_sets,
+               "x_mb_in_sets": 2 * n * n_sets / 1e6,
+               "plain_ms": time_ms(
+                   lambda x, k, b: dw.fused_swish_depthwise5x5_plain(
+                       x, k, b), sets, iters)[0],
+               "library_ms": time_ms(lambda x, w, b: F.conv2d(
+                   x, w, b, padding=2, groups=c), nchw, iters)[0],
+               "bound": (1e3 * nbytes / HBM_BYTES_PER_S,
+                         1e3 * flops / FP32_FLOP_PER_S)}
+        log_timing(f"fused bf16 {BATCH}x{h}x{h}x{c} ({n_sets} sets, "
+                   f"{row['x_mb_in_sets']:.1f} MB of x)", row, "conv2d bf16")
+        rows.append(row)
+        del sets, nchw
+    return rows
+
+
+def bf16_record(bf16_errs, launches, rows) -> dict:
+    """Kernel #2's bf16 instance's record, per depthwise-config bf16 sample
+    call (the shapes weighted by their calls, 9, 5, 3, 3)."""
+    from nvae_torch.kernels import depthwise as dw
+
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    t_bytes = t_ops = 0.0
+    shapes = []
+    for (h, c, _, _, calls), r in zip(PATH_SHAPES, rows):
+        b_bytes, b_ops = r["bound"]
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += calls * r[key]
+        tot["bound_ms"] += calls * max(b_bytes, b_ops)
+        t_bytes += calls * b_bytes
+        t_ops += calls * b_ops
+        e = bf16_errs[(h, c)]
+        shapes.append({
+            "shape": r["shape"], "calls": calls, "ms": r["ms"],
+            "sets": r["sets"], "x_mb_in_sets": r["x_mb_in_sets"],
+            "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
+            "library_ms": r["library_ms"], "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "bound_share": max(b_bytes, b_ops) / r["ms"],
+            "vs_library": r["ms"] / r["library_ms"],
+            "max_abs_err": e["err"], "max_sum_ulps": e["sum_ulps"],
+            "max_steps_apart": e["ulps"], "bitwise_share": e["equal"]})
+    return {
+        "name": "fused_swish_depthwise5x5_bf16", "route": "cuda",
+        "source": "nvae_torch/kernels/csrc/depthwise5x5.cu",
+        "replaces": "nvae_tpu/kernels/depthwise.py:239",
+        "launches": launches["fused_swish_depthwise5x5_bf16"],
+        "max_abs_err": max(e["err"] for e in bf16_errs.values()),
+        "max_sum_ulps": max(e["sum_ulps"] for e in bf16_errs.values()),
+        "sum_ulps_limit": dw.BF16_SUM_ULPS,
+        "bitwise_share": min(e["equal"] for e in bf16_errs.values()),
+        "bitwise_share_limit": dw.BF16_MIN_EQUAL_SHARE,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": tot["library_ms"],
+        "per": f"depthwise-config bf16 sample call at batch {BATCH}",
+        "shapes": shapes,
+    }
+
+
+def matrix_cfg(cfg, compute: str):
+    import dataclasses
+
+    return dataclasses.replace(cfg, compute_dtype=compute,
+                               bn_apply_dtype=compute)
+
+
+def phase_matrix(name, cfg, device) -> dict:
+    """The full-width sampler at every (serve_dtype, compute dtype) of
+    MATRIX at batch BATCH: exact launches of #2 (fp32 or bf16 as the
+    compute dtype says) per call, ms per call (the median of MATRIX_CALLS
+    synced calls), weights bytes on the card, peak memory of a call, the
+    host ms that int8 dequantization adds; and
+    the card's probabilities against the CPU's at MATRIX_CPU_BATCH rows
+    with injected noise (fp32 compute: atol PROB_ATOL; bf16 compute: atol
+    BF16_PROB_ATOL, and no further from the CPU's fp32-compute run on the
+    same weights than CARD_VS_CPU_ROUNDING times the CPU's bf16 run is).
+    Returns the rows and the main path's launch counts."""
+    from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
+    from nvae_torch.serving import Sampler, dequantize_params
+
+    host = NVAE(cfg, device="cpu", seed=0)
+    random_bn_stats_(host, seed=1)
+    sd = host.state_dict()
+    del host
+    rng = np.random.RandomState(3)
+    n_cpu = MATRIX_CPU_BATCH
+    eps = [rng.randn(*s).astype(np.float32)
+           for s in decoder_noise_shapes(cfg, n_cpu)]
+    t_cpu = torch.linspace(0.6, 1.2, n_cpu)
+    t = torch.ones(BATCH)
+    cpu_probs, rows = {}, []
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for serve, compute in MATRIX:
+        label = f"{name} weights {serve} compute {compute}"
+        rcfg = matrix_cfg(cfg, compute)
+        sampler = Sampler(rcfg, sd, BATCH, device=device,
+                          serve_dtype="" if serve == "float32" else serve)
+        sampler(1, t)
+        torch.cuda.synchronize(device)
+        reset_counts()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        images = sampler(2, t)
+        torch.cuda.synchronize(device)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(device) - before
+        check_images(images.cpu().numpy(), BATCH)
+        # The batching server's replay: the same seed, the same bits.
+        if not torch.equal(images, sampler(2, t)):
+            raise AssertionError(f"{label}: two calls with one seed differ")
+        for k, v in counts.items():
+            launches[k] += v
+        kern = ("fused_swish_depthwise5x5_bf16" if compute == "bfloat16"
+                else "fused_swish_depthwise5x5")
+        want = {k: 0 for k in KERNEL_NAMES}
+        want[kern] = expected_launches(cfg)
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        # Host clock around each call and its sync: the host's spread shows
+        # between calls, so the median of MATRIX_CALLS, with the range.
+        per_call = []
+        for i in range(MATRIX_CALLS):
+            t0 = time.monotonic()
+            sampler(3 + i, t)
+            torch.cuda.synchronize(device)
+            per_call.append(1e3 * (time.monotonic() - t0))
+        ms = float(np.median(per_call))
+        dequant_ms = 0.0
+        if serve == "int8":
+            t0 = time.perf_counter()
+            for _ in range(10):
+                dequantize_params(sampler._weights)
+            dequant_ms = 1e3 * (time.perf_counter() - t0) / 10
+            torch.cuda.synchronize(device)
+        # Card against CPU, same weights, same noise.
+        card = torch.sigmoid(sampler.apply(
+            lambda m: logits(m, n_cpu, t_cpu.to(device), eps)).float().cpu())
+        t0 = time.monotonic()
+        cpu_sampler = Sampler(rcfg, sd, n_cpu, device="cpu",
+                              serve_dtype=sampler.serve_dtype)
+        cpu = torch.sigmoid(cpu_sampler.apply(
+            lambda m: logits(m, n_cpu, t_cpu, eps)).float())
+        cpu_s = time.monotonic() - t0
+        cpu_probs[(serve, compute)] = cpu
+        err = float((card - cpu).abs().max())
+        row = {"config": name, "serve_dtype": serve, "compute": compute,
+               "launches": counts[kern], "ms_per_call": ms,
+               "ms_min": min(per_call), "ms_max": max(per_call),
+               "img_per_s": 1e3 * BATCH / ms,
+               "weights_mb": sampler.weights_bytes / 1e6,
+               "peak_call_mb": peak / 1e6, "dequant_host_ms": dequant_ms,
+               "card_vs_cpu": err, "cpu_seconds": cpu_s}
+        if compute == "bfloat16":
+            ref = cpu_probs[(serve, "float32")]
+            row["card_vs_cpu_fp32"] = float((card - ref).abs().max())
+            row["cpu_bf16_vs_fp32"] = float((cpu - ref).abs().max())
+            ok = (err <= BF16_PROB_ATOL and row["card_vs_cpu_fp32"]
+                  <= CARD_VS_CPU_ROUNDING * row["cpu_bf16_vs_fp32"])
+        else:
+            ok = err <= PROB_ATOL
+        log(f"matrix {label}: {counts[kern]} launches of {kern} per call, "
+            f"{ms:.2f} ms per call (median of {MATRIX_CALLS}, "
+            f"{row['ms_min']:.2f}-{row['ms_max']:.2f}; "
+            f"{row['img_per_s']:.1f} img/s), weights "
+            f"{row['weights_mb']:.2f} MB, call peak {row['peak_call_mb']:.1f} "
+            f"MB, dequant host {dequant_ms:.3f} ms; card vs CPU at "
+            f"B={n_cpu}: {err:.3g}"
+            + (f", vs CPU fp32 compute {row['card_vs_cpu_fp32']:.3g} (CPU "
+               f"bf16 vs fp32 {row['cpu_bf16_vs_fp32']:.3g})"
+               if compute == "bfloat16" else "")
+            + f"; CPU run {cpu_s:.1f} s")
+        if not ok:
+            raise AssertionError(f"{label}: card vs CPU {row}")
+        rows.append(row)
+        if (serve, compute) == ("bfloat16", "bfloat16"):
+            kept = sampler  # profiled in phase 10
+        del sampler, cpu_sampler
+    return {"rows": rows, "launches": launches, "bf16_sampler": kept}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(port: int, path: str, body=None, timeout=600.0):
+    """(status, headers, bytes) of one request to the local server."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, dict(r.headers), r.read()
+
+
+def http_json(port: int, path: str, body=None):
+    return json.loads(http(port, path, body)[2])
+
+
+class Server:
+    """A port module serving HTTP in a subprocess that writes its launch
+    counts at exit: started, waited for, stopped by SIGTERM."""
+
+    def __init__(self, label, module, argv, workdir, port):
+        self.label, self.port, self.workdir = label, port, workdir
+        self.counts_path = os.path.join(workdir, f"{label}_counts.json")
+        self.log_path = os.path.join(workdir, f"{label}.log")
+        self.log = open(self.log_path, "w")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            module_command(module, self.counts_path, argv), cwd=workdir,
+            env=port_env(), stdout=self.log, stderr=subprocess.STDOUT)
+
+    def output(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def wait_ready(self, timeout=600.0) -> float:
+        while time.monotonic() - self.t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.label} exited {self.proc.returncode}"
+                                     f":\n{self.output()[-4000:]}")
+            try:
+                http_json(self.port, "/healthz")
+                return time.monotonic() - self.t0
+            except OSError:
+                time.sleep(0.25)
+        self.kill()
+        raise AssertionError(f"{self.label}: not up in {timeout} s")
+
+    def stop(self) -> dict:
+        """SIGTERM: the server drains and exits; returns its launch counts
+        and exit code."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"{self.label}: no exit after SIGTERM")
+        self.log.close()
+        if rc != 0:
+            raise AssertionError(f"{self.label} exited {rc} after SIGTERM:\n"
+                                 f"{self.output()[-4000:]}")
+        with open(self.counts_path) as f:
+            return {"rc": rc, "counts": json.load(f)}
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def png_size(data: bytes):
+    import struct
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    return struct.unpack(">II", data[16:24])
+
+
+def serve_clients(port: int, seconds: float, seed0: int, lat: list,
+                  rows: list, errors: list) -> None:
+    """SERVE_CLIENTS threads, each on one HTTP/1.1 connection, sending npy
+    requests back to back for ``seconds`` (the load of
+    ``tools/bench_serving_http.py``); every answer checked for its shape
+    and finite values, each request's latency and rows appended."""
+    import http.client
+    import threading
+
+    deadline = time.monotonic() + seconds
+
+    def client(i):
+        rng = np.random.default_rng(seed0 + i)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            while time.monotonic() < deadline and not errors:
+                n = int(rng.integers(1, SERVE_MAX_N + 1))
+                t = SERVE_TEMPERATURES[int(rng.integers(
+                    len(SERVE_TEMPERATURES)))]
+                t0 = time.monotonic()
+                conn.request("POST", "/sample", body=json.dumps(
+                    {"n": n, "temperature": t}).encode())
+                r = conn.getresponse()
+                body = r.read()
+                lat.append(time.monotonic() - t0)
+                if r.status != 200:
+                    raise AssertionError(f"HTTP {r.status}: {body[:120]!r}")
+                arr = np.load(io.BytesIO(body))
+                if arr.shape != (n, 32, 32, 1) or not np.isfinite(arr).all():
+                    raise AssertionError(f"{arr.shape}, finite "
+                                         f"{np.isfinite(arr).all()}")
+                rows.append(n)
+        except Exception as e:  # reported by the caller
+            errors.append(e)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+
+
+def serve_load(port: int) -> dict:
+    """The serving benchmark's load: SERVE_WARMUP_S of warm-up, then
+    SERVE_SECONDS timed.  Images and requests per second, request latency
+    percentiles, and the dispatches and their occupancy in the window."""
+    errors = []
+    serve_clients(port, SERVE_WARMUP_S, 99, [], [], errors)
+    before = http_json(port, "/stats")
+    lat, rows = [], []
+    t0 = time.monotonic()
+    serve_clients(port, SERVE_SECONDS, 1000, lat, rows, errors)
+    wall = time.monotonic() - t0
+    after = http_json(port, "/stats")
+    if errors:
+        raise AssertionError(f"serve load: {errors[:3]}")
+    lat_ms = np.sort(1e3 * np.asarray(lat))
+    served = after["rows_served"] - before["rows_served"]
+    padded = after["rows_padded"] - before["rows_padded"]
+    return {"clients": SERVE_CLIENTS, "max_n": SERVE_MAX_N,
+            "max_delay_ms": SERVE_MAX_DELAY_MS, "requests": len(rows),
+            "rows": sum(rows), "seconds": wall,
+            "img_per_s": sum(rows) / wall, "req_per_s": len(rows) / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "max_ms": float(lat_ms[-1]),
+            "dispatches": after["dispatches"] - before["dispatches"],
+            "occupancy": served / max(1, served + padded)}
+
+
+def stats_during_dispatch(port: int) -> dict:
+    """F1 on the wire: one request of the largest batch, and ``GET /stats``
+    polled while it is in flight.  Every poll must answer before the
+    request does, and well inside its time."""
+    import threading
+
+    before = http_json(port, "/stats")
+    done = {}
+
+    def big():
+        t0 = time.monotonic()
+        http(port, "/sample", {"n": SERVE_BATCHES[-1], "temperature": 0.9})
+        done["at"] = time.monotonic()
+        done["ms"] = 1e3 * (done["at"] - t0)
+
+    th = threading.Thread(target=big)
+    th.start()
+    polls = []
+    while "at" not in done:
+        t0 = time.monotonic()
+        st = http_json(port, "/stats")
+        t1 = time.monotonic()
+        if "at" in done and done["at"] < t1:
+            break
+        polls.append((1e3 * (t1 - t0), st["dispatches"] - before["dispatches"],
+                      st["requests"] - before["requests"]))
+        time.sleep(0.002)
+    th.join()
+    in_flight = [p for p in polls if p[2] == 1]
+    rec = {"request_ms": done["ms"], "polls": len(polls),
+           "polls_in_flight": len(in_flight),
+           "max_stats_ms": max((p[0] for p in in_flight), default=math.nan),
+           "weights": st.get("weights")}
+    log(f"serve /stats while a {SERVE_BATCHES[-1]}-row dispatch is in flight:"
+        f" {rec['polls_in_flight']} answers, slowest "
+        f"{rec['max_stats_ms']:.2f} ms, the request {rec['request_ms']:.1f} ms")
+    if not in_flight or rec["max_stats_ms"] > 0.5 * rec["request_ms"]:
+        raise AssertionError(f"/stats waited on the dispatch: {rec}")
+    return rec
+
+
+def phase_serve(workdir: str) -> dict:
+    """``--mode serve`` as a user runs it, at full width over the CLI
+    phase's checkpoint: int8 weights, bf16 compute, batches 144 and 576.
+    Concurrent npy and PNG requests, /healthz, /stats while a dispatch is
+    in flight, /reload to step 8 and to the latest, a timed load, then
+    SIGTERM: it drains and exits 0, with exact launch counts of bf16 #2."""
+    import threading
+
+    from nvae_torch.config import ModelConfig
+
+    per_call = expected_launches(ModelConfig(use_pallas_kernels=True))
+    port = free_port()
+    argv = ["--mode", "serve", *cli_args(workdir), "--serve_dtype", "int8",
+            "--compute_dtype", "bfloat16", "--serve_batches",
+            *map(str, SERVE_BATCHES), "--serve_port", str(port),
+            "--serve_max_delay_ms", str(SERVE_MAX_DELAY_MS)]
+    server = Server("serve", "nvae_torch.cli", argv, workdir, port)
+    try:
+        up = server.wait_ready()
+        health = http_json(port, "/healthz")
+        if health.get("batch_sizes") != list(SERVE_BATCHES):
+            raise AssertionError(f"serve /healthz {health}")
+        info = http_json(port, "/stats")["weights"]
+        last = CLI_EPOCHS * CLI_BATCHES + CLI_BATCHES  # the resumed step
+        if (info["step"], info["generation"], info["serve_dtype"]) != (
+                last, 0, "int8"):
+            raise AssertionError(f"serve weights {info}")
+        # Concurrent npy and PNG requests.
+        out = {}
+
+        def ask(key, body):
+            out[key] = http(port, "/sample", body)
+
+        asks = [threading.Thread(target=ask, args=(
+            i, {"n": 16 + 8 * i, "temperature": 0.7,
+                "format": "png" if i % 2 else "npy"})) for i in range(6)]
+        for th in asks:
+            th.start()
+        for th in asks:
+            th.join()
+        for i, (status, headers, body) in sorted(out.items()):
+            if i % 2:
+                side = int(math.isqrt(16 + 8 * i)) * 32
+                if png_size(body) != (side, side):
+                    raise AssertionError(f"serve png {png_size(body)}")
+            elif np.load(io.BytesIO(body)).shape != (
+                    16 + 8 * i, 32, 32, 1):
+                raise AssertionError("serve npy shape")
+        f1 = stats_during_dispatch(port)
+        reloads = [http_json(port, "/reload", {"step": CLI_EPOCHS
+                                               * CLI_BATCHES}),
+                   http_json(port, "/reload", {})]
+        if [(r["step"], r["generation"]) for r in reloads] != [
+                (CLI_EPOCHS * CLI_BATCHES, 1), (last, 2)]:
+            raise AssertionError(f"serve reloads {reloads}")
+        load = serve_load(port)
+        stats = http_json(port, "/stats")
+        end = server.stop()
+    finally:
+        server.kill()
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    # One warm-up call per served batch, then one call per dispatch.
+    want["fused_swish_depthwise5x5_bf16"] = per_call * (
+        len(SERVE_BATCHES) + stats["dispatches"])
+    if end["counts"] != want:
+        raise AssertionError(f"serve launches {end['counts']}, want {want}")
+    log(f"serve: up in {up:.1f} s, reloads {reloads}; load of "
+        f"tools/bench_serving_http.py ({SERVE_CLIENTS} clients, n in [1, "
+        f"{SERVE_MAX_N}], {SERVE_MAX_DELAY_MS} ms window) for "
+        f"{load['seconds']:.2f} s: {load['requests']} requests, "
+        f"{load['rows']} images, {load['img_per_s']:.1f} img/s, "
+        f"{load['req_per_s']:.1f} req/s, latency p50 {load['p50_ms']:.1f} "
+        f"ms, p99 {load['p99_ms']:.1f} ms, max {load['max_ms']:.1f} ms, "
+        f"{load['dispatches']} dispatches at occupancy "
+        f"{load['occupancy']:.4f}; stats {stats}; SIGTERM: exit "
+        f"{end['rc']}, launches {end['counts']}")
+    return {"up_s": up, "load": load, "f1": f1, "stats": stats,
+            "counts": end["counts"]}
+
+
+def phase_artifact(workdir: str, trainer) -> dict:
+    """The serving artifact of the CLI's checkpoint with bf16 compute: fp32,
+    bf16 and int8 exports and their bytes, the int8 one loaded on the card
+    and checked bitwise against the live sampler (weights and samples);
+    then ``python -m nvae_torch.serving_http --artifact`` answers one
+    request and drains on SIGTERM, with exact launch counts."""
+    import dataclasses
+
+    from nvae_torch.serving import (
+        Sampler,
+        export_sampler,
+        load_artifact,
+        variables_from_state,
+    )
+
+    sizes = {}
+    sd = variables_from_state(trainer.state)
+    cfg = dataclasses.replace(trainer.model_cfg, compute_dtype="bfloat16")
+    for dtype in ("float32", "bfloat16"):
+        sizes[dtype] = export_sampler(
+            os.path.join(workdir, f"sampler_{dtype}.pt"), cfg, sd, BATCH,
+            per_sample_temperature=True,
+            serve_dtype="" if dtype == "float32" else dtype)
+    path = os.path.join(workdir, "sampler_int8.pt")
+    sizes["int8"] = export_sampler(path, cfg, sd, BATCH,
+                                   per_sample_temperature=True,
+                                   serve_dtype="int8",
+                                   step=int(trainer.state.step))
+    # The file serves the live sampler's weights and samples, bitwise.
+    served = load_artifact(path, trainer.device)
+    live = Sampler(cfg, sd, BATCH, device=trainer.device, serve_dtype="int8")
+    for k, v in live._weights.items():
+        w = served._weights[k]
+        if not (torch.equal(v.q, w.q) and torch.equal(v.scale, w.scale)
+                if hasattr(v, "q") else torch.equal(v, w)):
+            raise AssertionError(f"artifact: {k} differs from the live one")
+    t = torch.full((BATCH,), 0.8)
+    if not torch.equal(served(42, t), live(42, t)):
+        raise AssertionError("artifact: samples differ from the live ones")
+    del served, live
+    port = free_port()
+    server = Server("artifact", "nvae_torch.serving_http",
+                    ["--artifact", path, "--port", str(port),
+                     "--max_delay_ms", "5", *SERVER_FLAGS], workdir, port)
+    try:
+        up = server.wait_ready()
+        status, _, body = http(port, "/sample", {"n": 100, "temperature": 0.8})
+        arr = np.load(io.BytesIO(body))
+        if status != 200 or arr.shape != (100, 32, 32, 1):
+            raise AssertionError(f"artifact server: {status} {arr.shape}")
+        weights = http_json(port, "/stats")["weights"]
+        end = server.stop()
+    finally:
+        server.kill()
+    per_call = expected_launches(trainer.model_cfg)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["fused_swish_depthwise5x5_bf16"] = 2 * per_call  # warm-up, request
+    if end["counts"] != want or weights["serve_dtype"] != "int8":
+        raise AssertionError(f"artifact server: {end} {weights}")
+    log(f"artifact: bytes {sizes} (fp32 / bf16 / int8 weights), int8 "
+        f"file checked bitwise against the live sampler, served one "
+        f"request after {up:.1f} s; SIGTERM exit {end['rc']}, launches "
+        f"{end['counts']}")
+    return {"bytes": sizes, "counts": end["counts"]}
+
+
 def kernel_records(errs, launches, timing, bwd_timing) -> list:
     """One record per kernel.  Times and bounds are per depthwise-config
     call of the path that runs the kernel (a ``sample`` call for the
@@ -1376,6 +2061,10 @@ def kernel_times(root: str) -> None:
     out = {"root": root, "forward": phase_forward_timing(device),
            "backward": phase_backward_timing(device),
            "se_gate": phase_se_timing(device)}
+    from nvae_torch.kernels import depthwise as dw
+
+    if hasattr(dw, "fused_swish_depthwise5x5_bf16"):  # trees with bf16 #2
+        out["forward_bf16"] = phase_bf16_timing(device)
     print(json.dumps(out), flush=True)
 
 
@@ -1416,6 +2105,8 @@ def main(argv=None) -> int:
     errs.update(bwd_errs)
     phase_function_grads(device)
     se_errs = phase_se_gate(device)
+    bf16_errs = phase_bf16_kernel(device)
+    log(f"kernels checked at {time.monotonic() - t_start:.1f} s")
 
     samplers = {}
     for name, cfg in configs().items():
@@ -1446,6 +2137,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: server check failed {rec}")
         for k, v in rec["counts"].items():
             launches[k] += v
+    matrix = []
+    for name, cfg in configs().items():
+        rec = phase_matrix(name, cfg, device)
+        matrix += rec["rows"]
+        samplers[f"{name} bf16"] = rec["bf16_sampler"]
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    log(f"samplers and matrix done at {time.monotonic() - t_start:.1f} s")
     trainers = {}
     for name, cfg in configs().items():
         rec = phase_train(cfg, device)
@@ -1483,6 +2182,7 @@ def main(argv=None) -> int:
                 or vs_f64["bn_stats_err"] > BN_STATS_F64_ATOL):
             raise AssertionError(f"train {name}: card vs CPU {rec}")
 
+    log(f"training done at {time.monotonic() - t_start:.1f} s")
     for k, v in phase_se_entry(device).items():
         launches[k] += v
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_")
@@ -1491,16 +2191,26 @@ def main(argv=None) -> int:
         for k, v in cli_rec["counts"].items():
             launches[k] += v
         report_cli(cli_rec)
-        phase_nll(phase_restored_state(workdir, device), device)
+        log(f"cli done at {time.monotonic() - t_start:.1f} s")
+        trainer = phase_restored_state(workdir, device)
+        phase_nll(trainer, device)
+        log(f"nll done at {time.monotonic() - t_start:.1f} s")
+        for rec in (phase_serve(workdir), phase_artifact(workdir, trainer)):
+            for k, v in rec["counts"].items():
+                launches[k] += v
+        del trainer
+        log(f"serving done at {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for k in ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
-              "fused_swish_depthwise5x5_dw", "se_gate"):
+              "fused_swish_depthwise5x5_dw", "fused_swish_depthwise5x5_bf16",
+              "se_gate"):
         if launches[k] == 0:
             raise AssertionError(f"the main paths never launched {k}")
 
     timing = phase_timing(device, samplers)
     bwd_timing = phase_backward_timing(device)
+    bf16_timing = phase_bf16_timing(device)
     se_timing = phase_se_timing(device)
     tool_timing = phase_tool_timing(device)
     phase_profile(samplers, trainers)
@@ -1510,7 +2220,10 @@ def main(argv=None) -> int:
         {"shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "library_ms": r["library_ms"], "bound_ms": max(r["bound"])}
         for r in tool_timing]
+    records.append(bf16_record(bf16_errs, launches, bf16_timing))
     records.append(se_record(se_errs, launches, se_timing))
+    for row in matrix:
+        log(f"matrix row: {json.dumps(row)}")
     log(f"total {time.monotonic() - t_start:.1f} s")
 
     smi = subprocess.run(

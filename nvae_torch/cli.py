@@ -6,12 +6,16 @@ Modes:
   sample  write sample PNGs at temperatures {0.7, 0.8, 0.9, 1.0}
           (and, with --scale_temperatures, t_annealed/)
   test    waits for the metric suite (ROADMAP.md Queue 1 #8)
-  serve   waits for the HTTP front end (ROADMAP.md Queue 1 #5)
+  serve   serve the checkpoint over HTTP (nvae_torch/serving_http.py):
+          dynamic batching at --batch_size and --serve_batches, weights
+          in --serve_dtype, hot reload from --model_save_dir
 
 It runs on the card unless --cpu asks for the CPU, and raises if there is
 no card.  A flag whose path is not ported yet stops the run with a message
-naming what it waits for; the JAX CLI's serving and metric-suite flags are
-not declared, so argparse rejects them.  --workers, --multiprocessing and
+naming what it waits for; the JAX CLI's metric-suite and pipeline-schedule
+flags are not declared, so argparse rejects them.  bf16 (--compute_dtype,
+--bn_apply_dtype) samples and serves, and stops a training run: bf16
+training waits for ROADMAP.md Queue 1 #3b.  --workers, --multiprocessing and
 --verbose are accepted as no-ops, as in the JAX CLI.  With --preset the
 flags compose exactly as the JAX CLI composes them: the preset's batch
 size, warm-up, parity and EMA settings win over those flags.
@@ -20,6 +24,9 @@ Usage:
   python -m nvae_torch.cli --mode train --dataset synthetic --debug --epochs 2
   python -m nvae_torch.cli --mode train --dataset synthetic --debug --cpu \\
       --n_encoder_channels 8 --n_decoder_channels 8 --n_groups_per_scale 1 1
+  python -m nvae_torch.cli --mode serve --preset mnist_step_sn --use_pallas \\
+      --dataset synthetic --serve_dtype int8 --compute_dtype bfloat16 \\
+      --serve_batches 144 576 --serve_port 8000
 """
 
 from __future__ import annotations
@@ -132,21 +139,41 @@ def parse_args(argv=None):
     p.add_argument("--use_pallas", action="store_true",
                    help="The hand-written fused swish->depthwise-5x5 CUDA "
                         "kernels on the hot spots (the JAX flag's name)")
+    p.add_argument("--serve_host", type=str, default="127.0.0.1")
+    p.add_argument("--serve_port", type=int, default=8000)
+    p.add_argument("--serve_max_delay_ms", type=float, default=10.0,
+                   help="Launch a partial batch once the oldest queued "
+                        "request has waited this long (0 = full batches "
+                        "only)")
+    p.add_argument("--serve_batches", type=int, nargs="*", default=None,
+                   help="Further serving batch sizes beside --batch_size: "
+                        "a partial dispatch runs the smallest size that "
+                        "covers the backlog")
+    p.add_argument("--serve_fetch_workers", type=int, default=2,
+                   help="Threads copying dispatch results to the host")
+    p.add_argument("--serve_follow_s", type=float, default=0.0,
+                   help="Poll the checkpoint dir every N seconds and "
+                        "hot-reload newer steps; 0 = reload only on POST "
+                        "/reload or SIGHUP")
     p.add_argument("--serve_dtype", type=str, default="",
-                   choices=["", "bfloat16", "int8"])
+                   choices=["", "bfloat16", "int8"],
+                   help="Weight serving dtype: bfloat16 casts the "
+                        "parameters, int8 quantizes the large kernels per "
+                        "output channel (BatchNorm statistics stay fp32)")
+    p.add_argument("--serve_output", type=str, default="",
+                   choices=["", "uint8"],
+                   help="Serve uint8 pixels, round(p * 255) on the device")
     return p.parse_args(argv)
 
 
 # What a mode or flag the port does not run yet waits for.
-_HTTP = "the HTTP front end (ROADMAP.md Queue 1 #5)"
 _METRICS = "the metric suite (ROADMAP.md Queue 1 #8)"
 _PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
-_WAITING_MODES = {"test": _METRICS, "serve": _HTTP}
+_WAITING_MODES = {"test": _METRICS}
 _WAITING_FLAGS = {
     "the device-resident epoch (ROADMAP.md Queue 1 #6)": ("scan_epochs",),
     _PARALLEL: ("fsdp",),
     "rematerialization (ROADMAP.md Queue 1 #1)": ("remat",),
-    "bf16 and int8 serving (ROADMAP.md Queue 1 #3)": ("serve_dtype",),
 }
 
 
@@ -166,16 +193,16 @@ def refuse_unported(args) -> None:
         raise SystemExit("not ported yet: " + "; ".join(reasons))
 
 
-def refuse_unported_model(model_cfg) -> None:
+def refuse_unported_model(model_cfg, mode: str = "train") -> None:
     """Stop with ``SystemExit`` on a model configuration the port does not
-    run yet (the dtype flags, or a dataset whose likelihood is DML)."""
+    run yet in ``mode`` (bf16 in training, or a dataset whose likelihood is
+    DML)."""
     reasons = []
-    if model_cfg.compute_dtype != "float32":
-        reasons.append("compute_dtype bfloat16 waits for bf16 "
-                       "(ROADMAP.md Queue 1 #3)")
-    if model_cfg.bn_apply_dtype != "float32":
-        reasons.append("bn_apply_dtype bfloat16 waits for bf16 "
-                       "(ROADMAP.md Queue 1 #3)")
+    if mode == "train":
+        for name in ("compute_dtype", "bn_apply_dtype"):
+            if getattr(model_cfg, name) != "float32":
+                reasons.append(f"{name} bfloat16 in training waits for bf16 "
+                               "training (ROADMAP.md Queue 1 #3b)")
     if model_cfg.likelihood != "bernoulli":
         reasons.append(f"likelihood {model_cfg.likelihood!r} waits for the "
                        "DML head (ROADMAP.md Queue 1 #4)")
@@ -310,7 +337,7 @@ def configs_from_args(args):
         args.dataset = args.dataset or "mnist"
         bundle = load_dataset(args.dataset, args.data_dir)
         model_cfg, train_cfg = build_configs(args, bundle)
-    refuse_unported_model(model_cfg)
+    refuse_unported_model(model_cfg, args.mode)
     return model_cfg, train_cfg, bundle
 
 
@@ -357,6 +384,8 @@ def main(argv=None):
             last = result.history[-1] if result.history else {}
             print(f"Training done: best_loss={result.best_loss:.3f} "
                   f"last_throughput={last.get('images_per_sec', 0):.1f} img/s")
+        elif args.mode == "serve":
+            _serve(args, trainer)
         else:  # sample
             _sample(args, trainer)
     finally:
@@ -392,6 +421,60 @@ def _sample(args, trainer) -> None:
         n = sample_to_dir(functools.partial(sample_fn, scale_temperatures=st),
                           args.batch_size, args.n_samples, 1.0, out_dir)
         print(f"Wrote {n} annealed samples (per-scale T={st}) to {out_dir}")
+
+
+def _serve(args, trainer) -> None:
+    from nvae_torch import serving_http
+
+    start = trainer.maybe_resume()
+    if args.use_ema:
+        trainer.swap_in_ema()
+    print(f"Serving checkpoint at epoch {start} (step {trainer.state.step};"
+          f" untrained weights if 0 and no checkpoint)"
+          f"{' (EMA weights)' if args.use_ema else ''}")
+    call, reloader_factory, batches = _build_serve_call(args, trainer)
+    print(f"serving on http://{args.serve_host}:{args.serve_port} "
+          f"(batch{'es' if len(batches) > 1 else ''} "
+          f"{'/'.join(str(b) for b in batches)}, "
+          f"max_delay {args.serve_max_delay_ms} ms, weights "
+          f"{call.info['serve_dtype']}, compute "
+          f"{trainer.model_cfg.compute_dtype}, reloadable)", flush=True)
+    serving_http.serve(
+        call, batches if len(batches) > 1 else args.batch_size,
+        host=args.serve_host, port=args.serve_port,
+        max_delay_ms=args.serve_max_delay_ms, seed=args.seed,
+        drain_signals=True, reloader_factory=reloader_factory,
+        follow_seconds=args.serve_follow_s,
+        fulfill_workers=args.serve_fetch_workers)
+
+
+def _build_serve_call(args, trainer):
+    """The ``(seed, f32[B]) -> images`` sampler for ``--mode serve`` (a
+    :class:`~nvae_torch.serving.Sampler` of the trainer's weights in
+    ``--serve_dtype``, at the step it restored), its hot-reload factory
+    (``POST /reload`` and SIGHUP restore a step of the checkpoint directory
+    and swap it in, cast the same way), and the served batch sizes.  Every
+    batch size is called once before the server takes traffic."""
+    from nvae_torch.serving import (
+        Sampler,
+        make_checkpoint_reloader,
+        variables_from_state,
+    )
+    from nvae_torch.serving_http import warm
+
+    st = tuple(args.scale_temperatures) if args.scale_temperatures else None
+    batches = sorted(set((args.serve_batches or []) + [args.batch_size]))
+    # The trainer's parameters already hold the EMA average under
+    # --use_ema (swap_in_ema); a reload extracts it from the checkpoint.
+    call = Sampler(trainer.model_cfg, variables_from_state(trainer.state),
+                   args.batch_size, scale_temperatures=st,
+                   output_dtype=args.serve_output, device=trainer.device,
+                   serve_dtype=args.serve_dtype)
+    call.step = int(trainer.state.step)
+    reloader = make_checkpoint_reloader(call, trainer.ckpt_dir, trainer.state,
+                                        use_ema=args.use_ema)
+    warm(call, batches)
+    return call, (lambda _sampler: reloader), batches
 
 
 if __name__ == "__main__":

@@ -22,6 +22,12 @@ The module tree is walked through each module's ``flax_names`` (child
 attribute -> Flax submodule name; a ``ModuleList`` named ``x`` holds Flax's
 ``x_0``, ``x_1``, ... and a nested one ``x_0_0``, ...).  A Flax leaf that maps
 to no port tensor raises.
+
+Serving trees convert too: a bf16 leaf stays bf16, and a quantized leaf
+(``q``, ``scale``, ``orig_dtype``: the JAX package's ``QuantizedLeaf``)
+becomes the port's :class:`nvae_torch.serving.QuantizedLeaf`, ``q`` and
+``scale`` moved through the same layout change.  :func:`channel_axes` says
+which port axis is the Flax leaf's last one, the axis JAX quantizes per.
 """
 
 from __future__ import annotations
@@ -116,11 +122,24 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()):
         yield prefix, tree
 
 
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A tensor owning a copy of ``a``; a bf16 array (``ml_dtypes``, which
+    ``torch.from_numpy`` does not take) keeps its bits as bf16, any other
+    float becomes fp32, and integers keep their type."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(a)
+    return t.to(torch.float32) if t.is_floating_point() else t
+
+
 def state_dict_from_flax(variables, module: nn.Module) -> Dict[str, torch.Tensor]:
     """The port ``module``'s state_dict from a Flax ``variables`` tree.
 
     Raises on any Flax leaf the port has no tensor for, on a shape mismatch,
     and on any port tensor left unfilled."""
+    from nvae_torch.serving import QuantizedLeaf
+
     layout = _flax_layout(module)
     own = module.state_dict()
     sd: Dict[str, torch.Tensor] = {}
@@ -130,17 +149,41 @@ def state_dict_from_flax(variables, module: nn.Module) -> Dict[str, torch.Tensor
         key, (fn, _) = layout[path]
         if key in sd:
             raise KeyError(f"{key} filled twice (second from {'/'.join(path)})")
-        value = torch.from_numpy(np.array(fn(np.asarray(leaf)), copy=True))
-        if tuple(value.shape) != tuple(own[key].shape):
+        if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+            value = QuantizedLeaf(
+                _tensor(fn(np.asarray(leaf.q))),
+                _tensor(fn(np.asarray(leaf.scale))),
+                getattr(torch, str(leaf.orig_dtype)))
+            shape = value.q.shape
+        else:
+            value = _tensor(fn(np.asarray(leaf)))
+            shape = value.shape
+        if tuple(shape) != tuple(own[key].shape):
             raise ValueError(
-                f"{'/'.join(path)} -> {key}: shape {tuple(value.shape)}, "
+                f"{'/'.join(path)} -> {key}: shape {tuple(shape)}, "
                 f"port expects {tuple(own[key].shape)}"
             )
-        sd[key] = value.to(torch.float32)
+        sd[key] = value
     missing = sorted(set(own) - set(sd))
     if missing:
         raise KeyError(f"port tensors not filled from Flax: {missing}")
     return sd
+
+
+def channel_axes(module: nn.Module) -> Dict[str, int]:
+    """For each port tensor with a Flax leaf, the port axis that is the
+    Flax leaf's last axis (the output channel of an HWIO kernel, of a Dense
+    ``(in, out)`` kernel and of ``h``'s ``(H, W, C)``).  Read off each
+    layout change by moving a tensor whose axes have distinct sizes."""
+    own = module.state_dict()
+    primes = (2, 3, 5, 7, 11, 13)
+    out = {}
+    for key, (_, inv) in _flax_layout(module).values():
+        d = own[key].dim()
+        if d:
+            last = inv(np.empty(primes[:d], np.int8)).shape[-1]
+            out[key] = primes.index(last)
+    return out
 
 
 def flax_tree_from_state_dict(state_dict, module: nn.Module) -> dict:

@@ -8,6 +8,10 @@
 //     y[b, h, w, c] = sum_{dy, dx} s(x)[b, h + dy - 2, w + dx - 2, c] * k[dy, dx, c]
 //                     (+ bias[c])
 //   with s = swish or the identity, SAME zero padding, NHWC fp32 in and out.
+//   Its bf16 instance (T = __nv_bfloat16; the Pallas kernel's semantics
+//   under compute_dtype=bfloat16) reads bf16 x and taps, applies swish and
+//   sums the 25 taps in fp32, adds an fp32 bias in fp32, and rounds y to
+//   bf16 once (round to nearest even).
 // - dw5x5_ring<kDx, false, false, kSwishGrad>: _fused_dx_kernel and
 //   _fused_dx_nox_kernel (launched by _make_fused_dw.dx_call), the same
 //   stencil over dy with the taps flipped, k[4 - dy, 4 - dx, c], times
@@ -59,6 +63,14 @@
 // - Swish (forward, dW/db) is applied once per staged element, in place, by
 //   the thread that copied it, after its cp.async.wait_group and before the
 //   barrier that publishes the pass (__expf and __fdividef: a few ulp).
+// - bf16 forward: a bf16 element cannot be widened in place, so its rows
+//   land by cp.async in a bf16 staging ring of (P + 1) G rows of W x 32
+//   (64 bytes a pixel: four 16-byte copies, or sixteen 4-byte ones where
+//   C % 8 != 0; an odd C is refused), and the thread that copied an
+//   element widens it, applies swish and writes it into the fp32 ring in
+//   the same step that applies swish in the fp32 kernel.  So the compute
+//   loop is the fp32 kernel's, instruction for instruction, and only the
+//   store differs (one bf16 per lane, 64 bytes per warp per pixel).
 // - A second "aux" ring of (P + 1) G rows of W' x 32 fp32 carries, per
 //   output row, the operand read at the output position: x for dx's swish'
 //   epilogue (turned into swish'(x) in place by its copier) and g for
@@ -81,6 +93,7 @@
 // hides (a build that skips the copies runs as fast), but the stencil's
 // own instruction issue and latency at 32 warps per SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -104,11 +117,11 @@ constexpr long long kMaxSmem = 232448;
 enum Kind { kFwd = 0, kDx = 1, kDw = 2 };
 
 struct Args {
-  const float* src;  // the ring's rows: x (forward, dW/db) or dy (dx)
+  const void* src;   // the ring's rows: x (forward, dW/db) or dy (dx), T
   const float* aux;  // per output row: g (dW/db) or x (dx's swish'), or null
-  const float* w;    // taps (forward, dx)
+  const void* w;     // taps (forward, dx), T
   const float* bias;
-  float* out;        // y, dx, or the (parts, 26, C) partials
+  void* out;         // y (T), dx, or the (parts, 26, C) partials
   long long sdy, sdx, sc;
   int batch, H, W, C;
   int parts;     // blocks per channel chunk
@@ -116,6 +129,16 @@ struct Args {
   int ahead;     // passes in flight ahead of the one computed (P)
   int vec;       // 16-byte copies
 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // __expf and __fdividef: a few ulp from expf and IEEE division, far inside
 // the kernels' limits (atol 2e-5), at a quarter of the instructions.
@@ -131,7 +154,7 @@ __device__ __forceinline__ float swish_grad(float v) {
 }
 
 // Copy 16 (vec) or 4 bytes global -> shared; zero-fill when !valid.
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool valid, bool vec) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (vec) {
@@ -212,10 +235,14 @@ struct Stream {
 };
 
 // The shared core; see the header.  kSwish: swish on the ring's rows
-// (forward, dW/db).  kAuxOp: dx's swish' epilogue.
-template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
+// (forward, dW/db).  kAuxOp: dx's swish' epilogue.  T: the element type of
+// x, the taps and y (float, or __nv_bfloat16 for the forward's staged
+// instance).
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp, typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dw5x5_ring(const Args a) {
+  constexpr bool kStaged = sizeof(T) == 2;
+  static_assert(!kStaged || kKind == kFwd, "bf16: the forward only");
   constexpr bool kAux = kKind == kDw || kAuxOp;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -239,14 +266,20 @@ dw5x5_ring(const Args a) {
   const int aux_f = runs * kRun * kChunk;
   float* ring = smem;
   float* aux = smem + (size_t)st.ring_rows * row_f;
+  // bf16 staging rows (forward only, where the aux ring is not used): slot
+  // q's row is aux row q % ((P + 1) G), W x 32 elements.
+  T* stage = reinterpret_cast<T*>(aux);
+  const int stage_f = W * kChunk;
+  const T* src_t = static_cast<const T*>(a.src);
   const bool vec = a.vec;
 
-  // Copy mapping: a slot is per_slot copies (pixel, seg floats of the
+  // Copy mapping: a slot is per_slot copies (pixel, seg elements of the
   // chunk).  With per_slot <= 256 a thread owns one copy column and the
   // slots g0, g0 + gstep, ... of each pass; wider rows give each thread the
   // columns tid, tid + 256, ... of every slot.
-  const int seg = vec ? 4 : 1;
-  const int px_shift = vec ? 3 : 5;  // copies per pixel: 8 or 32
+  const int seg = (vec ? 16 : 4) / (int)sizeof(T);
+  // Copies per pixel: fp32 8 or 32, bf16 4 or 16.
+  const int px_shift = (vec ? 3 : 5) - (kStaged ? 1 : 0);
   const int per_slot = W << px_shift;
   int g0 = 0, gstep = 1, col0 = tid, colstep = kThreads;
   if (per_slot <= kThreads) {
@@ -273,8 +306,9 @@ dw5x5_ring(const Args a) {
     // Flipping both tap axes maps tap dy * 5 + dx to 24 - (dy * 5 + dx).
     const int u = kKind == kDx ? kTaps2 - 1 - t : t;
     tap[t] = kKind != kDw && live
-                 ? a.w[(u / kTaps) * a.sdy + (u % kTaps) * a.sdx +
-                       (long long)c * a.sc]
+                 ? to_float(static_cast<const T*>(a.w)[(u / kTaps) * a.sdy +
+                                                        (u % kTaps) * a.sdx +
+                                                        (long long)c * a.sc])
                  : 0.0f;
   }
 #pragma unroll
@@ -282,17 +316,18 @@ dw5x5_ring(const Args a) {
   const float b = kBias && live ? a.bias[c] : 0.0f;
 
   // Start the copies of the pass at `cur`: ring row ih = s - 2 of each slot
-  // (zero-filled outside the image), and for dx / dW/db the aux row
-  // s - 4 of each slot that ends an output row.
+  // (zero-filled outside the image; bf16: into its staging row), and for
+  // dx / dW/db the aux row s - 4 of each slot that ends an output row.
   auto issue = [&](const Cursor& cur) {
     for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
       const Slot t = st.slot(cur, gi);
       const int ih = t.s - kPad;
       const bool row_in = ih >= 0 && ih < H;
       const size_t img_row = (size_t)(first + t.img) * H;
-      const float* src =
-          row_in ? a.src + (img_row + ih) * W * C + c0 : a.src;
-      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
+      const T* src = row_in ? src_t + (img_row + ih) * W * C + c0 : src_t;
+      T* dst = kStaged ? stage + (size_t)t.aux * stage_f
+                       : reinterpret_cast<T*>(ring + (size_t)t.ring * row_f +
+                                              kPad * kChunk);
       const bool has_aux = kAux && t.s >= kHalo;
       const float* asrc =
           has_aux ? a.aux + (img_row + t.s - kHalo) * W * C + c0 : a.aux;
@@ -302,7 +337,7 @@ dw5x5_ring(const Args a) {
         const int cl = (col - (px << px_shift)) * seg;
         const bool in_c = c0 + cl < C;
         const size_t off = (size_t)px * C + cl;
-        copy_async(dst + px * kChunk + cl, row_in && in_c ? src + off : a.src,
+        copy_async(dst + px * kChunk + cl, row_in && in_c ? src + off : src_t,
                    row_in && in_c, vec);
         if (has_aux) {
           copy_async(adst + px * kChunk + cl, in_c ? asrc + off : a.aux, in_c,
@@ -311,6 +346,41 @@ dw5x5_ring(const Args a) {
       }
     }
     commit_group();
+  };
+  // bf16: this thread's staged elements of the pass at `cur`, widened
+  // into the fp32 ring with swish (halo rows and channels past C were
+  // staged as zeros, and swish(0) = 0).
+  auto widen = [&](const Cursor& cur) {
+    for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
+      const Slot t = st.slot(cur, gi);
+      const T* sp = stage + (size_t)t.aux * stage_f;
+      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
+      for (int col = col0; col < per_slot; col += colstep) {
+        const int px = col >> px_shift;
+        const int at = px * kChunk + (col - (px << px_shift)) * seg;
+        if (vec) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(sp + at);
+          const __nv_bfloat162* h =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(h[j]);
+            v[2 * j] = kSwish ? swish(f.x) : f.x;
+            v[2 * j + 1] = kSwish ? swish(f.y) : f.y;
+          }
+          float4* p = reinterpret_cast<float4*>(dst + at);
+          p[0] = make_float4(v[0], v[1], v[2], v[3]);
+          p[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sp + at));
+          *reinterpret_cast<float2*>(dst + at) =
+              make_float2(kSwish ? swish(f.x) : f.x,
+                          kSwish ? swish(f.y) : f.y);
+        }
+      }
+    }
   };
   // Swish on this thread's landed ring elements of the pass at `cur`, and
   // swish' on its aux elements (dx).
@@ -446,14 +516,14 @@ dw5x5_ring(const Args a) {
 #pragma unroll
         for (int o = 0; o < kRows; ++o) {
           if (!out[o]) continue;
-          float* dst = a.out + ((row0 + o) * W + w0) * C + c;
+          T* dst = static_cast<T*>(a.out) + ((row0 + o) * W + w0) * C + c;
           const float* at = aux_at(o);
 #pragma unroll
           for (int i = 0; i < kRun; ++i) {
             if (i < n_out) {
               float r = kBias ? acc[o][i] + b : acc[o][i];
               if (kAuxOp) r *= at[i * kChunk];
-              dst[i * C] = r;
+              store(dst + i * C, r);
             }
           }
         }
@@ -469,7 +539,11 @@ dw5x5_ring(const Args a) {
   Cursor cur = st.at(0);
   for (int p = 0; p < n_pass; ++p) {
     wait_pending(a.ahead - 1);  // this thread's copies of pass p landed
-    transform(cur);
+    if (kStaged) {
+      widen(cur);
+    } else {
+      transform(cur);
+    }
     __syncthreads();  // pass p visible to all; pass p - 1 read by all
     issue(fill);  // pass p + P, into the rows pass p - 1 read
     st.next(fill);
@@ -493,7 +567,9 @@ dw5x5_ring(const Args a) {
       const int ln = e - t * kChunk;
       float s = 0.0f;
       for (int wp = 0; wp < kWarps; ++wp) s += red[(wp * kSums + t) * kChunk + ln];
-      if (c0 + ln < C) a.out[((size_t)part * kSums + t) * C + c0 + ln] = s;
+      if (c0 + ln < C) {
+        static_cast<float*>(a.out)[((size_t)part * kSums + t) * C + c0 + ln] = s;
+      }
     }
   }
 }
@@ -516,43 +592,49 @@ __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
 }
 
 // Shared bytes of one block: the ring and the aux ring (dx, dW/db), rows
-// padded to whole runs, and for
-// dW/db at least the warps' sums.  The same formula as geometry() on the
-// host, which the entry points hold it to.
-long long smem_bytes(int kind, int W, int G, int P) {
+// padded to whole runs, for dW/db at least the warps' sums, and for the
+// bf16 forward (elem 2) its staging rows.  The same formula as geometry()
+// on the host, which the entry points hold it to.
+long long smem_bytes(int kind, int W, int G, int P, int elem) {
   const long long rows = (long long)(P + 1) * G;
   const long long padded = (long long)(W + kRun - 1) / kRun * kRun;
   long long f = (rows + kHalo) * (padded + kHalo) * kChunk;
   if (kind != kFwd) f += rows * padded * kChunk;
   if (kind == kDw && f < kWarps * kSums * kChunk) f = kWarps * kSums * kChunk;
-  return 4 * f;
+  long long bytes = 4 * f;
+  if (elem == 2) bytes += rows * W * kChunk * 2;
+  return bytes;
 }
 
 // geo: {parts, slots per pass (a multiple of kRows), passes ahead, threads,
 // shared bytes}.
-bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C) {
+bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C,
+                int elem = 4) {
   if (batch <= 0 || H <= 0 || W <= 0 || C <= 0 || geo == nullptr) return true;
   const int parts = geo[0], G = geo[1], P = geo[2];
   const long long chunks = (C + kChunk - 1) / kChunk;
   return parts < 1 || parts > batch || G < kRows || G % kRows || P < 1 ||
          P > kMaxAhead || geo[3] != kThreads ||
-         (long long)geo[4] != smem_bytes(kind, W, G, P) ||
+         (long long)geo[4] != smem_bytes(kind, W, G, P, elem) ||
          geo[4] > kMaxSmem || chunks * parts > 0x7fffffffLL ||
          (long long)batch * (H + kHalo) + G > 0x7fffffffLL;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+bool aligned(const void* p, uintptr_t n) {
+  return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
-template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
+bool aligned16(const void* p) { return aligned(p, 16); }
+
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp, typename T = float>
 cudaError_t launch(Args a, const int* geo, cudaStream_t stream) {
   a.parts = geo[0];
   a.per_pass = geo[1];
   a.ahead = geo[2];
-  a.vec = a.C % 4 == 0 && aligned16(a.src) && aligned16(a.aux) &&
-          aligned16(a.out);
-  auto kernel = dw5x5_ring<kKind, kSwish, kBias, kAuxOp>;
+  // 16-byte copies: 4 fp32 or 8 bf16 channels.
+  a.vec = a.C % (16 / (int)sizeof(T)) == 0 && aligned16(a.src) &&
+          aligned16(a.aux) && aligned16(a.out);
+  auto kernel = dw5x5_ring<kKind, kSwish, kBias, kAuxOp, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo[4]);
   if (err != cudaSuccess) return err;
@@ -565,11 +647,11 @@ Args make_args(const void* src, const void* aux, const void* w,
                const void* bias, void* out, int batch, int H, int W, int C,
                long long sdy, long long sdx, long long sc) {
   Args a{};
-  a.src = static_cast<const float*>(src);
+  a.src = src;
   a.aux = static_cast<const float*>(aux);
-  a.w = static_cast<const float*>(w);
+  a.w = w;
   a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
+  a.out = out;
   a.sdy = sdy;
   a.sdx = sdx;
   a.sc = sc;
@@ -602,6 +684,34 @@ extern "C" int nvae_dw5x5_fwd(const void* x, const void* w, const void* bias,
   } else {
     err = bias ? launch<kFwd, false, true, false>(a, geo, s)
                : launch<kFwd, false, false, false>(a, geo, s);
+  }
+  return (int)err;
+}
+
+// The bf16 instance of the forward: x, y (batch, H, W, C) contiguous bf16,
+// w bf16 taps with strides as above, bias (C,) fp32 or null; C even, and x
+// and y 4-byte aligned (the copies are 16 or 4 bytes: cp.async has no
+// 2-byte form).  Sums and bias in fp32, y rounded to bf16 once.
+extern "C" int nvae_dw5x5_fwd_bf16(const void* x, const void* w,
+                                   const void* bias, void* y, int batch, int H,
+                                   int W, int C, long long sdy, long long sdx,
+                                   long long sc, int fuse_swish,
+                                   const int* geo, int device, void* stream) {
+  if (bad_launch(geo, kFwd, batch, H, W, C, 2) || C % 2 != 0 ||
+      !aligned(x, 4) || !aligned(y, 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Args a = make_args(x, nullptr, w, bias, y, batch, H, W, C, sdy, sdx, sc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B16 = __nv_bfloat16;
+  if (fuse_swish) {
+    err = bias ? launch<kFwd, true, true, false, B16>(a, geo, s)
+               : launch<kFwd, true, false, false, B16>(a, geo, s);
+  } else {
+    err = bias ? launch<kFwd, false, true, false, B16>(a, geo, s)
+               : launch<kFwd, false, false, false, B16>(a, geo, s);
   }
   return (int)err;
 }

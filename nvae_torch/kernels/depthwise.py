@@ -25,7 +25,12 @@ keeps a plain integer ``launches`` attribute that it increments once per
 kernel launch, so a run can show that its path went through the kernel; the
 dW/db wrapper counts its two launches (made by one C call) as one.
 
-The kernels take fp32 only, for now: the bf16 path comes later.
+The forward also takes bf16 ``x`` and taps with an fp32 bias (the Pallas
+kernel under ``compute_dtype=bfloat16``): swish and the 25 taps in fp32, the
+bias in fp32, ``y`` rounded to bf16 once.  Its CUDA launches go through
+:func:`fused_swish_depthwise5x5_bf16`, which counts them apart from the fp32
+ones.  dx and dW/db take fp32 only: their bf16 instances wait for bf16
+training (ROADMAP.md Queue 1 #3b).
 """
 
 from __future__ import annotations
@@ -60,11 +65,21 @@ _IN_FLIGHT = 8_192  # bytes of copies a block keeps in flight, at least
 # A block's shared memory that still lets three share an SM.
 _OCC_SMEM = _SM_SMEM // 3 - _BLOCK_RESERVED_SMEM
 _KINDS = ("fwd", "dx", "dw")
+# Element types of x, the taps and y, by name as ``geometry`` takes them.
+_ELEM_BYTES = {"float32": 4, "bfloat16": 2}
 
 
 def _swish_grad(x: torch.Tensor) -> torch.Tensor:
     s = torch.sigmoid(x)
     return s * (1.0 + x * (1.0 - s))
+
+
+def depthwise5x5_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME depthwise 5x5 convolution of NHWC ``x`` by (5, 5, 1, C) taps,
+    one ``F.conv2d(groups=C)`` in x's dtype."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                 padding=K // 2, groups=x.shape[-1])
+    return y.permute(0, 2, 3, 1)
 
 
 def fused_swish_depthwise5x5_plain(
@@ -77,16 +92,71 @@ def fused_swish_depthwise5x5_plain(
     """``dwconv5x5(swish(x)) + bias`` from stock PyTorch ops, NHWC in and out.
 
     The CPU path of the forward and the reference the kernel is held
-    against on the card."""
-    c = x.shape[-1]
-    s = F.silu(x) if fuse_swish else x
-    y = F.conv2d(
-        s.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
-        padding=K // 2, groups=c,
-    )
-    if bias is not None:
-        y = y + bias.view(1, c, 1, 1)
-    return y.permute(0, 2, 3, 1)
+    against on the card.  bf16 ``x`` takes the Pallas kernel's bf16
+    semantics (:func:`_plain_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _plain_bf16(x, kernel, bias, fuse_swish)
+    y = depthwise5x5_conv(F.silu(x) if fuse_swish else x, kernel)
+    return y if bias is None else y + bias
+
+
+def _stencil_f32(s: torch.Tensor, taps: torch.Tensor,
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The 25 taps over fp32 NHWC ``s``, summed in fp32 in dy-major,
+    dx-minor order, then the bias: the Pallas kernel's sum."""
+    b, h, w, c = s.shape
+    sp = F.pad(s, (0, 0, K // 2, K // 2, K // 2, K // 2))
+    taps = taps.float().reshape(K, K, c)
+    acc = torch.zeros_like(s)
+    for i in range(K):
+        for j in range(K):
+            acc = acc + sp[:, i:i + h, j:j + w, :] * taps[i, j]
+    return acc if bias is None else acc + bias.float()
+
+
+def _plain_bf16(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor], fuse_swish: bool) -> torch.Tensor:
+    """The bf16 forward as the Pallas kernel computes it
+    (``_fused_fwd_kernel``): ``x`` widened to fp32, swish in fp32, the 25
+    taps (widened) summed in fp32, the bias added in fp32, and ``y``
+    rounded to bf16 once."""
+    s = F.silu(x.float()) if fuse_swish else x.float()
+    return _stencil_f32(s, kernel, bias).to(torch.bfloat16)
+
+
+# How far the bf16 forward may lie from its plain version.  The two round
+# the same 25-product fp32 sum differently (the kernel's FMAs, __expf and
+# __fdividef), by a few fp32 ulps of the sum's scale |b| + sum |s(x) w|
+# (``bf16_sum_scale``); the one rounding to bf16 may then go either way.
+# Rounding s(x) to bf16 before the taps is off by up to 2^-9 of that scale.
+BF16_SUM_ULPS = 32  # fp32 ulps of the scale, past one bf16 ulp
+BF16_MIN_EQUAL_SHARE = 0.999  # of outputs bitwise equal to the plain version
+
+
+def bf16_sum_scale(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, *,
+                   fuse_swish: bool = True) -> torch.Tensor:
+    """``|bias| + sum |s(x) * w|`` per output, fp32: the scale of the sum
+    the bf16 forward rounds once."""
+    s = F.silu(x.float()) if fuse_swish else x.float()
+    return _stencil_f32(s.abs(), kernel.float().abs(),
+                        None if bias is None else bias.abs())
+
+
+def _f32_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The fp32 spacing above ``v >= 0`` (exact: adjacent floats)."""
+    return torch.nextafter(v, torch.full_like(v, float("inf"))) - v
+
+
+def bf16_sum_ulps(got: torch.Tensor, want: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """Per output, by how many fp32 ulps of ``scale`` the bf16 forward's
+    ``|got - want|`` exceeds one bf16 ulp of the larger result (0 within
+    it): at most ``BF16_SUM_ULPS`` against its plain version."""
+    larger = torch.maximum(got.float().abs(), want.float().abs())
+    # A bf16 value's bf16 spacing is its fp32 spacing times 2^16.
+    excess = (got.float() - want.float()).abs() - 65536.0 * _f32_ulp(larger)
+    return excess.clamp(min=0.0) / _f32_ulp(scale)
 
 
 def fused_swish_depthwise5x5_dx_plain(
@@ -126,7 +196,7 @@ def _lib() -> ctypes.CDLL:
     lib = library("depthwise5x5")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     geo = ctypes.POINTER(ctypes.c_int)
-    lib.nvae_dw5x5_fwd.argtypes = [
+    lib.nvae_dw5x5_fwd.argtypes = lib.nvae_dw5x5_fwd_bf16.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, geo, i32,
         ptr,
     ]
@@ -136,7 +206,8 @@ def _lib() -> ctypes.CDLL:
     lib.nvae_dw5x5_dw.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, geo, i32, ptr,
     ]
-    for fn in (lib.nvae_dw5x5_fwd, lib.nvae_dw5x5_dx, lib.nvae_dw5x5_dw):
+    for fn in (lib.nvae_dw5x5_fwd, lib.nvae_dw5x5_fwd_bf16, lib.nvae_dw5x5_dx,
+               lib.nvae_dw5x5_dw):
         fn.restype = ctypes.c_int
     lib.nvae_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nvae_cuda_error_string.restype = ctypes.c_char_p
@@ -180,11 +251,13 @@ class Geometry:
                                   self.ahead, self.threads, self.smem_bytes)
 
 
-def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int) -> int:
+def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
+                elem: int = 4) -> int:
     """A block's shared memory: the ring of (P + 1) G + 4 rows of (W' + 4) x
     32 fp32, the aux ring of (P + 1) G rows of W' x 32 (dx, dW/db), W
-    rounded up to W' = whole runs of 4 outputs, and for dW/db at least the
-    warps' 26 sums (they alias the ring)."""
+    rounded up to W' = whole runs of 4 outputs, for dW/db at least the
+    warps' 26 sums (they alias the ring), and for the bf16 forward
+    (``elem`` 2) the staging ring of (P + 1) G rows of W x 32 bf16."""
     rows = (ahead + 1) * per_pass
     padded = -(-w // _RUN) * _RUN
     floats = (rows + _HALO) * (padded + _HALO) * _CHUNK
@@ -192,12 +265,15 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int) -> int:
         floats += rows * padded * _CHUNK
     if kind == "dw":
         floats = max(floats, _WARPS * _SUMS * _CHUNK)
-    return 4 * floats
+    staged = rows * w * _CHUNK * elem if elem == 2 else 0
+    return 4 * floats + staged
 
 
 @functools.lru_cache(maxsize=None)
-def geometry(kind: str, shape: Tuple[int, int, int, int]) -> Geometry:
-    """The launch geometry of kernel ``kind`` at (B, H, W, C) ``shape``: a
+def geometry(kind: str, shape: Tuple[int, int, int, int],
+             dtype: str = "float32") -> Geometry:
+    """The launch geometry of kernel ``kind`` at (B, H, W, C) ``shape`` for
+    elements of ``dtype`` ("float32", or "bfloat16" for the forward): a
     pure function of the shape and of the constants above, so one shape
     gets one schedule (and one set of dW bits) on any card.  The wrappers,
     :func:`_check` and :func:`dw_parts` read it, and the C entry points
@@ -216,18 +292,21 @@ def geometry(kind: str, shape: Tuple[int, int, int, int]) -> Geometry:
       [j B / n, (j + 1) B / n)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    if dtype not in _ELEM_BYTES or (dtype != "float32" and kind != "fwd"):
+        raise ValueError(f"no {kind} kernel for {dtype}")
+    elem = _ELEM_BYTES[dtype]
     b, h, w, c = (int(s) for s in shape)
     chunks = -(-c // _CHUNK)
     runs = -(-w // _RUN)
     per_pass = _ROWS * -(-_WARPS * (h + _HALO) // (h * runs))
     # Bytes a pass copies from HBM: its H / (H + 4) real rows, and g or x
     # beside them for dx and dW/db.
-    row_bytes = w * _CHUNK * 4 * (1 if kind == "fwd" else 2)
+    row_bytes = w * _CHUNK * (elem if kind == "fwd" else 8)
     ahead = -(-_IN_FLIGHT * (h + _HALO) // (per_pass * h * row_bytes))
     ahead = min(_MAX_AHEAD, max(1, ahead))
 
     def smem():
-        return _smem_bytes(kind, w, per_pass, ahead)
+        return _smem_bytes(kind, w, per_pass, ahead, elem)
 
     while smem() > _OCC_SMEM and per_pass > _ROWS:
         per_pass -= _ROWS
@@ -249,26 +328,35 @@ def geometry(kind: str, shape: Tuple[int, int, int, int]) -> Geometry:
 
 
 def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
-           bias: Optional[torch.Tensor], *others: torch.Tensor) -> None:
+           bias: Optional[torch.Tensor], *others: torch.Tensor,
+           kind: str = "fwd") -> None:
     """Raise on what the kernels do not take.  ``others`` are further
     (B, H, W, C) operands (dy, the saved x) held to the rules of ``x``;
-    ``kernel`` is None for dW/db, which reads no taps."""
+    ``kernel`` is None for dW/db, which reads no taps.  ``kind`` is the
+    kernel: the forward takes fp32, or bf16 ``x`` and taps with an fp32
+    bias (C even, ``x`` 4-byte aligned); dx and dW/db take fp32."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
-    tensors = [("x", x)]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and kind != "fwd":
+        raise TypeError(f"{kind} of a bfloat16 x waits for bf16 training "
+                        "(ROADMAP.md Queue 1 #3b): dx and dW/db take float32 "
+                        "only")
+    elem = torch.bfloat16 if bf16 else torch.float32
+    tensors = [("x", x, elem)]
     if kernel is not None:
         if tuple(kernel.shape) != (K, K, 1, c):
             raise ValueError(
                 f"kernel must be ({K}, {K}, 1, {c}), got {tuple(kernel.shape)}"
             )
-        tensors.append(("kernel", kernel))
+        tensors.append(("kernel", kernel, elem))
     if bias is not None:
         if tuple(bias.shape) != (c,):
             raise ValueError(f"bias must be ({c},), got {tuple(bias.shape)}")
         if not bias.is_contiguous():
             raise ValueError("bias must be contiguous")
-        tensors.append(("bias", bias))
+        tensors.append(("bias", bias, torch.float32))
     for i, t in enumerate(others):
         if tuple(t.shape) != tuple(x.shape):
             raise ValueError(f"operand {i} has shape {tuple(t.shape)}, "
@@ -276,16 +364,28 @@ def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
         if not t.is_contiguous():
             raise ValueError(f"operand {i} must be contiguous in (B, H, W, C) "
                              "order")
-        tensors.append((f"operand {i}", t))
-    for name, t in tensors:
+        tensors.append((f"operand {i}", t, torch.float32))
+    for name, t, want in tensors:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            allowed = ("float32, or bfloat16 x and taps with a float32 bias"
+                       if kind == "fwd" else "float32")
+            raise TypeError(f"{name} must be {want} here ({kind} takes "
+                            f"{allowed}), got {t.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous in (B, H, W, C) order")
-    for kind in _KINDS:
-        geometry(kind, (b, h, w, c))  # raises where the ring does not fit
+    if bf16:
+        # cp.async copies 16 or 4 bytes, never 2: two channels at least.
+        if c % 2:
+            raise ValueError(f"a bfloat16 x needs an even channel count "
+                             f"(the copies move 4 or 16 bytes), got C={c}")
+        if x.data_ptr() % 4:
+            raise ValueError("a bfloat16 x must start 4-byte aligned")
+        geometry("fwd", (b, h, w, c), "bfloat16")
+        return
+    for k in _KINDS:
+        geometry(k, (b, h, w, c))  # raises where the ring does not fit
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -302,16 +402,39 @@ def _launch(x: torch.Tensor, kernel: torch.Tensor,
     _require_cuda(x)
     _check(x, kernel, bias)
     b, h, w, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
-    err = _lib().nvae_dw5x5_fwd(
+    entry = _lib().nvae_dw5x5_fwd_bf16 if bf16 else _lib().nvae_dw5x5_fwd
+    err = entry(
         x.data_ptr(), kernel.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         b, h, w, c, kernel.stride(0), kernel.stride(1), kernel.stride(3),
-        int(fuse_swish), geometry("fwd", (b, h, w, c)).c_array(),
+        int(fuse_swish),
+        geometry("fwd", (b, h, w, c),
+                 "bfloat16" if bf16 else "float32").c_array(),
         x.device.index, _stream(x),
     )
     _raise_on(err, "forward")
     return y
+
+
+def fused_swish_depthwise5x5_bf16(
+    x: torch.Tensor, kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None, *, fuse_swish: bool = True,
+) -> torch.Tensor:
+    """The bf16 instance of the forward kernel on CUDA tensors: bf16 ``x``
+    (B, H, W, C) and taps (5, 5, 1, C), fp32 ``bias`` (C,) or None; bf16
+    ``y``.  It counts its launches in ``launches``, apart from the fp32
+    forward's; :func:`fused_swish_depthwise5x5` routes bf16 CUDA tensors
+    here, and the CPU takes the plain version."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 instance takes bfloat16 x, got {x.dtype}")
+    y = _launch(x, kernel, bias, fuse_swish)
+    fused_swish_depthwise5x5_bf16.launches += 1
+    return y
+
+
+fused_swish_depthwise5x5_bf16.launches = 0
 
 
 def _forward(x: torch.Tensor, kernel: torch.Tensor,
@@ -320,6 +443,9 @@ def _forward(x: torch.Tensor, kernel: torch.Tensor,
         return fused_swish_depthwise5x5_plain(
             x, kernel, bias, fuse_swish=fuse_swish
         )
+    if x.dtype == torch.bfloat16:
+        return fused_swish_depthwise5x5_bf16(x, kernel, bias,
+                                             fuse_swish=fuse_swish)
     y = _launch(x, kernel, bias, fuse_swish)
     fused_swish_depthwise5x5.launches += 1
     return y
@@ -339,7 +465,7 @@ def fused_swish_depthwise5x5_dx(
     _require_cuda(dy)
     if fuse_swish and x is None:
         raise ValueError("the swish' epilogue needs the forward's x")
-    _check(dy, kernel, None, *((x,) if fuse_swish else ()))
+    _check(dy, kernel, None, *((x,) if fuse_swish else ()), kind="dx")
     b, h, w, c = dy.shape
     dx = torch.empty_like(dy)
     err = _lib().nvae_dw5x5_dx(
@@ -376,7 +502,7 @@ def fused_swish_depthwise5x5_dw(
         return dk, db if with_bias else None
     _require_cuda(x)
     b, h, w, c = x.shape
-    _check(x, None, None, dy)
+    _check(x, None, None, dy, kind="dw")
     geo = geometry("dw", (b, h, w, c))
     n_parts = geo.blocks_per_chunk
     partial = torch.empty(n_parts, _SUMS, c, device=x.device,

@@ -6,6 +6,12 @@ posterior -> postprocess -> Bernoulli logits), its eval-mode reconstruction
 (``NVAE.reconstruct``) and the prior sampler (``NVAE.sample``).  The DML
 head comes with a later slice.
 
+``compute_dtype`` / ``bn_apply_dtype`` bfloat16 run in eval mode (sample,
+reconstruct): the parameters stay fp32 and each module casts where its JAX
+module casts (``nn/spectral.py``, ``nn/blocks.py``); the latent heads and
+the likelihood head return fp32, and the noise is drawn in fp32.  Training
+in bf16 waits for ROADMAP.md Queue 1 #3b.
+
 Layout: internally every feature map is NCHW in ``torch.channels_last``
 memory, so the fused depthwise kernel reads it as NHWC without a transpose.
 Public inputs and outputs (images, injected noise, ``last_s``, ``z``) keep the
@@ -83,6 +89,13 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32 at least: bf16 widened, fp32 and float64 kept (JAX's
+    ``.astype(jnp.float32)`` of the heads, for a model that may also run in
+    float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A ``dtype`` tensor on ``device`` from a tensor or an array (copied,
     so a read-only numpy buffer never backs a tensor)."""
@@ -106,12 +119,22 @@ def _temperature(value, device):
     return value.to(device)
 
 
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+BF16_TRAINING = ("bf16 training waits for ROADMAP.md Queue 1 #3b (bf16 "
+                 "instances of the backward kernels #3 and #4); "
+                 "compute_dtype and bn_apply_dtype bfloat16 run in eval mode "
+                 "only (sample, reconstruct, serve)")
+
+
+def runs_bf16(cfg: ModelConfig) -> bool:
+    return "bfloat16" in (cfg.compute_dtype, cfg.bn_apply_dtype)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
+    for name in ("compute_dtype", "bn_apply_dtype"):
+        if getattr(cfg, name) not in DTYPES:
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
     waiting = []
-    if cfg.compute_dtype != "float32":
-        waiting.append(f"compute_dtype={cfg.compute_dtype!r}")
-    if cfg.bn_apply_dtype != "float32":
-        waiting.append(f"bn_apply_dtype={cfg.bn_apply_dtype!r}")
     if cfg.likelihood != "bernoulli":
         waiting.append(f"likelihood={cfg.likelihood!r}")
     if cfg.remat:
@@ -177,12 +200,14 @@ class LatentHeads(nn.Module):
         )
 
     def enc_params(self, group: int, x: torch.Tensor):
-        return self.enc_heads[group](x).chunk(2, dim=1)
+        # fp32 whatever the compute dtype: mu and log sigma feed
+        # softclamp, exp and the KL.
+        return _f32(self.enc_heads[group](x)).chunk(2, dim=1)
 
     def dec_params(self, group: int, x: torch.Tensor):
         if group < 1:
             raise ValueError("group 0 has a standard-normal prior")
-        out = self.dec_heads[group - 1](F.elu(x))
+        out = _f32(self.dec_heads[group - 1](F.elu(x)))
         return out.chunk(2, dim=1)
 
 
@@ -274,10 +299,13 @@ class Decoder(nn.Module):
         and ``log_q`` are (B,) sums over each group's elements when ``nll``,
         else zeros.  Noise: group 0, then one draw per group g >= 1."""
         batch = trunk.shape[0]
-        noise = _Noise(eps, generator, trunk.device, trunk.dtype)
+        # The noise is fp32 under a bf16 compute dtype, as JAX draws it (a
+        # float64 model draws float64).
+        dt = torch.promote_types(trunk.dtype, torch.float32)
+        noise = _Noise(eps, generator, trunk.device, dt)
         latents: List[LatentParams] = []
-        log_p = torch.zeros(batch, device=trunk.device, dtype=trunk.dtype)
-        log_q = torch.zeros(batch, device=trunk.device, dtype=trunk.dtype)
+        log_p = torch.zeros(batch, device=trunk.device, dtype=dt)
+        log_q = torch.zeros(batch, device=trunk.device, dtype=dt)
 
         def draw(enc_mu, enc_sigma, dec_mu, dec_sigma):
             nonlocal log_p, log_q
@@ -521,7 +549,7 @@ class Postprocess(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for cell in self.cells:
             x = cell(x)
-        return self.head(F.elu(x))
+        return _f32(self.head(F.elu(x)))
 
 
 class NVAE(nn.Module):
@@ -536,7 +564,8 @@ class NVAE(nn.Module):
     in eval mode; a trainer calls ``.train()``.  ``device`` defaults to the
     card and raises if there is none; ``seed`` initialises the weights as
     Flax would (glorot-uniform kernels, zero biases, unit BatchNorm,
-    ``h ~ U[0, 1)``).
+    ``h ~ U[0, 1)``).  ``device="meta"`` builds the structure alone, with
+    no weights, for a caller that binds its own (the serving sampler).
     """
 
     flax_names = {"preprocess": "preprocess", "encoder": "encoder",
@@ -546,14 +575,18 @@ class NVAE(nn.Module):
                  seed: int = 0):
         super().__init__()
         _check_supported(cfg)
-        dev = resolve_device(device)
+        meta = torch.device(device).type == "meta"
+        dev = None if meta else resolve_device(device)
         self.cfg = cfg
-        self.preprocess = Preprocess(cfg)
-        self.encoder = Encoder(cfg)
-        self.decoder = Decoder(cfg)
-        self.postprocess = Postprocess(cfg)
-        self.reset_parameters(seed)
-        self.to(device=dev, memory_format=torch.channels_last)
+        with torch.device("meta") if meta else contextlib.nullcontext():
+            self.preprocess = Preprocess(cfg)
+            self.encoder = Encoder(cfg)
+            self.decoder = Decoder(cfg)
+            self.postprocess = Postprocess(cfg)
+        set_dtypes(self, cfg)
+        if not meta:
+            self.reset_parameters(seed)
+            self.to(device=dev, memory_format=torch.channels_last)
         self.eval()
 
     def reset_parameters(self, seed: int) -> None:
@@ -592,8 +625,10 @@ class NVAE(nn.Module):
         NHWC tensors: group 0, then each group g >= 1), else each draw comes
         from ``generator``.  The pass runs in the model's dtype (float32;
         a float64 copy on the CPU serves as a reference)."""
+        if self.training and runs_bf16(self.cfg):
+            raise NotImplementedError(BF16_TRAINING)
         h = self.decoder.h
-        x = _nchw(_as_tensor(x, h.device, h.dtype))
+        x = _nchw(_as_tensor(x, h.device, _f32(h).dtype))
         x = x.contiguous(memory_format=torch.channels_last)
         enc_feats, trunk = self.encoder(self.preprocess(x))
         feats, latents, log_p, log_q = self.decoder(
@@ -651,6 +686,19 @@ class NVAE(nn.Module):
         z, s = _nchw(_as_tensor(z, dev)), _nchw(_as_tensor(s, dev))
         logits = self.postprocess(self.decoder.generate_from_z(z, s))
         return _nhwc(torch.sigmoid(logits))
+
+
+def set_dtypes(model: nn.Module, cfg: ModelConfig) -> None:
+    """Give every leaf module the config's dtypes, where the JAX model
+    passes ``dtype=compute_dtype`` and ``bn_dtype=bn_apply_dtype``: every
+    convolution, depthwise convolution and squeeze-excitation block, and
+    every BatchNorm."""
+    dt, bn = DTYPES[cfg.compute_dtype], DTYPES[cfg.bn_apply_dtype]
+    for m in model.modules():
+        if isinstance(m, (SNConv, DepthwiseConv, SqueezeExcitation)):
+            m.dtype = dt
+        elif isinstance(m, BatchNorm):
+            m.apply_dtype = bn
 
 
 @contextlib.contextmanager

@@ -12,6 +12,12 @@ weights.
 Kept from the JAX modules on purpose: BatchNorm eps 1e-5; generative cells
 scale the identity branch by 0.1 and postprocess cells the residual branch;
 squeeze-excitation hidden width ``max(C // 16, 4)``.
+
+Dtypes follow the JAX modules' ``dtype`` and ``bn_dtype``, set on the leaf
+modules (``SNConv``, ``DepthwiseConv``, ``SqueezeExcitation``: ``dtype``;
+``BatchNorm``: ``apply_dtype``) by ``NVAE`` from its config.  None is
+float32: no cast, so a float64 copy of the model runs in float64.  The bf16
+forms are eval-mode only; bf16 training waits for ROADMAP.md Queue 1 #3b.
 """
 
 from __future__ import annotations
@@ -22,7 +28,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from nvae_torch.nn.spectral import DepthwiseConv, SNConv, glorot_uniform_
+from nvae_torch.nn.spectral import (
+    DepthwiseConv,
+    SNConv,
+    compute_dtype,
+    glorot_uniform_,
+    swish,
+)
 
 
 BN_EPS = 1e-5
@@ -38,12 +50,20 @@ class BatchNorm(nn.Module):
     and updates the running statistics in place as
     ``ra <- 0.05 * ra + 0.95 * batch`` (biased variance).  This is not
     ``F.batch_norm(training=True)``, whose momentum 0.05 would keep 95% of
-    the old value and which stores the unbiased variance."""
+    the old value and which stores the unbiased variance.
+
+    ``apply_dtype`` bf16 (eval mode) is JAX's ``_SplitPrecisionBN``:
+    ``mul = scale * rsqrt(var + eps)`` and ``add = bias - mean * mul`` from
+    the fp32 statistics, then ``x * mul + add`` in bf16.  Otherwise eval
+    mode normalizes in the statistics' dtype, whatever x's dtype, as Flax's
+    fp32 BatchNorm does."""
 
     MOMENTUM = 0.05  # Flax's: the share of the old running value kept
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int,
+                 apply_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.apply_dtype = apply_dtype
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -59,9 +79,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            st = self.running_mean.dtype
+            if self.apply_dtype is not None:
+                mul = self.weight.to(st) * torch.rsqrt(self.running_var
+                                                       + BN_EPS)
+                add = self.bias.to(st) - self.running_mean * mul
+                dt = self.apply_dtype
+                return (x.to(dt) * mul.to(dt)[:, None, None]
+                        + add.to(dt)[:, None, None])
             return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight,
-                self.bias, training=False, eps=BN_EPS,
+                x.to(st), self.running_mean, self.running_var,
+                self.weight.to(st), self.bias.to(st), training=False,
+                eps=BN_EPS,
             )
         dims = (0, 2, 3)
         mean = x.mean(dim=dims)
@@ -76,12 +105,17 @@ class BatchNorm(nn.Module):
 
 
 class SqueezeExcitation(nn.Module):
-    """Squeeze-and-excitation gate as plain ops (``blocks.py:107-128``)."""
+    """Squeeze-and-excitation gate as plain ops (``blocks.py:107-128``).
+    With ``dtype`` set, the pool is in x's dtype and the dense layers run in
+    ``dtype`` (the product rounded, then the bias added, as Flax's
+    ``Dense``); the gate is cast to x's dtype."""
 
     flax_names = {"fc1": "Dense_0", "fc2": "Dense_1"}
 
-    def __init__(self, channels: int, ratio: int = 16):
+    def __init__(self, channels: int, ratio: int = 16,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         hidden = int(max(channels // ratio, 4))
         self.fc1 = nn.Linear(channels, hidden)
         self.fc2 = nn.Linear(hidden, channels)
@@ -95,8 +129,15 @@ class SqueezeExcitation(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3))
-        s = torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
-        return x * s[:, :, None, None]
+        dt = compute_dtype(self.dtype, s, self.fc1.weight)
+        if self.dtype is None and dt == self.fc1.weight.dtype:
+            s = torch.sigmoid(self.fc2(F.relu(self.fc1(s.to(dt)))))
+        else:
+            for i, fc in enumerate((self.fc1, self.fc2)):
+                s = (F.linear(s.to(dt), fc.weight.to(dt))
+                     + fc.bias.to(dt))
+                s = F.relu(s) if i == 0 else torch.sigmoid(s)
+        return x * s.to(x.dtype)[:, :, None, None]
 
 
 class Rescaler(nn.Module):
@@ -115,7 +156,7 @@ class Rescaler(nn.Module):
                            stride=1 if up else factor)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.silu(self.bn(x))
+        x = swish(self.bn(x))
         if self.up:
             x = F.interpolate(x, scale_factor=self.factor, mode="nearest")
         return self.conv(x)
@@ -137,7 +178,7 @@ class FactorizedDownsample(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.silu(x)
+        out = swish(x)
         views = (out, out[:, :, 1:, 1:], out[:, :, :, 1:], out[:, :, 1:, :])
         return torch.cat([conv(v) for conv, v in zip(self.convs, views)],
                          dim=1)
@@ -175,7 +216,7 @@ class StemCell(nn.Module):
         skip = self.skip(x) if self.skip is not None else x
         y = x
         for bn, conv in zip(self.bns, self.convs):
-            y = conv(F.silu(bn(y)))
+            y = conv(swish(bn(y)))
         return skip + 0.1 * self.se(y)
 
 
@@ -197,8 +238,8 @@ class EncoderResidualCell(nn.Module):
         self.se = SqueezeExcitation(features, se_ratio)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv0(F.silu(self.bn0(x)))
-        y = self.conv1(F.silu(self.bn1(y)))
+        y = self.conv0(swish(self.bn0(x)))
+        y = self.conv1(swish(self.bn1(y)))
         return 0.1 * x + self.se(y)
 
 
@@ -230,7 +271,7 @@ class GenerativeResidualCell(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.expand(self.bn0(x))
         y = self.dw(self.bn1(y))
-        y = self.project(F.silu(self.bn2(y)))
+        y = self.project(swish(self.bn2(y)))
         y = self.se(self.bn3(y))
         return 0.1 * x + y
 
@@ -279,7 +320,7 @@ class ConvBNSwish(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x))
-        return x if self.emit_preact else F.silu(x)
+        return x if self.emit_preact else swish(x)
 
 
 class PostprocessNode(nn.Module):
@@ -328,7 +369,7 @@ class PostprocessNode(nn.Module):
             x = self.rescale(x)
         x = self.expand(self.bn_in(x))
         if self.conv5 is None:
-            x = F.silu(self.bn_mid(self.dw(x)))
+            x = swish(self.bn_mid(self.dw(x)))
         else:
             x = self.conv5(x)
         x = self.bn_out(self.project(x))

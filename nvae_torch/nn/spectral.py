@@ -13,6 +13,14 @@ them.
 Initialisation follows Flax's: glorot-uniform kernels over
 ``receptive field x in/out channels``, zero biases, ``u`` a normalized
 Gaussian draw.
+
+Compute dtype: a module's ``dtype`` (the JAX module's ``dtype``; None here
+for float32) is where the JAX module casts.  ``SNConv`` casts its input and
+kernel to it, convolves, and adds the bias cast to it (two roundings, as
+JAX's ``y + bias.astype(dtype)``); ``DepthwiseConv`` casts its input and
+taps to it and hands the kernel an fp32 bias.  With ``dtype`` None the
+convolution runs in the promoted dtype of input and weights, so bf16
+serving weights run in fp32 and a float64 copy of the model in float64.
 """
 
 from __future__ import annotations
@@ -25,9 +33,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nvae_torch.kernels.depthwise import (
+    depthwise5x5_conv,
     fused_swish_depthwise5x5,
     fused_swish_depthwise5x5_plain,
 )
+
+
+def compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor,
+                  w: torch.Tensor) -> torch.dtype:
+    """A module's compute dtype: its own, or else the promoted dtype of its
+    input and weight."""
+    return dtype if dtype is not None else torch.promote_types(x.dtype,
+                                                               w.dtype)
 
 
 def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
@@ -35,6 +52,14 @@ def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         t.uniform_(-limit, limit, generator=generator)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``.  In bf16 two roundings, as JAX's ``jax.nn.silu``
+    (the sigmoid, then the product); ``F.silu`` rounds once."""
+    if x.dtype == torch.bfloat16:
+        return x * torch.sigmoid(x)
+    return F.silu(x)
 
 
 def _l2norm(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -71,12 +96,13 @@ class SNConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  use_bias: bool = True, mode: str = "projection",
-                 stride: int = 1):
+                 stride: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("SAME padding needs an odd kernel size")
         self.mode = mode
         self.stride = int(stride)
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch, kernel_size, kernel_size)
         )
@@ -104,6 +130,8 @@ class SNConv(nn.Module):
         comes from the old ``u``, as in JAX)."""
         w = self.weight
         if self.mode == "forward":
+            # bf16 serving weights: sigma in the dtype of u, as JAX promotes.
+            w = w.to(torch.promote_types(w.dtype, self.u.dtype))
             w2d = w.reshape(w.shape[0], -1).t()  # (in * kh * kw, out)
             sigma, u_new = power_iteration(w2d, self.u)
             if self.training:
@@ -119,13 +147,22 @@ class SNConv(nn.Module):
             # (The same result; PyTorch 2.13's CPU backward of a strided
             # 1x1 conv on a channels_last input crashes.)
             x, s = x[:, :, ::s, ::s], 1
+        w = self.kernel()
+        dt = compute_dtype(self.dtype, x, w)
+        x, w = x.to(dt), w.to(dt)
+        # Under a set compute dtype the bias comes after the convolution's
+        # rounding, as in JAX; otherwise it folds into the convolution.
+        bias = None if self.bias is None else self.bias.to(dt)
+        fold = self.dtype is None
         top, bottom = _same_pad(x.shape[2], k, s)
         left, right = _same_pad(x.shape[3], k, s)
         if top == bottom and left == right:
-            return F.conv2d(x, self.kernel(), self.bias, stride=s,
-                            padding=(top, left))
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.kernel(), self.bias, stride=s)
+            y = F.conv2d(x, w, bias if fold else None, stride=s,
+                         padding=(top, left))
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            y = F.conv2d(x, w, bias if fold else None, stride=s)
+        return y if fold or bias is None else y + bias[:, None, None]
 
 
 class DepthwiseConv(nn.Module):
@@ -141,10 +178,12 @@ class DepthwiseConv(nn.Module):
     caller then feeds the pre-activation tensor)."""
 
     def __init__(self, channels: int, use_bias: bool = True,
-                 use_pallas: bool = False, fuse_swish: bool = False):
+                 use_pallas: bool = False, fuse_swish: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.use_pallas = use_pallas
         self.fuse_swish = fuse_swish
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(channels, 1, 5, 5))
         self.bias = nn.Parameter(torch.empty(channels)) if use_bias else None
         self.reset_parameters()
@@ -158,13 +197,31 @@ class DepthwiseConv(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        if self.use_pallas or dt != torch.bfloat16:
+            # The kernel's arguments as JAX passes them: x and the taps in
+            # the compute dtype, the bias in fp32 (its dtype in float64).
+            bias = (None if self.bias is None else
+                    self.bias.to(torch.promote_types(dt, torch.float32)))
+            x, s = x.to(dt), self.fuse_swish
+        else:
+            # JAX's XLA path in bf16: swish in x's dtype, then the
+            # convolution and the bias in bf16.
+            if self.fuse_swish:
+                x = swish(x)
+            x, bias, s = x.to(dt), None, False
         # An NCHW channels_last tensor is (B, H, W, C)-contiguous once
         # permuted: the kernel reads it in place.
         x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        fn = (fused_swish_depthwise5x5 if self.use_pallas
-              else fused_swish_depthwise5x5_plain)
-        y = fn(x, self.weight.permute(2, 3, 1, 0), self.bias,
-               fuse_swish=self.fuse_swish)
+        taps = self.weight.to(dt).permute(2, 3, 1, 0)
+        if self.use_pallas:
+            y = fused_swish_depthwise5x5(x, taps, bias, fuse_swish=s)
+        elif dt == torch.bfloat16:
+            y = depthwise5x5_conv(x, taps)
+            if self.bias is not None:
+                y = y + self.bias.to(dt)
+        else:
+            y = fused_swish_depthwise5x5_plain(x, taps, bias, fuse_swish=s)
         return y.permute(0, 3, 1, 2)
 
 

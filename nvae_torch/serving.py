@@ -1,31 +1,144 @@
-"""Serving: a hot-swappable prior sampler on the device (counterpart of
-``nvae_tpu/serving.py``'s ``quantize_output`` and ``ReloadableSampler``).
+"""Serving: a hot-swappable prior sampler on the device, its weight-only
+serving dtypes, and its one-file artifact (counterpart of
+``nvae_tpu/serving.py``: ``QuantizedLeaf``, ``quantize_params_int8``,
+``dequantize_params``, ``cast_params``, ``quantize_output``,
+``variables_from_state``, ``ReloadableSampler``, ``make_checkpoint_reloader``,
+``export_sampler`` and ``load_artifact``).
 
-:class:`Sampler` keeps one ``NVAE`` with its weights on the device and is
-called as ``(seed, temperature) -> images``; a temperature vector's length
-sets the batch size, so one sampler backs several batch shapes.  PyTorch runs
-eagerly, so there is no per-shape compile to warm, and a :meth:`Sampler.swap`
-copies new weights into the same device tensors.  Work is enqueued on the
-current CUDA stream in order, so a dispatch enqueued before a swap still
-computes with the old weights: the swap boundary is a dispatch boundary, as
-in the JAX sampler.
+:class:`Sampler` is called as ``(seed, temperature) -> images``; a
+temperature vector's length sets the batch size, so one sampler backs
+several batch shapes.  It holds the tensors ``NVAE.sample`` reads
+(:func:`sampler_keys`: the decoder's prior side and the postprocess, 24.08M
+of the default model's 40.1M parameters) as one dict on the device, in its
+``serve_dtype``:
+
+- ``""``: as trained (fp32);
+- ``"bfloat16"``: every float parameter cast to bf16;
+- ``"int8"``: JAX's symmetric per-output-channel int8 of every float
+  parameter with at least 4096 elements and two axes, ``scale =
+  max(absmax, 1e-12) / 127``, ``q = clip(round(w / scale), -127, 127)``
+  (round half to even), dequantized inside every call as ``(q * scale)``
+  in the original dtype.
+
+BatchNorm running statistics and spectral ``u`` are buffers, not
+parameters: they stay fp32, as JAX casts ``params`` only.  The model's
+``compute_dtype`` is separate: bf16 weights under fp32 compute run in fp32
+(each module casts, as the JAX modules do).
+
+Hot swap (the reference's shape, ``nvae_tpu/serving.py:254-261``):
+:meth:`Sampler.swap` builds the new tensors on the device outside any lock,
+as new tensors on the current stream (never copied into the old ones in
+place, so the caching allocator reuses the old memory only after the work
+already enqueued on that stream), and takes the lock only to replace the
+dict's reference and bump ``generation`` and ``step``.  A call reads the
+reference once, at its start, and holds no lock while it enqueues its work:
+it computes with that one generation throughout, whatever swaps land
+meanwhile.  :attr:`Sampler.info` takes the lock only to read three fields.
+
+The module itself carries no weights (its tensors live on the ``meta``
+device): a call binds the snapshot's tensors into it for its duration, the
+way ``torch.func.functional_call`` does, at a few dict writes per tensor.
+That binding is safe only while one thread calls at a time, which is what
+the dynamic-batching server does (one dispatch thread); a second
+concurrent call raises.
 
 fp32 serving runs with TF32 off and deterministic cuDNN algorithms
-(:func:`nvae_torch.device.fp32_math`).  bf16 and int8 weight serving come
-with a later slice.
+(:func:`nvae_torch.device.fp32_math`), so a ``(seed, temperature)`` replays
+bitwise on one device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import os
 import threading
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from nvae_torch.config import ModelConfig
-from nvae_torch.device import DeviceLike, fp32_math
+from nvae_torch.convert import channel_axes
+from nvae_torch.device import DeviceLike, fp32_math, resolve_device
 from nvae_torch.models.nvae import NVAE
+
+SERVE_DTYPES = ("", "bfloat16", "int8")  # "": as trained (float32)
+INT8_MIN_ELEMS = 4096
+ARTIFACT_FORMAT = "nvae_torch.sampler/1"
+# The state-dict entries NVAE.sample reads: the decoder's cells, sample
+# combiners, rescalers, prior heads and constant input, and the postprocess.
+_SAMPLER_PREFIXES = ("decoder.cells.", "decoder.combiners.",
+                     "decoder.rescalers.", "decoder.heads.dec_heads.",
+                     "postprocess.")
+
+
+@dataclasses.dataclass
+class QuantizedLeaf:
+    """A weight stored as int8 ``q`` (its shape) and fp32 per-output-channel
+    ``scale`` (size 1 on every other axis): ``w ~ q * scale``."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    orig_dtype: torch.dtype = torch.float32
+
+    def dequantize(self) -> torch.Tensor:
+        # int8 * fp32 promotes q to fp32 exactly, then one multiply: JAX's
+        # q.astype(float32) * scale.
+        return (self.q * self.scale).to(self.orig_dtype)
+
+    def to(self, device) -> "QuantizedLeaf":
+        return QuantizedLeaf(self.q.to(device, copy=True),
+                             self.scale.to(device, copy=True),
+                             self.orig_dtype)
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + self.scale.nbytes
+
+
+Leaf = Union[torch.Tensor, QuantizedLeaf]
+
+
+def quantize_leaf(x: torch.Tensor, axis: int) -> QuantizedLeaf:
+    """Symmetric int8 of ``x`` per index of ``axis`` (JAX's rule)."""
+    dims = tuple(d for d in range(x.dim()) if d != axis)
+    absmax = x.abs().amax(dim=dims, keepdim=True)
+    # A tensor divisor on x's device: CUDA turns division by a Python
+    # number into a multiply by its reciprocal, which rounds otherwise.
+    scale = torch.clamp(absmax.to(torch.float32), min=1e-12) / torch.tensor(
+        127.0, device=x.device)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
+    return QuantizedLeaf(q.to(torch.int8), scale, x.dtype)
+
+
+def _int8_eligible(x: torch.Tensor, min_elems: int) -> bool:
+    return x.is_floating_point() and x.numel() >= min_elems and x.dim() >= 2
+
+
+def quantize_params_int8(params: Dict[str, torch.Tensor],
+                         axes: Dict[str, int],
+                         min_elems: int = INT8_MIN_ELEMS) -> Dict[str, Leaf]:
+    """Per-output-channel int8 of the large float parameters; the rest
+    (biases, BatchNorm scales) stay as they are.  ``axes`` gives each
+    parameter's output-channel axis (:func:`nvae_torch.convert.channel_axes`:
+    the axis JAX reduces last, wherever the port's layout puts it)."""
+    return {k: quantize_leaf(v, axes[k]) if _int8_eligible(v, min_elems)
+            else v for k, v in params.items()}
+
+
+def dequantize_params(params: Dict[str, Leaf]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`quantize_params_int8` (identity on tensors)."""
+    return {k: v.dequantize() if isinstance(v, QuantizedLeaf) else v
+            for k, v in params.items()}
+
+
+def cast_params(params: Dict[str, torch.Tensor],
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The float parameters cast to ``dtype``; pass parameters only, so
+    BatchNorm statistics stay fp32."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}
 
 
 def quantize_output(images: torch.Tensor, output_dtype: str) -> torch.Tensor:
@@ -41,6 +154,28 @@ def quantize_output(images: torch.Tensor, output_dtype: str) -> torch.Tensor:
     raise ValueError(f"unknown output_dtype {output_dtype!r}")
 
 
+def sampler_keys(keys) -> list:
+    """The entries of a model state dict that ``NVAE.sample`` reads."""
+    return [k for k in keys
+            if k.startswith(_SAMPLER_PREFIXES) or k == "decoder.h"]
+
+
+def variables_from_state(state, use_ema: bool = False) -> dict:
+    """The serving state dict of a train state: the model's parameters and
+    buffers, with ``use_ema`` the optimizer's EMA average in place of the
+    parameters (raises if the state was trained without ``ema_decay``)."""
+    from nvae_torch.train.optim import find_ema_params
+
+    sd = dict(state.model.state_dict())
+    if use_ema:
+        ema = find_ema_params(state.opt_state)
+        if ema is None:
+            raise ValueError(
+                "no EMA in the optimizer state: train with --ema_decay")
+        sd.update(ema)
+    return sd
+
+
 class Sampler:
     """Hot-swappable ``(seed, temperature) -> images`` prior sampler.
 
@@ -48,34 +183,118 @@ class Sampler:
     the same ``(seed, temperature)`` gives the same images bitwise on one
     device.  ``temperature`` is a float (``n_samples`` images) or a
     per-sample vector whose length is the batch size; a vector on the CPU
-    reaches the card by a non-blocking copy, so a call only enqueues work.  ``scale_temperatures``
-    fixes per-scale temperatures for every call (they override
-    ``temperature``, as in the JAX sampler).  ``output_dtype="uint8"``
-    quantizes the images on the device (:func:`quantize_output`).
+    reaches the card by a non-blocking copy, so a call only enqueues work.
+    ``scale_temperatures`` fixes per-scale temperatures for every call (they
+    override ``temperature``, as in the JAX sampler).  ``output_dtype=
+    "uint8"`` quantizes the images on the device (:func:`quantize_output`);
+    ``serve_dtype`` applies the weight-only serving cast to the weights
+    given here and to every tree swapped in.
 
     ``device`` defaults to the card and raises if there is none.  The
-    weights come from ``state_dict`` (for example
-    :func:`nvae_torch.convert.state_dict_from_flax` of a JAX checkpoint), or
-    from a Flax-style initialisation seeded by ``init_seed``.
+    weights come from ``state_dict`` (the model's, a checkpoint's through
+    :func:`variables_from_state`, :func:`nvae_torch.convert.
+    state_dict_from_flax` of a JAX tree, or an artifact's already cast or
+    quantized tensors), or from a Flax-style initialisation seeded by
+    ``init_seed``.
     """
 
     def __init__(self, cfg: ModelConfig, state_dict: Optional[dict] = None,
                  n_samples: int = 16,
                  scale_temperatures: Optional[Sequence[float]] = None,
                  output_dtype: str = "", device: DeviceLike = "cuda",
-                 init_seed: int = 0):
+                 init_seed: int = 0, serve_dtype: str = ""):
         quantize_output(torch.zeros(1), output_dtype)  # validate early
-        self.model = NVAE(cfg, device=device, seed=init_seed)
-        self.device = self.model.decoder.h.device
+        if serve_dtype not in SERVE_DTYPES:
+            raise ValueError(f"unknown serve_dtype {serve_dtype!r}")
+        self.device = resolve_device(device)
+        if state_dict is None:
+            state_dict = NVAE(cfg, device="cpu", seed=init_seed).state_dict()
+        model = NVAE(cfg, device="meta")
+        self.cfg = cfg
+        self.keys = sampler_keys(model.state_dict())
+        self._params = {k for k, _ in model.named_parameters()}
+        self._axes = channel_axes(model)
+        self.model = model
+        self._slots = {}
+        for k in self.keys:
+            owner, _, name = k.rpartition(".")
+            mod = self.model.get_submodule(owner)
+            self._slots[k] = (mod._parameters if name in mod._parameters
+                              else mod._buffers, name)
         self.n_samples = int(n_samples)
         self._st = (tuple(float(t) for t in scale_temperatures)
                     if scale_temperatures else None)
         self.output_dtype = output_dtype
+        self.serve_dtype = serve_dtype
         self.generation = 0
         self.step = -1  # checkpoint step served; -1 = constructor weights
         self._lock = threading.Lock()
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
+        self._calling = threading.Lock()
+        self._weights = self._stage(state_dict)
+
+    # ---- weights ------------------------------------------------------------
+
+    def _stage(self, state_dict: dict) -> Dict[str, Leaf]:
+        """New device tensors of the served entries of ``state_dict``, the
+        parameters cast or quantized to ``serve_dtype``."""
+        missing = [k for k in self.keys if k not in state_dict]
+        if missing:
+            raise KeyError(f"the sampler needs {missing[:3]} "
+                           f"({len(missing)} missing)")
+        sd = {k: state_dict[k] for k in self.keys}
+        if self.serve_dtype != "int8" and any(
+                isinstance(v, QuantizedLeaf) for v in sd.values()):
+            raise ValueError(f"int8 weights given to a sampler that serves "
+                             f"{self.serve_dtype or 'float32'}")
+        params = {k: v.detach() for k, v in sd.items() if k in self._params
+                  and isinstance(v, torch.Tensor) and v.is_floating_point()}
+        if self.serve_dtype == "bfloat16":
+            sd.update(cast_params(params, torch.bfloat16))
+        elif self.serve_dtype == "int8":
+            sd.update(quantize_params_int8(
+                {k: v.to(self.device) for k, v in params.items()},
+                self._axes))
+        return {k: self._to_device(v) for k, v in sd.items()}
+
+    def _to_device(self, v: Leaf) -> Leaf:
+        if isinstance(v, QuantizedLeaf):
+            return v.to(self.device)
+        t = v.detach().to(self.device, copy=True)
+        if t.dim() == 4:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return t
+
+    @property
+    def weights_bytes(self) -> int:
+        """Bytes of the served weights on the device."""
+        return sum(v.nbytes for v in self._weights.values())
+
+    @contextlib.contextmanager
+    def _bound(self, tensors: Dict[str, torch.Tensor]):
+        slots = [(self._slots[k], t) for k, t in tensors.items()]
+        old = [d[name] for (d, name), _ in slots]
+        for (d, name), t in slots:
+            d[name] = t
+        try:
+            yield self.model
+        finally:
+            for ((d, name), _), t in zip(slots, old):
+                d[name] = t
+
+    def apply(self, fn):
+        """``fn(model)`` on one snapshot of the served weights, bound into
+        the model for the call, in inference mode.  One thread at a time."""
+        weights = self._weights  # one generation for the whole call
+        if not self._calling.acquire(blocking=False):
+            raise RuntimeError("a Sampler is called from one thread at a "
+                               "time (its dispatch thread)")
+        try:
+            with torch.inference_mode(), fp32_math(deterministic=True):
+                # int8 leaves dequantized here, one multiply each.
+                with self._bound(dequantize_params(weights)) as model:
+                    return fn(model)
+        finally:
+            self._calling.release()
 
     def __call__(self, seed: int, temperature) -> torch.Tensor:
         n = self.n_samples
@@ -85,18 +304,20 @@ class Sampler:
             if temperature.ndim:
                 n = temperature.shape[0]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with (self._lock, torch.inference_mode(),
-              fp32_math(deterministic=True)):
-            images, _, _, _ = self.model.sample(
-                n, temperature, True, self._st, generator=gen
-            )
+
+        def sample(model):
+            images, _, _, _ = model.sample(n, temperature, True, self._st,
+                                           generator=gen)
             return quantize_output(images, self.output_dtype)
 
+        return self.apply(sample)
+
     def swap(self, state_dict: dict, step: Optional[int] = None) -> None:
-        """Copy ``state_dict`` into the device weights; dispatches enqueued
-        after this call use them."""
+        """Serve ``state_dict`` (raw weights, cast here to ``serve_dtype``)
+        from the next call on; calls already running finish on the old."""
+        staged = self._stage(state_dict)
         with self._lock:
-            self.model.load_state_dict(state_dict)
+            self._weights = staged
             self.generation += 1
             if step is not None:
                 self.step = int(step)
@@ -104,10 +325,115 @@ class Sampler:
     @property
     def info(self) -> dict:
         with self._lock:
-            return {
-                "step": self.step,
-                "generation": self.generation,
-                "serve_dtype": "float32",
-                "output_dtype": self.output_dtype or "float32",
-                "device": str(self.device),
-            }
+            step, generation = self.step, self.generation
+        return {
+            "step": step,
+            "generation": generation,
+            "serve_dtype": self.serve_dtype or "float32",
+            "output_dtype": self.output_dtype or "float32",
+            "device": str(self.device),
+        }
+
+
+def make_checkpoint_reloader(sampler: Sampler, ckpt_dir: str, state_template,
+                             use_ema: bool = False):
+    """The serving tier's ``POST /reload`` hook: restore a step from the
+    checkpoint directory configured at startup (never a client-supplied
+    path) into ``state_template`` and swap it into ``sampler``.  ``req``
+    keys: ``step`` (int, default the latest), ``use_ema`` (bool, default
+    the server's startup setting), ``if_newer`` (follow mode: skip unless a
+    step beyond the one serving exists).  Returns the JSON-able record."""
+    from nvae_torch.train.checkpoint import latest_step, restore_checkpoint
+
+    ckpt_dir = os.path.abspath(ckpt_dir)
+
+    def reload(req: dict) -> dict:
+        step = req.get("step")
+        if step is not None and (not isinstance(step, int)
+                                 or isinstance(step, bool)):
+            raise ValueError(f"step must be an int, got {step!r}")
+        ema = req.get("use_ema", use_ema)
+        if not isinstance(ema, bool):
+            raise ValueError(f"use_ema must be a bool, got {ema!r}")
+        if req.get("if_newer") and step is None:
+            newest = latest_step(ckpt_dir)
+            if newest is None or newest <= sampler.step:
+                return {**sampler.info, "skipped": True}
+        state = restore_checkpoint(ckpt_dir, state_template, step)
+        sampler.swap(variables_from_state(state, ema), step=int(state.step))
+        return {**sampler.info, "use_ema": ema}
+
+    return reload
+
+
+# ---- the serving artifact ----------------------------------------------------
+
+
+def _config_dict(cfg: ModelConfig) -> dict:
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(cfg).items()}
+
+
+def export_sampler(path: str, cfg: ModelConfig, state_dict: dict,
+                   n_samples: int,
+                   scale_temperatures: Optional[Sequence[float]] = None,
+                   per_sample_temperature: bool = False,
+                   output_dtype: str = "", serve_dtype: str = "",
+                   step: int = -1) -> int:
+    """Write the sampler as one file a server loads without the training
+    tree: the model config, ``n_samples``, ``scale_temperatures``,
+    ``output_dtype``, ``per_sample_temperature``, and only the tensors
+    ``NVAE.sample`` reads, already cast or quantized to ``serve_dtype``.
+    It is ``torch.save`` of a dict of plain tensors, numbers and strings
+    (``torch.load(..., weights_only=True)`` reads it).  Returns the file's
+    bytes."""
+    staged = Sampler(cfg, state_dict, n_samples, scale_temperatures,
+                     output_dtype, device="cpu", serve_dtype=serve_dtype)
+    plain, quantized = {}, {}
+    for k, v in staged._weights.items():
+        if isinstance(v, QuantizedLeaf):
+            quantized[k] = {"q": v.q, "scale": v.scale,
+                            "orig_dtype": str(v.orig_dtype).split(".")[-1]}
+        else:
+            plain[k] = v
+    payload = {
+        "format": ARTIFACT_FORMAT,
+        "config": _config_dict(cfg),
+        "n_samples": int(n_samples),
+        "scale_temperatures": (list(staged._st) if staged._st else None),
+        "per_sample_temperature": bool(per_sample_temperature),
+        "output_dtype": output_dtype,
+        "serve_dtype": serve_dtype,
+        "step": int(step),
+        "tensors": plain,
+        "quantized": quantized,
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def load_artifact(path: str, device: DeviceLike = "cuda") -> Sampler:
+    """A :class:`Sampler` on ``device`` from an :func:`export_sampler` file.
+    Its ``artifact`` attribute holds the file's settings (batch,
+    per-sample temperature, dtypes, step)."""
+    p = torch.load(path, map_location="cpu", weights_only=True)
+    if p.get("format") != ARTIFACT_FORMAT:
+        raise ValueError(f"{path}: not a {ARTIFACT_FORMAT} artifact")
+    sd: Dict[str, Leaf] = dict(p["tensors"])
+    for k, v in p["quantized"].items():
+        sd[k] = QuantizedLeaf(v["q"], v["scale"],
+                              getattr(torch, v["orig_dtype"]))
+    sampler = Sampler(ModelConfig(**p["config"]), sd, p["n_samples"],
+                      p["scale_temperatures"], p["output_dtype"],
+                      device=device, serve_dtype=p["serve_dtype"])
+    sampler.step = int(p["step"])
+    sampler.artifact = {
+        "path": path, "batch": int(p["n_samples"]),
+        "per_sample_temperature": bool(p["per_sample_temperature"]),
+        "serve_dtype": p["serve_dtype"] or "float32",
+        "output_dtype": p["output_dtype"] or "float32",
+        "step": int(p["step"]), "bytes": os.path.getsize(path),
+    }
+    return sampler

@@ -234,6 +234,15 @@ class BatchingSampler:
         """Launch whatever is queued now without waiting for a full batch."""
         self._flush.set()
 
+    def swap_call(self, call_fn: Callable) -> None:
+        """Hot-swap the sampler (same ``(seed, f32[B]) -> images`` contract
+        and batch sizes).  The worker reads the callable once per dispatch,
+        so the assignment is the swap boundary: dispatches launched after it
+        run the new sampler, launched ones finish on the old.  Queued
+        requests never re-dispatch: a request spanning the swap gets rows
+        from both (each row is served exactly once)."""
+        self.call_fn = call_fn
+
     def close(self) -> None:
         """Serve everything queued, then stop the worker."""
         self._stop.set()
@@ -284,8 +293,9 @@ class BatchingSampler:
         """Launch one batch serving (prefixes of) ``pendings`` in order."""
         B = self._pick_batch(sum(p.rows_left for p in pendings))
         t_vec = self.pack(pendings, B)
+        call_fn = self.call_fn
         try:
-            images = self.call_fn(
+            images = call_fn(
                 dispatch_seed(self.seed, self.stats.dispatches),
                 torch.from_numpy(t_vec),
             )

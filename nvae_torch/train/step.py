@@ -16,7 +16,12 @@ from torch.profiler import record_function
 
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.device import fp32_math
-from nvae_torch.models.nvae import NVAE, discard_buffer_updates
+from nvae_torch.models.nvae import (
+    BF16_TRAINING,
+    NVAE,
+    discard_buffer_updates,
+    runs_bf16,
+)
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
     GradientTransformation,
@@ -78,6 +83,8 @@ def make_train_step(
     before the update).
     """
     model_cfg: ModelConfig = model.cfg
+    if runs_bf16(model_cfg):
+        raise NotImplementedError(BF16_TRAINING)
     total_epochs = max(total_steps // max(steps_per_epoch, 1), 1)
     grad_accum = max(int(train_cfg.grad_accum), 1)
     train_flag = not train_cfg.parity_frozen_norm

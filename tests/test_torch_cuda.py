@@ -15,6 +15,9 @@ the CPU: metrics at rtol 1e-4, parameters at atol 1e-6 (SGD at lr 1e-5),
 BatchNorm running statistics at atol 1e-4.  The squeeze-excitation gate
 against its plain version at atol 1e-5 and bitwise across two runs; a
 debug-size ``Trainer.fit`` on the card with its launch counts and hooks.
+The bf16 instance of the forward against its plain version: at most one
+bf16 ulp at the scale of its products' sum, bitwise across two runs; the bf16-compute sampler on the card
+against the CPU at atol 3e-2 on the probabilities.
 """
 
 import numpy as np
@@ -73,10 +76,55 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, with_bias):
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     x, k, _ = _inputs((2, 4, 4, 32), cuda_device)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="float32"):
         tdw.fused_swish_depthwise5x5(x.half(), k.half())
     with pytest.raises(ValueError):
         tdw.fused_swish_depthwise5x5(x.permute(0, 2, 1, 3), k)
+    xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+    with pytest.raises(TypeError, match="#3b"):
+        tdw.fused_swish_depthwise5x5_dx(xb, kb, xb)
+    with pytest.raises(TypeError, match="#3b"):
+        tdw.fused_swish_depthwise5x5_dw(xb, xb)
+    with pytest.raises(ValueError, match="even channel count"):
+        tdw.fused_swish_depthwise5x5(xb[..., :31].contiguous(),
+                                     kb[..., :31].contiguous())
+
+
+@pytest.mark.parametrize("shape,with_bias", [
+    ((4, 4, 4, 1536), True), ((4, 8, 8, 768), True),
+    ((4, 16, 16, 384), False), ((4, 32, 32, 192), False),
+    ((3, 6, 10, 40), True),  # ragged run and channel chunk
+    ((2, 21, 9, 32), False),  # ragged run, odd H
+    ((1, 3, 7, 6), True),  # C % 8 != 0: the 4-byte copies
+    ((3, 2, 2, 70), True),  # H and W < 5, C % 8 != 0
+])
+def test_cuda_bf16_kernel_matches_plain(cuda_device, shape, with_bias):
+    """The bf16 instance of #2 against its plain version: within one bf16
+    ulp of the result plus ``BF16_SUM_ULPS`` fp32 ulps of its 25 products'
+    sum (``bf16_sum_ulps``); at the path shapes, at least
+    ``BF16_MIN_EQUAL_SHARE`` of the outputs bitwise equal; bitwise across
+    two runs, counted apart from fp32."""
+    x, k, b = _inputs(shape, cuda_device)
+    x, k = x.to(torch.bfloat16), k.to(torch.bfloat16)
+    b = b if with_bias else None
+    for fuse in (True, False):
+        before = (tdw.fused_swish_depthwise5x5.launches,
+                  tdw.fused_swish_depthwise5x5_bf16.launches)
+        got = tdw.fused_swish_depthwise5x5(x, k, b, fuse_swish=fuse)
+        again = tdw.fused_swish_depthwise5x5(x, k, b, fuse_swish=fuse)
+        assert (tdw.fused_swish_depthwise5x5.launches,
+                tdw.fused_swish_depthwise5x5_bf16.launches) == (
+                    before[0], before[1] + 2)
+        want = tdw.fused_swish_depthwise5x5_plain(x, k, b, fuse_swish=fuse)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        scale = tdw.bf16_sum_scale(x, k, b, fuse_swish=fuse)
+        sum_ulps = tdw.bf16_sum_ulps(got, want, scale)
+        assert float(sum_ulps.max()) <= tdw.BF16_SUM_ULPS
+        if got.numel() >= 10_000:  # 0.1% is 10 outputs or more
+            equal = float((got.view(torch.int16) == want.view(torch.int16))
+                          .float().mean())
+            assert equal >= tdw.BF16_MIN_EQUAL_SHARE
 
 
 @pytest.mark.parametrize("depthwise", [False, True])
@@ -96,6 +144,32 @@ def test_cuda_sampler_matches_cpu(cuda_device, depthwise):
     want = cpu.sample(3, 0.8, eps=eps)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("serve_dtype", ["int8", "bfloat16"])
+def test_cuda_bf16_sampler_matches_cpu(cuda_device, serve_dtype):
+    """bf16 compute and BatchNorm apply, weights in ``serve_dtype``: the
+    card's probabilities against the CPU's at atol 3e-2 on injected noise,
+    with one bf16 #2 launch per generative cell and none in fp32."""
+    from nvae_torch.serving import Sampler
+
+    cfg = debug_config(use_pallas_kernels=True, compute_dtype="bfloat16",
+                       bn_apply_dtype="bfloat16")
+    sd = NVAE(debug_config(use_pallas_kernels=True), device="cpu",
+              seed=3).state_dict()
+    rng = np.random.RandomState(0)
+    eps = [rng.randn(*s).astype(np.float32) for s in decoder_noise_shapes(cfg, 3)]
+    gpu = Sampler(cfg, sd, 3, device=cuda_device, serve_dtype=serve_dtype)
+    cpu = Sampler(cfg, sd, 3, device="cpu", serve_dtype=serve_dtype)
+    before = (tdw.fused_swish_depthwise5x5.launches,
+              tdw.fused_swish_depthwise5x5_bf16.launches)
+    got = gpu.apply(lambda m: m.sample(3, 0.8, eps=eps)[0])
+    torch.cuda.synchronize()
+    assert (tdw.fused_swish_depthwise5x5.launches,
+            tdw.fused_swish_depthwise5x5_bf16.launches) == (
+                before[0], before[1] + cfg.n_total_groups - 1)
+    want = cpu.apply(lambda m: m.sample(3, 0.8, eps=eps)[0])
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-2)
 
 
 BACKWARD_SHAPES = [

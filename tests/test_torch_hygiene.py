@@ -49,7 +49,9 @@ def test_port_imports_no_jax():
     for path in (("data", "datasets.py"), ("data", "pipeline.py"),
                  ("eval", "nll.py"), ("utils", "images.py"),
                  ("utils", "logging.py"), ("utils", "seeds.py"),
-                 ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",)):
+                 ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",),
+                 ("serving.py",), ("serving_http.py",),
+                 ("export_serving.py",)):
         assert os.path.join("nvae_torch", *path) in rel
     bad = [
         (os.path.relpath(f, ROOT), mod)
@@ -68,7 +70,8 @@ def test_importing_the_port_loads_no_jax():
         "nvae_torch.train.checkpoint, nvae_torch.train.trainer, "
         "nvae_torch.data, nvae_torch.eval.nll, nvae_torch.utils.images, "
         "nvae_torch.utils.logging, nvae_torch.kernels.se_gate, "
-        "nvae_torch.cli, nvae_torch.presets\n"
+        "nvae_torch.cli, nvae_torch.presets, nvae_torch.serving_http, "
+        "nvae_torch.export_serving\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -390,13 +390,12 @@ def test_three_scale_presets_build_and_dml_presets_wait():
 
 @pytest.mark.parametrize("extra,match", [
     (["--mode", "test"], "metric suite"),
-    (["--mode", "serve"], "HTTP front end"),
+    (["--mode", "serve", "--data_parallel", "2"], "Queue 1 #9"),
     (["--scan_epochs"], "Queue 1 #6"),
     (["--fsdp"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
     (["--data_parallel", "2"], "parallel tiers"),
     (["--remat"], "rematerialization"),
-    (["--serve_dtype", "int8"], "bf16 and int8"),
     (["--preset", "celeba64"], "Queue 1 #4"),
     (["--compute_dtype", "bfloat16"], "bf16"),
     (["--bn_apply_dtype", "bfloat16"], "bf16"),
@@ -409,16 +408,65 @@ def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--serve_port", "9000"], ["--eval_attempts", "3"],
-    ["--pp_schedule", "gpipe"],
+    ["--eval_attempts", "3"], ["--pp_schedule", "gpipe"],
 ])
 def test_flags_of_unported_paths_are_unknown(tmp_path, capsys, extra):
-    """The JAX CLI's serving, metric-suite and pipeline-schedule flags are
-    not declared: argparse stops the run on them."""
+    """The JAX CLI's metric-suite and pipeline-schedule flags are not
+    declared: argparse stops the run on them."""
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
     assert e.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def _serve_captured(tmp_path, monkeypatch, *extra):
+    """``--mode serve`` with the HTTP server replaced by a recorder of what
+    the CLI hands it."""
+    from nvae_torch import serving_http
+
+    captured = {}
+
+    def fake_serve(call_fn, batch_size, **kw):
+        captured.update(call_fn=call_fn, batch_size=batch_size, **kw)
+
+    monkeypatch.setattr(serving_http, "serve", fake_serve)
+    cli.main(["--mode", "serve", *_cli_argv(tmp_path), *extra])
+    return captured
+
+
+def test_serve_mode_wiring(tmp_path, monkeypatch, no_tensorboard):
+    """--mode serve hands the HTTP layer a warmed (seed, f32[B]) -> images
+    sampler with the CLI's batch, host, port and delay, and a reloader
+    (after ``tests/test_cli.py::test_serve_mode_wiring``)."""
+    captured = _serve_captured(
+        tmp_path, monkeypatch, "--data_parallel", "1", "--serve_port", "8123",
+        "--serve_max_delay_ms", "3", "--serve_batches", "2")
+    assert captured["batch_size"] == [2, 4]  # --batch_size 4 and 2
+    assert captured["port"] == 8123 and captured["host"] == "127.0.0.1"
+    assert captured["max_delay_ms"] == 3.0 and captured["drain_signals"]
+    call = captured["call_fn"]
+    t = torch.full((4,), 0.8)
+    imgs = call(2, t)
+    assert imgs.shape == (4, 32, 32, 1)
+    assert torch.equal(imgs, call(2, t))  # the server's replay guarantee
+    assert captured["reloader_factory"] is not None
+    assert call.info["step"] == 0  # no checkpoint yet: fresh weights
+    assert call.info["serve_dtype"] == "float32"
+
+
+def test_serve_dtype_reaches_the_sampler(tmp_path, monkeypatch,
+                                         no_tensorboard):
+    call = _serve_captured(tmp_path, monkeypatch, "--serve_dtype", "int8",
+                           "--serve_output", "uint8")["call_fn"]
+    assert call.info["serve_dtype"] == "int8"
+    assert call.info["output_dtype"] == "uint8"
+    assert call(2, torch.full((4,), 0.8)).dtype == torch.uint8
+
+
+def test_bf16_training_stops_and_names_3b(tmp_path):
+    with pytest.raises(SystemExit, match="Queue 1 #3b"):
+        cli.main(["--mode", "train", *_cli_argv(tmp_path),
+                  "--compute_dtype", "bfloat16"])
 
 
 def test_png_writer_and_tiles_match_the_jax_package(tmp_path):
