@@ -31,6 +31,11 @@ each raising on failure (nothing is caught):
    576 and 8 (the serving paths'): within one bf16 ulp of its plain
    version's result plus 32 fp32 ulps of its products' sum, at least
    99.9% of outputs bitwise equal to it, and bitwise across two runs;
+   and the bf16 instances of #3 and #4 at every path shape and batches 144
+   and 4 (the training paths'): dx (with swish' and without) within one
+   bf16 ulp plus 32 fp32 ulps of |swish'(x)| sum |dy w|, at least 99.9%
+   bitwise equal, bitwise across two runs; dW/db's fp32 sums at 1e-4 of
+   the largest |dW|, bitwise across two runs;
 3. sampler: the full-width MNIST sampler (``ModelConfig()``, seeded
    Flax-style init with random BatchNorm running statistics) in the default
    and the depthwise-postprocess configuration: the fused kernel's launches
@@ -51,9 +56,16 @@ each raising on failure (nothing is caught):
    synthetic binarized images from a numpy seed) with every counter set to
    0 just before and read just after: finite metrics, and exactly 14
    (default) or 20 (depthwise) launches per step of each of the forward,
-   dx and dW/db kernels; then one step at batch 4 on the card against the
-   same step on the CPU in float32 and in float64, with injected noise
-   (loss, gradients, BatchNorm running statistics);
+   dx and dW/db kernels; then the same in bf16 (compute and BatchNorm
+   apply bf16 in both configurations, and bf16 compute with fp32 BatchNorm
+   apply in the default one): a falling reconstruction loss (every
+   configuration), exactly 14 or 20 launches per step of each bf16 kernel
+   (#2, #3, #4) and none of the fp32 ones;
+   then one step at batch 4 on the card against the same step on the CPU
+   in float32 and in float64, with injected noise (loss, gradients,
+   BatchNorm running statistics), and in the depthwise configuration the
+   bf16 step on the card and on the CPU (the plain versions), the card's
+   gradient no further from float64 than 1.5 times the CPU's;
 6. the gate's own entry point (a main path; the model does not call it, as
    in the JAX package): one call at each of the model's SE shapes, counted;
 7. the training entry point (a main path): ``python -m nvae_torch.cli`` as
@@ -64,6 +76,10 @@ each raising on failure (nothing is caught):
    per temperature, and exact launch counts (14 of #2, #3 and #4 per step,
    14 of #2 per eval, sampling and reconstruction forward); then, in
    process, the state a Trainer restores equals the step-8 checkpoint;
+   and the CLI in bf16 (``--compute_dtype bfloat16 --bn_apply_dtype
+   bfloat16 --postprocess_depthwise``): train 1 epoch, then ``--mode
+   sample`` on its checkpoint, with exact launch counts of the bf16
+   kernels and none of fp32;
 8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
    held to a float64 CPU run;
@@ -84,12 +100,14 @@ each raising on failure (nothing is caught):
    library call (and the kernel's time over the library's;
    ``F.conv2d(groups=C)``,
    ``torch.nn.grad.conv2d_input`` and ``conv2d_weight``; for the gate, which
-   no single call computes, the eager ``SqueezeExcitation`` module), #2's
-   bf16 instance beside its bound and ``F.conv2d(groups=C)`` in bf16, and
-   #2 at the shapes of ``tools/bench_dw_kernel.py``;
+   no single call computes, the eager ``SqueezeExcitation`` module), the
+   bf16 instances of #2, #3 and #4 beside their bounds and the library
+   calls in bf16 (input sets holding more than twice the L2), and #2 at
+   the shapes of ``tools/bench_dw_kernel.py``;
 10. profile: ``torch.profiler`` over one ``sample`` call (fp32, and bf16
-    weights with bf16 compute) and one training step per configuration:
-    device busy time against wall time, and the costliest kernels.
+    weights with bf16 compute) and one training step per configuration
+    (fp32, and the depthwise one in bf16): device busy time against wall
+    time, and the costliest kernels.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -97,7 +115,7 @@ The last three lines of standard output are the card's name and power limit
 prints no result.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` only builds and times kernels
-#1-#5 (and #2's bf16 instance, where the tree has it) of the tree at ROOT
+#1-#5 (and the bf16 instances, where the tree has them) of the tree at ROOT
 (phase 9's kernel timing), printing one JSON line; run it on two trees in
 one call to compare two versions on one card.
 """
@@ -161,7 +179,17 @@ BN_STATS_ATOL = 2e-3  # card vs CPU fp32, of max(1, |value|)
 BN_STATS_F64_ATOL = 1e-3  # card vs float64, of max(1, |value|)
 DW_KERNEL_NAMES = ("fused_swish_depthwise5x5", "depthwise_conv5x5",
                    "fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dw",
-                   "fused_swish_depthwise5x5_bf16")
+                   "fused_swish_depthwise5x5_bf16",
+                   "fused_swish_depthwise5x5_dx_bf16",
+                   "fused_swish_depthwise5x5_dw_bf16")
+# The training path's kernels (#2, #3, #4), fp32 and bf16 instances.
+TRAIN_KERNELS = {
+    "float32": ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
+                "fused_swish_depthwise5x5_dw"),
+    "bfloat16": ("fused_swish_depthwise5x5_bf16",
+                 "fused_swish_depthwise5x5_dx_bf16",
+                 "fused_swish_depthwise5x5_dw_bf16"),
+}
 KERNEL_NAMES = DW_KERNEL_NAMES + ("se_gate",)
 # (H = W, C, hidden) of the model's squeeze-excitation blocks (kernel #5),
 # at batch BATCH; then (B, H, W, C, hidden): JAX's test shape; H * W = 63
@@ -229,6 +257,22 @@ def configs():
         "default": ModelConfig(use_pallas_kernels=True),
         "depthwise": ModelConfig(use_pallas_kernels=True,
                                  postprocess_5x5_depthwise=True),
+    }
+
+
+def bf16_configs():
+    """The bf16 training configurations: bf16 compute with bf16 BatchNorm
+    apply (default and depthwise; bench.py's ladder rung 2 is the depthwise
+    one), and bf16 compute with fp32 BatchNorm apply (default)."""
+    import dataclasses
+
+    bf = dict(compute_dtype="bfloat16", bn_apply_dtype="bfloat16")
+    cfgs = configs()
+    return {
+        "default bf16": dataclasses.replace(cfgs["default"], **bf),
+        "depthwise bf16": dataclasses.replace(cfgs["depthwise"], **bf),
+        "default bf16 fp32-BN": dataclasses.replace(
+            cfgs["default"], compute_dtype="bfloat16"),
     }
 
 
@@ -301,10 +345,11 @@ def phase_build():
                 f"stored / {ld} B loaded, {smem} B static shared")
     # The ring kernels' dynamic shared memory and schedule at each path shape.
     for h, c, _, _, _ in PATH_SHAPES:
-        for kind in ("fwd", "dx", "dw"):
-            g = dw.geometry(kind, (BATCH, h, h, c))
-            log(f"  ring {kind} {BATCH}x{h}x{h}x{c}: {g.smem_bytes} B "
-                f"dynamic shared, {g.blocks} blocks ({g.blocks_per_chunk} "
+        for kind, dtype in ((k, d) for d in ("float32", "bfloat16")
+                            for k in ("fwd", "dx", "dw")):
+            g = dw.geometry(kind, (BATCH, h, h, c), dtype)
+            log(f"  ring {kind} {dtype} {BATCH}x{h}x{h}x{c}: {g.smem_bytes} "
+                f"B dynamic shared, {g.blocks} blocks ({g.blocks_per_chunk} "
                 f"per chunk), {g.slots_per_pass} rows per pass, {g.ahead} "
                 "passes ahead")
     # The gate's clusters at each SE shape, and how many the card holds at
@@ -409,6 +454,77 @@ def phase_backward_kernels(device) -> dict:
         errs["fused_swish_depthwise5x5_dw"][(h, c)] = max(
             worst, errs["fused_swish_depthwise5x5_dw"].get((h, c), 0.0))
     return errs
+
+
+def phase_bf16_backward_kernels(device) -> dict:
+    """The bf16 instances of #3 and #4 against their plain versions at every
+    path shape and every batch in BWD_BATCHES.  dx (with swish' and without)
+    within one bf16 ulp of the result plus ``BF16_SUM_ULPS`` fp32 ulps of
+    ``|swish'(x)| * sum |dy * w|`` (``bf16_dx_scale``), at least
+    ``BF16_MIN_EQUAL_SHARE`` bitwise equal, and bitwise across two runs;
+    dW/db (with and without bias) within DW_RTOL of the largest |dW| on the
+    fp32 sums, bitwise across two runs.  Returns per shape the worst of
+    each, over the batches."""
+    from nvae_torch.kernels import depthwise as dw
+
+    out = {}
+    for (h, c, _, _, _), n in ((s, n) for s in PATH_SHAPES
+                               for n in BWD_BATCHES):
+        x, k, _ = bf16_inputs(h, c, False, device, batch=n)
+        g = bf16_inputs(h, c, False, device, seed=1, batch=n)[0]
+        r = out.setdefault((h, c), {"err": 0.0, "sum_ulps": 0.0,
+                                    "equal": 1.0, "dw_err": 0.0})
+        for fuse in (True, False):
+            got = dw.fused_swish_depthwise5x5_dx(g, k, x if fuse else None,
+                                                 fuse_swish=fuse)
+            again = dw.fused_swish_depthwise5x5_dx(
+                g, k, x if fuse else None, fuse_swish=fuse)
+            want = dw.fused_swish_depthwise5x5_dx_plain(g, k, x,
+                                                        fuse_swish=fuse)
+            torch.cuda.synchronize(device)
+            if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+                raise AssertionError(f"bf16 #3 {n}x{h}x{c}: two runs differ")
+            sum_ulps = float(dw.bf16_sum_ulps(got, want, dw.bf16_dx_scale(
+                g, k, x, fuse_swish=fuse)).max())
+            equal = float((bf16_ulps(got, want) == 0).float().mean())
+            err = float((got.float() - want.float()).abs().max())
+            log(f"kernel dx bf16 {n}x{h}x{h}x{c} swish'={fuse}: max abs err "
+                f"{err:.3g}, {sum_ulps:.3g} fp32 ulps of |swish'(x)| sum "
+                f"|dy w| past one bf16 ulp (limit {dw.BF16_SUM_ULPS}); "
+                f"{100 * equal:.4f}% bitwise equal (limit "
+                f"{100 * dw.BF16_MIN_EQUAL_SHARE}%); bitwise repeatable")
+            if not (sum_ulps <= dw.BF16_SUM_ULPS
+                    and equal >= dw.BF16_MIN_EQUAL_SHARE):
+                raise AssertionError(f"bf16 #3 {n}x{h}x{c}: {sum_ulps} fp32 "
+                                     f"ulps, {equal} equal")
+            r["err"] = max(r["err"], err)
+            r["sum_ulps"] = max(r["sum_ulps"], sum_ulps)
+            r["equal"] = min(r["equal"], equal)
+        for fuse, bias in ((True, True), (True, False), (False, True)):
+            a = dw.fused_swish_depthwise5x5_dw(x, g, fuse_swish=fuse,
+                                               with_bias=bias)
+            b = dw.fused_swish_depthwise5x5_dw(x, g, fuse_swish=fuse,
+                                               with_bias=bias)
+            dk_want, db_want = dw.fused_swish_depthwise5x5_dw_plain(
+                x, g, fuse_swish=fuse)
+            torch.cuda.synchronize(device)
+            if a[0].dtype != torch.float32 or not (torch.equal(a[0], b[0])
+                                                   and (not bias or torch.equal(
+                                                       a[1], b[1]))):
+                raise AssertionError(f"bf16 #4 {h}x{c}: two runs differ")
+            scale = float(dk_want.abs().max())
+            err = float((a[0] - dk_want).abs().max())
+            if bias:
+                err = max(err, float((a[1] - db_want).abs().max()))
+                scale = max(scale, float(db_want.abs().max()))
+            log(f"kernel dW/db bf16 {n}x{h}x{h}x{c} swish={fuse} bias={bias}"
+                f": max abs err {err:.3g}, max |dW| {scale:.4g} (limit "
+                f"{DW_RTOL * scale:.3g}), bitwise repeatable")
+            if not err <= DW_RTOL * scale:
+                raise AssertionError(f"bf16 #4 {h}x{c}: err {err} > "
+                                     f"{DW_RTOL} x {scale}")
+            r["dw_err"] = max(r["dw_err"], err)
+    return out
 
 
 def phase_function_grads(device) -> float:
@@ -636,26 +752,32 @@ def grad_errors(got, want) -> dict:
     gradient (relative L2, over the parameters whose gradient in ``want``
     is not 0 at 1e-12 of the whole: the biases that feed a training-mode
     BatchNorm have a true gradient of 0, and hold rounding noise alone) and
-    the BatchNorm running statistics (|error| over max(1, |value|))."""
+    the BatchNorm running statistics (|error| over max(1, |value|)); and
+    the median parameter's gradient (relative L2), the typical leaf."""
     (m_a, g_a, s_a), (m_b, g_b, s_b) = got, want
     norm = math.sqrt(sum(float((g ** 2).sum()) for g in g_b.values()))
     num = math.sqrt(sum(float(((g_a[k] - g_b[k]) ** 2).sum()) for k in g_b))
-    leaf = max((float((g_a[k] - g_b[k]).norm() / g_b[k].norm()), k)
-               for k in g_b if float(g_b[k].norm()) > 1e-12 * norm)
+    leaves = sorted((float((g_a[k] - g_b[k]).norm() / g_b[k].norm()), k)
+                    for k in g_b if float(g_b[k].norm()) > 1e-12 * norm)
+    leaf = leaves[-1]
     bn = max(float(((s_a[k] - s_b[k]).abs() / s_b[k].abs().clamp(min=1.0))
                    .max()) for k in s_b)
     return {
         "loss_rel": abs(m_a["loss"] - m_b["loss"]) / abs(m_b["loss"]),
         "grad_rel_l2": num / norm,
         "worst_leaf_rel_l2": leaf[0], "worst_leaf": leaf[1],
+        "median_leaf_rel_l2": leaves[len(leaves) // 2][0],
         "bn_stats_err": bn,
     }
 
 
-def phase_train_vs_cpu(cfg, device) -> dict:
+def phase_train_vs_cpu(cfg, device, bf16_cfg=None) -> dict:
     """One full-width training step at batch 4 on the card, on the CPU in
     float32, and on the CPU in float64 (the reference that tells rounding
-    from fault), from the same weights and injected noise."""
+    from fault), from the same weights and injected noise.  With
+    ``bf16_cfg`` (``cfg`` in bf16 compute) also that step on the card and
+    on the CPU (the kernels' plain versions), each held to the same float64
+    step."""
     from nvae_torch.models.nvae import posterior_noise_shapes
 
     batch = train_batch(4, 3)
@@ -665,9 +787,24 @@ def phase_train_vs_cpu(cfg, device) -> dict:
     card = one_step_grads(cfg, device, batch, eps)
     cpu = one_step_grads(cfg, "cpu", batch, eps)
     ref = one_step_grads(cfg, "cpu", batch, eps, float64=True)
-    return {"card_vs_cpu": grad_errors(card, cpu),
-            "card_vs_f64": grad_errors(card, ref),
-            "cpu_vs_f64": grad_errors(cpu, ref)}
+    out = {"card_vs_cpu": grad_errors(card, cpu),
+           "card_vs_f64": grad_errors(card, ref),
+           "cpu_vs_f64": grad_errors(cpu, ref)}
+    if bf16_cfg is not None:
+        reset_counts()
+        card16 = one_step_grads(bf16_cfg, device, batch, eps)
+        counts = read_counts()
+        want = expected_launches(bf16_cfg)
+        for k in KERNEL_NAMES:
+            if counts[k] != (want if k in TRAIN_KERNELS["bfloat16"] else 0):
+                raise AssertionError(f"bf16 B=4 step: launches {counts}")
+        t0 = time.monotonic()
+        cpu16 = one_step_grads(bf16_cfg, "cpu", batch, eps)
+        out["bf16_cpu_seconds"] = time.monotonic() - t0
+        out.update({"bf16_card_vs_cpu": grad_errors(card16, cpu16),
+                    "bf16_card_vs_f64": grad_errors(card16, ref),
+                    "bf16_cpu_vs_f64": grad_errors(cpu16, ref)})
+    return out
 
 
 # ---- kernel #5: the squeeze-excitation gate ---------------------------------
@@ -807,14 +944,15 @@ def run_cli(label: str, argv, workdir: str) -> dict:
     return {"seconds": seconds, "counts": counts, "stdout": proc.stdout}
 
 
-def check_cli_counts(label, counts, per_forward, steps, forwards):
+def check_cli_counts(label, counts, per_forward, steps, forwards,
+                     dtype="float32"):
     """#3 and #4 ``per_forward`` times per step; #2 that often per step and
-    per eval, sampling and reconstruction forward; no other kernel."""
-    want = {"fused_swish_depthwise5x5": per_forward * (steps + forwards),
-            "fused_swish_depthwise5x5_dx": per_forward * steps,
-            "fused_swish_depthwise5x5_dw": per_forward * steps,
-            "depthwise_conv5x5": 0, "fused_swish_depthwise5x5_bf16": 0,
-            "se_gate": 0}
+    per eval, sampling and reconstruction forward, all in the instance of
+    the compute ``dtype``; no other kernel."""
+    fwd, dx, dwk = TRAIN_KERNELS[dtype]
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update({fwd: per_forward * (steps + forwards),
+                 dx: per_forward * steps, dwk: per_forward * steps})
     if counts != want:
         raise AssertionError(f"cli {label}: launches {counts}, expected {want}")
 
@@ -894,6 +1032,53 @@ def phase_cli(workdir: str) -> dict:
               for k in KERNEL_NAMES}
     return {"train": train, "resume": resume, "sample": sample,
             "metrics": lines + new, "counts": counts}
+
+
+def phase_cli_bf16(workdir: str) -> dict:
+    """The training entry point in bf16 at full width: ``--preset
+    mnist_step_sn --use_pallas --compute_dtype bfloat16 --bn_apply_dtype
+    bfloat16 --postprocess_depthwise`` (bench.py's ladder rung 2 with the
+    kernels), batch 144, synthetic data, ``--debug``: train 1 epoch with
+    eval, image hooks and a checkpoint, then ``--mode sample`` on that
+    checkpoint; exact launch counts of the bf16 kernels, none of fp32."""
+    from nvae_torch.config import ModelConfig
+    from nvae_torch.train import checkpoint as ckpt
+
+    workdir = os.path.join(workdir, "bf16")
+    os.makedirs(workdir)
+    per_fwd = expected_launches(ModelConfig(use_pallas_kernels=True,
+                                            postprocess_5x5_depthwise=True))
+    args = [*cli_args(workdir), "--compute_dtype", "bfloat16",
+            "--bn_apply_dtype", "bfloat16", "--postprocess_depthwise"]
+    train = run_cli("train bf16", ["--mode", "train", "--epochs", "1",
+                                   *args], workdir)
+    check_cli_counts("train bf16", train["counts"], per_fwd, CLI_BATCHES,
+                     CLI_BATCHES + 2, "bfloat16")
+    lines = read_jsonl(os.path.join(workdir, "logs", "metrics.jsonl"))
+    tr = [r for r in lines if "train/loss" in r]
+    if (len(tr) != 1 or not any("test/elbo" in r for r in lines) or not all(
+            math.isfinite(v) for r in lines for v in r.values())):
+        raise AssertionError(f"cli train bf16: metrics {lines}")
+    models = os.path.join(workdir, "models")
+    if ckpt.all_steps(models) != [CLI_BATCHES]:
+        raise AssertionError(f"cli train bf16: checkpoints "
+                             f"{ckpt.all_steps(models)}")
+    payload = ckpt.load_payload(models, CLI_BATCHES)
+    if not all(v.dtype == torch.float32 for v in payload.values()
+               if isinstance(v, torch.Tensor) and v.is_floating_point()):
+        raise AssertionError("cli train bf16: a checkpoint tensor is not fp32")
+    sample = run_cli("sample bf16", ["--mode", "sample", "--n_samples",
+                                     str(BATCH), *args], workdir)
+    check_cli_counts("sample bf16", sample["counts"], per_fwd, 0, 1,
+                     "bfloat16")
+    for t in SAMPLE_TEMPERATURES:
+        d = os.path.join(workdir, "results", f"t_{t}")
+        if len([f for f in os.listdir(d) if f.endswith(".png")]) != BATCH:
+            raise AssertionError(f"cli sample bf16: PNGs in {d}")
+    counts = {k: train["counts"][k] + sample["counts"][k]
+              for k in KERNEL_NAMES}
+    return {"train": train, "sample": sample, "metrics": lines,
+            "counts": counts}
 
 
 def report_cli(rec: dict) -> None:
@@ -1478,6 +1663,67 @@ def phase_bf16_timing(device) -> list:
     return rows
 
 
+def phase_bf16_backward_timing(device) -> list:
+    """The bf16 instances of #3 (with swish') and #4 (with swish and the
+    shape's bias) at each path shape (B=BATCH) beside their bounds, their
+    plain versions and ``conv2d_input`` / ``conv2d_weight`` (groups=C) in
+    bf16 without the swish parts and db.  Bounds: dx reads dy and x and
+    writes dx in bf16 (6 bytes an element) and the bf16 taps, 59 fp32
+    operations an element; dW/db reads x and dy in bf16 (4 bytes an
+    element) and writes the fp32 sums, 54 (55 with db) operations an
+    element.  The input sets hold more than twice the L2 of bf16 x, and
+    every set is called once a cycle."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from nvae_torch.kernels import depthwise as dw
+
+    rows = []
+    for h, c, bias, _, _ in PATH_SHAPES:
+        n = BATCH * h * h * c
+        n_sets = int(2 * L2_BYTES // (2 * n)) + 1
+        iters = max(40, n_sets)
+        sets = []
+        for s in range(n_sets):
+            x, k, _ = bf16_inputs(h, c, False, device, seed=s)
+            g = bf16_inputs(h, c, False, device, seed=100 + s)[0]
+            sets.append((x, k, g))
+        nchw = [(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                 g.permute(0, 3, 1, 2)) for x, k, g in sets]
+        size_x, size_w = (BATCH, c, h, h), (c, 1, 5, 5)
+        calls = {
+            "dx": (lambda x, k, g: dw.fused_swish_depthwise5x5_dx(g, k, x),
+                   lambda x, k, g: dw.fused_swish_depthwise5x5_dx_plain(
+                       g, k, x),
+                   lambda x, w, g: conv2d_input(size_x, w, g, padding=2,
+                                                groups=c),
+                   (2 * (3 * n + 25 * c), 59 * n)),
+            "dw": (lambda x, k, g: dw.fused_swish_depthwise5x5_dw(
+                       x, g, with_bias=bias),
+                   lambda x, k, g: dw.fused_swish_depthwise5x5_dw_plain(x, g),
+                   lambda x, w, g: conv2d_weight(x, size_w, g, padding=2,
+                                                 groups=c),
+                   (2 * 2 * n + 4 * (26 if bias else 25) * c,
+                    (55 if bias else 54) * n)),
+        }
+        row = {"shape": [BATCH, h, h, c], "bias": bias, "sets": n_sets,
+               "x_mb_in_sets": 2 * n * n_sets / 1e6}
+        for kind, (kern, plain, lib, (nbytes, flops)) in calls.items():
+            ms, eager = time_ms(kern, sets, iters)
+            row[kind] = {
+                "ms": ms, "eager_ms": eager,
+                "plain_ms": time_ms(plain, sets, iters)[0],
+                "library_ms": time_ms(lib, nchw, iters)[0],
+                "bound": (1e3 * nbytes / HBM_BYTES_PER_S,
+                          1e3 * flops / FP32_FLOP_PER_S),
+            }
+            log_timing(f"{kind} bf16 {BATCH}x{h}x{h}x{c} ({n_sets} sets, "
+                       f"{row['x_mb_in_sets']:.1f} MB of x)", row[kind],
+                       f"conv2d_{'input' if kind == 'dx' else 'weight'} bf16")
+        rows.append(row)
+        del sets, nchw
+    return rows
+
+
 def bf16_record(bf16_errs, launches, rows) -> dict:
     """Kernel #2's bf16 instance's record, per depthwise-config bf16 sample
     call (the shapes weighted by their calls, 9, 5, 3, 3)."""
@@ -1521,6 +1767,31 @@ def bf16_record(bf16_errs, launches, rows) -> dict:
         "per": f"depthwise-config bf16 sample call at batch {BATCH}",
         "shapes": shapes,
     }
+
+
+def bf16_backward_records(errs, launches, rows) -> list:
+    """The records of #3's and #4's bf16 instances (``kernel_records`` per
+    depthwise-config bf16 training step), with dx's ulps and bitwise share
+    beside their limits and dW/db's limit."""
+    from nvae_torch.kernels import depthwise as dw
+
+    dx, dwk = TRAIN_KERNELS["bfloat16"][1:]
+    rec_dx, rec_dw = kernel_records(
+        {dx: {s: e["err"] for s, e in errs.items()},
+         dwk: {s: e["dw_err"] for s, e in errs.items()}}, launches,
+        [(dx, rows, "dx", "nvae_tpu/kernels/depthwise.py:274",
+          "bf16 training step"),
+         (dwk, rows, "dw", "nvae_tpu/kernels/depthwise.py:288",
+          "bf16 training step")])
+    for (h, c, _, _, _), shape in zip(PATH_SHAPES, rec_dx["shapes"]):
+        shape.update(max_sum_ulps=errs[(h, c)]["sum_ulps"],
+                     bitwise_share=errs[(h, c)]["equal"])
+    rec_dx.update(max_sum_ulps=max(e["sum_ulps"] for e in errs.values()),
+                  sum_ulps_limit=dw.BF16_SUM_ULPS,
+                  bitwise_share=min(e["equal"] for e in errs.values()),
+                  bitwise_share_limit=dw.BF16_MIN_EQUAL_SHARE)
+    rec_dw.update(rtol_of_max_dw=DW_RTOL, bitwise_across_runs=True)
+    return [rec_dx, rec_dw]
 
 
 def matrix_cfg(cfg, compute: str):
@@ -1992,21 +2263,13 @@ def phase_artifact(workdir: str, trainer) -> dict:
     return {"bytes": sizes, "counts": end["counts"]}
 
 
-def kernel_records(errs, launches, timing, bwd_timing) -> list:
-    """One record per kernel.  Times and bounds are per depthwise-config
-    call of the path that runs the kernel (a ``sample`` call for the
-    forwards, a training step for dx and dW/db): each shape weighted by its
-    calls there (9, 5, 3, 3).  ``launches`` sums the main paths' counts."""
-    entries = [
-        ("fused_swish_depthwise5x5", timing["shapes"], "fused",
-         "nvae_tpu/kernels/depthwise.py:239", "sample call"),
-        ("depthwise_conv5x5", timing["shapes"], "thin",
-         "nvae_tpu/kernels/depthwise.py:105", "sample call"),
-        ("fused_swish_depthwise5x5_dx", bwd_timing, "dx",
-         "nvae_tpu/kernels/depthwise.py:274", "training step"),
-        ("fused_swish_depthwise5x5_dw", bwd_timing, "dw",
-         "nvae_tpu/kernels/depthwise.py:288", "training step"),
-    ]
+def kernel_records(errs, launches, entries) -> list:
+    """One record per kernel of ``entries`` (name, timing rows, the rows'
+    key, the TPU kernel it replaces, the path call it times).  Times and
+    bounds are per depthwise-config call of the path that runs the kernel
+    (a ``sample`` call for the forwards, a training step for dx and dW/db):
+    each shape weighted by its calls there (9, 5, 3, 3).  ``launches`` sums
+    the main paths' counts."""
     records = []
     for name, rows, kind, replaces, per in entries:
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -2029,6 +2292,7 @@ def kernel_records(errs, launches, timing, bwd_timing) -> list:
                 "bound_share": max(b_bytes, b_ops) / r["ms"],
                 "vs_library": r["ms"] / r["library_ms"],
                 "max_abs_err": errs[name][(h, c)],
+                **{k: row[k] for k in ("sets", "x_mb_in_sets") if k in row},
             })
         records.append({
             "name": name, "route": "cuda",
@@ -2065,6 +2329,8 @@ def kernel_times(root: str) -> None:
 
     if hasattr(dw, "fused_swish_depthwise5x5_bf16"):  # trees with bf16 #2
         out["forward_bf16"] = phase_bf16_timing(device)
+    if hasattr(dw, "fused_swish_depthwise5x5_dx_bf16"):  # and bf16 #3, #4
+        out["backward_bf16"] = phase_bf16_backward_timing(device)
     print(json.dumps(out), flush=True)
 
 
@@ -2106,6 +2372,7 @@ def main(argv=None) -> int:
     phase_function_grads(device)
     se_errs = phase_se_gate(device)
     bf16_errs = phase_bf16_kernel(device)
+    bf16_bwd_errs = phase_bf16_backward_kernels(device)
     log(f"kernels checked at {time.monotonic() - t_start:.1f} s")
 
     samplers = {}
@@ -2146,7 +2413,7 @@ def main(argv=None) -> int:
             launches[k] += v
     log(f"samplers and matrix done at {time.monotonic() - t_start:.1f} s")
     trainers = {}
-    for name, cfg in configs().items():
+    for name, cfg in {**configs(), **bf16_configs()}.items():
         rec = phase_train(cfg, device)
         want = expected_launches(cfg) * TRAIN_STEPS
         log(f"train {name}: {TRAIN_STEPS} steps, counts {rec['counts']}, "
@@ -2157,19 +2424,31 @@ def main(argv=None) -> int:
         for i, m in enumerate(rec["metrics"]):
             log(f"  step {i}: " + ", ".join(
                 f"{k} {v:.6g}" for k, v in sorted(m.items())))
+        # The reconstruction term: the whole loss rises with the KL
+        # warm-up's beta over these first steps.
+        losses = [m["reconstruction_loss"] for m in rec["metrics"]]
         if not rec["finite"] or rec["steps"] != TRAIN_STEPS:
             raise AssertionError(f"train {name}: non-finite metrics")
-        for k in ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
-                  "fused_swish_depthwise5x5_dw"):
-            if rec["counts"][k] != want:
-                raise AssertionError(
-                    f"train {name}: {k} launched {rec['counts'][k]} times in "
-                    f"{TRAIN_STEPS} steps, expected {want}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train {name}: the reconstruction loss "
+                                 f"did not fall {losses}")
+        # Each kernel of the compute dtype per step, none of the other.
+        for dtype, names in TRAIN_KERNELS.items():
+            n = want if dtype == cfg.compute_dtype else 0
+            for k in names:
+                if rec["counts"][k] != n:
+                    raise AssertionError(
+                        f"train {name}: {k} launched {rec['counts'][k]} "
+                        f"times in {TRAIN_STEPS} steps, expected {n}")
         for k, v in rec["counts"].items():
             launches[k] += v
-        trainers[name] = rec
+        if name in ("default", "depthwise", "depthwise bf16"):
+            trainers[name] = rec  # profiled in phase 10
+        del rec
     for name, cfg in configs().items():
-        rec = phase_train_vs_cpu(cfg, device)
+        bf16_cfg = bf16_configs()["depthwise bf16"] if name == "depthwise" \
+            else None
+        rec = phase_train_vs_cpu(cfg, device, bf16_cfg)
         for pair, r in rec.items():
             log(f"train step {name} {pair}: {r}")
         vs_cpu, vs_f64 = rec["card_vs_cpu"], rec["card_vs_f64"]
@@ -2181,6 +2460,12 @@ def main(argv=None) -> int:
                 or vs_cpu["bn_stats_err"] > BN_STATS_ATOL
                 or vs_f64["bn_stats_err"] > BN_STATS_F64_ATOL):
             raise AssertionError(f"train {name}: card vs CPU {rec}")
+        # bf16: the card no further from float64 than 1.5 times the CPU's
+        # bf16 step (the kernels' plain versions) is.
+        if bf16_cfg is not None and not (
+                rec["bf16_card_vs_f64"]["grad_rel_l2"] <= CARD_VS_CPU_ROUNDING
+                * rec["bf16_cpu_vs_f64"]["grad_rel_l2"]):
+            raise AssertionError(f"train {name} bf16: card vs CPU {rec}")
 
     log(f"training done at {time.monotonic() - t_start:.1f} s")
     for k, v in phase_se_entry(device).items():
@@ -2191,6 +2476,10 @@ def main(argv=None) -> int:
         for k, v in cli_rec["counts"].items():
             launches[k] += v
         report_cli(cli_rec)
+        cli16 = phase_cli_bf16(workdir)
+        for k, v in cli16["counts"].items():
+            launches[k] += v
+        report_cli(cli16)
         log(f"cli done at {time.monotonic() - t_start:.1f} s")
         trainer = phase_restored_state(workdir, device)
         phase_nll(trainer, device)
@@ -2202,8 +2491,7 @@ def main(argv=None) -> int:
         log(f"serving done at {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for k in ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
-              "fused_swish_depthwise5x5_dw", "fused_swish_depthwise5x5_bf16",
+    for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
               "se_gate"):
         if launches[k] == 0:
             raise AssertionError(f"the main paths never launched {k}")
@@ -2211,16 +2499,27 @@ def main(argv=None) -> int:
     timing = phase_timing(device, samplers)
     bwd_timing = phase_backward_timing(device)
     bf16_timing = phase_bf16_timing(device)
+    bf16_bwd_timing = phase_bf16_backward_timing(device)
     se_timing = phase_se_timing(device)
     tool_timing = phase_tool_timing(device)
     phase_profile(samplers, trainers)
-    records = kernel_records(errs, launches, timing, bwd_timing)
+    records = kernel_records(errs, launches, [
+        ("fused_swish_depthwise5x5", timing["shapes"], "fused",
+         "nvae_tpu/kernels/depthwise.py:239", "sample call"),
+        ("depthwise_conv5x5", timing["shapes"], "thin",
+         "nvae_tpu/kernels/depthwise.py:105", "sample call"),
+        ("fused_swish_depthwise5x5_dx", bwd_timing, "dx",
+         "nvae_tpu/kernels/depthwise.py:274", "training step"),
+        ("fused_swish_depthwise5x5_dw", bwd_timing, "dw",
+         "nvae_tpu/kernels/depthwise.py:288", "training step"),
+    ])
     fused = next(r for r in records if r["name"] == "fused_swish_depthwise5x5")
     fused["tool_shapes"] = [
         {"shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "library_ms": r["library_ms"], "bound_ms": max(r["bound"])}
         for r in tool_timing]
     records.append(bf16_record(bf16_errs, launches, bf16_timing))
+    records += bf16_backward_records(bf16_bwd_errs, launches, bf16_bwd_timing)
     records.append(se_record(se_errs, launches, se_timing))
     for row in matrix:
         log(f"matrix row: {json.dumps(row)}")

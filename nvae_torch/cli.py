@@ -14,8 +14,8 @@ It runs on the card unless --cpu asks for the CPU, and raises if there is
 no card.  A flag whose path is not ported yet stops the run with a message
 naming what it waits for; the JAX CLI's metric-suite and pipeline-schedule
 flags are not declared, so argparse rejects them.  bf16 (--compute_dtype,
---bn_apply_dtype) samples and serves, and stops a training run: bf16
-training waits for ROADMAP.md Queue 1 #3b.  --workers, --multiprocessing and
+--bn_apply_dtype) trains, samples and serves, each flag composing with a
+preset as in the JAX CLI.  --workers, --multiprocessing and
 --verbose are accepted as no-ops, as in the JAX CLI.  With --preset the
 flags compose exactly as the JAX CLI composes them: the preset's batch
 size, warm-up, parity and EMA settings win over those flags.
@@ -193,21 +193,13 @@ def refuse_unported(args) -> None:
         raise SystemExit("not ported yet: " + "; ".join(reasons))
 
 
-def refuse_unported_model(model_cfg, mode: str = "train") -> None:
+def refuse_unported_model(model_cfg) -> None:
     """Stop with ``SystemExit`` on a model configuration the port does not
-    run yet in ``mode`` (bf16 in training, or a dataset whose likelihood is
-    DML)."""
-    reasons = []
-    if mode == "train":
-        for name in ("compute_dtype", "bn_apply_dtype"):
-            if getattr(model_cfg, name) != "float32":
-                reasons.append(f"{name} bfloat16 in training waits for bf16 "
-                               "training (ROADMAP.md Queue 1 #3b)")
+    run yet: a dataset whose likelihood is DML."""
     if model_cfg.likelihood != "bernoulli":
-        reasons.append(f"likelihood {model_cfg.likelihood!r} waits for the "
-                       "DML head (ROADMAP.md Queue 1 #4)")
-    if reasons:
-        raise SystemExit("not ported yet: " + "; ".join(reasons))
+        raise SystemExit(f"not ported yet: likelihood "
+                         f"{model_cfg.likelihood!r} waits for the DML head "
+                         "(ROADMAP.md Queue 1 #4)")
 
 
 def build_configs(args, bundle):
@@ -337,7 +329,7 @@ def configs_from_args(args):
         args.dataset = args.dataset or "mnist"
         bundle = load_dataset(args.dataset, args.data_dir)
         model_cfg, train_cfg = build_configs(args, bundle)
-    refuse_unported_model(model_cfg, args.mode)
+    refuse_unported_model(model_cfg)
     return model_cfg, train_cfg, bundle
 
 

@@ -22,6 +22,10 @@
 //     dW[dy, dx, c] = sum_{b, h, w} s(x)[b, h + dy - 2, w + dx - 2, c] * g[b, h, w, c]
 //     db[c]         = sum_{b, h, w} g[b, h, w, c]
 //   in fp32.
+//   Their bf16 instances (the Pallas kernels' semantics under
+//   compute_dtype=bfloat16) read bf16 dy, x and taps; dx sums the 25 flipped
+//   taps in fp32, multiplies by swish'(x) computed in fp32, and rounds dx to
+//   bf16 once; dW/db are fp32 sums of the widened operands, as in fp32.
 //
 // What bounds them on the card: HBM bytes.  The stencils do 25 multiply-adds
 // (50 FLOP) per output against 8 bytes of device memory (12 with the swish'
@@ -63,13 +67,15 @@
 // - Swish (forward, dW/db) is applied once per staged element, in place, by
 //   the thread that copied it, after its cp.async.wait_group and before the
 //   barrier that publishes the pass (__expf and __fdividef: a few ulp).
-// - bf16 forward: a bf16 element cannot be widened in place, so its rows
-//   land by cp.async in a bf16 staging ring of (P + 1) G rows of W x 32
-//   (64 bytes a pixel: four 16-byte copies, or sixteen 4-byte ones where
-//   C % 8 != 0; an odd C is refused), and the thread that copied an
-//   element widens it, applies swish and writes it into the fp32 ring in
-//   the same step that applies swish in the fp32 kernel.  So the compute
-//   loop is the fp32 kernel's, instruction for instruction, and only the
+// - bf16: a bf16 element cannot be widened in place, so its rows land by
+//   cp.async in a bf16 staging ring of (P + 1) G rows of W x 32 (64 bytes
+//   a pixel: four 16-byte copies, or sixteen 4-byte ones where C % 8 != 0;
+//   an odd C is refused), and the thread that copied an element widens it,
+//   applies swish (forward, dW/db) and writes it into the fp32 ring in the
+//   same step that applies swish in the fp32 kernel.  dx and dW/db stage
+//   their aux rows the same way in a second staging ring, widened into the
+//   fp32 aux ring (dx: as swish'(x)).  So the compute loop is the fp32
+//   kernel's, instruction for instruction, and only dx's and the forward's
 //   store differs (one bf16 per lane, 64 bytes per warp per pixel).
 // - A second "aux" ring of (P + 1) G rows of W' x 32 fp32 carries, per
 //   output row, the operand read at the output position: x for dx's swish'
@@ -117,9 +123,9 @@ constexpr long long kMaxSmem = 232448;
 enum Kind { kFwd = 0, kDx = 1, kDw = 2 };
 
 struct Args {
-  const void* src;   // the ring's rows: x (forward, dW/db) or dy (dx), T
-  const float* aux;  // per output row: g (dW/db) or x (dx's swish'), or null
-  const void* w;     // taps (forward, dx), T
+  const void* src;  // the ring's rows: x (forward, dW/db) or dy (dx), T
+  const void* aux;  // per output row: g (dW/db) or x (dx's swish'), T, or null
+  const void* w;    // taps (forward, dx), T
   const float* bias;
   void* out;         // y (T), dx, or the (parts, 26, C) partials
   long long sdy, sdx, sc;
@@ -151,6 +157,39 @@ __device__ __forceinline__ float swish(float v) { return v * sigmoid(v); }
 __device__ __forceinline__ float swish_grad(float v) {
   const float s = sigmoid(v);
   return s * (1.0f + v * (1.0f - s));
+}
+
+enum Op { kIdentity = 0, kSwishOp = 1, kSwishGradOp = 2 };
+
+template <int kOp>
+__device__ __forceinline__ float apply_op(float v) {
+  return kOp == kSwishOp ? swish(v) : kOp == kSwishGradOp ? swish_grad(v) : v;
+}
+
+// bf16: one copy's staged elements at `sp` (8 for a 16-byte copy, else 2)
+// widened through kOp into the fp32 row at `dst`.
+template <int kOp>
+__device__ __forceinline__ void widen_copy(const __nv_bfloat16* sp,
+                                           float* dst, bool vec) {
+  if (vec) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(sp);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      v[2 * j] = apply_op<kOp>(f.x);
+      v[2 * j + 1] = apply_op<kOp>(f.y);
+    }
+    float4* p = reinterpret_cast<float4*>(dst);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sp));
+    *reinterpret_cast<float2*>(dst) =
+        make_float2(apply_op<kOp>(f.x), apply_op<kOp>(f.y));
+  }
 }
 
 // Copy 16 (vec) or 4 bytes global -> shared; zero-fill when !valid.
@@ -236,13 +275,12 @@ struct Stream {
 
 // The shared core; see the header.  kSwish: swish on the ring's rows
 // (forward, dW/db).  kAuxOp: dx's swish' epilogue.  T: the element type of
-// x, the taps and y (float, or __nv_bfloat16 for the forward's staged
-// instance).
+// x, dy, the taps and y or dx (float, or __nv_bfloat16 for the staged
+// instances); dW/db's sums are fp32 either way.
 template <int kKind, bool kSwish, bool kBias, bool kAuxOp, typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dw5x5_ring(const Args a) {
   constexpr bool kStaged = sizeof(T) == 2;
-  static_assert(!kStaged || kKind == kFwd, "bf16: the forward only");
   constexpr bool kAux = kKind == kDw || kAuxOp;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -266,11 +304,15 @@ dw5x5_ring(const Args a) {
   const int aux_f = runs * kRun * kChunk;
   float* ring = smem;
   float* aux = smem + (size_t)st.ring_rows * row_f;
-  // bf16 staging rows (forward only, where the aux ring is not used): slot
-  // q's row is aux row q % ((P + 1) G), W x 32 elements.
-  T* stage = reinterpret_cast<T*>(aux);
+  // bf16 staging rows, past the fp32 rings (the forward has no aux ring):
+  // slot q's row is row q % ((P + 1) G) of the main rows' staging ring and,
+  // for dx and dW/db, of the aux rows' one behind it; W x 32 elements each.
   const int stage_f = W * kChunk;
+  T* stage = reinterpret_cast<T*>(
+      aux + (kKind != kFwd ? (size_t)st.aux_rows * aux_f : 0));
+  T* astage = stage + (size_t)st.aux_rows * stage_f;
   const T* src_t = static_cast<const T*>(a.src);
+  const T* aux_t = static_cast<const T*>(a.aux);
   const bool vec = a.vec;
 
   // Copy mapping: a slot is per_slot copies (pixel, seg elements of the
@@ -316,8 +358,8 @@ dw5x5_ring(const Args a) {
   const float b = kBias && live ? a.bias[c] : 0.0f;
 
   // Start the copies of the pass at `cur`: ring row ih = s - 2 of each slot
-  // (zero-filled outside the image; bf16: into its staging row), and for
-  // dx / dW/db the aux row s - 4 of each slot that ends an output row.
+  // (zero-filled outside the image), and for dx / dW/db the aux row s - 4
+  // of each slot that ends an output row (bf16: both into staging rows).
   auto issue = [&](const Cursor& cur) {
     for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
       const Slot t = st.slot(cur, gi);
@@ -329,9 +371,10 @@ dw5x5_ring(const Args a) {
                        : reinterpret_cast<T*>(ring + (size_t)t.ring * row_f +
                                               kPad * kChunk);
       const bool has_aux = kAux && t.s >= kHalo;
-      const float* asrc =
-          has_aux ? a.aux + (img_row + t.s - kHalo) * W * C + c0 : a.aux;
-      float* adst = aux + (size_t)t.aux * aux_f;
+      const T* asrc =
+          has_aux ? aux_t + (img_row + t.s - kHalo) * W * C + c0 : aux_t;
+      T* adst = kStaged ? astage + (size_t)t.aux * stage_f
+                        : reinterpret_cast<T*>(aux + (size_t)t.aux * aux_f);
       for (int col = col0; col < per_slot; col += colstep) {
         const int px = col >> px_shift;
         const int cl = (col - (px << px_shift)) * seg;
@@ -340,7 +383,7 @@ dw5x5_ring(const Args a) {
         copy_async(dst + px * kChunk + cl, row_in && in_c ? src + off : src_t,
                    row_in && in_c, vec);
         if (has_aux) {
-          copy_async(adst + px * kChunk + cl, in_c ? asrc + off : a.aux, in_c,
+          copy_async(adst + px * kChunk + cl, in_c ? asrc + off : aux_t, in_c,
                      vec);
         }
       }
@@ -348,37 +391,28 @@ dw5x5_ring(const Args a) {
     commit_group();
   };
   // bf16: this thread's staged elements of the pass at `cur`, widened
-  // into the fp32 ring with swish (halo rows and channels past C were
-  // staged as zeros, and swish(0) = 0).
+  // into the fp32 ring with swish where the fp32 kernel applies it, and its
+  // staged aux elements into the aux ring, as swish'(x) for dx (halo rows
+  // and channels past C were staged as zeros, and swish(0) = 0).
+  constexpr int kMainOp = kSwish ? kSwishOp : kIdentity;
+  constexpr int kAuxWiden = kAuxOp ? kSwishGradOp : kIdentity;
   auto widen = [&](const Cursor& cur) {
+    const __nv_bfloat16* stage_h =
+        reinterpret_cast<const __nv_bfloat16*>(stage);
+    const __nv_bfloat16* astage_h =
+        reinterpret_cast<const __nv_bfloat16*>(astage);
     for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
       const Slot t = st.slot(cur, gi);
-      const T* sp = stage + (size_t)t.aux * stage_f;
+      const bool has_aux = kAux && t.s >= kHalo;
+      const __nv_bfloat16* sp = stage_h + (size_t)t.aux * stage_f;
+      const __nv_bfloat16* asp = astage_h + (size_t)t.aux * stage_f;
       float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
+      float* adst = aux + (size_t)t.aux * aux_f;
       for (int col = col0; col < per_slot; col += colstep) {
         const int px = col >> px_shift;
         const int at = px * kChunk + (col - (px << px_shift)) * seg;
-        if (vec) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(sp + at);
-          const __nv_bfloat162* h =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-          float v[8];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(h[j]);
-            v[2 * j] = kSwish ? swish(f.x) : f.x;
-            v[2 * j + 1] = kSwish ? swish(f.y) : f.y;
-          }
-          float4* p = reinterpret_cast<float4*>(dst + at);
-          p[0] = make_float4(v[0], v[1], v[2], v[3]);
-          p[1] = make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(sp + at));
-          *reinterpret_cast<float2*>(dst + at) =
-              make_float2(kSwish ? swish(f.x) : f.x,
-                          kSwish ? swish(f.y) : f.y);
-        }
+        widen_copy<kMainOp>(sp + at, dst + at, vec);
+        if (has_aux) widen_copy<kAuxWiden>(asp + at, adst + at, vec);
       }
     }
   };
@@ -592,8 +626,8 @@ __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
 }
 
 // Shared bytes of one block: the ring and the aux ring (dx, dW/db), rows
-// padded to whole runs, for dW/db at least the warps' sums, and for the
-// bf16 forward (elem 2) its staging rows.  The same formula as geometry()
+// padded to whole runs, for dW/db at least the warps' sums, and for bf16
+// (elem 2) the staging rows of each stream.  The same formula as geometry()
 // on the host, which the entry points hold it to.
 long long smem_bytes(int kind, int W, int G, int P, int elem) {
   const long long rows = (long long)(P + 1) * G;
@@ -602,7 +636,8 @@ long long smem_bytes(int kind, int W, int G, int P, int elem) {
   if (kind != kFwd) f += rows * padded * kChunk;
   if (kind == kDw && f < kWarps * kSums * kChunk) f = kWarps * kSums * kChunk;
   long long bytes = 4 * f;
-  if (elem == 2) bytes += rows * W * kChunk * 2;
+  // bf16: the main rows' staging ring, and the aux rows' for dx and dW/db.
+  if (elem == 2) bytes += rows * W * kChunk * 2 * (kind == kFwd ? 1 : 2);
   return bytes;
 }
 
@@ -643,12 +678,23 @@ cudaError_t launch(Args a, const int* geo, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Stage 2 of dW/db on `stream`: the (n_parts, 26, C) partials into dw and db.
+int reduce_parts(void* partial, void* dw, void* db, int C, int n_parts,
+                 cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (kSums * C + threads - 1) / threads;
+  dw5x5_dw_reduce<<<blocks, threads, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw),
+      static_cast<float*>(db), C, n_parts);
+  return (int)cudaGetLastError();
+}
+
 Args make_args(const void* src, const void* aux, const void* w,
                const void* bias, void* out, int batch, int H, int W, int C,
                long long sdy, long long sdx, long long sc) {
   Args a{};
   a.src = src;
-  a.aux = static_cast<const float*>(aux);
+  a.aux = aux;
   a.w = w;
   a.bias = static_cast<const float*>(bias);
   a.out = out;
@@ -752,12 +798,53 @@ extern "C" int nvae_dw5x5_dw(const void* x, const void* dy, void* partial,
   err = fuse_swish ? launch<kDw, true, false, false>(a, geo, s)
                    : launch<kDw, false, false, false>(a, geo, s);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const int blocks = (kSums * C + threads - 1) / threads;
-  dw5x5_dw_reduce<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw),
-      static_cast<float*>(db), C, n_parts);
-  return (int)cudaGetLastError();
+  return reduce_parts(partial, dw, db, C, n_parts, s);
+}
+
+// The bf16 instance of dx: dy, x, dx (batch, H, W, C) contiguous bf16, w
+// bf16 taps with strides as above, x null for the form without swish; C
+// even and dy, x and dx 4-byte aligned.  Sums and swish'(x) in fp32, dx
+// rounded to bf16 once.
+extern "C" int nvae_dw5x5_dx_bf16(const void* dy, const void* w,
+                                  const void* x, void* dx, int batch, int H,
+                                  int W, int C, long long sdy, long long sdx,
+                                  long long sc, const int* geo, int device,
+                                  void* stream) {
+  if (bad_launch(geo, kDx, batch, H, W, C, 2) || C % 2 != 0 ||
+      !aligned(dy, 4) || !aligned(x, 4) || !aligned(dx, 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Args a = make_args(dy, x, w, nullptr, dx, batch, H, W, C, sdy, sdx, sc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B16 = __nv_bfloat16;
+  err = x ? launch<kDx, false, false, true, B16>(a, geo, s)
+          : launch<kDx, false, false, false, B16>(a, geo, s);
+  return (int)err;
+}
+
+// The bf16 instance of dW/db: x, dy (batch, H, W, C) contiguous bf16, C
+// even, both 4-byte aligned; partial, dw and db fp32 as above.  The sums of
+// the widened operands in fp32, the same two launches.
+extern "C" int nvae_dw5x5_dw_bf16(const void* x, const void* dy, void* partial,
+                                  void* dw, void* db, int batch, int H, int W,
+                                  int C, int n_parts, int fuse_swish,
+                                  const int* geo, int device, void* stream) {
+  if (bad_launch(geo, kDw, batch, H, W, C, 2) || n_parts != geo[0] ||
+      C % 2 != 0 || !aligned(x, 4) || !aligned(dy, 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Args a = make_args(x, dy, nullptr, nullptr, partial, batch, H, W, C,
+                           0, 0, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B16 = __nv_bfloat16;
+  err = fuse_swish ? launch<kDw, true, false, false, B16>(a, geo, s)
+                   : launch<kDw, false, false, false, B16>(a, geo, s);
+  if (err != cudaSuccess) return (int)err;
+  return reduce_parts(partial, dw, db, C, n_parts, s);
 }
 
 extern "C" const char* nvae_cuda_error_string(int err) {

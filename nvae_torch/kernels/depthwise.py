@@ -25,12 +25,16 @@ keeps a plain integer ``launches`` attribute that it increments once per
 kernel launch, so a run can show that its path went through the kernel; the
 dW/db wrapper counts its two launches (made by one C call) as one.
 
-The forward also takes bf16 ``x`` and taps with an fp32 bias (the Pallas
-kernel under ``compute_dtype=bfloat16``): swish and the 25 taps in fp32, the
-bias in fp32, ``y`` rounded to bf16 once.  Its CUDA launches go through
-:func:`fused_swish_depthwise5x5_bf16`, which counts them apart from the fp32
-ones.  dx and dW/db take fp32 only: their bf16 instances wait for bf16
-training (ROADMAP.md Queue 1 #3b).
+Every kernel also takes bf16 operands (the Pallas kernels under
+``compute_dtype=bfloat16``): the forward bf16 ``x`` and taps with an fp32
+bias (swish and the 25 taps in fp32, the bias in fp32, ``y`` rounded to bf16
+once); dx bf16 ``dy``, taps and ``x`` (the flipped taps summed in fp32, times
+``swish'(x)`` in fp32, ``dx`` rounded to bf16 once); dW/db bf16 ``x`` and
+``dy`` (fp32 sums, as in fp32).  Their CUDA launches go through
+:func:`fused_swish_depthwise5x5_bf16`, :func:`fused_swish_depthwise5x5_dx_bf16`
+and :func:`fused_swish_depthwise5x5_dw_bf16`, which count them apart from the
+fp32 ones.  The backward rounds dW to the taps' dtype, as JAX's ``f_bwd``
+does; db stays fp32, the bias's dtype.
 """
 
 from __future__ import annotations
@@ -165,7 +169,10 @@ def fused_swish_depthwise5x5_dx_plain(
 ) -> torch.Tensor:
     """dL/dx of the fused op from stock PyTorch ops, NHWC: ``dy`` correlated
     with the spatially flipped taps, times ``swish'(x)`` when swish is fused
-    (``x`` is not read otherwise)."""
+    (``x`` is not read otherwise).  bf16 ``dy`` takes the Pallas kernel's
+    bf16 semantics (:func:`_dx_plain_bf16`)."""
+    if dy.dtype == torch.bfloat16:
+        return _dx_plain_bf16(dy, kernel, x, fuse_swish)
     c = dy.shape[-1]
     flipped = torch.flip(kernel, dims=(0, 1)).permute(3, 2, 0, 1)
     g = F.conv2d(dy.permute(0, 3, 1, 2), flipped, padding=K // 2, groups=c)
@@ -178,7 +185,11 @@ def fused_swish_depthwise5x5_dw_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dL/dkernel (5, 5, 1, C), dL/dbias (C,)) of the fused op from stock
     PyTorch ops: tap (i, j) is the sum over (b, h, w) of the padded
-    ``swish(x)`` shifted by (i, j) times ``dy``."""
+    ``swish(x)`` shifted by (i, j) times ``dy``.  bf16 ``x`` and ``dy``
+    take the Pallas kernel's bf16 semantics (:func:`_dw_plain_bf16`): the
+    sums stay fp32."""
+    if x.dtype == torch.bfloat16:
+        return _dw_plain_bf16(x, dy, fuse_swish)
     b, h, w, c = x.shape
     s = F.silu(x) if fuse_swish else x
     sp = F.pad(s, (0, 0, K // 2, K // 2, K // 2, K // 2))
@@ -187,6 +198,37 @@ def fused_swish_depthwise5x5_dw_plain(
         for i in range(K) for j in range(K)
     ]
     return torch.stack(taps).view(K, K, 1, c), dy.sum(dim=(0, 1, 2))
+
+
+def _dx_plain_bf16(dy: torch.Tensor, kernel: torch.Tensor,
+                   x: Optional[torch.Tensor], fuse_swish: bool) -> torch.Tensor:
+    """The bf16 dx as the Pallas kernel computes it (``_fused_dx_kernel``):
+    ``dy`` widened to fp32, the 25 flipped taps (widened) summed in fp32 in
+    dy-major, dx-minor order, times ``swish'(x)`` computed in fp32 from the
+    widened ``x``, and ``dx`` rounded to bf16 once."""
+    g = _stencil_f32(dy.float(), torch.flip(kernel, dims=(0, 1)), None)
+    if fuse_swish:
+        g = g * _swish_grad(x.float())
+    return g.to(torch.bfloat16)
+
+
+def _dw_plain_bf16(x: torch.Tensor, dy: torch.Tensor,
+                   fuse_swish: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 dW/db as the Pallas kernel computes them
+    (``_fused_dw_kernel``): fp32 sums of the widened ``swish(x)`` times the
+    widened ``dy``, and of ``dy``; both stay fp32."""
+    return fused_swish_depthwise5x5_dw_plain(x.float(), dy.float(),
+                                             fuse_swish=fuse_swish)
+
+
+def bf16_dx_scale(dy: torch.Tensor, kernel: torch.Tensor,
+                  x: Optional[torch.Tensor], *,
+                  fuse_swish: bool = True) -> torch.Tensor:
+    """``|swish'(x)| * sum |dy * w|`` per output (``sum |dy * w|`` without
+    swish), fp32: the scale of the product the bf16 dx rounds once."""
+    s = _stencil_f32(dy.float().abs(), torch.flip(kernel, dims=(0, 1)).abs(),
+                     None)
+    return s * _swish_grad(x.float()).abs() if fuse_swish else s
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,14 +242,15 @@ def _lib() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, geo, i32,
         ptr,
     ]
-    lib.nvae_dw5x5_dx.argtypes = [
+    lib.nvae_dw5x5_dx.argtypes = lib.nvae_dw5x5_dx_bf16.argtypes = [
         ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, geo, i32, ptr,
     ]
-    lib.nvae_dw5x5_dw.argtypes = [
+    lib.nvae_dw5x5_dw.argtypes = lib.nvae_dw5x5_dw_bf16.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, geo, i32, ptr,
     ]
     for fn in (lib.nvae_dw5x5_fwd, lib.nvae_dw5x5_fwd_bf16, lib.nvae_dw5x5_dx,
-               lib.nvae_dw5x5_dw):
+               lib.nvae_dw5x5_dx_bf16, lib.nvae_dw5x5_dw,
+               lib.nvae_dw5x5_dw_bf16):
         fn.restype = ctypes.c_int
     lib.nvae_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nvae_cuda_error_string.restype = ctypes.c_char_p
@@ -256,8 +299,9 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
     """A block's shared memory: the ring of (P + 1) G + 4 rows of (W' + 4) x
     32 fp32, the aux ring of (P + 1) G rows of W' x 32 (dx, dW/db), W
     rounded up to W' = whole runs of 4 outputs, for dW/db at least the
-    warps' 26 sums (they alias the ring), and for the bf16 forward
-    (``elem`` 2) the staging ring of (P + 1) G rows of W x 32 bf16."""
+    warps' 26 sums (they alias the ring), and for bf16 (``elem`` 2) a
+    staging ring of (P + 1) G rows of W x 32 bf16 per stream: the main
+    rows, and for dx and dW/db the aux rows."""
     rows = (ahead + 1) * per_pass
     padded = -(-w // _RUN) * _RUN
     floats = (rows + _HALO) * (padded + _HALO) * _CHUNK
@@ -265,7 +309,8 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
         floats += rows * padded * _CHUNK
     if kind == "dw":
         floats = max(floats, _WARPS * _SUMS * _CHUNK)
-    staged = rows * w * _CHUNK * elem if elem == 2 else 0
+    streams = 1 if kind == "fwd" else 2
+    staged = streams * rows * w * _CHUNK * elem if elem == 2 else 0
     return 4 * floats + staged
 
 
@@ -273,9 +318,9 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
 def geometry(kind: str, shape: Tuple[int, int, int, int],
              dtype: str = "float32") -> Geometry:
     """The launch geometry of kernel ``kind`` at (B, H, W, C) ``shape`` for
-    elements of ``dtype`` ("float32", or "bfloat16" for the forward): a
-    pure function of the shape and of the constants above, so one shape
-    gets one schedule (and one set of dW bits) on any card.  The wrappers,
+    elements of ``dtype`` ("float32" or "bfloat16"): a pure function of
+    the shape and of the constants above, so one shape gets one schedule
+    (and one set of dW bits) on any card.  The wrappers,
     :func:`_check` and :func:`dw_parts` read it, and the C entry points
     refuse a geometry whose shared bytes disagree with their own formula.
 
@@ -292,7 +337,7 @@ def geometry(kind: str, shape: Tuple[int, int, int, int],
       [j B / n, (j + 1) B / n)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
-    if dtype not in _ELEM_BYTES or (dtype != "float32" and kind != "fwd"):
+    if dtype not in _ELEM_BYTES:
         raise ValueError(f"no {kind} kernel for {dtype}")
     elem = _ELEM_BYTES[dtype]
     b, h, w, c = (int(s) for s in shape)
@@ -301,7 +346,7 @@ def geometry(kind: str, shape: Tuple[int, int, int, int],
     per_pass = _ROWS * -(-_WARPS * (h + _HALO) // (h * runs))
     # Bytes a pass copies from HBM: its H / (H + 4) real rows, and g or x
     # beside them for dx and dW/db.
-    row_bytes = w * _CHUNK * (elem if kind == "fwd" else 8)
+    row_bytes = w * _CHUNK * elem * (1 if kind == "fwd" else 2)
     ahead = -(-_IN_FLIGHT * (h + _HALO) // (per_pass * h * row_bytes))
     ahead = min(_MAX_AHEAD, max(1, ahead))
 
@@ -333,16 +378,12 @@ def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
     """Raise on what the kernels do not take.  ``others`` are further
     (B, H, W, C) operands (dy, the saved x) held to the rules of ``x``;
     ``kernel`` is None for dW/db, which reads no taps.  ``kind`` is the
-    kernel: the forward takes fp32, or bf16 ``x`` and taps with an fp32
-    bias (C even, ``x`` 4-byte aligned); dx and dW/db take fp32."""
+    kernel.  Each takes fp32 operands, or bf16 ones (C even, every
+    (B, H, W, C) operand 4-byte aligned); a bias stays fp32."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
     b, h, w, c = x.shape
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and kind != "fwd":
-        raise TypeError(f"{kind} of a bfloat16 x waits for bf16 training "
-                        "(ROADMAP.md Queue 1 #3b): dx and dW/db take float32 "
-                        "only")
     elem = torch.bfloat16 if bf16 else torch.float32
     tensors = [("x", x, elem)]
     if kernel is not None:
@@ -364,15 +405,14 @@ def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
         if not t.is_contiguous():
             raise ValueError(f"operand {i} must be contiguous in (B, H, W, C) "
                              "order")
-        tensors.append((f"operand {i}", t, torch.float32))
+        tensors.append((f"operand {i}", t, elem))
     for name, t, want in tensors:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != want:
-            allowed = ("float32, or bfloat16 x and taps with a float32 bias"
-                       if kind == "fwd" else "float32")
             raise TypeError(f"{name} must be {want} here ({kind} takes "
-                            f"{allowed}), got {t.dtype}")
+                            "float32, or bfloat16 operands with a float32 "
+                            f"bias), got {t.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous in (B, H, W, C) order")
     if bf16:
@@ -380,12 +420,11 @@ def _check(x: torch.Tensor, kernel: Optional[torch.Tensor],
         if c % 2:
             raise ValueError(f"a bfloat16 x needs an even channel count "
                              f"(the copies move 4 or 16 bytes), got C={c}")
-        if x.data_ptr() % 4:
-            raise ValueError("a bfloat16 x must start 4-byte aligned")
-        geometry("fwd", (b, h, w, c), "bfloat16")
-        return
+        if any(t.data_ptr() % 4 for t in (x, *others)):
+            raise ValueError("bfloat16 operands must start 4-byte aligned")
     for k in _KINDS:
-        geometry(k, (b, h, w, c))  # raises where the ring does not fit
+        # Raises where the ring does not fit.
+        geometry(k, (b, h, w, c), "bfloat16" if bf16 else "float32")
 
 
 def _require_cuda(x: torch.Tensor) -> None:
@@ -451,35 +490,66 @@ def _forward(x: torch.Tensor, kernel: torch.Tensor,
     return y
 
 
-def fused_swish_depthwise5x5_dx(
-    dy: torch.Tensor, kernel: torch.Tensor, x: Optional[torch.Tensor],
-    *, fuse_swish: bool = True,
-) -> torch.Tensor:
-    """dL/dx of ``dwconv5x5(swish(x)) + bias`` given ``dy``, NHWC.  ``x`` is
-    the forward's input, read only when ``fuse_swish`` (the epilogue's
-    ``swish'(x)``); pass None otherwise."""
-    if dy.device.type == "cpu":
-        return fused_swish_depthwise5x5_dx_plain(
-            dy, kernel, x, fuse_swish=fuse_swish
-        )
+def _launch_dx(dy: torch.Tensor, kernel: torch.Tensor,
+               x: Optional[torch.Tensor], fuse_swish: bool) -> torch.Tensor:
     _require_cuda(dy)
     if fuse_swish and x is None:
         raise ValueError("the swish' epilogue needs the forward's x")
     _check(dy, kernel, None, *((x,) if fuse_swish else ()), kind="dx")
     b, h, w, c = dy.shape
+    bf16 = dy.dtype == torch.bfloat16
     dx = torch.empty_like(dy)
-    err = _lib().nvae_dw5x5_dx(
+    entry = _lib().nvae_dw5x5_dx_bf16 if bf16 else _lib().nvae_dw5x5_dx
+    err = entry(
         dy.data_ptr(), kernel.data_ptr(),
         x.data_ptr() if fuse_swish else None, dx.data_ptr(),
         b, h, w, c, kernel.stride(0), kernel.stride(1), kernel.stride(3),
-        geometry("dx", (b, h, w, c)).c_array(), dy.device.index, _stream(dy),
+        geometry("dx", (b, h, w, c),
+                 "bfloat16" if bf16 else "float32").c_array(),
+        dy.device.index, _stream(dy),
     )
     _raise_on(err, "dx")
+    return dx
+
+
+def fused_swish_depthwise5x5_dx(
+    dy: torch.Tensor, kernel: torch.Tensor, x: Optional[torch.Tensor],
+    *, fuse_swish: bool = True,
+) -> torch.Tensor:
+    """dL/dx of ``dwconv5x5(swish(x)) + bias`` given ``dy``, NHWC, in dy's
+    dtype.  ``x`` is the forward's input, read only when ``fuse_swish``
+    (the epilogue's ``swish'(x)``); pass None otherwise.  bf16 CUDA tensors
+    go to :func:`fused_swish_depthwise5x5_dx_bf16`."""
+    if dy.device.type == "cpu":
+        return fused_swish_depthwise5x5_dx_plain(
+            dy, kernel, x, fuse_swish=fuse_swish
+        )
+    if dy.dtype == torch.bfloat16:
+        return fused_swish_depthwise5x5_dx_bf16(dy, kernel, x,
+                                                fuse_swish=fuse_swish)
+    dx = _launch_dx(dy, kernel, x, fuse_swish)
     fused_swish_depthwise5x5_dx.launches += 1
     return dx
 
 
 fused_swish_depthwise5x5_dx.launches = 0
+
+
+def fused_swish_depthwise5x5_dx_bf16(
+    dy: torch.Tensor, kernel: torch.Tensor, x: Optional[torch.Tensor],
+    *, fuse_swish: bool = True,
+) -> torch.Tensor:
+    """The bf16 instance of the dx kernel on CUDA tensors: bf16 ``dy``,
+    taps and ``x`` (or None without swish); bf16 ``dx``, rounded once.  It
+    counts its launches in ``launches``, apart from the fp32 dx's."""
+    if dy.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 instance takes bfloat16 dy, got {dy.dtype}")
+    dx = _launch_dx(dy, kernel, x, fuse_swish)
+    fused_swish_depthwise5x5_dx_bf16.launches += 1
+    return dx
+
+
+fused_swish_depthwise5x5_dx_bf16.launches = 0
 
 
 def dw_parts(x_shape) -> int:
@@ -488,39 +558,68 @@ def dw_parts(x_shape) -> int:
     return geometry("dw", tuple(int(s) for s in x_shape)).blocks_per_chunk
 
 
-def fused_swish_depthwise5x5_dw(
-    x: torch.Tensor, dy: torch.Tensor, *, fuse_swish: bool = True,
-    with_bias: bool = True,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dL/dkernel (5, 5, 1, C), dL/dbias (C,) or None) of the fused op,
-    fp32, from its input ``x`` and ``dy``, NHWC.  On the card: two kernel
-    launches with no atomics (partial sums over each block's batch rows, then
-    their sum in a fixed order), so two runs on the same
-    input give the same bits."""
-    if x.device.type == "cpu":
-        dk, db = fused_swish_depthwise5x5_dw_plain(x, dy, fuse_swish=fuse_swish)
-        return dk, db if with_bias else None
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, fuse_swish: bool,
+               with_bias: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _require_cuda(x)
     b, h, w, c = x.shape
     _check(x, None, None, dy, kind="dw")
-    geo = geometry("dw", (b, h, w, c))
+    bf16 = x.dtype == torch.bfloat16
+    geo = geometry("dw", (b, h, w, c), "bfloat16" if bf16 else "float32")
     n_parts = geo.blocks_per_chunk
     partial = torch.empty(n_parts, _SUMS, c, device=x.device,
                           dtype=torch.float32)
     dk = torch.empty(K, K, 1, c, device=x.device, dtype=torch.float32)
     db = (torch.empty(c, device=x.device, dtype=torch.float32)
           if with_bias else None)
-    err = _lib().nvae_dw5x5_dw(
+    entry = _lib().nvae_dw5x5_dw_bf16 if bf16 else _lib().nvae_dw5x5_dw
+    err = entry(
         x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dk.data_ptr(),
         db.data_ptr() if with_bias else None, b, h, w, c, n_parts,
         int(fuse_swish), geo.c_array(), x.device.index, _stream(x),
     )
     _raise_on(err, "dW/db")
-    fused_swish_depthwise5x5_dw.launches += 1
     return dk, db
 
 
+def fused_swish_depthwise5x5_dw(
+    x: torch.Tensor, dy: torch.Tensor, *, fuse_swish: bool = True,
+    with_bias: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dL/dkernel (5, 5, 1, C), dL/dbias (C,) or None) of the fused op,
+    fp32 (bf16 ``x`` and ``dy`` too), from its input ``x`` and ``dy``, NHWC.
+    On the card: two kernel launches with no atomics (partial sums over each
+    block's batch rows, then their sum in a fixed order), so two runs on the
+    same input give the same bits.  bf16 CUDA tensors go to
+    :func:`fused_swish_depthwise5x5_dw_bf16`."""
+    if x.device.type == "cpu":
+        dk, db = fused_swish_depthwise5x5_dw_plain(x, dy, fuse_swish=fuse_swish)
+        return dk, db if with_bias else None
+    if x.dtype == torch.bfloat16:
+        return fused_swish_depthwise5x5_dw_bf16(x, dy, fuse_swish=fuse_swish,
+                                                with_bias=with_bias)
+    out = _launch_dw(x, dy, fuse_swish, with_bias)
+    fused_swish_depthwise5x5_dw.launches += 1
+    return out
+
+
 fused_swish_depthwise5x5_dw.launches = 0
+
+
+def fused_swish_depthwise5x5_dw_bf16(
+    x: torch.Tensor, dy: torch.Tensor, *, fuse_swish: bool = True,
+    with_bias: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bf16 instance of the dW/db kernels on CUDA tensors: bf16 ``x``
+    and ``dy``; fp32 dW and db, the same two launches (counted as one in
+    ``launches``, apart from the fp32 dW/db's)."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 instance takes bfloat16 x, got {x.dtype}")
+    out = _launch_dw(x, dy, fuse_swish, with_bias)
+    fused_swish_depthwise5x5_dw_bf16.launches += 1
+    return out
+
+
+fused_swish_depthwise5x5_dw_bf16.launches = 0
 
 
 class FusedSwishDepthwise5x5(torch.autograd.Function):
@@ -529,7 +628,9 @@ class FusedSwishDepthwise5x5(torch.autograd.Function):
     ``(x, kernel)``; the backward computes dx with the dx kernel and dW/db
     with the dW/db kernels, each only where an input needs it.  On CPU
     tensors every stage takes its plain version (explicit formulas, not
-    autograd of the plain forward)."""
+    autograd of the plain forward).  As JAX's ``f_bwd``: dx comes out in
+    x's dtype, dW (summed in fp32) is rounded to the taps' dtype here, and
+    db keeps the fp32 sums (the bias's dtype)."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, fuse_swish):
@@ -556,8 +657,7 @@ class FusedSwishDepthwise5x5(torch.autograd.Function):
             dk, db = fused_swish_depthwise5x5_dw(
                 x, dy, fuse_swish=ctx.fuse_swish, with_bias=want_db,
             )
-            if not ctx.needs_input_grad[1]:
-                dk = None
+            dk = dk.to(kernel.dtype) if ctx.needs_input_grad[1] else None
         return dx, dk, db, None
 
 

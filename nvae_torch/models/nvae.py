@@ -6,11 +6,11 @@ posterior -> postprocess -> Bernoulli logits), its eval-mode reconstruction
 (``NVAE.reconstruct``) and the prior sampler (``NVAE.sample``).  The DML
 head comes with a later slice.
 
-``compute_dtype`` / ``bn_apply_dtype`` bfloat16 run in eval mode (sample,
-reconstruct): the parameters stay fp32 and each module casts where its JAX
-module casts (``nn/spectral.py``, ``nn/blocks.py``); the latent heads and
-the likelihood head return fp32, and the noise is drawn in fp32.  Training
-in bf16 waits for ROADMAP.md Queue 1 #3b.
+``compute_dtype`` / ``bn_apply_dtype`` bfloat16 run in both modes (train,
+sample, reconstruct): the parameters, BatchNorm statistics and spectral
+``u`` stay fp32 and each module casts where its JAX module casts
+(``nn/spectral.py``, ``nn/blocks.py``); the latent heads and the likelihood
+head return fp32, and the noise is drawn in fp32.
 
 Layout: internally every feature map is NCHW in ``torch.channels_last``
 memory, so the fused depthwise kernel reads it as NHWC without a transpose.
@@ -120,14 +120,6 @@ def _temperature(value, device):
 
 
 DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
-BF16_TRAINING = ("bf16 training waits for ROADMAP.md Queue 1 #3b (bf16 "
-                 "instances of the backward kernels #3 and #4); "
-                 "compute_dtype and bn_apply_dtype bfloat16 run in eval mode "
-                 "only (sample, reconstruct, serve)")
-
-
-def runs_bf16(cfg: ModelConfig) -> bool:
-    return "bfloat16" in (cfg.compute_dtype, cfg.bn_apply_dtype)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -141,7 +133,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         waiting.append("remat=True")
     if waiting:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(waiting)} (the port runs fp32 "
+            f"not ported yet: {', '.join(waiting)} (the port runs "
             "Bernoulli models without rematerialization so far)"
         )
 
@@ -624,9 +616,8 @@ class NVAE(nn.Module):
         (``NVAE.__call__``).  ``eps`` injects the posterior noise (a list of
         NHWC tensors: group 0, then each group g >= 1), else each draw comes
         from ``generator``.  The pass runs in the model's dtype (float32;
-        a float64 copy on the CPU serves as a reference)."""
-        if self.training and runs_bf16(self.cfg):
-            raise NotImplementedError(BF16_TRAINING)
+        a float64 copy on the CPU serves as a reference), each module in the
+        config's compute dtypes."""
         h = self.decoder.h
         x = _nchw(_as_tensor(x, h.device, _f32(h).dtype))
         x = x.contiguous(memory_format=torch.channels_last)

@@ -17,7 +17,8 @@ Dtypes follow the JAX modules' ``dtype`` and ``bn_dtype``, set on the leaf
 modules (``SNConv``, ``DepthwiseConv``, ``SqueezeExcitation``: ``dtype``;
 ``BatchNorm``: ``apply_dtype``) by ``NVAE`` from its config.  None is
 float32: no cast, so a float64 copy of the model runs in float64.  The bf16
-forms are eval-mode only; bf16 training waits for ROADMAP.md Queue 1 #3b.
+forms train too: parameters, BatchNorm statistics and spectral ``u`` stay
+fp32, as in JAX.
 """
 
 from __future__ import annotations
@@ -50,13 +51,16 @@ class BatchNorm(nn.Module):
     and updates the running statistics in place as
     ``ra <- 0.05 * ra + 0.95 * batch`` (biased variance).  This is not
     ``F.batch_norm(training=True)``, whose momentum 0.05 would keep 95% of
-    the old value and which stores the unbiased variance.
+    the old value and which stores the unbiased variance.  The batch
+    statistics come from x widened to the statistics' dtype (fp32 for a bf16
+    x), as both JAX forms compute them.
 
-    ``apply_dtype`` bf16 (eval mode) is JAX's ``_SplitPrecisionBN``:
-    ``mul = scale * rsqrt(var + eps)`` and ``add = bias - mean * mul`` from
-    the fp32 statistics, then ``x * mul + add`` in bf16.  Otherwise eval
-    mode normalizes in the statistics' dtype, whatever x's dtype, as Flax's
-    fp32 BatchNorm does."""
+    ``apply_dtype`` bf16 is JAX's ``_SplitPrecisionBN``: ``mul = scale *
+    rsqrt(var + eps)`` and ``add = bias - mean * mul`` from the fp32
+    statistics (the batch's in training, gradients flowing through them),
+    then ``x * mul + add`` in bf16.  Otherwise the output is in the
+    statistics' dtype, whatever x's dtype, as Flax's fp32 BatchNorm
+    (``dtype=float32``) computes it: ``(x - mean) * mul + bias``."""
 
     MOMENTUM = 0.05  # Flax's: the share of the old running value kept
 
@@ -93,14 +97,22 @@ class BatchNorm(nn.Module):
                 eps=BN_EPS,
             )
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        st = self.running_mean.dtype
+        xf = x.to(torch.promote_types(x.dtype, st))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_((1.0 - m) * mean)
             self.running_var.mul_(m).add_((1.0 - m) * var)
+        if self.apply_dtype is not None:
+            mul = self.weight * torch.rsqrt(var + BN_EPS)
+            add = self.bias - mean * mul
+            dt = self.apply_dtype
+            return (x.to(dt) * mul.to(dt)[:, None, None]
+                    + add.to(dt)[:, None, None])
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return ((x - mean[:, None, None]) * mul[:, None, None]
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
 
 

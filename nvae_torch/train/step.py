@@ -16,12 +16,7 @@ from torch.profiler import record_function
 
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.device import fp32_math
-from nvae_torch.models.nvae import (
-    BF16_TRAINING,
-    NVAE,
-    discard_buffer_updates,
-    runs_bf16,
-)
+from nvae_torch.models.nvae import NVAE, discard_buffer_updates
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
     GradientTransformation,
@@ -53,8 +48,11 @@ def make_train_step(
 
     ``batch`` is (B, H, W, C) in [0, 1] (binarized for Bernoulli models), a
     tensor on the model's device or an array, cast to the model's dtype
-    (float32; a float64 copy on the CPU serves as a reference).  On the
-    card the step runs in full fp32 (:func:`nvae_torch.device.fp32_math`:
+    (float32; a float64 copy on the CPU serves as a reference).  Each module
+    computes in the config's dtypes (``compute_dtype``, ``bn_apply_dtype``:
+    bf16 where set, no loss scaling, as in JAX); the parameters, and so the
+    gradients and the optimizer, stay fp32.  On the card its fp32 work runs
+    in full fp32 (:func:`nvae_torch.device.fp32_math`:
     ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` are False while it runs).
 
@@ -83,8 +81,6 @@ def make_train_step(
     before the update).
     """
     model_cfg: ModelConfig = model.cfg
-    if runs_bf16(model_cfg):
-        raise NotImplementedError(BF16_TRAINING)
     total_epochs = max(total_steps // max(steps_per_epoch, 1), 1)
     grad_accum = max(int(train_cfg.grad_accum), 1)
     train_flag = not train_cfg.parity_frozen_norm

@@ -35,7 +35,6 @@ import torch
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
-from nvae_torch.models.nvae import BF16_TRAINING, runs_bf16
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train.optim import find_ema_params
 from nvae_torch.train.state import TrainState, create_train_state
@@ -111,9 +110,7 @@ class Trainer:
             model_cfg, train_cfg, self.total_steps, device=device
         )
         self.device = self.model.decoder.h.device
-        # A bf16 model samples, reconstructs and serves, but does not train
-        # yet: its step is never built, and fit() raises.
-        self.step_fn = None if runs_bf16(model_cfg) else make_train_step(
+        self.step_fn = make_train_step(
             self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch
         )
         self._eval_fn = None
@@ -232,8 +229,6 @@ class Trainer:
         on_epoch_end: Optional[Callable] = None,
         profile_dir: Optional[str] = None,
     ) -> TrainResult:
-        if self.step_fn is None:
-            raise NotImplementedError(BF16_TRAINING)
         tc = self.train_cfg
         history = []
         best_loss, best_state, patience_left = float("inf"), None, tc.patience

@@ -19,7 +19,15 @@
 - The whole bf16 sample path (compute and BatchNorm apply bf16, debug size,
   injected noise) against JAX: probabilities within atol 3e-2, and no
   further from JAX in fp32 than 1.5 times JAX in bf16 is.
+- bf16 training through the entry points at a tiny size: ``Trainer.fit``,
+  a bitwise resume, the sampling hooks and ``serving.Sampler`` over its
+  checkpoint; the CLI's ``--mode train`` (and a resumed epoch) and
+  ``--mode sample`` with ``--compute_dtype bfloat16``, with and without
+  ``--bn_apply_dtype bfloat16``.
 """
+
+import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -27,12 +35,14 @@ import numpy as np
 import pytest
 import torch
 
+from nvae_torch import cli
 from nvae_torch import config as tcfg
 from nvae_torch.convert import state_dict_from_flax
 from nvae_torch.kernels import depthwise as tdw
 from nvae_torch.models.nvae import NVAE as TorchNVAE
 from nvae_torch.nn import blocks as tb
 from nvae_torch.nn import spectral as ts
+from nvae_torch.train import checkpoint as ckpt
 from nvae_tpu import config as jcfg
 from nvae_tpu.kernels.depthwise import fused_swish_depthwise5x5 as jax_fused
 from nvae_tpu.models import NVAE as JaxNVAE
@@ -40,6 +50,12 @@ from nvae_tpu.nn import blocks as jb
 from nvae_tpu.nn import spectral as js
 from tests.test_torch_blocks import _variables, _x
 from tests.test_torch_sampler import _record, random_flax_variables
+from tests.test_torch_trainer import (  # noqa: F401  (fixtures)
+    _cli_argv,
+    _jsonl,
+    no_tensorboard,
+    one_torch_thread,
+)
 
 BF16 = torch.bfloat16
 MODULE_RTOL = 2.0 ** -7
@@ -141,16 +157,26 @@ def test_bf16_limit_takes_another_sum_order_and_refuses_double_rounding(h, c):
 
 
 def test_bf16_geometry_fits_every_path_shape():
-    for h, c in PATH_SHAPES:
-        for b in SERVE_BATCHES:
-            g = tdw.geometry("fwd", (b, h, h, c), "bfloat16")
-            assert g.smem_bytes <= tdw._MAX_SMEM
-            # Three blocks share an SM, as in fp32.
-            assert g.smem_bytes <= tdw._OCC_SMEM
-            assert g.slots_per_pass % 2 == 0 and g.threads == 256
-            assert g.blocks_per_chunk <= b
-    with pytest.raises(ValueError, match="no dx kernel for bfloat16"):
-        tdw.geometry("dx", (2, 8, 8, 32), "bfloat16")
+    """Every bf16 kernel's ring fits at every path shape and every batch its
+    paths give it (the forward: the serving batches; dx and dW/db: the
+    training step's 144 and the card-vs-CPU step's 4), three blocks to an
+    SM as in fp32; dx and dW/db stage two streams (2 bytes an element)."""
+    for kind, batches in (("fwd", SERVE_BATCHES), ("dx", (144, 4)),
+                          ("dw", (144, 4))):
+        for h, c in PATH_SHAPES:
+            for b in batches:
+                g = tdw.geometry(kind, (b, h, h, c), "bfloat16")
+                assert g.smem_bytes <= tdw._MAX_SMEM
+                assert g.smem_bytes <= tdw._OCC_SMEM
+                assert g.slots_per_pass % 2 == 0 and g.threads == 256
+                assert g.blocks_per_chunk <= b
+                streams = 1 if kind == "fwd" else 2
+                rows = (g.ahead + 1) * g.slots_per_pass
+                assert g.smem_bytes == tdw._smem_bytes(
+                    kind, h, g.slots_per_pass, g.ahead) + (
+                    streams * rows * h * 32 * 2)
+    with pytest.raises(ValueError, match="no dx kernel for float16"):
+        tdw.geometry("dx", (2, 8, 8, 32), "float16")
 
 
 def test_wrapper_dtype_rules():
@@ -164,10 +190,16 @@ def test_wrapper_dtype_rules():
         tdw._check(x.double(), k.double(), None)
     with pytest.raises(TypeError, match="float32"):
         tdw._check(x.to(BF16), k.to(BF16), b.to(BF16))  # bias stays fp32
-    with pytest.raises(TypeError, match="#3b"):
-        tdw._check(x.to(BF16), k.to(BF16), None, x.to(BF16), kind="dx")
-    with pytest.raises(TypeError, match="#3b"):
-        tdw._check(x.to(BF16), None, None, x.to(BF16), kind="dw")
+    # dx and dW/db take bf16 operands too, all of one dtype.
+    tdw._check(x.to(BF16), k.to(BF16), None, x.to(BF16), kind="dx")
+    tdw._check(x.to(BF16), None, None, x.to(BF16), kind="dw")
+    with pytest.raises(TypeError, match="operand 0 must be torch.bfloat16"):
+        tdw._check(x.to(BF16), k.to(BF16), None, x, kind="dx")
+    with pytest.raises(TypeError, match="kernel must be torch.bfloat16"):
+        tdw._check(x.to(BF16), k, None, x.to(BF16), kind="dx")
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        buf = torch.zeros(x.numel() + 1, dtype=BF16)
+        tdw._check(x.to(BF16), None, None, buf[1:].view(x.shape), kind="dw")
     with pytest.raises(ValueError, match="even channel count"):
         tdw._check(torch.zeros(1, 4, 4, 33, dtype=BF16),
                    torch.zeros(5, 5, 1, 33, dtype=BF16), None)
@@ -277,23 +309,92 @@ def test_bf16_sample_path_matches_jax(monkeypatch, depthwise):
     assert port_vs_32 <= VS_F32_RATIO * jax_vs_32, (port_vs_32, jax_vs_32)
 
 
-def test_bf16_training_waits_for_3b():
+def test_bf16_trainer_fits_resumes_and_serves(tmp_path, one_torch_thread):
+    """``Trainer.fit`` in bf16 compute and BatchNorm apply (tiny model, CPU,
+    with EMA): finite metrics with fp32 parameters, statistics, ``u`` and
+    EMA; a resume from its checkpoint ends in the same state bit for bit;
+    eval mode reconstructs and samples in fp32; the IWAE NLL is finite; and
+    ``serving.Sampler`` serves the checkpoint, with its EMA weights too."""
     from nvae_torch.config import TrainConfig
-    from nvae_torch.train.state import create_train_state
-    from nvae_torch.train.step import make_train_step
+    from nvae_torch.data import make_iterators, synthetic_dataset
+    from nvae_torch.eval.nll import make_nll_fn
+    from nvae_torch.serving import Sampler, variables_from_state
+    from nvae_torch.train import checkpoint as ckpt
     from nvae_torch.train.trainer import Trainer
 
-    cfg = tcfg.debug_config(compute_dtype="bfloat16")
-    model, state, tx = create_train_state(cfg, TrainConfig(), 4,
-                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="#3b"):
-        make_train_step(model, tx, TrainConfig(), 4, 2)
-    with pytest.raises(NotImplementedError, match="#3b"):
-        model(torch.rand(2, 32, 32, 1))  # a training-mode forward
-    trainer = Trainer(cfg, TrainConfig(epochs=1), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="#3b"):
-        trainer.fit(None)
-    # Eval mode runs: a reconstruction and a sample.
-    assert trainer.reconstruct_images(torch.rand(3, 32, 32, 1)).shape == (
-        3, 32, 32, 1)
+    cfg = tcfg.debug_config(n_groups_per_scale=(1, 1), n_latent_per_group=2,
+                            use_pallas_kernels=True,
+                            postprocess_5x5_depthwise=True,
+                            compute_dtype="bfloat16",
+                            bn_apply_dtype="bfloat16", spectral_mode="forward")
+    tc = TrainConfig(batch_size=8, epochs=2, step_based_warmup=True,
+                     ema_decay=0.9, evaluate_frequency=1,
+                     sample_frequency=1000,
+                     model_save_frequency=1,
+                     model_save_dir=str(tmp_path / "models"),
+                     tensorboard_log_dir=str(tmp_path / "logs"))
+
+    def iters():
+        bundle = synthetic_dataset(n_train=16, n_test=8, seed=0)
+        return make_iterators(bundle, 8, seed=0, device="cpu")
+
+    train_iter, test_iter = iters()
+    trainer = Trainer(cfg, tc, len(train_iter), device="cpu")
+    result = trainer.fit(train_iter, test_iter)
+    assert trainer.state.step == 4 and np.isfinite(result.best_loss)
+    assert len(result.history) == 2 and all(
+        np.isfinite(float(v)) for h in result.history for v in h.values())
+    state = ckpt.flatten_state(trainer.state)
+    assert all(v.dtype == torch.float32 for v in state.values()
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+    assert ckpt.all_steps(trainer.ckpt_dir) == [2, 4]
+    shutil.rmtree(tmp_path / "models" / "4")
+    again = Trainer(cfg, tc, len(train_iter), device="cpu")
+    assert again.maybe_resume() == 1
+    again.fit(*iters())
+    for k, v in ckpt.flatten_state(again.state).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, state[k]), k
+        else:
+            assert v == state[k], k
+    assert trainer.reconstruct_images(torch.rand(3, 32, 32, 1)).dtype == (
+        torch.float32)
     assert trainer.sample_images(2, 1.0)[0].dtype == torch.float32
+    nll = make_nll_fn(trainer.model, 2)(torch.rand(2, 32, 32, 1) > 0.5)
+    assert nll.dtype == torch.float32 and torch.isfinite(nll)
+    for ema in (False, True):
+        sampler = Sampler(cfg, variables_from_state(trainer.state, ema),
+                          n_samples=4, device="cpu")
+        images = sampler(0, 0.8)
+        assert images.shape == (4, 32, 32, 1)
+        assert torch.isfinite(images).all()
+
+
+@pytest.mark.parametrize("dtypes", [
+    ["--compute_dtype", "bfloat16", "--bn_apply_dtype", "bfloat16",
+     "--postprocess_depthwise"],
+    ["--compute_dtype", "bfloat16"],
+])
+def test_cli_trains_and_samples_in_bf16_on_the_cpu(tmp_path, capsys,
+                                                   no_tensorboard, dtypes,
+                                                   one_torch_thread):
+    """``--mode train`` in bf16 compute (with bf16 or fp32 BatchNorm apply):
+    trains with finite metrics, checkpoints, resumes for another epoch, and
+    ``--mode sample`` draws from the bf16-trained checkpoint."""
+    argv = [*_cli_argv(tmp_path), *dtypes, "--evaluate_frequency", "1",
+            "--sample_frequency", "1000", "--model_save_frequency", "1"]
+    cli.main(["--mode", "train", "--epochs", "1", *argv])
+    assert "Training done: best_loss=" in capsys.readouterr().out
+    cli.main(["--mode", "train", "--epochs", "2", *argv])
+    assert ckpt.all_steps(str(tmp_path / "models")) == [4, 8]
+    lines = _jsonl(tmp_path / "logs" / "metrics.jsonl")
+    train = [r for r in lines if "train/loss" in r]
+    assert [r["step"] for r in train] == [0, 1]
+    assert all(np.isfinite(v) for r in lines for v in r.values())
+    payload = ckpt.load_payload(str(tmp_path / "models"), 8)
+    assert all(v.dtype == torch.float32 for v in payload.values()
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+    capsys.readouterr()
+    cli.main(["--mode", "sample", "--n_samples", "4", *argv])
+    assert "(step 8)" in capsys.readouterr().out
+    assert len(os.listdir(tmp_path / "results" / "t_0.8")) == 4

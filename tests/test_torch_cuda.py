@@ -17,7 +17,11 @@ against its plain version at atol 1e-5 and bitwise across two runs; a
 debug-size ``Trainer.fit`` on the card with its launch counts and hooks.
 The bf16 instance of the forward against its plain version: at most one
 bf16 ulp at the scale of its products' sum, bitwise across two runs; the bf16-compute sampler on the card
-against the CPU at atol 3e-2 on the probabilities.
+against the CPU at atol 3e-2 on the probabilities.  The bf16 instances of
+dx and dW/db against their plain versions: dx within one bf16 ulp plus
+``BF16_SUM_ULPS`` fp32 ulps of ``|swish'(x)| sum |dy w|``, dW/db's fp32 sums
+at 1e-4 of the largest |dW| and bitwise across two runs; a debug-size bf16
+training step on the card with its launch counts.
 """
 
 import numpy as np
@@ -81,10 +85,12 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         tdw.fused_swish_depthwise5x5(x.permute(0, 2, 1, 3), k)
     xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
-    with pytest.raises(TypeError, match="#3b"):
-        tdw.fused_swish_depthwise5x5_dx(xb, kb, xb)
-    with pytest.raises(TypeError, match="#3b"):
-        tdw.fused_swish_depthwise5x5_dw(xb, xb)
+    with pytest.raises(TypeError, match="operand 0 must be torch.bfloat16"):
+        tdw.fused_swish_depthwise5x5_dx(xb, kb, x)
+    with pytest.raises(TypeError, match="operand 0 must be torch.bfloat16"):
+        tdw.fused_swish_depthwise5x5_dw(xb, x)
+    with pytest.raises(TypeError, match="bfloat16 dy"):
+        tdw.fused_swish_depthwise5x5_dx_bf16(x, k, x)
     with pytest.raises(ValueError, match="even channel count"):
         tdw.fused_swish_depthwise5x5(xb[..., :31].contiguous(),
                                      kb[..., :31].contiguous())
@@ -217,6 +223,50 @@ def test_cuda_backward_kernels_match_plain(cuda_device, shape, with_bias):
             assert db is None
 
 
+@pytest.mark.parametrize("shape,with_bias", BACKWARD_SHAPES)
+def test_cuda_bf16_backward_kernels_match_plain(cuda_device, shape,
+                                                with_bias):
+    """The bf16 instances of #3 and #4 against their plain versions, counted
+    apart from fp32: dx within its limit (``bf16_dx_scale``) and, at the
+    path shapes, at least ``BF16_MIN_EQUAL_SHARE`` bitwise equal; dW/db's
+    fp32 sums at 1e-4 of the largest |dW|, bitwise across two runs."""
+    bf = torch.bfloat16
+    x, k, _ = (t.to(bf) for t in _inputs(shape, cuda_device))
+    dy = _inputs(shape, cuda_device, seed=1)[0].to(bf)
+    kt = k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    names = ("fused_swish_depthwise5x5_dx", "fused_swish_depthwise5x5_dx_bf16",
+             "fused_swish_depthwise5x5_dw", "fused_swish_depthwise5x5_dw_bf16")
+    for fuse in (True, False):
+        before = [getattr(tdw, n).launches for n in names]
+        got = tdw.fused_swish_depthwise5x5_dx(dy, kt, x if fuse else None,
+                                              fuse_swish=fuse)
+        dk, db = tdw.fused_swish_depthwise5x5_dw(x, dy, fuse_swish=fuse,
+                                                 with_bias=with_bias)
+        dk2, db2 = tdw.fused_swish_depthwise5x5_dw(x, dy, fuse_swish=fuse,
+                                                   with_bias=with_bias)
+        assert [getattr(tdw, n).launches - b
+                for n, b in zip(names, before)] == [0, 1, 0, 2]
+        want = tdw.fused_swish_depthwise5x5_dx_plain(dy, k, x, fuse_swish=fuse)
+        torch.cuda.synchronize()
+        assert got.dtype == bf
+        scale = tdw.bf16_dx_scale(dy, k, x, fuse_swish=fuse)
+        assert float(tdw.bf16_sum_ulps(got, want, scale).max()) <= (
+            tdw.BF16_SUM_ULPS)
+        if got.numel() >= 10_000:
+            equal = float((got.view(torch.int16) == want.view(torch.int16))
+                          .float().mean())
+            assert equal >= tdw.BF16_MIN_EQUAL_SHARE
+        dk_want, db_want = tdw.fused_swish_depthwise5x5_dw_plain(
+            x, dy, fuse_swish=fuse)
+        assert dk.dtype == torch.float32 and torch.equal(dk, dk2)
+        assert float((dk - dk_want).abs().max()) <= (
+            1e-4 * float(dk_want.abs().max()))
+        if with_bias:
+            assert torch.equal(db, db2)
+            assert float((db - db_want).abs().max()) <= (
+                1e-4 * float(db_want.abs().max()))
+
+
 @pytest.mark.parametrize("fuse,with_bias", [(True, True), (False, False)])
 def test_cuda_function_gradients_match_cpu(cuda_device, fuse, with_bias):
     """The fused op on the card has gradients, equal to the CPU Function's:
@@ -285,6 +335,53 @@ def test_cuda_train_step_matches_cpu(cuda_device, depthwise):
     for k in sd_cpu:
         tol = 1e-4 if "running" in k else 1e-6
         assert float((sd_gpu[k] - sd_cpu[k]).abs().max()) <= tol, k
+
+
+def test_cuda_bf16_train_step_matches_cpu(cuda_device):
+    """One debug-size training step in bf16 compute and BatchNorm apply
+    (depthwise config) on the card and on the CPU, from the same weights
+    and noise: 5 launches of each bf16 kernel (#2, #3, #4) and none of the
+    fp32 ones; the loss at rtol 5e-3 and the gradient within 0.15 (relative
+    L2) of the CPU's: two bf16 runs that round at other places, as
+    ``tests/test_torch_bf16_train.py`` holds the port against JAX."""
+    from nvae_torch.train import optim
+    from nvae_torch.train.state import create_train_state
+    from nvae_torch.train.step import make_train_step
+
+    cfg = debug_config(use_pallas_kernels=True, postprocess_5x5_depthwise=True,
+                       compute_dtype="bfloat16", bn_apply_dtype="bfloat16")
+    tc = TrainConfig(batch_size=4, step_based_warmup=True)
+    rng = np.random.RandomState(0)
+    batch = (rng.rand(4, 32, 32, 1) > 0.5).astype(np.float32)
+    eps = [[rng.randn(*s).astype(np.float32)
+            for s in posterior_noise_shapes(cfg, 4)]]
+    names = ("fused_swish_depthwise5x5", "fused_swish_depthwise5x5_dx",
+             "fused_swish_depthwise5x5_dw", "fused_swish_depthwise5x5_bf16",
+             "fused_swish_depthwise5x5_dx_bf16",
+             "fused_swish_depthwise5x5_dw_bf16")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        grads = {}
+
+        def record(updates, state, params=None, grads=grads):
+            grads.update({k: g.detach().cpu() for k, g in updates.items()})
+            return {k: torch.zeros_like(g) for k, g in updates.items()}, state
+
+        model, state, _ = create_train_state(cfg, tc, 100, device=dev, seed=3)
+        step = make_train_step(model, optim.GradientTransformation(
+            lambda params: None, record), tc, 100, 50)
+        before = [getattr(tdw, n).launches for n in names]
+        _, metrics = step(state, batch, eps=eps)
+        launches = [getattr(tdw, n).launches - b
+                    for n, b in zip(names, before)]
+        if dev != "cpu":
+            assert launches == [0, 0, 0, 5, 5, 5]
+        out[str(dev)] = (float(metrics["loss"]), grads)
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out[str(cuda_device)], out["cpu"]
+    assert abs(loss_gpu - loss_cpu) <= 5e-3 * abs(loss_cpu)
+    diff = sum(float(((g_gpu[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+    norm = sum(float((g ** 2).sum()) for g in g_cpu.values())
+    assert (diff / norm) ** 0.5 <= 0.15
 
 
 def _se_args(shape, device):

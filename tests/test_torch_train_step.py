@@ -63,10 +63,11 @@ def _sgd(lr):
 
 
 def _run(monkeypatch, overrides, train_overrides, optimizer, n_steps,
-         batch_size=4):
+         batch_size=4, noise=None):
     """Run ``n_steps`` of both steps from the same weights and noise.
     Returns per step ``(jax_state, jax_metrics, port_tree, port_metrics)``,
-    ``port_tree`` the port model's state converted back to a Flax tree."""
+    ``port_tree`` the port model's state converted back to a Flax tree.
+    ``noise``, a list, receives each step's ``(batch, eps)``."""
     jm = JaxNVAE(jcfg.debug_config(**overrides))
     variables = random_flax_variables(jm, seed=4)
     tc_j = jcfg.TrainConfig(batch_size=batch_size, step_based_warmup=True,
@@ -80,6 +81,8 @@ def _run(monkeypatch, overrides, train_overrides, optimizer, n_steps,
         tx_j = optax.chain(optax.sgd(SGD_LR), jax_projection())
         tx_t = topt.chain(_sgd(SGD_LR), topt.spectral_projection(
             sn_kernel_names(tm)))
+    elif optimizer == "grad":  # plain SGD at lr 1: the update is -gradient
+        tx_j, tx_t = optax.sgd(1.0), _sgd(1.0)
     else:
         tx_j = jax_make_optimizer(tc_j, TOTAL_STEPS, tm.cfg.spectral_mode)
         tx_t = topt.make_optimizer(tc_t, TOTAL_STEPS, tm.cfg.spectral_mode,
@@ -119,6 +122,8 @@ def _run(monkeypatch, overrides, train_overrides, optimizer, n_steps,
         eps = [draws[i * per_mb:(i + 1) * per_mb] for i in range(accum)]
         draws.clear()
         ts, tmet = step_t(ts, batch, eps=eps)
+        if noise is not None:
+            noise.append((batch, eps))
         out.append((js, jmet, flax_tree_from_state_dict(tm.state_dict(), tm),
                     tmet))
     assert ts.step == n_steps and ts.epoch == int(js.epoch)

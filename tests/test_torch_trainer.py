@@ -5,6 +5,7 @@ sweep), checkpoints (round trip, the async writer's snapshot) and the CLI
 ``tests/test_trainer.py``, ``tests/test_data.py``'s checkpoint tests and
 ``tests/test_cli.py`` of the JAX package."""
 
+import contextlib
 import json
 import os
 import shutil
@@ -23,6 +24,27 @@ from nvae_torch.train.state import create_train_state
 from nvae_torch.train.step import make_train_step
 from nvae_torch.train.trainer import Trainer
 from nvae_torch.utils.logging import MetricsLogger
+
+@contextlib.contextmanager
+def single_torch_thread():
+    """One intra-op thread inside the block: under the suite's parallel
+    workers, PyTorch's default of a thread per core in every worker
+    oversubscribes the cores and slows these small CPU steps many times."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture
+def one_torch_thread():
+    with single_torch_thread():
+        yield
+
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY_ARCH = [
     "--n_encoder_channels", "8", "--n_decoder_channels", "8",
@@ -397,8 +419,6 @@ def test_three_scale_presets_build_and_dml_presets_wait():
     (["--data_parallel", "2"], "parallel tiers"),
     (["--remat"], "rematerialization"),
     (["--preset", "celeba64"], "Queue 1 #4"),
-    (["--compute_dtype", "bfloat16"], "bf16"),
-    (["--bn_apply_dtype", "bfloat16"], "bf16"),
     (["--likelihood", "dml"], "DML head"),
     (["--preset", "cifar10_dml"], "Queue 1 #4"),
 ])
@@ -461,12 +481,6 @@ def test_serve_dtype_reaches_the_sampler(tmp_path, monkeypatch,
     assert call.info["serve_dtype"] == "int8"
     assert call.info["output_dtype"] == "uint8"
     assert call(2, torch.full((4,), 0.8)).dtype == torch.uint8
-
-
-def test_bf16_training_stops_and_names_3b(tmp_path):
-    with pytest.raises(SystemExit, match="Queue 1 #3b"):
-        cli.main(["--mode", "train", *_cli_argv(tmp_path),
-                  "--compute_dtype", "bfloat16"])
 
 
 def test_png_writer_and_tiles_match_the_jax_package(tmp_path):
