@@ -66,6 +66,16 @@ each raising on failure (nothing is caught):
    BatchNorm running statistics), and in the depthwise configuration the
    bf16 step on the card and on the CPU (the plain versions), the card's
    gradient no further from float64 than 1.5 times the CPU's;
+   then the device-resident epoch (a main path, ``--scan_epochs``): in
+   the default and depthwise configurations in fp32 and the depthwise one
+   in bf16, 60,000 synthetic uint8 rows staged on the card and 2 epochs of
+   10 full-width steps at batch 144 through the epoch runner, as CUDA
+   graph replays (the first step eager on a side stream, the second
+   captured) and eagerly from the same seed: the two runs' parameters,
+   statistics, optimizer state and mean metrics bit for bit equal, exactly
+   14 / 20 launches of each of #2, #3 and #4 per replay (and per eager
+   step) in the config's dtype and none of the other, ms per step of the
+   second epoch and peak memory of both;
 6. the gate's own entry point (a main path; the model does not call it, as
    in the JAX package): one call at each of the model's SE shapes, counted;
 7. the training entry point (a main path): ``python -m nvae_torch.cli`` as
@@ -79,7 +89,12 @@ each raising on failure (nothing is caught):
    and the CLI in bf16 (``--compute_dtype bfloat16 --bn_apply_dtype
    bfloat16 --postprocess_depthwise``): train 1 epoch, then ``--mode
    sample`` on its checkpoint, with exact launch counts of the bf16
-   kernels and none of fp32;
+   kernels and none of fp32; and the CLI on the scan path (``--scan_epochs``):
+   train 2 epochs with eval, image hooks and a checkpoint per epoch, then
+   resume for a third, with exact launch counts through the wrappers (each
+   run's eager first step, its capture and the forwards of the hooks) and
+   as replays (the other steps), and the optimizer's counts in the last
+   checkpoint;
 8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
    held to a float64 CPU run;
@@ -105,9 +120,11 @@ each raising on failure (nothing is caught):
    calls in bf16 (input sets holding more than twice the L2), and #2 at
    the shapes of ``tools/bench_dw_kernel.py``;
 10. profile: ``torch.profiler`` over one ``sample`` call (fp32, and bf16
-    weights with bf16 compute) and one training step per configuration
-    (fp32, and the depthwise one in bf16): device busy time against wall
-    time, and the costliest kernels.
+    weights with bf16 compute), one training step per configuration
+    (fp32, and the depthwise one in bf16) and one graph replay of each
+    scan configuration's step: device busy time against wall time, and
+    the costliest kernels; the replay's ring kernels by name must number
+    what its capture counted.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -207,6 +224,12 @@ TOOL_SHAPES = [(32, 192), (16, 192), (4, 1536)]
 # The training entry point: --debug truncates to 4 train and 4 test batches.
 CLI_EPOCHS = 2
 CLI_BATCHES = 4
+# The scan path (phase 5b): MNIST's training set of uint8 rows staged on the
+# card, two epochs of 10 steps (the first step eager, the second captured).
+SCAN_ROWS = 60_000
+SCAN_STEPS_PER_EPOCH = 10
+SCAN_EPOCHS = 2
+SCAN_CHECK_STEPS = 3  # graph vs eager: one eager, one captured, one more
 SAMPLE_TEMPERATURES = ("0.7", "0.8", "0.9", "1.0")
 # IWAE NLL: K attempts over NLL_BATCHES test batches at full width; one B=4
 # NLL card vs CPU at rtol 1e-4, each side also held to a float64 CPU run.
@@ -807,6 +830,179 @@ def phase_train_vs_cpu(cfg, device, bf16_cfg=None) -> dict:
     return out
 
 
+# ---- phase 5b: the device-resident epoch (--scan_epochs) --------------------
+
+
+def scan_configs():
+    """The scan path's configurations: fp32 default and depthwise, and the
+    depthwise one in bf16 (the JAX package's flagship ``--scan_epochs``
+    dtypes)."""
+    return {**configs(),
+            "depthwise bf16": bf16_configs()["depthwise bf16"]}
+
+
+def scan_data(device) -> torch.Tensor:
+    """SCAN_ROWS uint8 28x28 rows (MNIST's 47 MB) on the card: synthetic
+    digits (``nvae_torch.data.synthetic_dataset``, 2,048 of them) drawn
+    with a numpy seed."""
+    from nvae_torch.data import synthetic_dataset
+    from nvae_torch.train.epoch_runner import stage_dataset
+
+    digits = synthetic_dataset(n_train=2048, n_test=16, seed=5).train_x
+    rows = np.random.RandomState(6).randint(0, len(digits), SCAN_ROWS)
+    return stage_dataset(digits[rows], device)
+
+
+def replayed_counts() -> dict:
+    """Each depthwise wrapper's ``replayed``: the launches graph replays
+    made (captured launches x replays)."""
+    from nvae_torch.kernels import depthwise as dw
+
+    return {fn.__name__: fn.replayed for fn in dw.COUNTED}
+
+
+def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
+             epochs: int) -> dict:
+    """``epochs`` epochs of ``steps_per_epoch`` full-width steps at batch
+    BATCH through the epoch runner (Adamax + spectral projection, seed-0
+    weights), as graph replays or eagerly, with the counts set to 0 just
+    before and read just after.  Returns the counts, each epoch's means
+    and seconds, ms per step of the last epoch, the run's peak memory
+    (over what was allocated before it began: its model, state, graph and
+    activations), the final state on the host and the runner."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.epoch_runner import make_epoch_runner
+    from nvae_torch.train.state import create_train_state
+
+    base = torch.cuda.memory_allocated(device)
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
+    model, state, tx = create_train_state(cfg, tc, total_steps=1000,
+                                          device=device, seed=0)
+    run = make_epoch_runner(model, tx, tc, 1000, steps_per_epoch, graph=graph)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    before = replayed_counts()
+    means, seconds = [], []
+    for e in range(epochs):
+        t0 = time.monotonic()
+        state, m = run(state, data, e)  # ends in the epoch's fetch
+        seconds.append(time.monotonic() - t0)
+        means.append(m)
+    counts = read_counts()
+    replayed = {k: v - before[k] for k, v in replayed_counts().items()}
+    flat = {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in ckpt.flatten_state(state).items()}
+    return {"counts": counts, "replayed": replayed, "means": means,
+            "epoch_seconds": seconds,
+            "ms_per_step": 1e3 * seconds[-1] / steps_per_epoch,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated(device) - base)
+            / 1e9, "steps": state.step, "flat": flat, "runner": run}
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """How two flat states differ: bitwise or not, and the largest
+    difference over max(1, |value|) with its leaf."""
+    worst, where, equal = 0.0, None, True
+    for k, v in a.items():
+        if not isinstance(v, torch.Tensor):
+            equal &= v == b[k]
+            continue
+        if torch.equal(v, b[k]):
+            continue
+        equal = False
+        d = float(((v.double() - b[k].double()).abs()
+                   / v.double().abs().clamp(min=1.0)).max())
+        if d > worst:
+            worst, where = d, k
+    return {"bitwise": bool(equal), "max_rel_diff": worst, "leaf": where}
+
+
+class deterministic_cudnn:
+    """``torch.backends.cudnn.deterministic`` on inside the block: cuDNN's
+    default fp32 convolution backward algorithms sum with atomics, so two
+    eager fp32 steps on the same inputs differ in their last bits."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+def phase_scan(cfg, device, data) -> dict:
+    """The scan path (a main path) in one configuration:
+
+    - timed: SCAN_EPOCHS epochs of SCAN_STEPS_PER_EPOCH steps as graph
+      replays (cuDNN's default algorithms): launch counts (the eager first
+      step and the capture through the wrappers, the rest as replays), ms
+      per step of the last epoch, peak memory;
+    - check: SCAN_CHECK_STEPS steps as replays and the same steps eagerly,
+      from the same seed, under ``deterministic_cudnn``: the two states
+      and mean metrics compared;
+    - repeat: those steps eagerly twice with cuDNN's defaults, compared:
+      whether the eager step itself is reproducible."""
+    timed = scan_run(cfg, device, data, True, SCAN_STEPS_PER_EPOCH,
+                     SCAN_EPOCHS)
+    run = timed.pop("runner")
+    del timed["flat"]
+    out = {"timed": timed, "runner": run, "eager_steps": run.eager_steps,
+           "replays": run.replays,
+           "launches_per_replay": run.launches_per_replay}
+    with deterministic_cudnn():
+        eager = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
+        graphed = scan_run(cfg, device, data, True, SCAN_CHECK_STEPS, 1)
+    out["check"] = {"state": state_diff(graphed["flat"], eager["flat"]),
+                    "means_equal": graphed["means"] == eager["means"],
+                    "eager_peak_mem_gb": eager["peak_mem_gb"],
+                    "graph_peak_mem_gb": graphed["peak_mem_gb"],
+                    "eager_counts": eager["counts"],
+                    "launches_per_replay":
+                        graphed["runner"].launches_per_replay}
+    del eager, graphed
+    a = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
+    b = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
+    out["repeat"] = {"state": state_diff(a["flat"], b["flat"]),
+                     "means_equal": a["means"] == b["means"]}
+    out["counts"] = {k: timed["counts"][k] + out["check"]["eager_counts"][k]
+                     for k in KERNEL_NAMES}
+    return out
+
+
+def check_scan(name, cfg, rec) -> None:
+    """The timed run: every step but the first (eager, on a side stream)
+    replayed the graph captured at the second; a replay launches exactly
+    14 / 20 of each of #2, #3 and #4 in the config's dtype and none of the
+    other, and so does each eager step; finite means.  The check: graph
+    and eager bit for bit equal."""
+    n = expected_launches(cfg)
+    steps = SCAN_EPOCHS * SCAN_STEPS_PER_EPOCH
+    if (rec["eager_steps"], rec["replays"]) != (1, steps - 1):
+        raise AssertionError(f"scan {name}: {rec['eager_steps']} eager "
+                             f"steps, {rec['replays']} replays")
+    timed, check = rec["timed"], rec["check"]
+    for dtype, names in TRAIN_KERNELS.items():
+        per = n if dtype == cfg.compute_dtype else 0
+        for k in names:
+            got = (rec["launches_per_replay"][k],
+                   check["launches_per_replay"][k], timed["counts"][k],
+                   timed["replayed"][k], check["eager_counts"][k])
+            want = (per, per, 2 * per, per * (steps - 1),
+                    per * SCAN_CHECK_STEPS)
+            if got != want:
+                raise AssertionError(
+                    f"scan {name}: {k} per replay (timed, check) / timed "
+                    f"run / replayed / eager check run {got}, expected "
+                    f"{want}")
+    if timed["steps"] != steps or not all(
+            math.isfinite(v) for e in timed["means"] for v in e.values()):
+        raise AssertionError(f"scan {name}: {timed['means']}")
+    if not (check["state"]["bitwise"] and check["means_equal"]):
+        raise AssertionError(f"scan {name}: graph vs eager {check}")
+
+
 # ---- kernel #5: the squeeze-excitation gate ---------------------------------
 
 
@@ -900,8 +1096,8 @@ def phase_se_entry(device) -> dict:
 
 # A module of the port (``python -m <module>``) run by ``runpy`` (the same
 # module run the same way), after which the process writes this script's
-# ``read_counts()`` to the file named by its first argument; the module is
-# the second.
+# ``read_counts()`` and ``replayed_counts()`` to the file named by its first
+# argument; the module is the second.
 RUN_WITH_COUNTS = """
 import json, runpy, sys
 path = sys.argv.pop(1)
@@ -911,7 +1107,8 @@ try:
 finally:
     import chip_smoke
     with open(path, "w") as f:
-        json.dump(chip_smoke.read_counts(), f)
+        json.dump({"launches": chip_smoke.read_counts(),
+                   "replayed": chip_smoke.replayed_counts()}, f)
 """
 
 
@@ -938,10 +1135,15 @@ def run_cli(label: str, argv, workdir: str) -> dict:
         raise AssertionError(f"cli {label} exited {proc.returncode}:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     with open(counts_path) as f:
-        counts = json.load(f)
+        written = json.load(f)
+    counts = written["launches"]
+    replayed = {k: written["replayed"].get(k, 0) for k in KERNEL_NAMES}
     last = proc.stdout.strip().splitlines()[-1]
-    log(f"cli {label}: exit 0 in {seconds:.1f} s, launches {counts}; {last}")
-    return {"seconds": seconds, "counts": counts, "stdout": proc.stdout}
+    shown = {k: v for k, v in replayed.items() if v}
+    log(f"cli {label}: exit 0 in {seconds:.1f} s, launches {counts}"
+        f"{f', replayed {shown}' if shown else ''}; {last}")
+    return {"seconds": seconds, "counts": counts, "replayed": replayed,
+            "stdout": proc.stdout}
 
 
 def check_cli_counts(label, counts, per_forward, steps, forwards,
@@ -1079,6 +1281,65 @@ def phase_cli_bf16(workdir: str) -> dict:
               for k in KERNEL_NAMES}
     return {"train": train, "sample": sample, "metrics": lines,
             "counts": counts}
+
+
+def phase_cli_scan(workdir: str) -> dict:
+    """The training entry point on the scan path at full width: ``--preset
+    mnist_step_sn --use_pallas --scan_epochs``, batch 144, synthetic data,
+    ``--debug``: train 2 epochs with eval, image hooks and a checkpoint per
+    epoch, then resume for a third.  Exact launches: through the wrappers
+    each run's first step (eager), its capture and every eval, sampling and
+    reconstruction forward; as replays every other step (the captured one
+    runs as the first replay)."""
+    from nvae_torch.config import ModelConfig
+    from nvae_torch.train import checkpoint as ckpt
+
+    workdir = os.path.join(workdir, "scan")
+    os.makedirs(workdir)
+    per_fwd = expected_launches(ModelConfig(use_pallas_kernels=True))
+    args = [*cli_args(workdir), "--scan_epochs"]
+    logs = os.path.join(workdir, "logs")
+    models = os.path.join(workdir, "models")
+    steps = CLI_EPOCHS * CLI_BATCHES
+    train = run_cli("train scan", ["--mode", "train", "--epochs",
+                                   str(CLI_EPOCHS), *args], workdir)
+    check_cli_counts("train scan", train["counts"], per_fwd, 2,
+                     CLI_EPOCHS * (CLI_BATCHES + 2))
+    check_cli_counts("train scan replays", train["replayed"], per_fwd,
+                     steps - 1, 0)
+    lines = read_jsonl(os.path.join(logs, "metrics.jsonl"))
+    tr = [r for r in lines if "train/loss" in r]
+    te = [r for r in lines if "test/elbo" in r]
+    if (len(tr) != CLI_EPOCHS or len(te) != CLI_EPOCHS or not all(
+            math.isfinite(v) for r in tr + te for v in r.values())):
+        raise AssertionError(f"cli train scan: metrics {tr} {te}")
+    images = os.listdir(os.path.join(logs, "images"))
+    if f"test_reconstruction_step{CLI_EPOCHS - 1}" not in images:
+        raise AssertionError(f"cli train scan: image dirs {sorted(images)}")
+    if ckpt.all_steps(models) != [CLI_BATCHES, steps]:
+        raise AssertionError(f"cli train scan: checkpoints "
+                             f"{ckpt.all_steps(models)}")
+    resume = run_cli("resume scan", ["--mode", "train", "--epochs",
+                                     str(CLI_EPOCHS + 1), *args], workdir)
+    check_cli_counts("resume scan", resume["counts"], per_fwd, 2,
+                     CLI_BATCHES + 2)
+    check_cli_counts("resume scan replays", resume["replayed"], per_fwd,
+                     CLI_BATCHES - 1, 0)
+    new = read_jsonl(os.path.join(logs, "metrics.jsonl"))[len(lines):]
+    epochs = [r["step"] for r in new if "train/loss" in r]
+    if epochs != [CLI_EPOCHS] or ckpt.all_steps(models) != [
+            CLI_BATCHES, steps, steps + CLI_BATCHES]:
+        raise AssertionError(f"cli resume scan: epochs {epochs}, "
+                             f"checkpoints {ckpt.all_steps(models)}")
+    payload = ckpt.load_payload(models, steps + CLI_BATCHES)
+    counts = [v for k, v in payload.items() if k.endswith("/count")]
+    if not counts or any(v != steps + CLI_BATCHES for v in counts):
+        raise AssertionError(f"cli resume scan: optimizer counts {counts}")
+    return {"train": train, "resume": resume, "metrics": lines + new,
+            "counts": {k: train["counts"][k] + resume["counts"][k]
+                       for k in KERNEL_NAMES},
+            "replayed": {k: train["replayed"][k] + resume["replayed"][k]
+                         for k in train["replayed"]}}
 
 
 def report_cli(rec: dict) -> None:
@@ -1507,11 +1768,31 @@ def profile_call(label: str, fn) -> dict:
     for ms, count, key in rows[:10]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_kernels": n_kernels, "parts": parts, "top": rows[:10]}
+            "device_kernels": n_kernels, "parts": parts, "top": rows[:10],
+            "rows": rows}
 
 
-def phase_profile(samplers, trainers) -> dict:
-    """One ``sample`` call and one training step per configuration."""
+def ring_launches(rows) -> dict:
+    """Launches of the depthwise ring kernels in a profile's rows, by
+    wrapper name: ``dw5x5_ring<kind, ...>`` (0 forward, 1 dx, 2 dW/db,
+    whose reduction kernel is not counted again) in fp32 or bf16."""
+    names = {"0": "fused_swish_depthwise5x5",
+             "1": "fused_swish_depthwise5x5_dx",
+             "2": "fused_swish_depthwise5x5_dw"}
+    out = dict.fromkeys(DW_KERNEL_NAMES, 0)
+    for _, count, key in rows:
+        m = re.search(r"dw5x5_ring<\s*\(?\w*\)?\s*(\d)", key)
+        if m:
+            name = names[m.group(1)] + ("_bf16" if "bfloat16" in key else "")
+            out[name] += count
+    return out
+
+
+def phase_profile(samplers, trainers, scans) -> dict:
+    """One ``sample`` call and one training step per configuration, and
+    one graph replay of each scan configuration's step (an extra step on
+    that runner's state): its device kernels by name hold the replay's
+    launch counts."""
     out = {}
     t = torch.ones(BATCH)
     for name, sampler in samplers.items():
@@ -1524,6 +1805,17 @@ def phase_profile(samplers, trainers) -> dict:
             rec["state"], _ = rec["step"](rec["state"], batch)
 
         out[f"train {name}"] = profile_call(f"train step {name}", one_step)
+    for name, rec in scans.items():
+        graph = rec["runner"].graph
+        prof = profile_call(f"scan replay {name}", graph.replay)
+        ring = ring_launches(prof["rows"])
+        want = {k: rec["launches_per_replay"].get(k, 0)
+                for k in DW_KERNEL_NAMES}
+        if ring != want:
+            raise AssertionError(f"scan replay {name}: ring kernels in the "
+                                 f"profile {ring}, the capture counted "
+                                 f"{rec['launches_per_replay']}")
+        out[f"scan {name}"] = prof
     return out
 
 
@@ -1987,7 +2279,7 @@ class Server:
             raise AssertionError(f"{self.label} exited {rc} after SIGTERM:\n"
                                  f"{self.output()[-4000:]}")
         with open(self.counts_path) as f:
-            return {"rc": rc, "counts": json.load(f)}
+            return {"rc": rc, "counts": json.load(f)["launches"]}
 
     def kill(self):
         if self.proc.poll() is None:
@@ -2468,6 +2760,37 @@ def main(argv=None) -> int:
             raise AssertionError(f"train {name} bf16: card vs CPU {rec}")
 
     log(f"training done at {time.monotonic() - t_start:.1f} s")
+    replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    scans = {}
+    data = scan_data(device)
+    for name, cfg in scan_configs().items():
+        rec = phase_scan(cfg, device, data)
+        r = rec["timed"]
+        log(f"scan {name}: epochs "
+            + ", ".join(f"{t:.3f}" for t in r["epoch_seconds"])
+            + f" s, last epoch {r['ms_per_step']:.2f} ms/step "
+            f"({1e3 * BATCH / r['ms_per_step']:.1f} img/s), peak memory "
+            f"{r['peak_mem_gb']:.2f} GB; {rec['eager_steps']} eager step, "
+            f"{rec['replays']} replays of "
+            f"{ {k: v for k, v in rec['launches_per_replay'].items() if v} }")
+        for e, m in enumerate(r["means"]):
+            log(f"  epoch {e}: " + ", ".join(
+                f"{k} {v:.9g}" for k, v in sorted(m.items())))
+        log(f"scan {name}: graph vs eager over {SCAN_CHECK_STEPS} steps, "
+            f"deterministic cuDNN: {rec['check']['state']}, means equal "
+            f"{rec['check']['means_equal']}, peak memory "
+            f"{rec['check']['graph_peak_mem_gb']:.2f} / "
+            f"{rec['check']['eager_peak_mem_gb']:.2f} GB; eager vs eager, "
+            f"cuDNN's defaults: {rec['repeat']['state']}, means equal "
+            f"{rec['repeat']['means_equal']}")
+        check_scan(name, cfg, rec)
+        for k, v in rec["counts"].items():
+            launches[k] += v
+        for k, v in r["replayed"].items():
+            replayed[k] += v
+        scans[name] = rec  # a replay profiled in phase 10
+    del data
+    log(f"scan path done at {time.monotonic() - t_start:.1f} s")
     for k, v in phase_se_entry(device).items():
         launches[k] += v
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_")
@@ -2480,6 +2803,12 @@ def main(argv=None) -> int:
         for k, v in cli16["counts"].items():
             launches[k] += v
         report_cli(cli16)
+        cli_scan = phase_cli_scan(workdir)
+        for k, v in cli_scan["counts"].items():
+            launches[k] += v
+        for k, v in cli_scan["replayed"].items():
+            replayed[k] += v
+        report_cli(cli_scan)
         log(f"cli done at {time.monotonic() - t_start:.1f} s")
         trainer = phase_restored_state(workdir, device)
         phase_nll(trainer, device)
@@ -2502,7 +2831,7 @@ def main(argv=None) -> int:
     bf16_bwd_timing = phase_bf16_backward_timing(device)
     se_timing = phase_se_timing(device)
     tool_timing = phase_tool_timing(device)
-    phase_profile(samplers, trainers)
+    phase_profile(samplers, trainers, scans)
     records = kernel_records(errs, launches, [
         ("fused_swish_depthwise5x5", timing["shapes"], "fused",
          "nvae_tpu/kernels/depthwise.py:239", "sample call"),
@@ -2521,6 +2850,8 @@ def main(argv=None) -> int:
     records.append(bf16_record(bf16_errs, launches, bf16_timing))
     records += bf16_backward_records(bf16_bwd_errs, launches, bf16_bwd_timing)
     records.append(se_record(se_errs, launches, se_timing))
+    for rec in records:
+        rec["replayed_launches"] = replayed.get(rec["name"], 0)
     for row in matrix:
         log(f"matrix row: {json.dumps(row)}")
     log(f"total {time.monotonic() - t_start:.1f} s")

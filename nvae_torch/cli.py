@@ -15,8 +15,11 @@ no card.  A flag whose path is not ported yet stops the run with a message
 naming what it waits for; the JAX CLI's metric-suite and pipeline-schedule
 flags are not declared, so argparse rejects them.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
-preset as in the JAX CLI.  --workers, --multiprocessing and
---verbose are accepted as no-ops, as in the JAX CLI.  With --preset the
+preset as in the JAX CLI.  --scan_epochs stages the training set on the
+device and replays each step as one CUDA graph (with --cpu the same steps
+run eagerly); with --grad_accum > 1 it stops, as in the JAX CLI.
+--workers, --multiprocessing and --verbose are accepted as no-ops, as in
+the JAX CLI.  With --preset the
 flags compose exactly as the JAX CLI composes them: the preset's batch
 size, warm-up, parity and EMA settings win over those flags.
 
@@ -122,7 +125,10 @@ def parse_args(argv=None):
                    help="Named experiment preset (nvae_torch/presets.py); "
                         "runtime flags (epochs, dirs, seed, debug, ...) "
                         "still apply")
-    p.add_argument("--scan_epochs", action="store_true")
+    p.add_argument("--scan_epochs", action="store_true",
+                   help="Run each epoch as one CUDA graph replay per "
+                        "step over a device-resident dataset (fastest "
+                        "path; dataset must fit HBM)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--ema_decay", type=float, default=0.0,
                    help="Exponential moving average of the params inside "
@@ -171,7 +177,6 @@ _METRICS = "the metric suite (ROADMAP.md Queue 1 #8)"
 _PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
 _WAITING_MODES = {"test": _METRICS}
 _WAITING_FLAGS = {
-    "the device-resident epoch (ROADMAP.md Queue 1 #6)": ("scan_epochs",),
     _PARALLEL: ("fsdp",),
     "rematerialization (ROADMAP.md Queue 1 #1)": ("remat",),
 }
@@ -254,6 +259,7 @@ def build_configs(args, bundle):
         sample_dir=args.sample_dir,
         tensorboard_log_dir=args.tensorboard_log_dir,
         data_dir=args.data_dir,
+        scan_epochs=args.scan_epochs,
         # --use_ema alone (sampling an EMA checkpoint) must still build the
         # optimizer chain WITH the EMA slot, or the checkpoint's optimizer
         # state will not fit the template; the decay itself is unused.

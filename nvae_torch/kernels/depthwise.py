@@ -25,6 +25,13 @@ keeps a plain integer ``launches`` attribute that it increments once per
 kernel launch, so a run can show that its path went through the kernel; the
 dW/db wrapper counts its two launches (made by one C call) as one.
 
+A CUDA graph can capture every wrapper: each launches on the current
+stream, allocates its outputs from PyTorch's allocator and reads nothing
+back to the host; the library is built and loaded by the first call, which
+must come before a capture (``train/epoch_runner.py`` runs an eager step
+first).  A capture counts its launches in ``launches``, as a call does; the
+launches of the graph's replays go to ``replayed`` (:func:`count_replays`).
+
 Every kernel also takes bf16 operands (the Pallas kernels under
 ``compute_dtype=bfloat16``): the forward bf16 ``x`` and taps with an fp32
 bias (swish and the 25 taps in fp32, the bias in fp32, ``y`` rounded to bf16
@@ -690,3 +697,31 @@ def depthwise_conv5x5(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 depthwise_conv5x5.launches = 0
+
+
+# The wrappers that count their launches.  A CUDA graph replay launches the
+# kernels its capture recorded without calling a wrapper: ``launches``
+# counts the calls (the capture's among them), ``replayed`` what replays
+# launched, as :func:`count_replays` is told.
+COUNTED = (
+    fused_swish_depthwise5x5, fused_swish_depthwise5x5_bf16,
+    fused_swish_depthwise5x5_dx, fused_swish_depthwise5x5_dx_bf16,
+    fused_swish_depthwise5x5_dw, fused_swish_depthwise5x5_dw_bf16,
+    depthwise_conv5x5,
+)
+for _fn in COUNTED:
+    _fn.replayed = 0
+del _fn
+
+
+def launch_counts() -> dict:
+    """Each counted wrapper's ``launches``, by name."""
+    return {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def count_replays(per_replay: dict) -> None:
+    """Add to each wrapper's ``replayed`` what one replay of a graph
+    launches, ``per_replay``: the launches its capture counted, by name (a
+    difference of :func:`launch_counts`)."""
+    for fn in COUNTED:
+        fn.replayed += per_replay.get(fn.__name__, 0)

@@ -9,7 +9,8 @@ dict of tensors and numbers, with no pickled class, so
 - ``model/<name>``: every entry of the model's ``state_dict`` (parameters,
   BatchNorm running statistics, forward-mode spectral ``u``);
 - ``opt/<path>``: every leaf of the optimizer state (``train/optim.py``: a
-  tuple tree of dataclasses and dicts), its path joined by ``/``.
+  tuple tree of dataclasses and dicts), its path joined by ``/``; an update
+  count (an integer tensor on the device) as the integer it holds.
 
 :func:`restore_checkpoint` loads a checkpoint into the structure of a
 template state, as the JAX package restores into a template tree, and
@@ -68,13 +69,23 @@ def _unflatten(template: Any, path: Tuple[str, ...], flat: Dict[str, Any]):
     key = "/".join(path)
     value = flat[key]
     if isinstance(template, torch.Tensor):
+        # Into the live tensor: a captured CUDA graph replays its address.
+        if _is_counter(template) and isinstance(value, int):
+            return template.fill_(value)
         if not isinstance(value, torch.Tensor) or value.shape != template.shape:
             raise ValueError(f"optimizer leaf {key}: checkpoint has "
                              f"{getattr(value, 'shape', value)!r}, the "
                              f"template {tuple(template.shape)}")
-        return value.to(device=template.device, dtype=template.dtype,
-                        copy=True)
+        with torch.no_grad():
+            return template.copy_(value)
     return value
+
+
+def _is_counter(v: Any) -> bool:
+    """An update count of the optimizer: an integer tensor of one element
+    on the device, written to a checkpoint as the integer it holds."""
+    return (isinstance(v, torch.Tensor) and v.dim() == 0
+            and not v.is_floating_point())
 
 
 def flatten_state(state: TrainState) -> Dict[str, Any]:
@@ -85,16 +96,19 @@ def flatten_state(state: TrainState) -> Dict[str, Any]:
     opt: Dict[str, Any] = {}
     _flatten(state.opt_state, (), opt)
     for k, v in opt.items():
+        if _is_counter(v):
+            v = int(v)
         flat[f"opt/{k}"] = v.detach() if isinstance(v, torch.Tensor) else v
     return flat
 
 
 def load_flat_state(template: TrainState, flat: Dict[str, Any]) -> TrainState:
     """A state from a flat dict (a checkpoint's, or a device copy from
-    :func:`flatten_state`) in the structure of ``template``.  The model's
-    tensors are copied in place into ``template.model`` (the train step
-    holds them); the optimizer state is built anew on the template's
-    devices."""
+    :func:`flatten_state`) in the structure of ``template``.  Every tensor
+    is copied in place into the template's (the model's into
+    ``template.model``, the optimizer state's into its leaves, the update
+    counts filled from their integers): the train step and a captured CUDA
+    graph of it hold those tensors."""
     sd = {k[len("model/"):]: v for k, v in flat.items()
           if k.startswith("model/")}
     template.model.load_state_dict(sd)

@@ -5,7 +5,7 @@ package's."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -80,9 +80,11 @@ def bn_gamma_penalty(model: nn.Module, sr_lambda: float) -> torch.Tensor:
     return sr_lambda * total
 
 
-def beta_schedule(step: int, epoch: int, *, train_cfg: TrainConfig,
+def beta_schedule(step, epoch, *, train_cfg: TrainConfig,
                   total_steps: int, total_epochs: int) -> torch.Tensor:
-    """KL warm-up coefficient in [0, 1], a float32 scalar as in JAX:
+    """KL warm-up coefficient in [0, 1], a float32 scalar as in JAX, on the
+    device of ``step`` and ``epoch`` (ints, or integer tensors such as the
+    step's device counter, so that nothing is read back to the host):
 
     - step-based: ``min(step / (frac * total_steps), 1)``;
     - epoch-based: ``min(epoch / (frac * total_epochs), 1)``;
@@ -95,24 +97,30 @@ def beta_schedule(step: int, epoch: int, *, train_cfg: TrainConfig,
         metric, denom = epoch, frac * total_steps
     else:
         metric, denom = epoch, frac * total_epochs
-    ratio = (torch.tensor(float(metric), dtype=torch.float32)
-             / torch.tensor(max(denom, 1e-8), dtype=torch.float32))
+    metric = torch.as_tensor(metric).to(torch.float32)
+    ratio = metric / torch.full((), max(denom, 1e-8), dtype=torch.float32,
+                                device=metric.device)
     return torch.clamp(ratio, max=1.0)
 
 
 def elbo_loss(output, x: torch.Tensor, beta: torch.Tensor,
-              model_cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+              model_cfg: ModelConfig, *,
+              alphas: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """``mean(recon + beta * kl)``, with balancing while ``beta < 1``.
+    ``alphas`` are :func:`kl_alphas` of the config, made once by a caller
+    that steps many times (a CUDA graph cannot copy them to the card).
     Returns ``(loss, metrics)``; the step adds the penalties."""
     rl = recon_loss(output.logits, x, model_cfg.likelihood, model_cfg.n_mix)
     kl_all = kl_per_group(output.latents)
-    alphas = kl_alphas(model_cfg.n_latent_scales, model_cfg.n_groups_per_scale,
-                       device=kl_all.device)
-    if float(beta) < 1.0:  # beta lives on the host: no device sync
-        kl, _ = balanced_kl_loss(kl_all, alphas)
-    else:
-        kl = unbalanced_kl_loss(kl_all)
+    if alphas is None:
+        alphas = kl_alphas(model_cfg.n_latent_scales,
+                           model_cfg.n_groups_per_scale, device=kl_all.device)
     beta = beta.to(kl_all.device)
+    # Both forms, and the one beta picks on the device: a branch on beta
+    # would read it back to the host.
+    balanced, _ = balanced_kl_loss(kl_all, alphas)
+    kl = torch.where(beta < 1.0, balanced, unbalanced_kl_loss(kl_all))
     loss = (rl + beta * kl).mean()
     metrics = {
         "reconstruction_loss": rl.mean(),

@@ -5,19 +5,29 @@ which builds them on optax).
 Each transform is a pair of plain functions on dicts of tensors with
 optax's shape: ``init(params) -> state`` and ``update(updates, state,
 params) -> (updates, state)``.  ``params`` and ``updates`` map a parameter's
-name (``model.named_parameters()``) to a tensor.  Nothing is updated in
-place: :func:`apply_updates` is the one function that writes the
-parameters.  Spectrally normalized kernels are named by ``sn_keys``
+name (``model.named_parameters()``) to a tensor.  Spectrally normalized
+kernels are named by ``sn_keys``
 (:func:`nvae_torch.nn.spectral.sn_kernel_names`); their weights are OIHW,
 flattened to (in * kh * kw, out) for the power iteration, which gives the
 same sigma and ``u`` as JAX's (kh * kw * in, out).
+
+Where optax returns a new state, these transforms update theirs in place
+and return the same object: the Adamax moments, the EMA, each spectral
+``u`` and sigma, and every update count, which is an int64 tensor on the
+parameters' device.  The bias correction ``1 - b1^count`` and the learning
+rate are computed from that count on its device, in float32, so a step reads
+nothing back to the host and a CUDA graph of it (``train/epoch_runner.py``)
+replays with the current values.  The elementwise work runs as multi-tensor
+``torch._foreach_*`` ops over all the parameters at once, in optax's order
+of operations.  :func:`apply_updates` writes the parameters, in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -38,8 +48,14 @@ def _w2d(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(w.shape[0], -1).t()
 
 
-def _f32(value) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32)
+def _f32(value, device=None) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def _counter(params: Tensors) -> torch.Tensor:
+    """A zero update count on the parameters' device."""
+    device = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int64, device=device)
 
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
@@ -60,7 +76,7 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 @dataclasses.dataclass
 class AdamaxState:
-    count: int
+    count: torch.Tensor
     mu: Tensors
     nu: Tensors
 
@@ -72,33 +88,45 @@ def scale_by_adamax(b1: float = 0.9, b2: float = 0.999,
 
     def init(params):
         return AdamaxState(
-            0, {k: torch.zeros_like(p) for k, p in params.items()},
+            _counter(params),
+            {k: torch.zeros_like(p) for k, p in params.items()},
             {k: torch.zeros_like(p) for k, p in params.items()},
         )
 
+    @torch.no_grad()
     def update(updates, state, params=None):
-        count = state.count + 1
-        mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in updates.items()}
-        nu = {k: torch.maximum(g.abs() + eps, b2 * state.nu[k])
-              for k, g in updates.items()}
-        # The float32 value optax computes, as a Python float (exact), so
-        # no per-tensor host-to-device copy is made.
-        correction = float(1 - _f32(b1) ** count)
-        out = {k: (mu[k] / correction) / nu[k] for k in updates}
-        return out, AdamaxState(count, mu, nu)
+        keys = list(updates)
+        g = [updates[k] for k in keys]
+        mu = [state.mu[k] for k in keys]
+        nu = [state.nu[k] for k in keys]
+        state.count.add_(1)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        g_abs = torch._foreach_abs(g)
+        torch._foreach_add_(g_abs, eps)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_maximum_(nu, g_abs)
+        # 1 - b1^t in float32, on the count's device.
+        correction = 1 - _f32(b1, state.count.device) ** state.count.to(
+            torch.float32)
+        out = torch._foreach_div(mu, correction)
+        torch._foreach_div_(out, nu)
+        return dict(zip(keys, out)), state
 
     return GradientTransformation(init, update)
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int
-                          ) -> Callable[[int], torch.Tensor]:
+                          ) -> Callable[[object], torch.Tensor]:
     """optax's ``cosine_decay_schedule`` (alpha 0, exponent 1), a float32
-    scalar: ``init_value * 0.5 * (1 + cos(pi * min(t, T) / T))``."""
+    scalar on the count's device (the count an int or an integer tensor):
+    ``init_value * 0.5 * (1 + cos(pi * min(t, T) / T))``."""
     if not decay_steps > 0:
         raise ValueError(f"decay_steps must be positive, got {decay_steps}")
 
-    def schedule(count: int) -> torch.Tensor:
-        t = _f32(min(float(count), float(decay_steps)))
+    def schedule(count) -> torch.Tensor:
+        t = torch.clamp(torch.as_tensor(count), max=decay_steps).to(
+            torch.float32)
         return init_value * (0.5 * (1 + torch.cos(math.pi * t / decay_steps)))
 
     return schedule
@@ -106,20 +134,22 @@ def cosine_decay_schedule(init_value: float, decay_steps: int
 
 @dataclasses.dataclass
 class ScheduleState:
-    count: int
+    count: torch.Tensor
 
 
-def scale_by_learning_rate(schedule: Callable[[int], torch.Tensor]
+def scale_by_learning_rate(schedule: Callable[[torch.Tensor], torch.Tensor]
                            ) -> GradientTransformation:
     """``update * -schedule(t)``, ``t`` the count before this update."""
 
     def init(params):
-        return ScheduleState(0)
+        return ScheduleState(_counter(params))
 
+    @torch.no_grad()
     def update(updates, state, params=None):
-        step = float(-1 * schedule(state.count))  # float32, exact
-        out = {k: step * g for k, g in updates.items()}
-        return out, ScheduleState(state.count + 1)
+        step = -1 * schedule(state.count)  # float32, on the count's device
+        out = torch._foreach_mul(list(updates.values()), step)
+        state.count.add_(1)
+        return dict(zip(updates, out)), state
 
     return GradientTransformation(init, update)
 
@@ -129,7 +159,7 @@ def adamax(learning_rate, b1: float = 0.9, b2: float = 0.999,
     """optax's ``adamax``: :func:`scale_by_adamax` then the learning rate
     (a float or a schedule of the update count)."""
     schedule = (learning_rate if callable(learning_rate)
-                else lambda count: _f32(learning_rate))
+                else lambda count: _f32(learning_rate, count.device))
     return chain(scale_by_adamax(b1, b2, eps), scale_by_learning_rate(schedule))
 
 
@@ -172,14 +202,15 @@ def spectral_projection(sn_keys: Iterable[str],
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("spectral_projection requires params")
-        out, u, sig = dict(updates), {}, {}
+        out = dict(updates)
         for k in keys:
             w = params[k]
             w_new = w + updates[k]
-            sigma, u[k] = power_iteration(_w2d(w_new), state.u[k])
-            sig[k] = torch.clamp(sigma, min=eps)
-            out[k] = w_new / sig[k] - w
-        return out, SpectralState(u, sig)
+            sigma, u = power_iteration(_w2d(w_new), state.u[k])
+            state.u[k].copy_(u)
+            state.sigma[k].copy_(torch.clamp(sigma, min=eps))
+            out[k] = w_new / state.sigma[k] - w
+        return out, state
 
     return GradientTransformation(init, update)
 
@@ -193,10 +224,11 @@ def spectral_tracking(sn_keys: Iterable[str]) -> GradientTransformation:
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("spectral_tracking requires params")
-        u, sig = {}, {}
         for k in keys:
-            sig[k], u[k] = power_iteration(_w2d(params[k]), state.u[k])
-        return updates, SpectralState(u, sig)
+            sigma, u = power_iteration(_w2d(params[k]), state.u[k])
+            state.sigma[k].copy_(sigma)
+            state.u[k].copy_(u)
+        return updates, state
 
     return GradientTransformation(init, update)
 
@@ -215,7 +247,7 @@ def spectral_penalty(params: Tensors, u: Tensors,
 @dataclasses.dataclass
 class EmaState:
     ema: Tensors
-    count: int
+    count: torch.Tensor
 
 
 def track_ema(decay: float) -> GradientTransformation:
@@ -226,15 +258,22 @@ def track_ema(decay: float) -> GradientTransformation:
         raise ValueError(f"ema decay must be in (0, 1), got {decay}")
 
     def init(params):
-        return EmaState({k: p.detach().clone() for k, p in params.items()}, 0)
+        return EmaState({k: p.detach().clone() for k, p in params.items()},
+                        _counter(params))
 
     @torch.no_grad()
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("track_ema requires params")
-        ema = {k: decay * state.ema[k] + (1.0 - decay) * (params[k] + g)
-               for k, g in updates.items()}
-        return updates, EmaState(ema, state.count + 1)
+        keys = list(updates)
+        new = torch._foreach_add([params[k] for k in keys],
+                                 [updates[k] for k in keys])
+        torch._foreach_mul_(new, 1.0 - decay)
+        ema = [state.ema[k] for k in keys]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, new)
+        state.count.add_(1)
+        return updates, state
 
     return GradientTransformation(init, update)
 
@@ -248,6 +287,24 @@ def _find(opt_state, cls):
         if isinstance(s, tuple):
             stack.extend(reversed(s))
     return None
+
+
+def state_tensors(opt_state) -> List[torch.Tensor]:
+    """Every tensor of a chain's state (tuples, dataclasses and dicts of
+    tensors), in a fixed order."""
+    out, stack = [], [opt_state]
+    while stack:
+        s = stack.pop()
+        if isinstance(s, torch.Tensor):
+            out.append(s)
+        elif isinstance(s, (tuple, list)):
+            stack.extend(reversed(s))
+        elif isinstance(s, dict):
+            stack.extend(reversed(list(s.values())))
+        elif dataclasses.is_dataclass(s) and not isinstance(s, type):
+            stack.extend(reversed([getattr(s, f.name)
+                                   for f in dataclasses.fields(s)]))
+    return out
 
 
 def find_spectral_state(opt_state) -> Optional[SpectralState]:
@@ -266,8 +323,8 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
     """``p <- p + update`` in place: where JAX returns new parameters (and
     the jitted step donates the old ones), the port writes into the model's
     own tensors."""
-    for k, u in updates.items():
-        params[k].add_(u)
+    keys = list(updates)
+    torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
 
 
 def global_norm(tensors: Tensors) -> torch.Tensor:

@@ -8,7 +8,7 @@ was."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,127 @@ def step_seed(seed: int, step: int, microbatch: int) -> int:
     return derive_seed(seed, step, microbatch)
 
 
+class StepBody:
+    """The training step's work on the device, shared by
+    :func:`make_train_step` and the epoch runner
+    (``train/epoch_runner.py``), which captures it in a CUDA graph.
+
+    It reads nothing back to the host, and every tensor it writes lives in
+    place: the step counter ``step_t`` (an int64 tensor on the model's
+    device, from which beta and the epoch come), the parameters, the
+    BatchNorm statistics and spectral ``u``, the optimizer state (see
+    ``train/optim.py``) and the gradients, in buffers the body keeps: it
+    zeroes them and binds them as the parameters' ``.grad`` for the
+    backward pass, and unbinds them after the update.  The posterior noise
+    comes from ``generator``, one persistent generator, or from injected
+    ``eps``; whoever runs the body seeds the generator (``seeds`` reseeds
+    it before each microbatch, which only an eager caller can do: a graph
+    replays with the seed set before the replay).  ``train`` is the
+    forward's mode.
+    """
+
+    def __init__(self, model: NVAE, tx: GradientTransformation,
+                 train_cfg: TrainConfig, total_steps: int,
+                 steps_per_epoch: int, *, train: bool, grad_accum: int = 1):
+        self.model = model
+        self.tx = tx
+        self.train_cfg = train_cfg
+        self.model_cfg: ModelConfig = model.cfg
+        self.total_steps = total_steps
+        self.steps_per_epoch = max(steps_per_epoch, 1)
+        self.total_epochs = max(total_steps // self.steps_per_epoch, 1)
+        self.train = train
+        self.grad_accum = max(int(grad_accum), 1)
+        self.params = dict(model.named_parameters())
+        self.device = model.decoder.h.device
+        self.dtype = model.decoder.h.dtype
+        self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self._grads: Optional[Dict[str, torch.Tensor]] = None
+        self.alphas = losses.kl_alphas(self.model_cfg.n_latent_scales,
+                                       self.model_cfg.n_groups_per_scale,
+                                       device=self.device)
+
+    def _bind_grads(self) -> Dict[str, torch.Tensor]:
+        """The body's own gradient buffers, zeroed and bound as each
+        parameter's ``.grad``, so that the backward pass adds into them."""
+        if self._grads is None:
+            self._grads = {k: torch.zeros_like(p)
+                           for k, p in self.params.items()}
+        for k, p in self.params.items():
+            p.grad = self._grads[k]
+        torch._foreach_zero_(list(self._grads.values()))
+        return self._grads
+
+    def __call__(self, opt_state, batch: torch.Tensor, *,
+                 eps: Optional[Sequence[Sequence]] = None,
+                 seeds: Optional[Sequence[int]] = None):
+        """One step on ``batch`` (on the model's device, in its dtype) from
+        ``opt_state``; returns ``(opt_state, metrics)``, the metrics
+        tensors on the device, and adds one to ``step_t``."""
+        model_cfg = self.model_cfg
+        epoch_t = torch.div(self.step_t, self.steps_per_epoch,
+                            rounding_mode="floor")
+        beta = losses.beta_schedule(
+            self.step_t, epoch_t, train_cfg=self.train_cfg,
+            total_steps=self.total_steps, total_epochs=self.total_epochs,
+        )
+        sn_u = None
+        if model_cfg.spectral_mode == "penalty":
+            sn_state = find_spectral_state(opt_state)
+            sn_u = sn_state.u if sn_state is not None else None
+        model = self.model
+        model.train(self.train)
+        grads = self._bind_grads()
+        totals: dict = {}
+        with fp32_math():
+            for i, mb in enumerate(batch.chunk(self.grad_accum)):
+                if seeds is not None:
+                    self.generator.manual_seed(seeds[i])
+                with record_function("train_step.forward"):
+                    out = model(mb, generator=self.generator,
+                                eps=None if eps is None else eps[i])
+                    loss, metrics = losses.elbo_loss(out, mb, beta, model_cfg,
+                                                     alphas=self.alphas)
+                    bn_loss = losses.bn_gamma_penalty(model,
+                                                      model_cfg.sr_lambda)
+                    loss = loss + bn_loss
+                    metrics["bn_loss"] = bn_loss
+                    if sn_u is not None:
+                        sr = spectral_penalty(self.params, sn_u,
+                                              model_cfg.sr_lambda)
+                        loss = loss + sr
+                        metrics["spectral_loss"] = sr
+                with record_function("train_step.backward"):
+                    loss.backward()
+                metrics["loss"] = loss
+                for k, v in metrics.items():
+                    v = v.detach()
+                    totals[k] = v if k not in totals else totals[k] + v
+            with record_function("train_step.update"):
+                if self.grad_accum > 1:
+                    grads = {k: g / self.grad_accum for k, g in grads.items()}
+                    totals = {k: v / self.grad_accum
+                              for k, v in totals.items()}
+                totals["grad_norm"] = global_norm(grads)
+                updates, opt_state = self.tx.update(grads, opt_state,
+                                                    self.params)
+                apply_updates(self.params, updates)
+        self.step_t.add_(1)
+        for p in self.params.values():
+            p.grad = None  # the buffers stay the body's
+        return opt_state, totals
+
+
+def metric_means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
+    """Each sum over ``n``, fetched to the host in one transfer."""
+    if not sums or not n:
+        return {}
+    keys = list(sums)
+    values = torch.stack([sums[k].to(torch.float32) for k in keys]).tolist()
+    return {k: v / n for k, v in zip(keys, values)}
+
+
 def make_train_step(
     model: NVAE,
     tx: GradientTransformation,
@@ -55,6 +176,7 @@ def make_train_step(
     in full fp32 (:func:`nvae_torch.device.fp32_math`:
     ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` are False while it runs).
+    The work is :class:`StepBody`'s, run eagerly.
 
     - ``beta`` and ``epoch = step // steps_per_epoch`` as in JAX.
     - Loss: ``elbo_loss + bn_gamma_penalty`` (+ ``spectral_penalty`` in
@@ -69,7 +191,8 @@ def make_train_step(
       of NHWC draws per microbatch, in the posterior pass's order).
     - One optimizer update.  The parameters are updated in place, where the
       JAX step donates the old state and returns new arrays; the returned
-      state holds the same model and the new optimizer state and counters.
+      state holds the same model and optimizer state (updated in place) and
+      the new counters.
 
     Profiler ranges ``train_step.forward`` (posterior pass and loss),
     ``train_step.backward`` and ``train_step.update`` (gradient norm and
@@ -80,76 +203,29 @@ def make_train_step(
     (penalty mode only) and ``grad_norm`` (global L2 norm of the gradients,
     before the update).
     """
-    model_cfg: ModelConfig = model.cfg
-    total_epochs = max(total_steps // max(steps_per_epoch, 1), 1)
-    grad_accum = max(int(train_cfg.grad_accum), 1)
-    train_flag = not train_cfg.parity_frozen_norm
-    params = dict(model.named_parameters())
-    device, dtype = model.decoder.h.device, model.decoder.h.dtype
+    body = StepBody(model, tx, train_cfg, total_steps, steps_per_epoch,
+                    train=not train_cfg.parity_frozen_norm,
+                    grad_accum=train_cfg.grad_accum)
 
     def step(state: TrainState, batch, *,
              eps: Optional[Sequence[Sequence]] = None
              ) -> Tuple[TrainState, dict]:
-        epoch = state.step // steps_per_epoch
-        beta = losses.beta_schedule(
-            state.step, epoch, train_cfg=train_cfg, total_steps=total_steps,
-            total_epochs=total_epochs,
-        )
-        sn_u = None
-        if model_cfg.spectral_mode == "penalty":
-            sn_state = find_spectral_state(state.opt_state)
-            sn_u = sn_state.u if sn_state is not None else None
-
+        epoch = state.step // body.steps_per_epoch
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(np.array(batch, dtype=np.float32))
-        batch = batch.to(device=device, dtype=dtype)
-        if batch.shape[0] % grad_accum:
+        batch = batch.to(device=body.device, dtype=body.dtype)
+        if batch.shape[0] % body.grad_accum:
             raise ValueError(f"batch size {batch.shape[0]} not divisible by "
-                             f"grad_accum {grad_accum}")
-        if eps is not None and len(eps) != grad_accum:
+                             f"grad_accum {body.grad_accum}")
+        if eps is not None and len(eps) != body.grad_accum:
             raise ValueError(f"eps needs one list per microbatch "
-                             f"({grad_accum}), got {len(eps)}")
-
-        model.train(train_flag)
-        for p in params.values():
-            p.grad = None
-        totals: dict = {}
-        with fp32_math():
-            for i, mb in enumerate(batch.chunk(grad_accum)):
-                gen = None
-                if eps is None:
-                    gen = torch.Generator(device=device).manual_seed(
-                        step_seed(state.seed, state.step, i))
-                with record_function("train_step.forward"):
-                    out = model(mb, generator=gen,
-                                eps=None if eps is None else eps[i])
-                    loss, metrics = losses.elbo_loss(out, mb, beta, model_cfg)
-                    bn_loss = losses.bn_gamma_penalty(model,
-                                                      model_cfg.sr_lambda)
-                    loss = loss + bn_loss
-                    metrics["bn_loss"] = bn_loss
-                    if sn_u is not None:
-                        sr = spectral_penalty(params, sn_u,
-                                              model_cfg.sr_lambda)
-                        loss = loss + sr
-                        metrics["spectral_loss"] = sr
-                with record_function("train_step.backward"):
-                    loss.backward()
-                metrics["loss"] = loss
-                for k, v in metrics.items():
-                    v = v.detach()
-                    totals[k] = v if k not in totals else totals[k] + v
-            with record_function("train_step.update"):
-                grads = {k: p.grad if p.grad is not None
-                         else torch.zeros_like(p) for k, p in params.items()}
-                if grad_accum > 1:
-                    grads = {k: g / grad_accum for k, g in grads.items()}
-                    totals = {k: v / grad_accum for k, v in totals.items()}
-                totals["grad_norm"] = global_norm(grads)
-                updates, opt_state = tx.update(grads, state.opt_state, params)
-                apply_updates(params, updates)
-        for p in params.values():
-            p.grad = None
+                             f"({body.grad_accum}), got {len(eps)}")
+        seeds = None
+        if eps is None:
+            seeds = [step_seed(state.seed, state.step, i)
+                     for i in range(body.grad_accum)]
+        body.step_t.fill_(state.step)
+        opt_state, totals = body(state.opt_state, batch, eps=eps, seeds=seeds)
         return dataclasses.replace(state, step=state.step + 1, epoch=epoch,
                                    opt_state=opt_state), totals
 

@@ -3,7 +3,8 @@
 Epoch loop over the port's train step with:
 
 - per-epoch means of the step's metrics, seconds and images per second
-  (and peak device memory on the card), logged as ``train/``;
+  (and peak device memory on the card: the epoch's, or with
+  ``scan_epochs`` the run's so far), logged as ``train/``;
 - held-out evaluation over the whole test set every ``evaluate_frequency``
   epochs (``test/``: the ELBO's pieces and ms per eval batch);
 - sample and reconstruction image dumps every ``sample_frequency`` epochs,
@@ -17,8 +18,12 @@ Epoch loop over the port's train step with:
 
 The step's metrics stay on the device through an epoch and are fetched once
 at its end, as the JAX loop fetches them once: a fetch per step would stall
-the host between steps.  The JAX package's mesh, pipeline and scan-epochs
-paths are not ported yet: their settings raise.
+the host between steps.  With ``scan_epochs`` the training set is staged on
+the device once and each epoch runs through the epoch runner
+(``train/epoch_runner.py``: one CUDA graph replay per step on the card);
+the hooks, checkpoints and early stopping run between epochs as on the
+per-step path.  The JAX package's mesh and pipeline paths are not ported
+yet: their settings raise.
 """
 
 from __future__ import annotations
@@ -36,9 +41,18 @@ from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
 from nvae_torch.train import checkpoint as ckpt
+from nvae_torch.train.epoch_runner import (
+    make_epoch_runner,
+    refuse_grad_accum,
+    stage_dataset,
+)
 from nvae_torch.train.optim import find_ema_params
 from nvae_torch.train.state import TrainState, create_train_state
-from nvae_torch.train.step import make_eval_step, make_train_step
+from nvae_torch.train.step import (
+    make_eval_step,
+    make_train_step,
+    metric_means,
+)
 from nvae_torch.utils.logging import MetricsLogger
 from nvae_torch.utils.seeds import derive_seed
 
@@ -58,8 +72,6 @@ class TrainResult:
 
 def _check_supported(tc: TrainConfig) -> None:
     waiting = []
-    if tc.scan_epochs:
-        waiting.append("scan_epochs (ROADMAP.md Queue 1 #6)")
     if tc.pipeline_stages > 1:
         waiting.append("pipeline_stages > 1 (ROADMAP.md Queue 1 #9)")
     if tc.data_parallel > 1 or tc.model_parallel > 1:
@@ -70,15 +82,6 @@ def _check_supported(tc: TrainConfig) -> None:
             f"not ported yet: {', '.join(waiting)}; the port trains on one "
             "device"
         )
-
-
-def _means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
-    """Each sum over ``n``, fetched to the host in one transfer."""
-    if not sums or not n:
-        return {}
-    keys = list(sums)
-    values = torch.stack([sums[k].to(torch.float32) for k in keys]).tolist()
-    return {k: v / n for k, v in zip(keys, values)}
 
 
 def _accumulate(sums: Dict[str, torch.Tensor], metrics: dict) -> None:
@@ -101,6 +104,8 @@ class Trainer:
         device: DeviceLike = "cuda",
     ):
         _check_supported(train_cfg)
+        if train_cfg.scan_epochs:
+            refuse_grad_accum(train_cfg)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.steps_per_epoch = steps_per_epoch
@@ -114,6 +119,8 @@ class Trainer:
             self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch
         )
         self._eval_fn = None
+        self._epoch_runner = None  # built lazily for the scan-epochs path
+        self._staged_data = None
         self._interrupted = False
 
     # ---- EMA --------------------------------------------------------------
@@ -193,7 +200,7 @@ class Trainer:
                 derive_seed(self.state.seed, "eval", epoch, i))
             _accumulate(sums, self._eval_fn(self.state, batch, generator=gen))
             n += 1
-        out = _means(sums, n)
+        out = metric_means(sums, n)
         out["eval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / max(n, 1)
         return out
 
@@ -248,6 +255,13 @@ class Trainer:
             except ValueError:  # not the main thread
                 pass
         cuda = self.device.type == "cuda"
+        if tc.scan_epochs and self._epoch_runner is None:
+            self._epoch_runner = make_epoch_runner(
+                self.model, self.tx, tc, self.total_steps,
+                train_iter.batches_per_epoch,
+                target_size=train_iter.target_size,
+            )
+            self._staged_data = stage_dataset(train_iter.images, self.device)
         try:
             for epoch in range(start_epoch, tc.epochs):
                 t0 = time.perf_counter()
@@ -259,17 +273,26 @@ class Trainer:
                         [ProfilerActivity.CUDA] if cuda else [])
                     profiler = profile(activities=acts)
                     profiler.start()
-                if cuda:
+                if cuda and not tc.scan_epochs:
+                    # A replay allocates nothing, so the scan path keeps
+                    # the run's peak, which holds its graph's memory.
                     torch.cuda.reset_peak_memory_stats(self.device)
-                sums: Dict[str, torch.Tensor] = {}
-                n_batches = 0
-                for batch in train_iter.epoch(epoch):
-                    self.state, metrics = self.step_fn(self.state, batch)
-                    n_batches += 1
-                    _accumulate(sums, metrics)
-                    if self._interrupted:
-                        break
-                means = _means(sums, n_batches)  # the epoch's one fetch
+                if tc.scan_epochs:
+                    # The whole epoch on the card; an interrupt is honoured
+                    # at its end, as in JAX.
+                    n_batches = train_iter.batches_per_epoch
+                    self.state, means = self._epoch_runner(
+                        self.state, self._staged_data, epoch)
+                else:
+                    sums: Dict[str, torch.Tensor] = {}
+                    n_batches = 0
+                    for batch in train_iter.epoch(epoch):
+                        self.state, metrics = self.step_fn(self.state, batch)
+                        n_batches += 1
+                        _accumulate(sums, metrics)
+                        if self._interrupted:
+                            break
+                    means = metric_means(sums, n_batches)  # one fetch
                 if profiler is not None:
                     profiler.stop()
                     os.makedirs(profile_dir, exist_ok=True)

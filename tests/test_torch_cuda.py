@@ -476,3 +476,93 @@ def test_cuda_trainer_fit(cuda_device, tmp_path):
     images = tmp_path / "logs" / "images"
     assert (images / "samples_t1.0_step1").is_dir()
     assert (images / "test_reconstruction_step1").is_dir()
+
+
+def _flat_copy(state):
+    from nvae_torch.train import checkpoint as ckpt
+
+    return {k: v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+            for k, v in ckpt.flatten_state(state).items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_graphed_epochs_match_eager(cuda_device, dtype, monkeypatch):
+    """Two debug-size epochs of the epoch runner as CUDA graph replays and
+    the same epochs run eagerly (``graph=False``) from the same seed: the
+    same bits in every parameter, statistic, optimizer leaf and mean
+    metric, with cuDNN's deterministic algorithms (its default fp32
+    backward sums with atomics: two eager steps differ in their last bits).
+    The first step runs eagerly, the second is captured; a replay launches
+    3 of each of #2, #3 and #4 in the config's dtype, none of the other,
+    and ``replayed`` counts captured launches x replays; a state whose
+    optimizer tensors are not the captured ones is refused."""
+    import dataclasses
+
+    from nvae_torch.data import synthetic_dataset
+    from nvae_torch.train.epoch_runner import make_epoch_runner, stage_dataset
+    from nvae_torch.train.state import create_train_state
+
+    cfg = debug_config(use_pallas_kernels=True, compute_dtype=dtype,
+                       bn_apply_dtype=dtype)
+    tc = TrainConfig(batch_size=8, step_based_warmup=True, ema_decay=0.9)
+    data = stage_dataset(synthetic_dataset(n_train=40, n_test=8,
+                                           seed=0).train_x, cuda_device)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    spe, out = 4, {}
+    for graph in (True, False):
+        model, state, tx = create_train_state(cfg, tc, 2 * spe,
+                                              device=cuda_device, seed=3)
+        run = make_epoch_runner(model, tx, tc, 2 * spe, spe, graph=graph)
+        replayed = {fn.__name__: fn.replayed for fn in tdw.COUNTED}
+        means = []
+        for e in range(2):
+            state, m = run(state, data, e)
+            means.append(m)
+        torch.cuda.synchronize()
+        out[graph] = (means, _flat_copy(state))
+        if graph:
+            assert (run.eager_steps, run.replays) == (1, 2 * spe - 1)
+            bf16 = "_bf16" if dtype == "bfloat16" else ""
+            want = {fn.__name__: 0 for fn in tdw.COUNTED}
+            for name in ("fused_swish_depthwise5x5",
+                         "fused_swish_depthwise5x5_dx",
+                         "fused_swish_depthwise5x5_dw"):
+                want[name + bf16] = 3
+            assert run.launches_per_replay == want
+            for fn in tdw.COUNTED:
+                assert fn.replayed - replayed[fn.__name__] == (
+                    want[fn.__name__] * run.replays)
+            # New optimizer tensors in place of the captured ones: refused.
+            fresh = dataclasses.replace(state,
+                                        opt_state=tx.init(state.params()))
+            with pytest.raises(RuntimeError, match="rebound"):
+                run(fresh, data, 2)
+    (m_g, s_g), (m_e, s_e) = out[True], out[False]
+    assert m_g == m_e
+    assert set(s_g) == set(s_e)
+    for k, v in s_g.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, s_e[k]), k
+        else:
+            assert v == s_e[k], k
+
+
+def test_cuda_graph_replays_read_a_reseeded_generator(cuda_device):
+    """The mechanism the epoch runner relies on: a generator registered
+    with a graph and reseeded on the host before each replay draws, in the
+    replay, what a fresh generator with that seed draws eagerly."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    torch.randn(1000, generator=gen, device=cuda_device)  # warm up
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        a = torch.randn(1000, generator=gen, device=cuda_device)
+        b = torch.rand(7, 3, generator=gen, device=cuda_device)
+    for seed in (5, 6, 5):
+        gen.manual_seed(seed)
+        graph.replay()
+        ref = torch.Generator(device=cuda_device).manual_seed(seed)
+        want_a = torch.randn(1000, generator=ref, device=cuda_device)
+        want_b = torch.rand(7, 3, generator=ref, device=cuda_device)
+        assert torch.equal(a, want_a) and torch.equal(b, want_b), seed

@@ -374,6 +374,7 @@ def _configs_seen_by_cli(pkg, argv, monkeypatch, fast_preset):
       "--use_ema", "--n_samples", "7"], False),
     (["--batch_size", "8", *TINY_ARCH, "--parity_binarize_255",
       "--ema_decay", "0.5", "--spectral_mode", "forward"], False),
+    (["--batch_size", "8", *TINY_ARCH, "--scan_epochs"], False),
 ])
 def test_preset_flags_not_clobbered(tmp_path, monkeypatch, extra,
                                     fast_preset):
@@ -413,7 +414,6 @@ def test_three_scale_presets_build_and_dml_presets_wait():
 @pytest.mark.parametrize("extra,match", [
     (["--mode", "test"], "metric suite"),
     (["--mode", "serve", "--data_parallel", "2"], "Queue 1 #9"),
-    (["--scan_epochs"], "Queue 1 #6"),
     (["--fsdp"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
     (["--data_parallel", "2"], "parallel tiers"),
@@ -425,6 +425,29 @@ def test_three_scale_presets_build_and_dml_presets_wait():
 def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
         cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
+
+
+def test_cli_scan_epochs_trains_and_resumes_on_the_cpu(tmp_path, capsys,
+                                                       no_tensorboard):
+    """``--mode train --scan_epochs --cpu`` at debug size trains 2 epochs
+    through the epoch runner (no graph on the CPU), with a checkpoint per
+    epoch, then resumes for a third."""
+    argv = ["--mode", "train", "--scan_epochs", "--evaluate_frequency", "1",
+            "--sample_frequency", "1", "--model_save_frequency", "1",
+            *_cli_argv(tmp_path)]
+    cli.main(["--epochs", "2", *argv])
+    assert "Training done: best_loss=" in capsys.readouterr().out
+    assert ckpt.all_steps(str(tmp_path / "models")) == [4, 8]
+    cli.main(["--epochs", "3", *argv])
+    assert "Training done: best_loss=" in capsys.readouterr().out
+    assert ckpt.all_steps(str(tmp_path / "models")) == [4, 8, 12]
+    payload = ckpt.load_payload(str(tmp_path / "models"), 12)
+    counts = [v for k, v in payload.items() if k.endswith("/count")]
+    assert counts and all(v == 12 for v in counts)  # written as integers
+    lines = _jsonl(tmp_path / "logs" / "metrics.jsonl")
+    assert [r["step"] for r in lines if "train/loss" in r] == [0, 1, 2]
+    assert sum("test/elbo" in r for r in lines) == 3
+    assert [fn.launches for fn in _kernel_wrappers()] == [0] * 5
 
 
 @pytest.mark.parametrize("extra", [
