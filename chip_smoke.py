@@ -109,6 +109,23 @@ each raising on failure (nothing is caught):
    one checked bitwise against the live sampler, served by ``python -m
    nvae_torch.serving_http --artifact`` for one request, SIGTERM, exact
    launch counts;
+   8b. the metric suite (a main path) over phase 7's checkpoint: ``python
+   -m nvae_torch.cli --mode test`` as a subprocess at the default
+   temperatures, backbones (VGG16 at 224, InceptionV3 at 299, random-init)
+   and FID sample size (10,000), reduced to ``--debug`` (4 test batches
+   of 144) and 2 attempts; then ``--eval_parity`` (the nearest-299 path)
+   at T=1.0, 1 attempt and 1,440 FID samples: exit codes, evaluation.json
+   (its keys, finite values, P&R in [0, 1] or [0, 2], random-init
+   provenance), each stage's seconds, and exact launches of fp32 #2 (per
+   sample call, NLL posterior pass and ``sample_with_z`` postprocess),
+   none of any other kernel; in process, each backbone card vs CPU
+   (relative L2 1e-4) and its ms per image, P&R at 10,000 x 10,000 x 512
+   full against streamed at 2,500 (radii, no membership flip, ms) and card
+   vs CPU at 2,000, the fp32 device FID against the fp64 host FID on
+   10,000 x 2,048 features (and with TF32 allowed, a control that must
+   fail that limit); ``python -m nvae_torch.eval.fid --save_stats`` over
+   phase 7's t_0.7 PNGs and scoring them against 144 PNGs of noise
+   (``random_conv``), the printed FID against ``scipy.linalg.sqrtm``'s;
 9. timing: images per second at batch 144 by direct calls and through the
    server, and each kernel's time at each path shape beside its bound (and
    the bound's share of the kernel's time), its plain version and the
@@ -177,9 +194,10 @@ PATH_SHAPES = [
 # Other batch sizes the main paths give the forward kernel (#2): the CLI's
 # sample mode draws its 4-temperature sweep of BATCH in one call of 4 x
 # BATCH rows, the trainer's sample hook 4 x 3 rows and its reconstruction 3;
-# the B=4 training step and NLL set against the CPU.  The backward kernels
-# run at BATCH and, in that step, at 4.
-FWD_BATCHES = (BATCH, 4 * BATCH, 12, 4, 3)
+# --mode test draws each precision/recall half of a test batch in one call
+# of BATCH // 2 rows; the B=4 training step and NLL set against the CPU.
+# The backward kernels run at BATCH and, in that step, at 4.
+FWD_BATCHES = (BATCH, 4 * BATCH, BATCH // 2, 12, 4, 3)
 BWD_BATCHES = (BATCH, 4)
 TRAIN_STEPS = 5
 # One full-width training step at batch 4, card against CPU: fp32 on both
@@ -267,6 +285,40 @@ SERVE_MAX_DELAY_MS = 10
 SERVE_WARMUP_S = 1.0
 SERVE_SECONDS = 10.0
 SERVER_FLAGS = []  # further flags of the artifact server
+# The metric suite (phase 8b): --mode test over the CLI phase's checkpoint,
+# reduced to --debug (4 test batches of BATCH) and EVAL_ATTEMPTS attempts at
+# the default temperatures, backbones and FID sample size; then the
+# reference's protocol (--eval_parity) at one temperature, one attempt and
+# PARITY_FID_SAMPLES.  In process: the backbones card vs CPU on
+# FEATURE_IMAGES images (relative L2 FEATURE_RTOL), P&R at PR_ROWS x PR_ROWS
+# x PR_DIM full against streamed (PR_ROW_BATCH; the same products on the
+# same card, so no membership may flip) and card against CPU at PR_CPU_ROWS
+# (within PR_CPU_FLIPS memberships: cuBLAS and the CPU's BLAS sum the
+# distances in other orders), the fp32 device FID against the fp64 host FID
+# on FID_ROWS x FID_DIM features.  FID_DEVICE_RTOL lies between two
+# readings on an H100 (80GB HBM3, 700 W): the fp32 path 5.1e-7 from the
+# host, the same path with TF32 allowed 2.3e-4; each run repeats that
+# control and fails unless it lands outside the limit.
+EVAL_ATTEMPTS = 2
+EVAL_FID_SAMPLES = 10_000
+PARITY_FID_SAMPLES = 1440
+EVAL_TEMPERATURES = 3
+FEATURE_IMAGES = 4
+FEATURE_RTOL = 1e-4
+PR_ROWS = 10_000
+PR_DIM = 512
+PR_ROW_BATCH = 2_500
+PR_CPU_ROWS = 2_000
+PR_CPU_FLIPS = 3
+PR_STREAM_FLIPS = 0
+PR_TIMED = 3
+FID_ROWS = 10_000
+FID_DIM = 2048
+FID_DEVICE_RTOL = 1e-5
+FP32_FLOP_PER_S = 67e12  # outside the tensor cores: the P&R products
+FID_NOISE_PNGS = 144
+FID_CLI_RTOL = 1e-4  # printed to 6 digits; sqrtm against two eigh in fp64
+FID_CLI_FLAGS = []  # further flags of python -m nvae_torch.eval.fid
 
 
 def log(msg: str) -> None:
@@ -2555,6 +2607,311 @@ def phase_artifact(workdir: str, trainer) -> dict:
     return {"bytes": sizes, "counts": end["counts"]}
 
 
+# ---- phase 8b: the metric suite (--mode test) -------------------------------
+
+
+def eval_launches(cfg, attempts: int, temperatures: int,
+                  fid_samples: int) -> int:
+    """Kernel #2's launches in one ``--mode test`` run over CLI_BATCHES
+    test batches of BATCH: per temperature, each attempt's sample call,
+    one sample call per test-batch half and two ``sample_with_z`` calls
+    (the postprocess's launches alone), and the FID batches; then one NLL
+    posterior pass per test batch and attempt."""
+    per_call = expected_launches(cfg)
+    post = per_call - (cfg.n_total_groups - 1) * cfg.res_cells_per_group
+    calls = temperatures * (attempts * (1 + 2 * CLI_BATCHES)
+                            + max(fid_samples // BATCH, 1))
+    return (per_call * (calls + CLI_BATCHES * attempts)
+            + post * 2 * temperatures * attempts)
+
+
+def check_evaluation(label: str, d: dict, temperatures: int,
+                     pr_max: float) -> None:
+    """``evaluation.json`` with the protocol's keys, every value finite,
+    P&R in [0, pr_max], random-init provenance (not comparable)."""
+    from nvae_torch.eval.evaluate import Metric, Metrics, ModelEvaluation
+
+    m = Metric(0.0, 0.0)
+    ref = ModelEvaluation(m, [Metrics(1.0, 0.0, m, m, m)]).to_dict()
+
+    def shape(x):
+        if isinstance(x, dict):
+            return {k: shape(v) for k, v in x.items()}
+        return [shape(v) for v in x[:1]] if isinstance(x, list) else None
+
+    values = [d["nll"]["mean"], d["nll"]["stddev"]] + [
+        v for r in d["sample_metrics"] for v in (
+            r["fid"], *(r[k][s] for k in ("ppl", "precision", "recall")
+                        for s in ("mean", "stddev")))]
+    pr = [r[k]["mean"] for r in d["sample_metrics"]
+          for k in ("precision", "recall")]
+    if (shape(d) != shape(ref) or len(d["sample_metrics"]) != temperatures
+            or not all(map(math.isfinite, values))
+            or not all(0.0 <= v <= pr_max for v in pr)
+            or d["feature_backbone_weights"] != "random-init"
+            or d["fid_backbone_weights"] != "random-init"
+            or d["feature_backbone"] != "vgg16"
+            or d["fid_backbone"] != "inception"):
+        raise AssertionError(f"{label}: evaluation.json {d}")
+
+
+def timed_sync(fn, device):
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_eval_features(device) -> dict:
+    """Each backbone at its native size on the card against the CPU, on
+    the same images, and the card's ms per image at a batch of 256."""
+    from nvae_torch.eval.features import extract_features, get_extractor
+
+    rng = np.random.RandomState(7)
+    images = rng.rand(FEATURE_IMAGES, 32, 32, 1).astype(np.float32)
+    batch = torch.from_numpy(rng.rand(256, 32, 32, 1).astype(np.float32)
+                             ).to(device)
+    out = {}
+    for name in ("vgg16", "inception", "random_conv"):
+        card_fn = get_extractor(name, device=device)
+        card = extract_features(images, card_fn)
+        cpu = extract_features(images, get_extractor(name, device="cpu"))
+        err = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+        extract_features(batch, card_fn)  # warm-up
+        _, secs = timed_sync(lambda: extract_features(batch, card_fn), device)
+        out[name] = {"rel_l2": err, "dim": card.shape[1],
+                     "ms_per_image": 1e3 * secs / 256}
+        log(f"eval features {name}: card vs CPU rel L2 {err:.3g}, "
+            f"{out[name]['ms_per_image']:.4f} ms per image at batch 256")
+        if not err <= FEATURE_RTOL:
+            raise AssertionError(f"eval features {name}: {out[name]}")
+    return out
+
+
+def phase_eval_pr(device) -> dict:
+    """P&R at PR_ROWS x PR_ROWS x PR_DIM on the card: the full-matrix path
+    against the streamed one (radii, membership flips, values), each
+    timed; then card against CPU at PR_CPU_ROWS."""
+    from nvae_torch.eval.precision_recall import (
+        ManifoldEstimator,
+        knn_precision_recall_features,
+    )
+
+    rng = np.random.RandomState(11)
+    real = torch.from_numpy(rng.randn(PR_ROWS, PR_DIM).astype(np.float32))
+    gen = torch.from_numpy(
+        (rng.randn(PR_ROWS, PR_DIM) * 0.9 + 0.1).astype(np.float32))
+    real, gen = real.to(device), gen.to(device)
+    rec = {}
+    members = {}
+    for label, rows in (("full", PR_ROWS), ("streamed", PR_ROW_BATCH)):
+        ref_m = ManifoldEstimator(real, row_batch_size=rows, device=device)
+        ev_m = ManifoldEstimator(gen, row_batch_size=rows, device=device)
+        members[label] = (ref_m.radii[3], ev_m.radii[3],
+                          ref_m.membership(gen, 3), ev_m.membership(real, 3))
+        knn_precision_recall_features(real, gen, row_batch_size=rows,
+                                      device=device)  # warm-up
+        secs = []
+        for _ in range(PR_TIMED):
+            pr, s_ = timed_sync(lambda: knn_precision_recall_features(
+                real, gen, row_batch_size=rows, device=device), device)
+            secs.append(s_)
+        rec[label] = {"precision": pr["precision"], "recall": pr["recall"],
+                      "ms": [1e3 * v for v in secs]}
+    full, streamed = members["full"], members["streamed"]
+    radii_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    for a, b in zip(full[:2], streamed[:2]))
+    flips = [int((a != b).sum()) for a, b in zip(full[2:], streamed[2:])]
+    # The four fp32 products of one P&R call over the card's fp32 rate.
+    bound_ms = 1e3 * 4 * 2.0 * PR_ROWS * PR_ROWS * PR_DIM / FP32_FLOP_PER_S
+    rec.update({"radii_rel_err": radii_err, "membership_flips": flips,
+                "bound_ms": bound_ms})
+    log(f"eval P&R {PR_ROWS}x{PR_ROWS}x{PR_DIM}: full {rec['full']}, "
+        f"streamed ({PR_ROW_BATCH}) {rec['streamed']}; radii rel err "
+        f"{radii_err:.3g}, membership flips (precision, recall side) "
+        f"{flips}; bound of the products {bound_ms:.2f} ms")
+    if radii_err > 1e-5 or max(flips) > PR_STREAM_FLIPS:
+        raise AssertionError(f"eval P&R: full vs streamed {rec}")
+
+    n = PR_CPU_ROWS
+    kw = dict(return_realism=True, return_neighbors=True)
+    card = knn_precision_recall_features(real[:n], gen[:n], device=device,
+                                         **kw)
+    cpu = knn_precision_recall_features(real[:n].cpu(), gen[:n].cpu(),
+                                        device="cpu", **kw)
+    diff = {k: abs(card[k] - cpu[k]) * n for k in ("precision", "recall")}
+    realism = float(np.max(np.abs(card["realism"] - cpu["realism"])
+                           / np.abs(cpu["realism"])))
+    same_nn = float(np.mean(card["nearest_neighbors"]
+                            == cpu["nearest_neighbors"]))
+    rec["card_vs_cpu"] = {"flips": diff, "realism_rel": realism,
+                          "same_neighbors": same_nn,
+                          "precision": card["precision"],
+                          "recall": card["recall"]}
+    log(f"eval P&R card vs CPU at {n}: {rec['card_vs_cpu']}")
+    if (max(diff.values()) > PR_CPU_FLIPS or realism > 1e-4
+            or same_nn < 0.999):
+        raise AssertionError(f"eval P&R card vs CPU: {rec['card_vs_cpu']}")
+    return rec
+
+
+def phase_eval_fid(device) -> dict:
+    """The fp32 device FID (two ``eigh`` on the card) against the fp64
+    host FID on FID_ROWS x FID_DIM features, each timed; then the same
+    device path with TF32 allowed, a control that must land outside
+    FID_DEVICE_RTOL, so that the limit is shown to see a precision leak."""
+    import contextlib
+
+    from nvae_torch.eval import frechet
+
+    rng = np.random.RandomState(13)
+    mix = rng.randn(FID_DIM, FID_DIM).astype(np.float32) / FID_DIM ** 0.5
+    a = rng.randn(FID_ROWS, FID_DIM).astype(np.float32)
+    b = (rng.randn(FID_ROWS, FID_DIM).astype(np.float32) @ (
+        np.eye(FID_DIM, dtype=np.float32) + 0.1 * mix) + 0.02)
+    frechet.fid_from_features(a[:256, :64], b[:256, :64], precise=False,
+                              device=device)  # warm-up of the solver
+    card, card_s = timed_sync(lambda: frechet.fid_from_features(
+        a, b, precise=False, device=device), device)
+    t0 = time.perf_counter()
+    host = frechet.fid_from_features(a, b)
+    host_s = time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def tf32_math():
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = cudnn.allow_tf32, matmul.allow_tf32
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+    fp32_math = frechet.fp32_math
+    frechet.fp32_math = tf32_math
+    try:
+        control = frechet.fid_from_features(a, b, precise=False,
+                                            device=device)
+    finally:
+        frechet.fp32_math = fp32_math
+    rec = {"device": card, "host_fp64": host, "rel": abs(card - host) / host,
+           "tf32_control": control,
+           "tf32_control_rel": abs(control - host) / host,
+           "limit_rel": FID_DEVICE_RTOL, "device_s": card_s,
+           "host_s": host_s}
+    log(f"eval FID {FID_ROWS}x{FID_DIM}: {rec}")
+    if not rec["rel"] <= FID_DEVICE_RTOL < rec["tf32_control_rel"]:
+        raise AssertionError(f"eval FID device vs host: {rec}")
+    return rec
+
+
+def phase_eval_fid_cli(workdir: str, device) -> dict:
+    """``python -m nvae_torch.eval.fid --save_stats`` over the CLI phase's
+    t_0.7 PNGs, then scoring those statistics against FID_NOISE_PNGS
+    PNGs of uniform noise, with ``random_conv`` features on the card: a
+    pair whose FID is far from 0 and whose covariances, unlike random-init
+    VGG16's (variances below the 1e-6 jitter), carry a visible share of it.
+    The printed FID is held against one computed here from the same
+    statistics with ``scipy.linalg.sqrtm``, independent of the port's
+    ``fid_from_stats``, at relative FID_CLI_RTOL."""
+    import scipy.linalg
+
+    from nvae_torch.eval.fid import compute_statistics_of_path
+    from nvae_torch.utils.images import save_images_to_dir
+
+    samples = os.path.join(workdir, "results", "t_0.7")
+    noise = os.path.join(workdir, "noise_pngs")
+    save_images_to_dir(np.random.RandomState(17).rand(
+        FID_NOISE_PNGS, 32, 32, 1).astype(np.float32), noise)
+    stats = os.path.join(workdir, "t07_stats.npz")
+    out = {}
+    for label, argv in (("save", ["--save_stats", samples, stats]),
+                        ("score", [stats, noise])):
+        argv += ["--backbone", "random_conv"]
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nvae_torch.eval.fid", *argv,
+             *FID_CLI_FLAGS],
+            cwd=workdir, env=port_env(), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"eval.fid {label} exited {proc.returncode}"
+                                 f":\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        out[label] = {"seconds": time.monotonic() - t0,
+                      "last": proc.stdout.strip().splitlines()[-1]}
+    printed = float(out["score"]["last"].split()[1])
+    mu1, s1 = compute_statistics_of_path(samples, "random_conv",
+                                         device=device)
+    mu2, s2 = compute_statistics_of_path(noise, "random_conv", device=device)
+    with np.load(stats) as saved:
+        stats_err = max(
+            float(np.max(np.abs(saved[k] - v)) / np.max(np.abs(v)))
+            for k, v in (("mu", mu1), ("sigma", s1)))
+    # The reference's formula, with the port's 1e-6 jitter on each side.
+    jitter = 1e-6 * np.eye(s1.shape[0])
+    s1, s2 = s1.astype(np.float64) + jitter, s2.astype(np.float64) + jitter
+    diff = mu1.astype(np.float64) - mu2
+    reference = float(diff @ diff + np.trace(s1) + np.trace(s2) - 2.0 * np.trace(
+        scipy.linalg.sqrtm(s1 @ s2).real))
+    out.update({"printed": printed, "sqrtm_reference": reference,
+                "trace_share": float(np.trace(s1) + np.trace(s2)) / reference,
+                "rel": abs(printed - reference) / reference,
+                "stats_err": stats_err})
+    log(f"eval.fid: {out}")
+    if (not out["save"]["last"].endswith("(D=512)") or stats_err > 1e-4
+            or not reference > 0 or out["rel"] > FID_CLI_RTOL):
+        raise AssertionError(f"eval.fid: {out}")
+    return out
+
+
+def phase_eval(workdir: str, device) -> dict:
+    """The metric suite at full width (phase 8b): ``--mode test`` over the
+    CLI phase's checkpoint, as subprocesses with exact launch counts (#2 in
+    fp32 only, no #3 or #4), its evaluation.json and its stage seconds;
+    then the metric functions in process and the FID command line."""
+    from nvae_torch.config import ModelConfig
+
+    cfg = ModelConfig(use_pallas_kernels=True)
+    logs = os.path.join(workdir, "logs")
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    runs = {}
+    for label, extra, attempts, temps, fid_n, pr_max in (
+            ("test", ["--eval_attempts", str(EVAL_ATTEMPTS),
+                      "--fid_sample_size", str(EVAL_FID_SAMPLES)],
+             EVAL_ATTEMPTS, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, 1.0),
+            ("test parity", ["--eval_parity", "--eval_attempts", "1",
+                             "--eval_temperatures", "1.0",
+                             "--fid_sample_size", str(PARITY_FID_SAMPLES)],
+             1, 1, PARITY_FID_SAMPLES, 2.0)):
+        rec = run_cli(label, ["--mode", "test", *extra, *cli_args(workdir)],
+                      workdir)
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["fused_swish_depthwise5x5"] = eval_launches(cfg, attempts, temps,
+                                                         fid_n)
+        if rec["counts"] != want:
+            raise AssertionError(f"{label}: launches {rec['counts']}, "
+                                 f"expected {want}")
+        with open(os.path.join(logs, "evaluation.json")) as f:
+            evaluation = json.load(f)
+        check_evaluation(label, evaluation, temps, pr_max)
+        stages = json.loads(
+            rec["stdout"].split("Stage seconds: ")[1].splitlines()[0])
+        log(f"{label}: stage seconds {stages}")
+        log(f"{label}: evaluation {json.dumps(evaluation)}")
+        runs[label] = {"seconds": rec["seconds"], "stages": stages,
+                       "evaluation": evaluation}
+        for k, v in rec["counts"].items():
+            counts[k] += v
+    features = phase_eval_features(device)
+    pr = phase_eval_pr(device)
+    fid = phase_eval_fid(device)
+    fid_cli = phase_eval_fid_cli(workdir, device)
+    return {"runs": runs, "features": features, "pr": pr, "fid": fid,
+            "fid_cli": fid_cli, "counts": counts}
+
+
 def kernel_records(errs, launches, entries) -> list:
     """One record per kernel of ``entries`` (name, timing rows, the rows'
     key, the TPU kernel it replaces, the path call it times).  Times and
@@ -2818,6 +3175,9 @@ def main(argv=None) -> int:
                 launches[k] += v
         del trainer
         log(f"serving done at {time.monotonic() - t_start:.1f} s")
+        for k, v in phase_eval(workdir, device)["counts"].items():
+            launches[k] += v
+        log(f"metric suite done at {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],

@@ -5,15 +5,19 @@ Modes:
   train   run the training loop with checkpoints and image hooks
   sample  write sample PNGs at temperatures {0.7, 0.8, 0.9, 1.0}
           (and, with --scale_temperatures, t_annealed/)
-  test    waits for the metric suite (ROADMAP.md Queue 1 #8)
+  test    evaluate the checkpoint (nvae_torch/eval/evaluate.py): per
+          --eval_temperatures, --eval_attempts rounds of precision/recall
+          and PPL, then FID over --fid_sample_size samples, then the IWAE
+          NLL; prints it, and each stage's wall seconds, and writes
+          evaluation.json to --tensorboard_log_dir
   serve   serve the checkpoint over HTTP (nvae_torch/serving_http.py):
           dynamic batching at --batch_size and --serve_batches, weights
           in --serve_dtype, hot reload from --model_save_dir
 
 It runs on the card unless --cpu asks for the CPU, and raises if there is
 no card.  A flag whose path is not ported yet stops the run with a message
-naming what it waits for; the JAX CLI's metric-suite and pipeline-schedule
-flags are not declared, so argparse rejects them.  bf16 (--compute_dtype,
+naming what it waits for; the JAX CLI's pipeline-schedule flags are not
+declared, so argparse rejects them.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
 preset as in the JAX CLI.  --scan_epochs stages the training set on the
 device and replays each step as one CUDA graph (with --cpu the same steps
@@ -30,6 +34,8 @@ Usage:
   python -m nvae_torch.cli --mode serve --preset mnist_step_sn --use_pallas \\
       --dataset synthetic --serve_dtype int8 --compute_dtype bfloat16 \\
       --serve_batches 144 576 --serve_port 8000
+  python -m nvae_torch.cli --mode test --preset mnist_step_sn --use_pallas \\
+      --dataset synthetic --debug --eval_attempts 2
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import os
 import random
 
@@ -169,13 +176,38 @@ def parse_args(argv=None):
     p.add_argument("--serve_output", type=str, default="",
                    choices=["", "uint8"],
                    help="Serve uint8 pixels, round(p * 255) on the device")
+    # The evaluation protocol (--mode test); the reference hardcodes 10
+    # attempts, {0.6, 0.8, 1.0} and 10,000 FID samples (evaluate.py:58-156).
+    p.add_argument("--eval_attempts", type=int, default=10)
+    p.add_argument("--eval_temperatures", nargs="+", type=float,
+                   default=[0.6, 0.8, 1.0])
+    p.add_argument("--fid_sample_size", type=int, default=10000)
+    p.add_argument("--feature_backbone", type=str, default="vgg16",
+                   choices=["vgg16", "inception", "random_conv"],
+                   help="P&R/PPL feature space (the reference's VGG16)")
+    p.add_argument("--fid_backbone", type=str, default="inception",
+                   choices=["vgg16", "inception", "random_conv"],
+                   help="FID feature space (the reference's Inception "
+                        "pool_3; published FIDs are only comparable there)")
+    # The metric protocol's parity switches (PARITY.md); --eval_parity
+    # turns all of them on.
+    p.add_argument("--pr_parity_accounting", action="store_true",
+                   help="The reference's [0, 2]-scaled P&R accounting")
+    p.add_argument("--pr_parity_orientation", action="store_true",
+                   help="The reference's swapped P&R argument order")
+    p.add_argument("--parity_resize_299", action="store_true",
+                   help="Nearest resize to 299x299 before the backbones")
+    p.add_argument("--parity_fid_uint8", action="store_true",
+                   help="uint8-quantize images before the FID features")
+    p.add_argument("--parity_unit_input", action="store_true",
+                   help="Feed raw [0, 1] images to the backbones")
+    p.add_argument("--eval_parity", action="store_true",
+                   help="Turn on every metric-protocol parity switch")
     return p.parse_args(argv)
 
 
-# What a mode or flag the port does not run yet waits for.
-_METRICS = "the metric suite (ROADMAP.md Queue 1 #8)"
+# What a flag the port does not run yet waits for.
 _PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
-_WAITING_MODES = {"test": _METRICS}
 _WAITING_FLAGS = {
     _PARALLEL: ("fsdp",),
     "rematerialization (ROADMAP.md Queue 1 #1)": ("remat",),
@@ -183,11 +215,8 @@ _WAITING_FLAGS = {
 
 
 def refuse_unported(args) -> None:
-    """Stop with ``SystemExit`` on a mode or flag the port does not run
-    yet, naming what it waits for."""
-    if args.mode in _WAITING_MODES:
-        raise SystemExit(f"--mode {args.mode} is not ported yet: it waits "
-                         f"for {_WAITING_MODES[args.mode]}")
+    """Stop with ``SystemExit`` on a flag the port does not run yet, naming
+    what it waits for."""
     defaults = vars(parse_args([]))
     reasons = [f"--{k} waits for {why}" for why, flags in _WAITING_FLAGS.items()
                for k in flags if getattr(args, k) != defaults[k]]
@@ -384,10 +413,46 @@ def main(argv=None):
                   f"last_throughput={last.get('images_per_sec', 0):.1f} img/s")
         elif args.mode == "serve":
             _serve(args, trainer)
+        elif args.mode == "test":
+            _test(args, trainer, test_iter)
         else:  # sample
             _sample(args, trainer)
     finally:
         logger.close()
+
+
+def _test(args, trainer, test_iter) -> None:
+    from nvae_torch.eval.evaluate import evaluate_model
+
+    start = trainer.maybe_resume()
+    if args.use_ema:
+        trainer.swap_in_ema()
+    print(f"Evaluating checkpoint at epoch {start}"
+          f"{' (EMA weights)' if args.use_ema else ''}")
+    timings = {}
+    evaluation = evaluate_model(
+        trainer,
+        test_iter,
+        batch_size=args.batch_size,
+        n_attempts=args.eval_attempts,
+        binary=args.binary_eval,
+        temperatures=tuple(args.eval_temperatures),
+        fid_sample_size=args.fid_sample_size,
+        feature_backbone=args.feature_backbone,
+        fid_backbone=args.fid_backbone,
+        pr_parity_accounting=args.pr_parity_accounting or args.eval_parity,
+        pr_parity_orientation=args.pr_parity_orientation or args.eval_parity,
+        parity_resize_299=args.parity_resize_299 or args.eval_parity,
+        parity_fid_uint8=args.parity_fid_uint8 or args.eval_parity,
+        parity_unit_input=args.parity_unit_input or args.eval_parity,
+        timings=timings,
+    )
+    print(f"Negative log likelihood: {evaluation.nll}")
+    print(evaluation)
+    print(f"Stage seconds: {json.dumps(timings)}")
+    with open(os.path.join(args.tensorboard_log_dir, "evaluation.json"),
+              "w") as f:
+        json.dump(evaluation.to_dict(), f, indent=2)
 
 
 def _sample(args, trainer) -> None:

@@ -28,6 +28,11 @@ Serving trees convert too: a bf16 leaf stays bf16, and a quantized leaf
 becomes the port's :class:`nvae_torch.serving.QuantizedLeaf`, ``q`` and
 ``scale`` moved through the same layout change.  :func:`channel_axes` says
 which port axis is the Flax leaf's last one, the axis JAX quantizes per.
+
+:func:`backbone_state_dict_from_flax` does the same for the metric suite's
+feature backbones, whose port modules carry the Flax layer names: a Flax
+path joined by ``.`` is the port key, ``kernel`` (HWIO) becoming
+``weight`` (OIHW).
 """
 
 from __future__ import annotations
@@ -206,3 +211,36 @@ def flax_tree_from_state_dict(state_dict, module: nn.Module) -> dict:
         node[path[-1]] = np.array(inv(value.detach().cpu().numpy()),
                                   order="C", copy=True)
     return tree
+
+
+def backbone_state_dict_from_flax(name: str, params) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the metric backbone ``name`` (``random_conv``,
+    ``vgg16``, ``inception`` or an alias) from its Flax parameter tree of
+    numpy arrays (``{"params": tree}`` or the tree itself).
+
+    Raises on a Flax leaf the port has no tensor for, on a shape mismatch,
+    and on any port tensor left unfilled."""
+    from nvae_torch.eval.features import backbone_module
+
+    if isinstance(params, dict) and set(params) == {"params"}:
+        params = params["params"]
+    own = backbone_module(name).state_dict()
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        *parents, kind = path
+        a = np.asarray(leaf)
+        if kind == "kernel":
+            kind, a = "weight", _hwio_to_oihw[0](a)
+        key = ".".join((*parents, kind))
+        if key not in own:
+            raise KeyError(f"unknown Flax leaf {'/'.join(path)}")
+        if key in sd:
+            raise KeyError(f"{key} filled twice (second from {'/'.join(path)})")
+        if tuple(a.shape) != tuple(own[key].shape):
+            raise ValueError(f"{'/'.join(path)} -> {key}: shape {a.shape}, "
+                             f"port expects {tuple(own[key].shape)}")
+        sd[key] = _tensor(a)
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise KeyError(f"port tensors not filled from Flax: {missing}")
+    return sd

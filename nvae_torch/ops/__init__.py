@@ -2,6 +2,8 @@ from nvae_torch.ops.math import (
     bernoulli_log_prob,
     diagonal_gaussian_kl,
     gaussian_log_prob,
+    normalize_l2,
+    slerp,
     softclamp5,
 )
 
@@ -9,5 +11,7 @@ __all__ = [
     "bernoulli_log_prob",
     "diagonal_gaussian_kl",
     "gaussian_log_prob",
+    "normalize_l2",
+    "slerp",
     "softclamp5",
 ]

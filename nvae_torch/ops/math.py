@@ -1,7 +1,8 @@
-"""Core numerics of the port (counterpart of ``nvae_tpu/ops/math.py:18-63``).
+"""Core numerics of the port (counterpart of ``nvae_tpu/ops/math.py:18-85``).
 
-Elementwise torch functions, shape-polymorphic; the rest of the JAX module
-(DML likelihood, slerp) comes with the slices that use it.
+Elementwise torch functions, shape-polymorphic, and the spherical
+interpolation of latents that the perceptual path length uses; the DML
+likelihood of the JAX module comes with the slice that uses it.
 """
 
 from __future__ import annotations
@@ -44,3 +45,20 @@ def bernoulli_log_prob(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Elementwise Bernoulli log-likelihood of ``x`` under ``logits``:
     ``-(x * softplus(-l) + (1 - x) * softplus(l))``."""
     return -(x * F.softplus(-logits) + (1.0 - x) * F.softplus(logits))
+
+
+def normalize_l2(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
+    """L2-normalize along ``dim``: ``v / sqrt(sum(v^2) + eps)``."""
+    return v / torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True) + eps)
+
+
+def slerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation of batches of (B, H, W, C) latents: vectors
+    are normalized along the channel axis (the last), and ``t`` has shape
+    (B,) and broadcasts as (B, 1, 1, 1)."""
+    a = normalize_l2(a)
+    b = normalize_l2(b)
+    d = torch.sum(a * b, dim=-1, keepdim=True)
+    p = t.reshape(-1, 1, 1, 1) * torch.arccos(d)
+    c = normalize_l2(b - d * a)
+    return normalize_l2(a * torch.cos(p) + c * torch.sin(p))

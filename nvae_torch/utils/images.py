@@ -1,10 +1,14 @@
-"""Image tiling and PNG output (counterpart of ``nvae_tpu/utils/images.py``'s
-writing half: ``tile_images``, ``to_uint8``, ``save_images_to_dir``,
-``sample_to_dir``, ``sample_sweep_to_dirs``).
+"""Image tiling, PNG output and image directories (counterpart of
+``nvae_tpu/utils/images.py``: ``tile_images``, ``to_uint8``,
+``save_images_to_dir``, ``sample_to_dir``, ``sample_sweep_to_dirs``, and the
+metric suite's reader, ``ImageDirectory`` and ``load_images_from_dir``).
 
-PNGs are written by a small encoder on the standard library (``zlib`` and
-``struct``): 8-bit greyscale or RGB, no interlace, filter 0 on every row.
-The directory reader of the metric suite comes with that suite.
+PNGs are written and read by a small codec on the standard library
+(``zlib`` and ``struct``).  The encoder writes 8-bit greyscale or RGB, no
+interlace, filter 0 on every row.  The decoder reads 8-bit greyscale,
+greyscale + alpha, RGB and RGBA, every filter type (0-4), no interlace, and
+raises on any other PNG, naming what it is.  JPEGs need Pillow, and raise
+without it.
 """
 
 from __future__ import annotations
@@ -14,11 +18,16 @@ import os
 import struct
 import uuid
 import zlib
+from typing import Optional
 
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2}  # channels -> PNG colour type (grey, RGB)
+# PNG colour type -> channels: grey, RGB, grey + alpha, RGBA.
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOR_NAMES = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale+alpha",
+                6: "RGBA"}
 
 
 def tile_images(images: np.ndarray) -> np.ndarray:
@@ -107,3 +116,172 @@ def sample_sweep_to_dirs(sample_fn, batch_size: int, sample_size: int,
                                dirs[t])
             written[t] += batch_size
     return written
+
+
+def _unfilter(ftype: np.ndarray, lines: np.ndarray) -> np.ndarray:
+    """Undo the per-row PNG filters of a batch of same-shaped 8-bit images:
+    ``ftype`` (N, h) filter bytes, ``lines`` (N, h, w, bpp) filtered bytes;
+    returns (N, h, w, bpp) uint8.
+
+    A byte depends on its left, upper and upper-left neighbours (Sub, Up,
+    Average, Paeth), so the images are decoded one anti-diagonal at a
+    time, each step vectorised over the images and their rows: in a skewed
+    copy where pixel (y, x) sits in column y + x + 2, step k reads column
+    k - 1 (left in its own row, up in the row above) and k - 2 (upper left).
+    Columns left of a row's first pixel stay 0, the filters' edge value."""
+    unknown = ftype[ftype > 4]
+    if unknown.size:
+        raise ValueError(f"PNG row has unknown filter type {unknown[0]}")
+    if not ftype.any():
+        return lines
+    n, h, w, bpp = lines.shape
+    ys = np.arange(h)[:, None]
+    cols = ys + 2 + np.arange(w)
+    # Skewed column first, so that each step reads and writes whole blocks.
+    raw = np.zeros((h + w + 1, n, h, bpp), np.int16)
+    raw[cols, :, ys] = lines.transpose(1, 2, 0, 3)
+    out = np.zeros((h + w + 1, n, h + 1, bpp), np.int16)  # row 0: above
+    f = ftype[:, :, None].astype(np.int16)
+    for k in range(2, h + w + 1):
+        a, b, c = out[k - 1, :, 1:], out[k - 1, :, :-1], out[k - 2, :, :-1]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.where(f == 4, paeth, np.where(f == 3, (a + b) >> 1,
+                        np.where(f == 2, b, np.where(f == 1, a, 0))))
+        out[k, :, 1:] = (raw[k] + pred) & 0xFF
+    return out[cols, :, ys + 1].transpose(2, 0, 1, 3).astype(np.uint8)
+
+
+def _parse_png(data: bytes):
+    """The filter bytes (h,) and filtered rows (h, w, C) of an 8-bit,
+    non-interlaced greyscale (C=1), greyscale + alpha (2), RGB (3) or RGBA
+    (4) PNG.  Raises ValueError on any other PNG, naming its bit depth,
+    colour type or interlace."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _CHANNELS:
+        raise ValueError(f"unsupported PNG colour type {color} "
+                         f"({_COLOR_NAMES.get(color, 'unknown')})")
+    if depth != 8:
+        raise ValueError(f"unsupported PNG bit depth {depth} "
+                         f"({_COLOR_NAMES[color]}): only 8-bit is read")
+    if interlace:
+        raise ValueError("unsupported interlaced (Adam7) PNG")
+    c = _CHANNELS[color]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (w * c + 1):
+        raise ValueError(f"PNG data holds {rows.size} bytes, expected "
+                         f"{h * (w * c + 1)}")
+    rows = rows.reshape(h, w * c + 1)
+    return rows[:, 0], rows[:, 1:].reshape(h, w, c)
+
+
+def decode_pngs(blobs) -> list:
+    """(H, W, C) uint8 of each PNG in ``blobs`` (see ``_parse_png``);
+    images of one shape are unfiltered together."""
+    parsed = [_parse_png(data) for data in blobs]
+    out = [None] * len(parsed)
+    groups = {}
+    for i, (_, lines) in enumerate(parsed):
+        groups.setdefault(lines.shape, []).append(i)
+    for idx in groups.values():
+        decoded = _unfilter(np.stack([parsed[i][0] for i in idx]),
+                            np.stack([parsed[i][1] for i in idx]))
+        for i, img in zip(idx, decoded):
+            out[i] = img
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8 of one PNG (see ``_parse_png``)."""
+    return decode_pngs([data])[0]
+
+
+def _read_images(paths) -> list:
+    """Each file as (H, W, C) uint8: PNGs through ``decode_pngs``, other
+    formats through Pillow."""
+    out = [None] * len(paths)
+    png = [i for i, p in enumerate(paths) if p.lower().endswith(".png")]
+    blobs = []
+    for i in png:
+        with open(paths[i], "rb") as f:
+            blobs.append(f.read())
+    for i, img in zip(png, decode_pngs(blobs)):
+        out[i] = img
+    for i, p in enumerate(paths):
+        if out[i] is None:
+            out[i] = _read_with_pillow(p)
+    return out
+
+
+def _read_with_pillow(path: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(f"reading {path} needs Pillow, which is not "
+                           "installed: JPEG decoding is not built in") from e
+    img = np.asarray(Image.open(path))
+    return img[..., None] if img.ndim == 2 else img
+
+
+def _list_image_files(in_dir: str, limit: Optional[int] = None):
+    files = sorted(f for f in os.listdir(in_dir)
+                   if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    return files[:limit] if limit else files
+
+
+class ImageDirectory:
+    """Lazy, sliceable view of a directory of PNG/JPG images, sorted by
+    name: ``len()`` and slicing decode only the sliced files, so feature
+    extraction streams a large directory at O(batch) host memory.
+    ``scale=True`` yields float32 in [0, 1], ``scale=False`` raw uint8.
+    ``max_slice_decoded`` is the most files one slice decoded."""
+
+    def __init__(self, in_dir: str, limit: Optional[int] = None,
+                 scale: bool = True):
+        self.in_dir = in_dir
+        self.files = _list_image_files(in_dir, limit)
+        self.scale = scale
+        self.max_slice_decoded = 0
+        self._shape = None  # (H, W, C) of the files, for an empty slice
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _decode(self, files) -> np.ndarray:
+        if not files:
+            # As ndarray slicing: an empty slice is (0, H, W, C).
+            if self._shape is None and self.files:
+                self._decode([self.files[0]])
+            return np.empty((0, *(self._shape or (0, 0, 0))),
+                            np.float32 if self.scale else np.uint8)
+        arr = np.stack(_read_images([os.path.join(self.in_dir, f)
+                                     for f in files]))
+        self._shape = arr.shape[1:]
+        self.max_slice_decoded = max(self.max_slice_decoded, len(files))
+        return arr.astype(np.float32) / 255.0 if self.scale else arr
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return self._decode(self.files[idx])
+        return self._decode([self.files[idx]])[0]
+
+
+def load_images_from_dir(in_dir: str,
+                         limit: Optional[int] = None) -> np.ndarray:
+    """Every PNG/JPG of a directory as one uint8 NHWC array."""
+    return ImageDirectory(in_dir, limit=limit, scale=False)[:]

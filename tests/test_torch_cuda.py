@@ -21,7 +21,14 @@ against the CPU at atol 3e-2 on the probabilities.  The bf16 instances of
 dx and dW/db against their plain versions: dx within one bf16 ulp plus
 ``BF16_SUM_ULPS`` fp32 ulps of ``|swish'(x)| sum |dy w|``, dW/db's fp32 sums
 at 1e-4 of the largest |dW| and bitwise across two runs; a debug-size bf16
-training step on the card with its launch counts.
+training step on the card with its launch counts.  The metric suite: each
+backbone's features on the card against the CPU at relative L2 1e-4 (fp32
+both, no TF32); k-NN precision/recall on the card against the CPU within
+3 samples of 2,000 (the distances round differently, so a sample on a
+sphere's boundary may flip) and the nearest neighbours 99.9% equal; the
+fp32 device FID against the fp64 host FID within 1e-4 of the covariances'
+summed traces (the terms it is the difference of); the debug-size
+protocol on the card with the fused kernel's exact launch count.
 """
 
 import numpy as np
@@ -566,3 +573,74 @@ def test_cuda_graph_replays_read_a_reseeded_generator(cuda_device):
         want_a = torch.randn(1000, generator=ref, device=cuda_device)
         want_b = torch.rand(7, 3, generator=ref, device=cuda_device)
         assert torch.equal(a, want_a) and torch.equal(b, want_b), seed
+
+
+@pytest.mark.parametrize("name", ["random_conv", "vgg16", "inception"])
+def test_cuda_extractor_matches_cpu(cuda_device, name):
+    from nvae_torch.eval.features import extract_features, get_extractor
+
+    images = np.random.RandomState(0).rand(4, 32, 32, 1).astype(np.float32)
+    got = extract_features(images, get_extractor(name, device=cuda_device))
+    want = extract_features(images, get_extractor(name, device="cpu"))
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+def test_cuda_precision_recall_and_fid_match_cpu(cuda_device):
+    from nvae_torch.eval.frechet import fid_from_features
+    from nvae_torch.eval.precision_recall import knn_precision_recall_features
+
+    rng = np.random.RandomState(1)
+    real = rng.randn(2000, 64).astype(np.float32)
+    gen = (rng.randn(2000, 64) * 0.9 + 0.1).astype(np.float32)
+    kw = dict(return_realism=True, return_neighbors=True)
+    for rows in (10000, 700):  # full tiles, then streamed ragged blocks
+        card = knn_precision_recall_features(real, gen, row_batch_size=rows,
+                                             device=cuda_device, **kw)
+        cpu = knn_precision_recall_features(real, gen, row_batch_size=rows,
+                                            device="cpu", **kw)
+        for key in ("precision", "recall"):
+            assert abs(card[key] - cpu[key]) <= 3 / 2000, key
+        assert 0.0 < card["precision"] < 1.0
+        np.testing.assert_allclose(card["realism"], cpu["realism"],
+                                   rtol=1e-4)
+        same = np.mean(card["nearest_neighbors"] == cpu["nearest_neighbors"])
+        assert same >= 0.999
+    # The fp32 distance is a difference of traces of size tr(S1) + tr(S2),
+    # each carrying the fp32 eigensolver's rounding: its error scales with
+    # them, not with the (here small) distance.
+    host = fid_from_features(real, gen)
+    card_fid = fid_from_features(real, gen, precise=False, device=cuda_device)
+    traces = np.trace(np.cov(real, rowvar=False)) + np.trace(
+        np.cov(gen, rowvar=False))
+    assert abs(card_fid - host) <= 1e-4 * traces
+
+
+def test_cuda_evaluate_model_launches_the_kernel(cuda_device):
+    """The protocol at debug size on the card: the fused kernel once per
+    generative cell of every sample call and every NLL posterior pass,
+    none of the backward kernels."""
+    from nvae_torch.data import make_iterators, synthetic_dataset
+    from nvae_torch.eval.evaluate import evaluate_model
+    from nvae_torch.train.trainer import Trainer
+
+    cfg = debug_config(use_pallas_kernels=True)
+    trainer = Trainer(cfg, TrainConfig(epochs=1, batch_size=8), 2,
+                      device=cuda_device)
+    _, test_iter = make_iterators(synthetic_dataset(n_train=8, n_test=16),
+                                  8, device=cuda_device)
+    fns = (tdw.fused_swish_depthwise5x5, tdw.fused_swish_depthwise5x5_dx,
+           tdw.fused_swish_depthwise5x5_dw)
+    for fn in fns:
+        fn.launches = 0
+    timings = {}
+    ev = evaluate_model(trainer, test_iter, batch_size=8, n_attempts=2,
+                        temperatures=(0.8, 1.0), fid_sample_size=16,
+                        feature_backbone="random_conv",
+                        fid_backbone="random_conv", timings=timings)
+    per_call = (cfg.n_total_groups - 1) * cfg.res_cells_per_group
+    # Per temperature: 2 attempts x (1 + 4 halves) sample calls and 2 FID
+    # batches; then 2 test batches x 2 NLL attempts.
+    calls = 2 * (2 * (1 + 4) + 2) + 2 * 2
+    assert [fn.launches for fn in fns] == [per_call * calls, 0, 0]
+    assert all(np.isfinite(m.fid) for m in ev.sample_metrics)
+    assert set(timings) >= {"sampling", "nll", "precision/recall"}

@@ -47,7 +47,11 @@ def test_port_imports_no_jax():
     for mod in ("losses", "optim", "state", "step", "checkpoint", "trainer"):
         assert os.path.join("nvae_torch", "train", f"{mod}.py") in rel
     for path in (("data", "datasets.py"), ("data", "pipeline.py"),
-                 ("eval", "nll.py"), ("utils", "images.py"),
+                 ("eval", "nll.py"), ("eval", "evaluate.py"),
+                 ("eval", "features.py"), ("eval", "inception.py"),
+                 ("eval", "frechet.py"), ("eval", "fid.py"),
+                 ("eval", "ppl.py"), ("eval", "precision_recall.py"),
+                 ("utils", "images.py"),
                  ("utils", "logging.py"), ("utils", "seeds.py"),
                  ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",),
                  ("serving.py",), ("serving_http.py",),
@@ -69,6 +73,7 @@ def test_importing_the_port_loads_no_jax():
         "nvae_torch.train.state, nvae_torch.train.step, "
         "nvae_torch.train.checkpoint, nvae_torch.train.trainer, "
         "nvae_torch.data, nvae_torch.eval.nll, nvae_torch.utils.images, "
+        "nvae_torch.eval, nvae_torch.eval.fid, "
         "nvae_torch.utils.logging, nvae_torch.kernels.se_gate, "
         "nvae_torch.cli, nvae_torch.presets, nvae_torch.serving_http, "
         "nvae_torch.export_serving\n"

@@ -1,7 +1,7 @@
 """The port's training entry point on the CPU at a tiny size: the Trainer
 (fit, artifacts, bitwise resume, early stopping, preemption, the sampling
 sweep), checkpoints (round trip, the async writer's snapshot) and the CLI
-(train and sample with --cpu, presets, unported modes and flags).  Mirrors
+(train and sample with --cpu, presets, unported flags).  Mirrors
 ``tests/test_trainer.py``, ``tests/test_data.py``'s checkpoint tests and
 ``tests/test_cli.py`` of the JAX package."""
 
@@ -412,7 +412,7 @@ def test_three_scale_presets_build_and_dml_presets_wait():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mode", "test"], "metric suite"),
+    (["--mode", "test", "--data_parallel", "2"], "Queue 1 #9"),
     (["--mode", "serve", "--data_parallel", "2"], "Queue 1 #9"),
     (["--fsdp"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
@@ -451,11 +451,12 @@ def test_cli_scan_epochs_trains_and_resumes_on_the_cpu(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--eval_attempts", "3"], ["--pp_schedule", "gpipe"],
+    ["--pp_microbatches", "2"], ["--pp_schedule", "gpipe"],
 ])
 def test_flags_of_unported_paths_are_unknown(tmp_path, capsys, extra):
-    """The JAX CLI's metric-suite and pipeline-schedule flags are not
-    declared: argparse stops the run on them."""
+    """The JAX CLI's pipeline-schedule flags are not declared: argparse
+    stops the run on them.  (Its metric-suite flags are declared since
+    ``--mode test`` runs: tests/test_torch_evaluate.py.)"""
     with pytest.raises(SystemExit) as e:
         cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
     assert e.value.code == 2
