@@ -69,7 +69,7 @@ each raising on failure (nothing is caught):
    then the device-resident epoch (a main path, ``--scan_epochs``): in
    the default and depthwise configurations in fp32 and the depthwise one
    in bf16, 60,000 synthetic uint8 rows staged on the card and 2 epochs of
-   10 full-width steps at batch 144 through the epoch runner, as CUDA
+   5 full-width steps at batch 144 through the epoch runner, as CUDA
    graph replays (the first step eager on a side stream, the second
    captured) and eagerly from the same seed: the two runs' parameters,
    statistics, optimizer state and mean metrics bit for bit equal, exactly
@@ -103,7 +103,7 @@ each raising on failure (nothing is caught):
    npy and PNG requests, /healthz, /stats answering while a dispatch is in
    flight, /reload to step 8 and to the latest, the load of
    ``tools/bench_serving_http.py`` (32 clients, n in [1, 16], a 10 ms
-   window) for 10 s after 1 s of warm-up (img/s, req/s, p50 and p99
+   window) for 5 s after 1 s of warm-up (img/s, req/s, p50 and p99
    latency, occupancy), SIGTERM drain with exit 0 and exact launch counts;
    and the serving artifact: fp32, bf16 and int8 exports (bytes), the int8
    one checked bitwise against the live sampler, served by ``python -m
@@ -111,13 +111,14 @@ each raising on failure (nothing is caught):
    launch counts;
    8b. the metric suite (a main path) over phase 7's checkpoint: ``python
    -m nvae_torch.cli --mode test`` as a subprocess at the default
-   temperatures, backbones (VGG16 at 224, InceptionV3 at 299, random-init)
-   and FID sample size (10,000), reduced to ``--debug`` (4 test batches
-   of 144) and 2 attempts; then ``--eval_parity`` (the nearest-299 path)
-   at T=1.0, 1 attempt and 1,440 FID samples: exit codes, evaluation.json
-   (its keys, finite values, P&R in [0, 1] or [0, 2], random-init
-   provenance), each stage's seconds, and exact launches of fp32 #2 (per
-   sample call, NLL posterior pass and ``sample_with_z`` postprocess),
+   temperatures and backbones (VGG16 at 224, InceptionV3 at 299,
+   random-init), reduced to ``--debug`` (4 test batches of 144), 2
+   attempts and 2,016 FID samples; then ``--eval_parity`` (the
+   nearest-299 path) at T=1.0, 1 attempt and 1,440 FID samples: exit
+   codes, evaluation.json (its keys, finite values, P&R in [0, 1] or [0,
+   2], random-init provenance), each stage's seconds, and exact launches
+   of fp32 #2 (per sample call, NLL posterior pass and ``sample_with_z``
+   postprocess),
    none of any other kernel; in process, each backbone card vs CPU
    (relative L2 1e-4) and its ms per image, P&R at 10,000 x 10,000 x 512
    full against streamed at 2,500 (radii, no membership flip, ms) and card
@@ -141,7 +142,32 @@ each raising on failure (nothing is caught):
     (fp32, and the depthwise one in bf16) and one graph replay of each
     scan configuration's step: device busy time against wall time, and
     the costliest kernels; the replay's ring kernels by name must number
-    what its capture counted.
+    what its capture counted;
+11. the RGB presets (main paths; run after 10, on a card freed of the
+    earlier phases' models and graphs):
+    ``cifar10_dml`` (batch 128) and ``celeba64`` (batch 64, rematerialized
+    cells) at full width: #1-#4 in fp32 against their plain versions at
+    every shape of their paths (4x4x2304 to 64x64x288) and every batch the
+    paths give them, as phase 2 holds them, each shape's ring geometry
+    logged; in each postprocess form 3 training steps with exact launches
+    (cifar10_dml 46 / 52 of each of #2-#4 a step; celeba64 54 / 60 of #3
+    and #4 and twice that of #2, which the backward pass's recompute runs
+    again), one more step profiled, and a sampler at batch 144 (launches,
+    ms a call); for cifar10_dml a B=4 step and B=4 head output and images
+    card vs CPU in fp32 and float64 with injected noise, and the B=4 IWAE
+    NLL card vs CPU; for celeba64 2 steps without remat (peak memory) and
+    one step with remat against one without at batch 4 under deterministic
+    cuDNN (loss, gradients, BatchNorm statistics within 1e-6); each
+    preset's scan path (2 epochs of 4 steps, the second captured, replays
+    counted, one replay profiled); then the CLI as subprocesses with exact
+    counts: cifar10_dml trains 1 epoch, samples (RGB PNGs), scores
+    (``--mode test --debug --eval_attempts 1``, 2,016 FID samples as phase
+    8b) and trains 1 epoch on the
+    scan path; celeba64 trains 1 epoch per step and on the scan path (a
+    CUDA graph of the remat'd step); one request through a
+    ``BatchingSampler`` over the cifar10_dml checkpoint; and #2-#4 timed
+    at each RGB shape at the preset's batch beside their bounds, plain
+    versions and library calls (the fp32 records' ``rgb_shapes``).
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -243,9 +269,9 @@ TOOL_SHAPES = [(32, 192), (16, 192), (4, 1536)]
 CLI_EPOCHS = 2
 CLI_BATCHES = 4
 # The scan path (phase 5b): MNIST's training set of uint8 rows staged on the
-# card, two epochs of 10 steps (the first step eager, the second captured).
+# card, two epochs of 5 steps (the first step eager, the second captured).
 SCAN_ROWS = 60_000
-SCAN_STEPS_PER_EPOCH = 10
+SCAN_STEPS_PER_EPOCH = 5
 SCAN_EPOCHS = 2
 SCAN_CHECK_STEPS = 3  # graph vs eager: one eager, one captured, one more
 SAMPLE_TEMPERATURES = ("0.7", "0.8", "0.9", "1.0")
@@ -276,18 +302,20 @@ BF16_PROB_ATOL = 3e-2
 # back to back, n drawn uniformly from [1, SERVE_MAX_N] and the temperature
 # from SERVE_TEMPERATURES, a SERVE_MAX_DELAY_MS batching window, one second
 # of warm-up, then a timed window of SERVE_SECONDS (the benchmark's 20 s
-# halved to hold this script's run time).
+# cut to a quarter to hold this script's run time).
 SERVE_BATCHES = (BATCH, 4 * BATCH)
 SERVE_CLIENTS = 32
 SERVE_MAX_N = 16
 SERVE_TEMPERATURES = (0.6, 0.7, 0.8, 0.9, 1.0)
 SERVE_MAX_DELAY_MS = 10
 SERVE_WARMUP_S = 1.0
-SERVE_SECONDS = 10.0
+SERVE_SECONDS = 5.0
 SERVER_FLAGS = []  # further flags of the artifact server
 # The metric suite (phase 8b): --mode test over the CLI phase's checkpoint,
-# reduced to --debug (4 test batches of BATCH) and EVAL_ATTEMPTS attempts at
-# the default temperatures, backbones and FID sample size; then the
+# reduced to --debug (4 test batches of BATCH), EVAL_ATTEMPTS attempts and
+# EVAL_FID_SAMPLES (14 sample calls a temperature at 144, 15 at phase
+# 11's 128; the default is 10,000)
+# at the default temperatures and backbones; then the
 # reference's protocol (--eval_parity) at one temperature, one attempt and
 # PARITY_FID_SAMPLES.  In process: the backbones card vs CPU on
 # FEATURE_IMAGES images (relative L2 FEATURE_RTOL), P&R at PR_ROWS x PR_ROWS
@@ -300,7 +328,7 @@ SERVER_FLAGS = []  # further flags of the artifact server
 # host, the same path with TF32 allowed 2.3e-4; each run repeats that
 # control and fails unless it lands outside the limit.
 EVAL_ATTEMPTS = 2
-EVAL_FID_SAMPLES = 10_000
+EVAL_FID_SAMPLES = 2016
 PARITY_FID_SAMPLES = 1440
 EVAL_TEMPERATURES = 3
 FEATURE_IMAGES = 4
@@ -319,6 +347,41 @@ FP32_FLOP_PER_S = 67e12  # outside the tensor cores: the P&R products
 FID_NOISE_PNGS = 144
 FID_CLI_RTOL = 1e-4  # printed to 6 digits; sqrtm against two eigh in fp64
 FID_CLI_FLAGS = []  # further flags of python -m nvae_torch.eval.fid
+
+# The RGB presets (phase 11): (H, C, bias, calls per forward in the
+# preset's own postprocess form, in the depthwise one) of kernels #2-#4 on
+# each one's path, the decoder's generative cells (a bias each) and the
+# depthwise postprocess (none).  Their training batch is the preset's (128,
+# 64); RGB_STEPS steps per form; samplers and the server at
+# RGB_SAMPLE_BATCH; remat against no remat at REMAT_BATCH on the card
+# under deterministic cuDNN, within REMAT_RTOL (loss, gradient's relative
+# L2, BatchNorm statistics); the scan path 2 epochs of RGB_SCAN_STEPS;
+# kernel timing over RGB_TIMING_ITERS calls.
+RGB_SHAPES = {
+    "cifar10_dml": [(4, 2304, True, 30, 30), (8, 1152, True, 16, 16),
+                    (16, 576, False, 0, 3), (32, 288, False, 0, 3)],
+    "celeba64": [(4, 4608, True, 30, 30), (8, 2304, True, 16, 16),
+                 (16, 1152, True, 8, 8), (32, 576, False, 0, 3),
+                 (64, 288, False, 0, 3)],
+}
+RGB_STEPS = 3
+RGB_SAMPLE_BATCH = BATCH
+# The B=4 step and NLL card vs CPU (phase 5's and 8's limits) run at the
+# preset's full width with its depth cut to these groups per scale.  At
+# its own depth, (8, 16), the first step from seeded weights is
+# ill-conditioned (the steps' logged grad_norm is ~1e13): the CPU's own
+# fp32 step lies as far from the float64 step as the card's does, so no
+# fp32 limit can hold there.
+RGB_CPU_GROUPS = (2, 4)
+# There phase 5's limits hold but one: the card's fp32 gradient lies 1.6
+# times as far from float64 as the CPU's (2.4e-4 against 1.5e-4 relative
+# L2, both 12 times inside GRAD_REL_L2; cuDNN's convolution algorithms at
+# these widths, TF32 off), against phase 5's 1.5.
+RGB_CARD_VS_CPU_ROUNDING = 2.0
+REMAT_BATCH = 4
+REMAT_RTOL = 1e-6
+RGB_SCAN_STEPS = 3
+RGB_TIMING_ITERS = 20
 
 
 def log(msg: str) -> None:
@@ -452,15 +515,15 @@ def path_inputs(h, c, bias, device, seed=0, batch=BATCH):
     return x, k, b
 
 
-def phase_kernels(device) -> dict:
+def phase_kernels(device, shapes=PATH_SHAPES, batches=FWD_BATCHES) -> dict:
     """Max abs error of each forward kernel against its plain version at
-    every path shape and every batch in FWD_BATCHES; per shape, the worst
+    every path shape and every batch in ``batches``; per shape, the worst
     over the batches."""
     from nvae_torch.kernels import depthwise as dw
 
     errs = {"fused_swish_depthwise5x5": {}, "depthwise_conv5x5": {}}
-    for h, c, bias, _, _ in PATH_SHAPES:
-        for n in FWD_BATCHES:
+    for h, c, bias, _, _ in shapes:
+        for n in batches:
             x, k, b = path_inputs(h, c, bias, device, batch=n)
             got = dw.fused_swish_depthwise5x5(x, k, b, fuse_swish=True)
             want = dw.fused_swish_depthwise5x5_plain(x, k, b, fuse_swish=True)
@@ -477,17 +540,17 @@ def phase_kernels(device) -> dict:
     return errs
 
 
-def phase_backward_kernels(device) -> dict:
+def phase_backward_kernels(device, shapes=PATH_SHAPES,
+                           batches=BWD_BATCHES) -> dict:
     """dx (with swish' and without) and dW/db (with and without bias)
     against their plain versions at every path shape and every batch in
-    BWD_BATCHES; dW/db twice, for bitwise repeatability.  Returns the
+    ``batches``; dW/db twice, for bitwise repeatability.  Returns the
     errors per kernel and shape, the worst over the batches."""
     from nvae_torch.kernels import depthwise as dw
 
     errs = {"fused_swish_depthwise5x5_dx": {},
             "fused_swish_depthwise5x5_dw": {}}
-    for (h, c, _, _, _), n in ((s, n) for s in PATH_SHAPES
-                               for n in BWD_BATCHES):
+    for (h, c, _, _, _), n in ((s, n) for s in shapes for n in batches):
         x, k, _ = path_inputs(h, c, False, device, batch=n)
         g = path_inputs(h, c, False, device, seed=1, batch=n)[0]
         dx_err = 0.0
@@ -739,10 +802,16 @@ def phase_server(sampler) -> dict:
 # ---- phase 5: the training path --------------------------------------------
 
 
-def train_batch(n: int, seed: int) -> torch.Tensor:
-    """Synthetic binarized images (n, 32, 32, 1) from a numpy seed."""
+def train_batch(n: int, seed: int, cfg=None) -> torch.Tensor:
+    """Synthetic images from a numpy seed: binarized (n, 32, 32, 1), or for
+    an RGB ``cfg`` each channel on its 256 levels at the config's size."""
     rng = np.random.RandomState(seed)
-    return torch.from_numpy((rng.rand(n, 32, 32, 1) > 0.5).astype(np.float32))
+    if cfg is None or cfg.in_channels == 1:
+        return torch.from_numpy(
+            (rng.rand(n, 32, 32, 1) > 0.5).astype(np.float32))
+    s = cfg.image_size
+    return torch.from_numpy(
+        (rng.randint(0, 256, (n, s, s, 3)) / 255.0).astype(np.float32))
 
 
 def train_setup(cfg, device, batch: int):
@@ -756,13 +825,13 @@ def train_setup(cfg, device, batch: int):
     return state, make_train_step(model, tx, tc, 1000, 100)
 
 
-def phase_train(cfg, device) -> dict:
-    """The training path: TRAIN_STEPS full-width steps at batch BATCH, with
-    the counts set to 0 just before and read just after.  Returns the
-    counts, the metrics of every step, ms per step and peak memory."""
-    state, step = train_setup(cfg, device, BATCH)
-    batches = [train_batch(BATCH, 10 + i).to(device)
-               for i in range(TRAIN_STEPS)]
+def phase_train(cfg, device, batch=BATCH, steps=TRAIN_STEPS) -> dict:
+    """The training path: ``steps`` full-width steps at ``batch``, with the
+    counts set to 0 just before and read just after.  Returns the counts,
+    the metrics of every step, ms per step and peak memory."""
+    state, step = train_setup(cfg, device, batch)
+    batches = [train_batch(batch, 10 + i, cfg).to(device)
+               for i in range(steps)]
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
@@ -846,6 +915,42 @@ def grad_errors(got, want) -> dict:
     }
 
 
+def check_train_vs_cpu(name: str, rec: dict,
+                       rounding: float = CARD_VS_CPU_ROUNDING) -> None:
+    """The B=4 step's card vs CPU fp32 and float64 limits (fp32 part); the
+    card's gradient no further from float64 than ``rounding`` times the
+    CPU's."""
+    for pair, r in rec.items():
+        log(f"train step {name} {pair}: {r}")
+    vs_cpu, vs_f64 = rec["card_vs_cpu"], rec["card_vs_f64"]
+    cpu_rounding = rec["cpu_vs_f64"]["grad_rel_l2"]
+    if (vs_cpu["loss_rel"] > TRAIN_LOSS_RTOL
+            or vs_cpu["grad_rel_l2"] > GRAD_REL_L2
+            or vs_f64["grad_rel_l2"] > rounding * cpu_rounding
+            or vs_f64["worst_leaf_rel_l2"] > LEAF_REL_L2
+            or vs_cpu["bn_stats_err"] > BN_STATS_ATOL
+            or vs_f64["bn_stats_err"] > BN_STATS_F64_ATOL):
+        raise AssertionError(f"train {name}: card vs CPU {rec}")
+
+
+def checked_kernel_errors(device, shapes, fwd_batches, bwd_batches) -> dict:
+    """#1 and #2 (phase_kernels) and #3 and #4 (phase_backward_kernels)
+    at ``shapes``, each forward and dx held to KERNEL_ATOL (dW/db is held
+    inside); the worst error per kernel and (H, C)."""
+    errs = phase_kernels(device, shapes, fwd_batches)
+    for name, per_shape in errs.items():
+        worst = max(per_shape.values())
+        if not worst <= KERNEL_ATOL:
+            raise AssertionError(
+                f"{name}: max abs err {worst} > {KERNEL_ATOL}")
+    bwd_errs = phase_backward_kernels(device, shapes, bwd_batches)
+    worst = max(bwd_errs["fused_swish_depthwise5x5_dx"].values())
+    if not worst <= KERNEL_ATOL:
+        raise AssertionError(f"dx: max abs err {worst} > {KERNEL_ATOL}")
+    errs.update(bwd_errs)
+    return errs
+
+
 def phase_train_vs_cpu(cfg, device, bf16_cfg=None) -> dict:
     """One full-width training step at batch 4 on the card, on the CPU in
     float32, and on the CPU in float64 (the reference that tells rounding
@@ -855,7 +960,7 @@ def phase_train_vs_cpu(cfg, device, bf16_cfg=None) -> dict:
     step."""
     from nvae_torch.models.nvae import posterior_noise_shapes
 
-    batch = train_batch(4, 3)
+    batch = train_batch(4, 3, cfg)
     rng = np.random.RandomState(4)
     eps = [[rng.randn(*s).astype(np.float32)
             for s in posterior_noise_shapes(cfg, 4)]]
@@ -914,11 +1019,11 @@ def replayed_counts() -> dict:
 
 
 def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
-             epochs: int) -> dict:
-    """``epochs`` epochs of ``steps_per_epoch`` full-width steps at batch
-    BATCH through the epoch runner (Adamax + spectral projection, seed-0
-    weights), as graph replays or eagerly, with the counts set to 0 just
-    before and read just after.  Returns the counts, each epoch's means
+             epochs: int, batch: int = BATCH) -> dict:
+    """``epochs`` epochs of ``steps_per_epoch`` full-width steps at
+    ``batch`` through the epoch runner (Adamax + spectral projection,
+    seed-0 weights), as graph replays or eagerly, with the counts set to 0
+    just before and read just after.  Returns the counts, each epoch's means
     and seconds, ms per step of the last epoch, the run's peak memory
     (over what was allocated before it began: its model, state, graph and
     activations), the final state on the host and the runner."""
@@ -928,10 +1033,12 @@ def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
     from nvae_torch.train.state import create_train_state
 
     base = torch.cuda.memory_allocated(device)
-    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
+    tc = TrainConfig(batch_size=batch, step_based_warmup=True,
+                     binary=cfg.likelihood == "bernoulli")
     model, state, tx = create_train_state(cfg, tc, total_steps=1000,
                                           device=device, seed=0)
-    run = make_epoch_runner(model, tx, tc, 1000, steps_per_epoch, graph=graph)
+    run = make_epoch_runner(model, tx, tc, 1000, steps_per_epoch,
+                            target_size=cfg.image_size, graph=graph)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
@@ -1199,13 +1306,14 @@ def run_cli(label: str, argv, workdir: str) -> dict:
 
 
 def check_cli_counts(label, counts, per_forward, steps, forwards,
-                     dtype="float32"):
-    """#3 and #4 ``per_forward`` times per step; #2 that often per step and
+                     dtype="float32", remat=False):
+    """#3 and #4 ``per_forward`` times per step; #2 that often per step
+    (twice under ``remat``: the backward pass runs each cell again) and
     per eval, sampling and reconstruction forward, all in the instance of
     the compute ``dtype``; no other kernel."""
     fwd, dx, dwk = TRAIN_KERNELS[dtype]
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update({fwd: per_forward * (steps + forwards),
+    want.update({fwd: per_forward * ((2 if remat else 1) * steps + forwards),
                  dx: per_forward * steps, dwk: per_forward * steps})
     if counts != want:
         raise AssertionError(f"cli {label}: launches {counts}, expected {want}")
@@ -1394,7 +1502,7 @@ def phase_cli_scan(workdir: str) -> dict:
                          for k in train["replayed"]}}
 
 
-def report_cli(rec: dict) -> None:
+def report_cli(rec: dict, batch: int = BATCH) -> None:
     """The training entry point's own numbers, from its metrics.jsonl."""
     for r in rec["metrics"]:
         if "train/loss" in r:
@@ -1404,7 +1512,7 @@ def report_cli(rec: dict) -> None:
                 f"{r.get('train/peak_memory_gb', math.nan):.2f} GB")
         elif "test/elbo" in r:
             log(f"cli eval epoch {r['step']}: elbo {r['test/elbo']:.3f}, "
-                f"{r['test/eval_ms_per_batch']:.2f} ms per batch of {BATCH}")
+                f"{r['test/eval_ms_per_batch']:.2f} ms per batch of {batch}")
         elif "checkpoint/total_ms" in r:
             log(f"cli checkpoint step {r['step']}: blocking "
                 f"{r['checkpoint/blocking_ms']:.1f} ms, total "
@@ -1451,7 +1559,6 @@ def phase_nll(trainer, device) -> dict:
     float64."""
     from nvae_torch.data import make_iterators, synthetic_dataset
     from nvae_torch.eval.nll import make_nll_fn
-    from nvae_torch.models.nvae import NVAE, posterior_noise_shapes
 
     model = trainer.model
     bundle = synthetic_dataset(n_train=BATCH, n_test=NLL_BATCHES * BATCH,
@@ -1471,7 +1578,16 @@ def phase_nll(trainer, device) -> dict:
     if len(values) != NLL_BATCHES or not all(map(math.isfinite, values)):
         raise AssertionError(f"nll: {values}")
 
-    x = batches[0][:4].cpu()
+    errs = nll_card_vs_cpu("nll", model, batches[0][:4].cpu(), device)
+    return {"values": values, "seconds": seconds, "b4": errs}
+
+
+def nll_card_vs_cpu(label: str, model, x: torch.Tensor, device) -> dict:
+    """One B=4 IWAE NLL (K=3, JAX's crop 2) with injected noise on the
+    card, on the CPU in float32 and in float64, held to NLL_RTOL."""
+    from nvae_torch.eval.nll import make_nll_fn
+    from nvae_torch.models.nvae import NVAE, posterior_noise_shapes
+
     rng = np.random.RandomState(6)
     eps = [[rng.randn(*s).astype(np.float32)
             for s in posterior_noise_shapes(model.cfg, 4)] for _ in range(3)]
@@ -1482,13 +1598,14 @@ def phase_nll(trainer, device) -> dict:
     host.double()
     f64 = float(make_nll_fn(host, 3)(x.double(), eps=eps))
     errs = nll_errors(card, cpu, f64)
-    log(f"nll B=4 card {card!r}, CPU fp32 {cpu!r}, CPU fp64 {f64!r}: {errs}")
+    log(f"{label} B=4 card {card!r}, CPU fp32 {cpu!r}, CPU fp64 {f64!r}: "
+        f"{errs}")
     if not (errs["card_vs_f64"] <= NLL_RTOL and (
             errs["card_vs_cpu"] <= NLL_RTOL
             or errs["card_vs_f64"] <= CARD_VS_CPU_ROUNDING
             * errs["cpu_vs_f64"])):
-        raise AssertionError(f"nll: card vs CPU {errs}")
-    return {"values": values, "seconds": seconds, "b4": errs}
+        raise AssertionError(f"{label}: card vs CPU {errs}")
+    return errs
 
 
 # ---- phases 6 and 7 --------------------------------------------------------
@@ -1526,23 +1643,23 @@ def time_ms(fn, arg_sets, iters=40):
     return device, eager
 
 
-def bound(h, c, bias, swish):
+def bound(h, c, bias, swish, batch=BATCH):
     """Least time for one call: each input read once, each output written
     once, over HBM; 50 FLOP per output for the taps, 4 for swish, 1 for the
     bias, over the fp32 rate.  Returns (bytes ms, operations ms)."""
-    n = BATCH * h * h * c
+    n = batch * h * h * c
     nbytes = 4 * (2 * n + 25 * c + (c if bias else 0))
     flops = n * (50 + (4 if swish else 0) + (1 if bias else 0))
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOP_PER_S
 
 
-def bwd_bound(h, c, kind, bias):
+def bwd_bound(h, c, kind, bias, batch=BATCH):
     """Least time of one dx (``kind`` "dx": reads dy and x, writes dx; 50
     FLOP per output for the taps and 9 for the swish' epilogue) or dW/db
     call ("dw": reads x and dy, writes (25 + 1) x C sums; 50 FLOP per
     element for the taps, 4 for swish, 1 for the bias sum).  Returns
     (bytes ms, operations ms)."""
-    n = BATCH * h * h * c
+    n = batch * h * h * c
     if kind == "dx":
         nbytes, flops = 4 * (3 * n + 25 * c), n * 59
     else:
@@ -1562,11 +1679,13 @@ def log_timing(label: str, r: dict, library: str) -> None:
         f"{r['ms'] / r['library_ms']:.2f})")
 
 
-def phase_backward_timing(device) -> list:
+def phase_backward_timing(device, shapes=PATH_SHAPES, batch=BATCH,
+                          iters=40) -> list:
     """Each backward kernel's time at each path shape (the forms the
     training path runs: dx with swish', dW/db with swish and the shape's
     bias) beside its bound, its plain version and the library call that
-    computes the same function without the swish parts."""
+    computes the same function without the swish parts, over ``iters``
+    calls."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from nvae_torch.kernels import depthwise as dw
@@ -1574,16 +1693,18 @@ def phase_backward_timing(device) -> list:
 
     rows = []
     with fp32_math(deterministic=True):
-        for h, c, bias, _, _ in PATH_SHAPES:
-            n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
+        for h, c, bias, _, _ in shapes:
+            n_sets = max(2, min(8, math.ceil(200e6 / (8 * batch * h * h * c))))
             sets = []
             for s in range(n_sets):
-                x, k, _ = path_inputs(h, c, False, device, seed=s)
-                g = path_inputs(h, c, False, device, seed=100 + s)[0]
+                x, k, _ = path_inputs(h, c, False, device, seed=s,
+                                      batch=batch)
+                g = path_inputs(h, c, False, device, seed=100 + s,
+                                batch=batch)[0]
                 sets.append((x, k, g))
             nchw = [(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
                      g.permute(0, 3, 1, 2)) for x, k, g in sets]
-            size_x = (BATCH, c, h, h)
+            size_x = (batch, c, h, h)
             size_w = (c, 1, 5, 5)
             calls = {
                 "dx": (
@@ -1601,16 +1722,16 @@ def phase_backward_timing(device) -> list:
                                                   groups=c),
                 ),
             }
-            row = {"shape": [BATCH, h, h, c], "bias": bias}
+            row = {"shape": [batch, h, h, c], "bias": bias}
             for kind, (kern, plain, lib) in calls.items():
-                ms, eager = time_ms(kern, sets)
+                ms, eager = time_ms(kern, sets, iters)
                 row[kind] = {
                     "ms": ms, "eager_ms": eager,
-                    "plain_ms": time_ms(plain, sets)[0],
-                    "library_ms": time_ms(lib, nchw)[0],
-                    "bound": bwd_bound(h, c, kind, bias),
+                    "plain_ms": time_ms(plain, sets, iters)[0],
+                    "library_ms": time_ms(lib, nchw, iters)[0],
+                    "bound": bwd_bound(h, c, kind, bias, batch),
                 }
-                log_timing(f"{kind} {BATCH}x{h}x{h}x{c}", row[kind], "library")
+                log_timing(f"{kind} {batch}x{h}x{h}x{c}", row[kind], "library")
             rows.append(row)
             del sets, nchw
     return rows
@@ -1648,23 +1769,24 @@ def phase_timing(device, samplers) -> dict:
     return out
 
 
-def phase_forward_timing(device) -> list:
+def phase_forward_timing(device, shapes=PATH_SHAPES, batch=BATCH,
+                         iters=40) -> list:
     """Each forward kernel (#2 with swish and the shape's bias, #1) at each
     path shape beside its bound, its plain version and
-    ``F.conv2d(groups=C)``."""
+    ``F.conv2d(groups=C)``, over ``iters`` calls."""
     from nvae_torch.kernels import depthwise as dw
     from nvae_torch.device import fp32_math
 
     rows = []
     with fp32_math(deterministic=True):
-        for h, c, bias, _, _ in PATH_SHAPES:
-            n_sets = max(2, min(8, math.ceil(200e6 / (8 * BATCH * h * h * c))))
-            sets = [path_inputs(h, c, bias, device, seed=s)
+        for h, c, bias, _, _ in shapes:
+            n_sets = max(2, min(8, math.ceil(200e6 / (8 * batch * h * h * c))))
+            sets = [path_inputs(h, c, bias, device, seed=s, batch=batch)
                     for s in range(n_sets)]
             nchw = [(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), b)
                     for x, k, b in sets]
             plain_sets = [(x, k, None) for x, k, _ in sets]
-            row = {"shape": [BATCH, h, h, c], "bias": bias}
+            row = {"shape": [batch, h, h, c], "bias": bias}
             calls = {
                 "fused": (
                     lambda x, k, b: dw.fused_swish_depthwise5x5(
@@ -1673,26 +1795,26 @@ def phase_forward_timing(device) -> list:
                         x, k, b, fuse_swish=True),
                     # The library call convolves without the swish.
                     lambda x, w, b: F.conv2d(x, w, b, padding=2, groups=c),
-                    sets, bound(h, c, bias, True),
+                    sets, bound(h, c, bias, True, batch),
                 ),
                 "thin": (
                     lambda x, k, b: dw.depthwise_conv5x5(x, k),
                     lambda x, k, b: dw.fused_swish_depthwise5x5_plain(
                         x, k, None, fuse_swish=False),
                     lambda x, w, b: F.conv2d(x, w, None, padding=2, groups=c),
-                    plain_sets, bound(h, c, False, False),
+                    plain_sets, bound(h, c, False, False, batch),
                 ),
             }
             for kind, (kern, plain, lib, args, bnd) in calls.items():
-                ms, eager = time_ms(kern, args)
+                ms, eager = time_ms(kern, args, iters)
                 row[kind] = {
                     "ms": ms, "eager_ms": eager,
-                    "plain_ms": time_ms(plain, args)[0],
-                    "library_ms": time_ms(lib, nchw)[0],
+                    "plain_ms": time_ms(plain, args, iters)[0],
+                    "library_ms": time_ms(lib, nchw, iters)[0],
                     "bound": bnd,
                 }
             for kind in ("fused", "thin"):
-                log_timing(f"{kind} {BATCH}x{h}x{h}x{c}", row[kind],
+                log_timing(f"{kind} {batch}x{h}x{h}x{c}", row[kind],
                            "conv2d(groups=C)")
             rows.append(row)
             del sets, nchw, plain_sets
@@ -2611,16 +2733,16 @@ def phase_artifact(workdir: str, trainer) -> dict:
 
 
 def eval_launches(cfg, attempts: int, temperatures: int,
-                  fid_samples: int) -> int:
+                  fid_samples: int, batch: int = BATCH) -> int:
     """Kernel #2's launches in one ``--mode test`` run over CLI_BATCHES
-    test batches of BATCH: per temperature, each attempt's sample call,
-    one sample call per test-batch half and two ``sample_with_z`` calls
-    (the postprocess's launches alone), and the FID batches; then one NLL
-    posterior pass per test batch and attempt."""
+    test batches of ``batch``: per temperature, each attempt's sample
+    call, one sample call per test-batch half and two ``sample_with_z``
+    calls (the postprocess's launches alone), and the FID batches; then
+    one NLL posterior pass per test batch and attempt."""
     per_call = expected_launches(cfg)
     post = per_call - (cfg.n_total_groups - 1) * cfg.res_cells_per_group
     calls = temperatures * (attempts * (1 + 2 * CLI_BATCHES)
-                            + max(fid_samples // BATCH, 1))
+                            + max(fid_samples // batch, 1))
     return (per_call * (calls + CLI_BATCHES * attempts)
             + post * 2 * temperatures * attempts)
 
@@ -2912,6 +3034,454 @@ def phase_eval(workdir: str, device) -> dict:
             "fid_cli": fid_cli, "counts": counts}
 
 
+# ---- phase 11: the RGB presets (the DML head, rematerialization) ------------
+
+
+def rgb_configs(name: str):
+    """``({label: model config}, training batch)`` of an RGB preset with
+    the kernels on, in its own postprocess form and the depthwise one."""
+    import dataclasses
+
+    from nvae_torch.presets import get_preset
+
+    cfg, tc = get_preset(name)
+    cfg = dataclasses.replace(cfg, use_pallas_kernels=True)
+    return {name: cfg, f"{name} depthwise": dataclasses.replace(
+        cfg, postprocess_5x5_depthwise=True)}, tc.batch_size
+
+
+def step_launches(cfg) -> int:
+    """#2's launches in one training step: one per depthwise layer, and
+    under ``remat`` one more in the backward pass, which runs each cell
+    again (#3 and #4: one per layer)."""
+    return expected_launches(cfg) * (2 if cfg.remat else 1)
+
+
+def check_step_counts(label: str, cfg, counts: dict, steps: int) -> None:
+    """``steps`` fp32 training steps' exact launches, none of any other."""
+    fwd, dx, dwk = TRAIN_KERNELS["float32"]
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update({fwd: step_launches(cfg) * steps,
+                 dx: expected_launches(cfg) * steps,
+                 dwk: expected_launches(cfg) * steps})
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def phase_rgb_kernels(device) -> dict:
+    """#2-#4 (and #1) in fp32 against their plain versions at every shape
+    of the RGB presets' paths and every batch those paths give them; each
+    shape's ring geometry logged.  The worst error per kernel and (H, C)."""
+    from nvae_torch.kernels import depthwise as dw
+
+    errs: dict = {}
+    for name, shapes in RGB_SHAPES.items():
+        batch = rgb_configs(name)[1]
+        for h, c, _, _, _ in shapes:
+            for kind in ("fwd", "dx", "dw"):
+                g = dw.geometry(kind, (batch, h, h, c))
+                log(f"  ring {kind} float32 {batch}x{h}x{h}x{c}: "
+                    f"{g.smem_bytes} B dynamic shared, {g.blocks} blocks "
+                    f"({g.blocks_per_chunk} per chunk), {g.slots_per_pass} "
+                    f"rows per pass, {g.ahead} passes ahead")
+        fwd_batches = sorted({batch, RGB_SAMPLE_BATCH, 4 * batch, batch // 2,
+                              12, 4, 3}, reverse=True)
+        for k, v in checked_kernel_errors(device, shapes, fwd_batches,
+                                          (batch, REMAT_BATCH)).items():
+            errs.setdefault(k, {}).update(v)
+    return errs
+
+
+def phase_rgb_sampler(cfg, device, weights=None) -> dict:
+    """The RGB sampler at full width over ``weights`` (a state dict), or
+    over seeded weights with random BatchNorm statistics: #2's launches per
+    ``sample`` call at RGB_SAMPLE_BATCH, ms per call, the images (the
+    mixture's mean in [0, 1]); over the seeded weights also the card's head
+    output and images against the CPU in float32 and float64 at batch 4
+    with injected noise."""
+    from nvae_torch.kernels import depthwise as dw
+    from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
+    from nvae_torch.ops import dml_mean
+    from nvae_torch.serving import Sampler
+
+    cpu_model = None
+    if weights is None:
+        cpu_model = NVAE(cfg, device="cpu", seed=0)
+        random_bn_stats_(cpu_model, seed=1)
+        weights = cpu_model.state_dict()
+    sampler = Sampler(cfg, weights, n_samples=RGB_SAMPLE_BATCH, device=device)
+    t = torch.ones(RGB_SAMPLE_BATCH)
+    before = dw.fused_swish_depthwise5x5.launches
+    images = sampler(1, t).cpu().numpy()
+    torch.cuda.synchronize(device)
+    per_call = dw.fused_swish_depthwise5x5.launches - before
+    s = cfg.image_size
+    if images.shape != (RGB_SAMPLE_BATCH, s, s, 3) or not (
+            np.isfinite(images).all() and images.min() >= 0.0
+            and images.max() <= 1.0):
+        raise AssertionError(f"rgb sampler: images {images.shape}")
+    calls = 5
+    torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    for i in range(calls):
+        sampler(10 + i, t)
+    torch.cuda.synchronize(device)
+    ms = 1e3 * (time.monotonic() - t0) / calls
+    if per_call != expected_launches(cfg):
+        raise AssertionError(f"rgb sampler: {per_call} launches per call")
+    if cpu_model is None:
+        return {"launches_per_sample": per_call, "ms_per_call": ms}
+
+    rng = np.random.RandomState(2)
+    eps = [rng.randn(*sh).astype(np.float32)
+           for sh in decoder_noise_shapes(cfg, 4)]
+    t4 = torch.tensor([0.6, 0.8, 1.0, 1.2])
+    gpu = sampler.apply(lambda m: logits(m, 4, t4.to(device), eps)).cpu()
+    with torch.inference_mode():
+        cpu = logits(cpu_model, 4, t4, eps)
+        f64 = logits(cpu_model.double(), 4, t4.double(), eps)
+
+    def mean(x):
+        return dml_mean(x.permute(0, 2, 3, 1).double(), cfg.n_mix, 3)
+
+    rec = {"launches_per_sample": per_call, "ms_per_call": ms,
+           "logit_max_abs": float(cpu.abs().max()),
+           "logit_err_cpu": float((gpu - cpu).abs().max()),
+           "logit_err_f64": float((gpu.double() - f64).abs().max()),
+           "image_err_cpu": float((mean(gpu) - mean(cpu)).abs().max()),
+           "image_err_f64": float((mean(gpu) - mean(f64)).abs().max())}
+    lim = LOGIT_RTOL * max(rec["logit_max_abs"], 1.0)
+    if (not torch.isfinite(gpu).all()
+            or max(rec["logit_err_cpu"], rec["logit_err_f64"]) > lim
+            or max(rec["image_err_cpu"], rec["image_err_f64"]) > PROB_ATOL):
+        raise AssertionError(f"rgb sampler: {rec}")
+    return rec
+
+
+def rgb_scan_data(cfg, device, rows: int) -> torch.Tensor:
+    """``rows`` uint8 RGB rows of the config's size on the card: synthetic
+    tinted strokes (``nvae_torch.data.synthetic_dataset``) from a seed."""
+    from nvae_torch.data import synthetic_dataset
+    from nvae_torch.train.epoch_runner import stage_dataset
+
+    x = synthetic_dataset(n_train=rows, n_test=1, image_size=cfg.image_size,
+                          channels=3, seed=5).train_x
+    return stage_dataset(x, device)
+
+
+def phase_rgb_scan(name: str, cfg, batch: int, device) -> dict:
+    """The scan path of an RGB preset: 2 epochs of RGB_SCAN_STEPS steps at
+    its batch as CUDA graph replays (the first step eager, the second
+    captured): exact launches through the wrappers and as replays (a
+    replay of a remat step runs #2 in the recompute too), ms per step of
+    the second epoch, peak memory."""
+    data = rgb_scan_data(cfg, device, 2 * RGB_SCAN_STEPS * batch)
+    rec = scan_run(cfg, device, data, True, RGB_SCAN_STEPS, 2, batch)
+    steps = 2 * RGB_SCAN_STEPS
+    run = rec.pop("runner")
+    del rec["flat"], data
+    if (run.eager_steps, run.replays) != (1, steps - 1):
+        raise AssertionError(f"scan {name}: {run.eager_steps} eager steps, "
+                             f"{run.replays} replays")
+    check_step_counts(f"scan {name}", cfg, rec["counts"], 2)
+    check_step_counts(f"scan {name} replays", cfg,
+                      {k: rec["replayed"].get(k, 0) for k in KERNEL_NAMES},
+                      steps - 1)
+    if not all(math.isfinite(v) for e in rec["means"] for v in e.values()):
+        raise AssertionError(f"scan {name}: {rec['means']}")
+    log(f"scan {name}: epochs " + ", ".join(
+        f"{t:.3f}" for t in rec["epoch_seconds"])
+        + f" s, last epoch {rec['ms_per_step']:.2f} ms/step ("
+        f"{1e3 * batch / rec['ms_per_step']:.1f} img/s), peak memory "
+        f"{rec['peak_mem_gb']:.2f} GB; per replay "
+        f"{ {k: v for k, v in run.launches_per_replay.items() if v} }")
+    profile_call(f"scan replay {name}", run.graph.replay)
+    return rec
+
+
+def phase_rgb_train(name: str, cfg, batch: int, device, profile: bool,
+                    steps: int = RGB_STEPS) -> tuple:
+    """``steps`` full-width training steps at the preset's batch with exact
+    launch counts (``phase_train``), finite metrics; then, if ``profile``,
+    one more step under ``torch.profiler``.  Returns (counts, the trained
+    weights)."""
+    rec = phase_train(cfg, device, batch, steps)
+    log(f"train {name}: {steps} steps at batch {batch}, counts "
+        f"{ {k: v for k, v in rec['counts'].items() if v} }, first step "
+        f"{rec['first_step_ms']:.1f} ms, then {rec['ms_per_step']:.2f} "
+        f"ms/step ({1e3 * batch / rec['ms_per_step']:.1f} img/s), peak "
+        f"memory {rec['peak_mem_gb']:.2f} GB")
+    for i, m in enumerate(rec["metrics"]):
+        log(f"  step {i}: " + ", ".join(f"{k} {v:.6g}"
+                                        for k, v in sorted(m.items())))
+    if not rec["finite"] or rec["steps"] != steps:
+        raise AssertionError(f"train {name}: non-finite metrics")
+    check_step_counts(f"train {name}", cfg, rec["counts"], steps)
+    if profile:
+        x = train_batch(batch, 99, cfg).to(device)
+
+        def one_step():
+            rec["state"], _ = rec["step"](rec["state"], x)
+
+        profile_call(f"train step {name}", one_step)
+    counts, weights = rec["counts"], rec["state"].model.state_dict()
+    del rec
+    torch.cuda.empty_cache()
+    return counts, weights
+
+
+def phase_remat(cfg, device) -> None:
+    """One step with ``remat`` against the same step without, at batch
+    REMAT_BATCH from the same weights, batch and noise, under deterministic
+    cuDNN: loss, gradients and BatchNorm running statistics within
+    REMAT_RTOL (a second statistics update would move them by ~5% of
+    their distance to the batch's)."""
+    import dataclasses
+
+    from nvae_torch.models.nvae import posterior_noise_shapes
+
+    batch = train_batch(REMAT_BATCH, 3, cfg)
+    rng = np.random.RandomState(4)
+    eps = [[rng.randn(*s).astype(np.float32)
+            for s in posterior_noise_shapes(cfg, REMAT_BATCH)]]
+    with deterministic_cudnn():
+        a = one_step_grads(cfg, device, batch, eps)
+        b = one_step_grads(dataclasses.replace(cfg, remat=False), device,
+                           batch, eps)
+    errs = grad_errors(a, b)
+    errs["bitwise"] = (a[0] == b[0] and all(
+        torch.equal(a[1][k], b[1][k]) for k in b[1]) and all(
+        torch.equal(a[2][k], b[2][k]) for k in b[2]))
+    log(f"remat vs no remat, one step at batch {REMAT_BATCH}: {errs}")
+    if not (errs["loss_rel"] <= REMAT_RTOL
+            and errs["grad_rel_l2"] <= REMAT_RTOL
+            and errs["bn_stats_err"] <= REMAT_RTOL):
+        raise AssertionError(f"remat vs no remat: {errs}")
+
+
+def phase_rgb_models(device) -> tuple:
+    """The RGB presets in process at full width: per postprocess form,
+    RGB_STEPS training steps at the preset's batch and a sampler at
+    RGB_SAMPLE_BATCH; for ``cifar10_dml`` a B=4 step and the B=4 IWAE NLL
+    card vs CPU at RGB_CPU_GROUPS; for ``celeba64`` the steps without remat
+    (peak memory) and remat against no remat; the scan path of each
+    preset's own form.  Returns the main paths' (launches, replayed)."""
+    import dataclasses
+
+    from nvae_torch.models.nvae import NVAE
+
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    t0 = time.monotonic()
+    for preset in RGB_SHAPES:
+        cfgs, batch = rgb_configs(preset)
+        for label, cfg in cfgs.items():
+            counts, weights = phase_rgb_train(label, cfg, batch, device,
+                                              profile=label == preset)
+            for k, v in counts.items():
+                launches[k] += v
+            # Seeded weights against the CPU once a preset (cifar10_dml's
+            # own form), else the weights the steps left.
+            reset_counts()
+            rec = phase_rgb_sampler(
+                cfg, device,
+                None if label == preset and not cfg.remat else weights)
+            for k, v in read_counts().items():
+                launches[k] += v
+            del weights
+            log(f"sampler {label}: {rec}")
+        cfg = cfgs[preset]
+        if cfg.remat:
+            plain = dataclasses.replace(cfg, remat=False)
+            counts, _ = phase_rgb_train(f"{preset} without remat", plain,
+                                        batch, device, profile=False, steps=2)
+            for k, v in counts.items():
+                launches[k] += v
+            phase_remat(cfg, device)
+        else:
+            cut = dataclasses.replace(cfg, n_groups_per_scale=RGB_CPU_GROUPS)
+            label = f"{preset} groups {RGB_CPU_GROUPS}"
+            check_train_vs_cpu(label, phase_train_vs_cpu(cut, device),
+                               RGB_CARD_VS_CPU_ROUNDING)
+            model = NVAE(cut, device=device, seed=0)
+            nll_card_vs_cpu(f"nll {label}", model, train_batch(4, 7, cut),
+                            device)
+            del model
+        log(f"{preset} in process at {time.monotonic() - t0:.1f} s")
+        rec = phase_rgb_scan(preset, cfg, batch, device)
+        for k in KERNEL_NAMES:
+            launches[k] += rec["counts"][k]
+            replayed[k] += rec["replayed"].get(k, 0)
+        torch.cuda.empty_cache()
+    return launches, replayed
+
+
+def rgb_cli_args(preset: str, workdir: str) -> list:
+    dataset = {"cifar10_dml": "synthetic_rgb",
+               "celeba64": "synthetic_rgb64"}[preset]
+    return ["--preset", preset, "--dataset", dataset, "--use_pallas",
+            "--debug", "--evaluate_frequency", "1", "--sample_frequency", "1",
+            "--model_save_dir", os.path.join(workdir, "models"),
+            "--sample_dir", os.path.join(workdir, "results"),
+            "--tensorboard_log_dir", os.path.join(workdir, "logs")]
+
+
+def rgb_cli_train(label: str, preset: str, workdir: str, scan: bool) -> dict:
+    """``--mode train --epochs 1`` of an RGB preset (its batch, synthetic
+    data, ``--debug``), per step or ``--scan_epochs``: exit code, metrics,
+    the image hooks, the checkpoint and exact launches (through the
+    wrappers: each step, or the scan run's eager first step and capture,
+    and 4 eval, 1 sampling and 1 reconstruction forward; as replays the
+    scan run's other steps)."""
+    from nvae_torch.train import checkpoint as ckpt
+
+    cfgs, _ = rgb_configs(preset)
+    cfg = cfgs[preset]
+    per_fwd = expected_launches(cfg)
+    args = rgb_cli_args(preset, workdir) + (["--scan_epochs"] if scan else [])
+    rec = run_cli(label, ["--mode", "train", "--epochs", "1",
+                          "--model_save_frequency", "0", *args], workdir)
+    steps = 2 if scan else CLI_BATCHES
+    check_cli_counts(label, rec["counts"], per_fwd, steps, CLI_BATCHES + 2,
+                     remat=cfg.remat)
+    check_cli_counts(f"{label} replays", rec["replayed"], per_fwd,
+                     CLI_BATCHES - 1 if scan else 0, 0, remat=cfg.remat)
+    lines = read_jsonl(os.path.join(workdir, "logs", "metrics.jsonl"))
+    tr = [r for r in lines if "train/loss" in r]
+    if (len(tr) != 1 or not any("test/elbo" in r for r in lines) or not all(
+            math.isfinite(v) for r in lines for v in r.values())):
+        raise AssertionError(f"cli {label}: metrics {lines}")
+    images = os.listdir(os.path.join(workdir, "logs", "images"))
+    if "test_reconstruction_step0" not in images:
+        raise AssertionError(f"cli {label}: image dirs {sorted(images)}")
+    if ckpt.all_steps(os.path.join(workdir, "models")) != [CLI_BATCHES]:
+        raise AssertionError(f"cli {label}: checkpoints")
+    rec["metrics"] = lines
+    return rec
+
+
+def phase_rgb_cli(workdir: str, device) -> tuple:
+    """The entry points on the RGB presets at full width, as subprocesses
+    with exact launch counts: ``cifar10_dml`` trains 1 epoch, samples
+    (``--mode sample``, RGB PNGs) and scores (``--mode test --debug
+    --eval_attempts 1``, EVAL_FID_SAMPLES), and trains 1 epoch on the scan
+    path;
+    ``celeba64`` (remat) trains 1 epoch per step and on the scan path (a
+    CUDA graph of the remat'd step); in process, one request through a
+    ``BatchingSampler`` over the ``cifar10_dml`` checkpoint.  Each run's
+    directory is removed after its checks (a celeba64 checkpoint holds
+    ~8.5 GB).  Returns the runs' (launches, replayed)."""
+    from nvae_torch import cli
+    from nvae_torch.serving import Sampler, variables_from_state
+    from nvae_torch.serving_runtime import BatchingSampler
+    from nvae_torch.train.trainer import Trainer
+    from nvae_torch.utils.images import decode_png
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    replayed = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(rec):
+        for k in KERNEL_NAMES:
+            counts[k] += rec["counts"][k]
+            replayed[k] += rec["replayed"][k]
+
+    cfgs, batch = rgb_configs("cifar10_dml")
+    cfg = cfgs["cifar10_dml"]
+    wd = os.path.join(workdir, "cifar10_dml")
+    os.makedirs(wd)
+    rec = rgb_cli_train("train cifar10_dml", "cifar10_dml", wd, False)
+    add(rec)
+    report_cli(rec, batch)
+    args = rgb_cli_args("cifar10_dml", wd)
+    rec = run_cli("sample cifar10_dml", ["--mode", "sample", "--n_samples",
+                                         str(batch), *args], wd)
+    check_cli_counts("sample cifar10_dml", rec["counts"],
+                     expected_launches(cfg), 0, 1)
+    add(rec)
+    for t in SAMPLE_TEMPERATURES:
+        d = os.path.join(wd, "results", f"t_{t}")
+        files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        with open(os.path.join(d, files[0]), "rb") as f:
+            shape = decode_png(f.read()).shape
+        if len(files) != batch or shape != (32, 32, 3):
+            raise AssertionError(f"cli sample cifar10_dml: {len(files)} PNGs "
+                                 f"of {shape} in {d}")
+    rec = run_cli("test cifar10_dml", [
+        "--mode", "test", "--eval_attempts", "1", "--fid_sample_size",
+        str(EVAL_FID_SAMPLES), *args], wd)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["fused_swish_depthwise5x5"] = eval_launches(
+        cfg, 1, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, batch)
+    if rec["counts"] != want:
+        raise AssertionError(f"cli test cifar10_dml: launches "
+                             f"{rec['counts']}, expected {want}")
+    add(rec)
+    with open(os.path.join(wd, "logs", "evaluation.json")) as f:
+        check_evaluation("test cifar10_dml", json.load(f), EVAL_TEMPERATURES,
+                         1.0)
+    log(f"test cifar10_dml: {rec['seconds']:.1f} s")
+
+    # One request through the batching server over the checkpoint.
+    parsed = cli.parse_args(["--mode", "serve", *args])
+    model_cfg, train_cfg, _ = cli.configs_from_args(parsed)
+    trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
+    if trainer.maybe_resume() != 1:
+        raise AssertionError("serve cifar10_dml: no checkpoint to restore")
+    sampler = Sampler(model_cfg, variables_from_state(trainer.state),
+                      RGB_SAMPLE_BATCH, device=device)
+    del trainer
+    n = 2 * RGB_SAMPLE_BATCH // 3  # a partial batch, padded
+    reset_counts()
+    with BatchingSampler(sampler, RGB_SAMPLE_BATCH, max_delay_ms=10,
+                         seed=7) as srv:
+        images = srv.submit(n, 0.8).result(timeout=600)
+    served = read_counts()
+    if (images.shape != (n, 32, 32, 3) or not np.isfinite(images).all()
+            or served["fused_swish_depthwise5x5"] != expected_launches(cfg)):
+        raise AssertionError(f"serve cifar10_dml: {images.shape}, {served}")
+    for k in KERNEL_NAMES:
+        counts[k] += served[k]
+    log(f"serve cifar10_dml: {n} rows in one dispatch, launches "
+        f"{ {k: v for k, v in served.items() if v} }")
+    del sampler
+    shutil.rmtree(wd, ignore_errors=True)
+
+    for preset, scan in (("cifar10_dml", True), ("celeba64", False),
+                         ("celeba64", True)):
+        label = f"train {preset}{' scan' if scan else ''}"
+        wd = os.path.join(workdir, label.replace(" ", "_"))
+        os.makedirs(wd)
+        rec = rgb_cli_train(label, preset, wd, scan)
+        add(rec)
+        report_cli(rec, rgb_configs(preset)[1])
+        shutil.rmtree(wd, ignore_errors=True)
+    return counts, replayed
+
+
+def phase_rgb_timing(device) -> dict:
+    """#2, #3 and #4 (and #1) at each RGB path shape at the preset's
+    training batch, timed as phase 9 times them at MNIST's (kernel, plain
+    version, library call, bound) over RGB_TIMING_ITERS calls.  Rows by
+    kernel, one per shape, with its calls per forward in each form."""
+    rows = {k: [] for k in TRAIN_KERNELS["float32"]}
+    for preset, shapes in RGB_SHAPES.items():
+        batch = rgb_configs(preset)[1]
+        fwd = phase_forward_timing(device, shapes, batch, RGB_TIMING_ITERS)
+        bwd = phase_backward_timing(device, shapes, batch, RGB_TIMING_ITERS)
+        for (_, _, _, calls, dw_calls), f, b in zip(shapes, fwd, bwd):
+            for name, r in zip(rows, (f["fused"], b["dx"], b["dw"])):
+                b_bytes, b_ops = r["bound"]
+                rows[name].append({
+                    "preset": preset, "shape": f["shape"],
+                    "calls": {"default": calls, "depthwise": dw_calls},
+                    **{k: r[k] for k in ("ms", "eager_ms", "plain_ms",
+                                         "library_ms")},
+                    "bound_ms": max(b_bytes, b_ops),
+                    "bound_by": "bytes" if b_bytes >= b_ops
+                    else "operations"})
+    return rows
+
+
 def kernel_records(errs, launches, entries) -> list:
     """One record per kernel of ``entries`` (name, timing rows, the rows'
     key, the TPU kernel it replaces, the path call it times).  Times and
@@ -3008,16 +3578,8 @@ def main(argv=None) -> int:
 
     phase_build()
 
-    errs = phase_kernels(device)
-    for name, per_shape in errs.items():
-        worst = max(per_shape.values())
-        if not worst <= KERNEL_ATOL:
-            raise AssertionError(f"{name}: max abs err {worst} > {KERNEL_ATOL}")
-    bwd_errs = phase_backward_kernels(device)
-    worst = max(bwd_errs["fused_swish_depthwise5x5_dx"].values())
-    if not worst <= KERNEL_ATOL:
-        raise AssertionError(f"dx: max abs err {worst} > {KERNEL_ATOL}")
-    errs.update(bwd_errs)
+    errs = checked_kernel_errors(device, PATH_SHAPES, FWD_BATCHES,
+                                 BWD_BATCHES)
     phase_function_grads(device)
     se_errs = phase_se_gate(device)
     bf16_errs = phase_bf16_kernel(device)
@@ -3098,17 +3660,7 @@ def main(argv=None) -> int:
         bf16_cfg = bf16_configs()["depthwise bf16"] if name == "depthwise" \
             else None
         rec = phase_train_vs_cpu(cfg, device, bf16_cfg)
-        for pair, r in rec.items():
-            log(f"train step {name} {pair}: {r}")
-        vs_cpu, vs_f64 = rec["card_vs_cpu"], rec["card_vs_f64"]
-        cpu_rounding = rec["cpu_vs_f64"]["grad_rel_l2"]
-        if (vs_cpu["loss_rel"] > TRAIN_LOSS_RTOL
-                or vs_cpu["grad_rel_l2"] > GRAD_REL_L2
-                or vs_f64["grad_rel_l2"] > CARD_VS_CPU_ROUNDING * cpu_rounding
-                or vs_f64["worst_leaf_rel_l2"] > LEAF_REL_L2
-                or vs_cpu["bn_stats_err"] > BN_STATS_ATOL
-                or vs_f64["bn_stats_err"] > BN_STATS_F64_ATOL):
-            raise AssertionError(f"train {name}: card vs CPU {rec}")
+        check_train_vs_cpu(name, rec)
         # bf16: the card no further from float64 than 1.5 times the CPU's
         # bf16 step (the kernels' plain versions) is.
         if bf16_cfg is not None and not (
@@ -3180,10 +3732,6 @@ def main(argv=None) -> int:
         log(f"metric suite done at {time.monotonic() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
-              "se_gate"):
-        if launches[k] == 0:
-            raise AssertionError(f"the main paths never launched {k}")
 
     timing = phase_timing(device, samplers)
     bwd_timing = phase_backward_timing(device)
@@ -3192,6 +3740,30 @@ def main(argv=None) -> int:
     se_timing = phase_se_timing(device)
     tool_timing = phase_tool_timing(device)
     phase_profile(samplers, trainers, scans)
+    # Phase 11 needs the card's memory: celeba64's step without remat
+    # alone peaks near 46 GB.
+    del samplers, trainers, scans
+    torch.cuda.empty_cache()
+    # The records' worst errors cover the RGB shapes too.
+    for k, v in phase_rgb_kernels(device).items():
+        errs[k].update(v)
+    log(f"RGB kernels checked at {time.monotonic() - t_start:.1f} s")
+    rgb_launches, rgb_replayed = phase_rgb_models(device)
+    log(f"RGB models done at {time.monotonic() - t_start:.1f} s")
+    workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_rgb_")
+    try:
+        cli_launches, cli_replayed = phase_rgb_cli(workdir, device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for k in KERNEL_NAMES:
+        launches[k] += rgb_launches[k] + cli_launches[k]
+        replayed[k] += rgb_replayed[k] + cli_replayed[k]
+    log(f"RGB entry points done at {time.monotonic() - t_start:.1f} s")
+    for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
+              "se_gate"):
+        if launches[k] == 0:
+            raise AssertionError(f"the main paths never launched {k}")
+    rgb_timing = phase_rgb_timing(device)
     records = kernel_records(errs, launches, [
         ("fused_swish_depthwise5x5", timing["shapes"], "fused",
          "nvae_tpu/kernels/depthwise.py:239", "sample call"),
@@ -3212,6 +3784,11 @@ def main(argv=None) -> int:
     records.append(se_record(se_errs, launches, se_timing))
     for rec in records:
         rec["replayed_launches"] = replayed.get(rec["name"], 0)
+        if rec["name"] in rgb_timing:
+            rec["rgb_shapes"] = [
+                {**r, "max_abs_err": errs[rec["name"]][(r["shape"][1],
+                                                        r["shape"][3])]}
+                for r in rgb_timing[rec["name"]]]
     for row in matrix:
         log(f"matrix row: {json.dumps(row)}")
     log(f"total {time.monotonic() - t_start:.1f} s")

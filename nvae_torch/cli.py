@@ -208,10 +208,7 @@ def parse_args(argv=None):
 
 # What a flag the port does not run yet waits for.
 _PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
-_WAITING_FLAGS = {
-    _PARALLEL: ("fsdp",),
-    "rematerialization (ROADMAP.md Queue 1 #1)": ("remat",),
-}
+_WAITING_FLAGS = {_PARALLEL: ("fsdp",)}
 
 
 def refuse_unported(args) -> None:
@@ -225,15 +222,6 @@ def refuse_unported(args) -> None:
             reasons.append(f"--{k} > 1 waits for {_PARALLEL}")
     if reasons:
         raise SystemExit("not ported yet: " + "; ".join(reasons))
-
-
-def refuse_unported_model(model_cfg) -> None:
-    """Stop with ``SystemExit`` on a model configuration the port does not
-    run yet: a dataset whose likelihood is DML."""
-    if model_cfg.likelihood != "bernoulli":
-        raise SystemExit(f"not ported yet: likelihood "
-                         f"{model_cfg.likelihood!r} waits for the DML head "
-                         "(ROADMAP.md Queue 1 #4)")
 
 
 def build_configs(args, bundle):
@@ -309,10 +297,7 @@ def preset_configs(args):
     flags and an explicit ``--dataset`` apply as given."""
     from nvae_torch.presets import get_preset
 
-    try:
-        model_cfg, preset_train = get_preset(args.preset)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
+    model_cfg, preset_train = get_preset(args.preset)
     model_cfg = dataclasses.replace(
         model_cfg,
         compute_dtype=args.compute_dtype or model_cfg.compute_dtype,
@@ -351,8 +336,7 @@ def configs_from_args(args):
     """``(model_cfg, train_cfg, dataset)`` of parsed flags, as a run takes
     them: from ``--preset`` composed with the flags, or from the flags and
     the dataset's shape.  Fills in ``args.dataset`` and ``args.batch_size``
-    (the preset's batch size wins, as in the JAX CLI) and stops on a model
-    configuration the port does not run yet."""
+    (the preset's batch size wins, as in the JAX CLI)."""
     from nvae_torch.data import load_dataset
 
     if args.preset:
@@ -364,7 +348,6 @@ def configs_from_args(args):
         args.dataset = args.dataset or "mnist"
         bundle = load_dataset(args.dataset, args.data_dir)
         model_cfg, train_cfg = build_configs(args, bundle)
-    refuse_unported_model(model_cfg)
     return model_cfg, train_cfg, bundle
 
 

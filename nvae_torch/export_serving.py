@@ -86,6 +86,8 @@ def export_artifact(args) -> dict:
         "batch": args.batch,
         "image_size": cfg.image_size,
         "in_channels": cfg.in_channels,
+        "likelihood": cfg.likelihood,
+        "n_mix": cfg.n_mix,
         "compute_dtype": cfg.compute_dtype,
         "scale_temperatures": args.scale_temperatures,
         "weights_dtype": args.weights_dtype or "float32",

@@ -1,10 +1,20 @@
 """The NVAE model (counterpart of ``nvae_tpu/models/nvae.py``).
 
-Ported so far: the posterior pass that training runs (``NVAE.forward``:
-preprocess -> bottom-up encoder -> top-down decoder sampling every z from the
-posterior -> postprocess -> Bernoulli logits), its eval-mode reconstruction
-(``NVAE.reconstruct``) and the prior sampler (``NVAE.sample``).  The DML
-head comes with a later slice.
+The posterior pass that training runs (``NVAE.forward``: preprocess ->
+bottom-up encoder -> top-down decoder sampling every z from the posterior ->
+postprocess -> likelihood head), its eval-mode reconstruction
+(``NVAE.reconstruct``) and the prior sampler (``NVAE.sample``).  The head is
+Bernoulli (one logit per channel) or a mixture of ``n_mix`` discretized
+logistics (``likelihood="dml"``: ``n_mix * (1 + 2 * in_channels)``
+channels, split in JAX's order by ``nvae_torch/ops/math.py``).
+
+``remat`` rematerializes every stem, encoder, generative and postprocess
+cell under autograd, as JAX's ``nn.remat`` wraps them
+(``models/nvae.py:76-81``): ``torch.utils.checkpoint`` keeps a cell's input
+and runs the cell again in the backward pass.  The second run updates no
+buffer and reads the spectral ``u`` the first run read, since JAX's remat
+recomputes a pure function: the BatchNorm running statistics and the
+forward-mode ``u`` move once a step, from the first run.
 
 ``compute_dtype`` / ``bn_apply_dtype`` bfloat16 run in both modes (train,
 sample, reconstruct): the parameters, BatchNorm statistics and spectral
@@ -18,24 +28,27 @@ Public inputs and outputs (images, injected noise, ``last_s``, ``z``) keep the
 JAX package's NHWC layout.
 
 Noise: ``generate`` draws ``z0``, then one Gaussian per group ``g >= 1``, then
-``z1`` and ``z2``, and ``sample`` then draws the Bernoulli uniforms: the JAX
-draw order (``models/nvae.py:434,454,461-462,547``).  The posterior pass
+``z1`` and ``z2``, and ``sample`` then draws the Bernoulli uniforms (or the
+DML's Gumbel noise and logistic uniforms): the JAX draw order
+(``models/nvae.py:434,454,461-462,547``).  The posterior pass
 draws group 0's noise, then one per group ``g >= 1`` (``models/nvae.py:315,
 353``).  Each draw comes from the caller's ``torch.Generator``, or from the
-injected ``eps`` list and ``uniform`` tensor, which is how tests feed both
-packages the same noise.
+injected ``eps`` list and ``uniform`` (and ``gumbel``) tensors, which is how
+tests feed both packages the same noise.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from nvae_torch.config import ModelConfig
 from nvae_torch.device import DeviceLike, resolve_device
@@ -51,7 +64,7 @@ from nvae_torch.nn.blocks import (
     StemCell,
 )
 from nvae_torch.nn.spectral import DepthwiseConv, SNConv
-from nvae_torch.ops import gaussian_log_prob, softclamp5
+from nvae_torch.ops import dml_mean, dml_sample, gaussian_log_prob, softclamp5
 
 SIGMA_FLOOR = 1e-2  # added to every exp(softclamp5(log_sigma)) head
 
@@ -122,20 +135,56 @@ def _temperature(value, device):
 DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_dtypes(cfg: ModelConfig) -> None:
     for name in ("compute_dtype", "bn_apply_dtype"):
         if getattr(cfg, name) not in DTYPES:
             raise ValueError(f"unknown {name} {getattr(cfg, name)!r}")
-    waiting = []
-    if cfg.likelihood != "bernoulli":
-        waiting.append(f"likelihood={cfg.likelihood!r}")
-    if cfg.remat:
-        waiting.append("remat=True")
-    if waiting:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(waiting)} (the port runs "
-            "Bernoulli models without rematerialization so far)"
-        )
+
+
+def run_cell(cell: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``cell(x)``; under ``remat``, while autograd records, through
+    ``torch.utils.checkpoint``: the cell's activations are not kept, and
+    the backward pass runs the cell again (launching its fused depthwise
+    kernel again) to rebuild them.  No RNG state is stashed (the cells
+    draw none, and a stash would break CUDA graph capture)."""
+    if not (remat and torch.is_grad_enabled()):
+        return cell(x)
+    return torch.utils.checkpoint.checkpoint(
+        cell, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=functools.partial(_recompute_contexts, cell))
+
+
+def _recompute_contexts(cell: nn.Module):
+    """``(context of the first run, context of the recompute)`` for
+    :func:`run_cell`: the first run as it is; the recompute with the
+    ``u`` of every training forward-mode convolution as the first run
+    read it (copied here, before that run moves it) and no buffer
+    update."""
+    sns = [m for m in cell.modules()
+           if isinstance(m, SNConv) and m.u is not None and m.training]
+    with torch.no_grad():
+        read = [m.u.clone() for m in sns]
+    return contextlib.nullcontext(), _without_updates(cell, sns, read)
+
+
+@contextlib.contextmanager
+def _without_updates(cell: nn.Module, sns: List[SNConv],
+                     read: List[torch.Tensor]):
+    frozen = [m for m in cell.modules() if isinstance(m, (BatchNorm, SNConv))]
+    with torch.no_grad():
+        moved = [m.u.clone() for m in sns]
+        for m, u in zip(sns, read):
+            m.u.copy_(u)
+    for m in frozen:
+        m.update_buffers = False
+    try:
+        yield
+    finally:
+        for m in frozen:
+            m.update_buffers = True
+        with torch.no_grad():
+            for m, u in zip(sns, moved):
+                m.u.copy_(u)
 
 
 class _Noise:
@@ -325,7 +374,7 @@ class Decoder(nn.Module):
         for g in range(1, len(self.plan)):
             _, rescale_after = self.plan[g]
             for cell in self.cells[g]:
-                x = cell(x)
+                x = run_cell(cell, x, self.cfg.remat)
             enc_prior = self.merges[g - 1](enc_feats_topdown[g - 1], x)
             raw_mu, raw_ls = self.heads.dec_params(g, x)
             mu_off, ls_off = self.heads.enc_params(g, enc_prior)
@@ -434,10 +483,12 @@ class Preprocess(nn.Module):
     (``n_preprocess_cells - 1`` stem cells that keep the size, then one that
     halves it and doubles the width) (``_Preprocess``)."""
 
-    flax_names = {"stem": "SNConv_0", "cells": "StemCell"}
-
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
+        # Flax names a rematerialized compact cell after its wrapped class.
+        self.flax_names = {"stem": "SNConv_0",
+                           "cells": _flax_cell_name("StemCell", cfg)}
         c = cfg.n_encoder_channels
         self.stem = SNConv(cfg.in_channels, c, 3, mode=cfg.spectral_mode)
         cells, mult = [], 1
@@ -456,7 +507,7 @@ class Preprocess(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(2.0 * x - 1.0)
         for cell in self.cells:
-            x = cell(x)
+            x = run_cell(cell, x, self.remat)
         return x
 
 
@@ -465,11 +516,12 @@ class Encoder(nn.Module):
     trunk)``: the feature map at each of the ``n_total_groups - 1`` combiner
     points, bottom-up, and the trunk ELU -> 1x1 conv -> ELU."""
 
-    flax_names = {"cells": "EncoderResidualCell", "rescalers": "Rescaler",
-                  "trunk": "SNConv_0"}
-
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
+        self.flax_names = {
+            "cells": _flax_cell_name("EncoderResidualCell", cfg),
+            "rescalers": "Rescaler", "trunk": "SNConv_0"}
         shapes = cfg.shapes()
         chans = shapes.enc_scale_channels
         cells, rescalers = [], []
@@ -504,7 +556,7 @@ class Encoder(nn.Module):
         for scale, groups in enumerate(self.plan):
             for idx, keep in groups:
                 for i in idx:
-                    x = self.cells[i](x)
+                    x = run_cell(self.cells[i], x, self.remat)
                 if keep:
                     feats.append(x)
             if scale < len(self.rescalers):
@@ -514,12 +566,15 @@ class Encoder(nn.Module):
 
 class Postprocess(nn.Module):
     """n_blocks x n_cells postprocess cells (the first cell of each block
-    upscales), then ELU -> 3x3 conv likelihood head (``_Postprocess``)."""
-
-    flax_names = {"cells": "PostprocessCell", "head": "SNConv_0"}
+    upscales), then ELU -> 3x3 conv likelihood head (``_Postprocess``):
+    ``in_channels`` Bernoulli logits, or ``n_mix * (1 + 2 * in_channels)``
+    DML parameters."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
+        self.flax_names = {"cells": _flax_cell_name("PostprocessCell", cfg),
+                           "head": "SNConv_0"}
         shapes = cfg.shapes()
         mult = shapes.mult_after_preprocess
         in_ch = shapes.dec_scale_channels[-1]
@@ -536,12 +591,21 @@ class Postprocess(nn.Module):
                 ))
                 in_ch = ch
         self.cells = nn.ModuleList(cells)
-        self.head = SNConv(in_ch, cfg.in_channels, 3, mode=cfg.spectral_mode)
+        out_ch = (cfg.in_channels if cfg.likelihood == "bernoulli"
+                  else cfg.n_mix * (1 + 2 * cfg.in_channels))
+        self.head = SNConv(in_ch, out_ch, 3, mode=cfg.spectral_mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for cell in self.cells:
-            x = cell(x)
+            x = run_cell(cell, x, self.remat)
         return _f32(self.head(F.elu(x)))
+
+
+def _flax_cell_name(cls_name: str, cfg: ModelConfig) -> str:
+    """The Flax name stem of a cell that a compact module creates: under
+    ``remat``, ``nn.remat`` names the wrapped class ``Checkpoint<cls>``.
+    (The decoder's cells, made in ``setup``, keep their attribute name.)"""
+    return f"Checkpoint{cls_name}" if cfg.remat else cls_name
 
 
 class NVAE(nn.Module):
@@ -566,7 +630,7 @@ class NVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda",
                  seed: int = 0):
         super().__init__()
-        _check_supported(cfg)
+        _check_dtypes(cfg)
         meta = torch.device(device).type == "meta"
         dev = None if meta else resolve_device(device)
         self.cfg = cfg
@@ -591,18 +655,31 @@ class NVAE(nn.Module):
             self.decoder.h.uniform_(0.0, 1.0, generator=gen)
 
     def _to_images(self, logits: torch.Tensor, greyscale: bool,
-                   generator: Optional[torch.Generator], uniform=None):
+                   generator: Optional[torch.Generator] = None, uniform=None,
+                   gumbel=None) -> torch.Tensor:
+        """Images, NHWC, from NHWC head output (``_to_images``): Bernoulli
+        probabilities or DML means when ``greyscale``, else a draw
+        (Bernoulli: ``u < p``; DML: :func:`~nvae_torch.ops.dml_sample`).
+        ``uniform`` (and for DML ``gumbel``) inject the draw's noise."""
+        cfg = self.cfg
+        if cfg.likelihood != "bernoulli":
+            if greyscale:
+                return dml_mean(logits, cfg.n_mix, cfg.in_channels)
+            return dml_sample(logits, cfg.n_mix, cfg.in_channels,
+                              generator=generator, gumbel=gumbel,
+                              uniform=uniform)
         probs = torch.sigmoid(logits)
         if greyscale:
             return probs
-        shape = _nhwc(probs).shape
         if uniform is None:
-            u = torch.rand(shape, generator=generator, device=probs.device)
+            u = torch.rand(probs.shape, generator=generator,
+                           device=probs.device)
         else:
             u = _as_tensor(uniform, probs.device)
-            if tuple(u.shape) != tuple(shape):
-                raise ValueError(f"uniform must have shape {tuple(shape)}")
-        return (_nchw(u) < probs).to(torch.float32)
+            if tuple(u.shape) != tuple(probs.shape):
+                raise ValueError(f"uniform must have shape "
+                                 f"{tuple(probs.shape)}")
+        return (u < probs).to(torch.float32)
 
     def forward(
         self,
@@ -639,27 +716,33 @@ class NVAE(nn.Module):
         generator: Optional[torch.Generator] = None,
         eps: Optional[Sequence] = None,
         uniform=None,
+        gumbel=None,
     ):
         """Unconditional samples: ``(images, last_s, z1, z2)``, NHWC.
 
-        ``greyscale`` returns the Bernoulli probabilities; otherwise binary
-        draws ``u < p``.  ``eps`` injects the Gaussian draws (a list of NHWC
-        tensors in the draw order) and ``uniform`` the Bernoulli uniforms."""
+        ``greyscale`` returns the Bernoulli probabilities (DML: the
+        mixture's mean); otherwise draws (binary ``u < p``; DML:
+        :func:`~nvae_torch.ops.dml_sample`).  ``eps`` injects the Gaussian
+        draws (a list of NHWC tensors in the draw order), ``uniform`` the
+        Bernoulli or logistic uniforms and ``gumbel`` the DML component's
+        Gumbel noise."""
         feats, last_s, z1, z2 = self.decoder.generate(
             n_samples, temperature, scale_temperatures,
             generator=generator, eps=eps,
         )
-        logits = self.postprocess(feats)
-        images = self._to_images(logits, greyscale, generator, uniform)
-        return _nhwc(images), _nhwc(last_s), _nhwc(z1), _nhwc(z2)
+        logits = _nhwc(self.postprocess(feats))
+        images = self._to_images(logits, greyscale, generator, uniform,
+                                 gumbel)
+        return images, _nhwc(last_s), _nhwc(z1), _nhwc(z2)
 
     @torch.no_grad()
     def reconstruct(self, x, *, generator: Optional[torch.Generator] = None,
                     eps: Optional[Sequence] = None) -> torch.Tensor:
         """Reconstructions of images ``x`` (B, H, W, C) in [0, 1]
         (``NVAE.reconstruct``): a posterior pass in eval mode (running
-        BatchNorm statistics, no buffer written) whose Bernoulli
-        probabilities are returned, NHWC.  ``eps`` injects the posterior
+        BatchNorm statistics, no buffer written) whose greyscale images
+        (Bernoulli probabilities, or the DML mixture's mean) are returned,
+        NHWC.  ``eps`` injects the posterior
         noise, else each draw comes from ``generator``.  The model's mode is
         put back afterwards."""
         was = self.training
@@ -668,15 +751,16 @@ class NVAE(nn.Module):
             out = self(x, generator=generator, eps=eps)
         finally:
             self.train(was)
-        return torch.sigmoid(out.logits)
+        return self._to_images(out.logits, greyscale=True)
 
     @torch.no_grad()
     def sample_with_z(self, z: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-        """Images (probabilities) from the final group's (z, s), NHWC."""
+        """Greyscale images (probabilities, or the DML mixture's mean) from
+        the final group's (z, s), NHWC."""
         dev = self.decoder.h.device
         z, s = _nchw(_as_tensor(z, dev)), _nchw(_as_tensor(s, dev))
         logits = self.postprocess(self.decoder.generate_from_z(z, s))
-        return _nhwc(torch.sigmoid(logits))
+        return self._to_images(_nhwc(logits), greyscale=True)
 
 
 def set_dtypes(model: nn.Module, cfg: ModelConfig) -> None:

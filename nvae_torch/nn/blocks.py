@@ -55,6 +55,9 @@ class BatchNorm(nn.Module):
     statistics come from x widened to the statistics' dtype (fp32 for a bf16
     x), as both JAX forms compute them.
 
+    ``update_buffers`` False (a rematerialized cell's second run) leaves
+    the running statistics as they are.
+
     ``apply_dtype`` bf16 is JAX's ``_SplitPrecisionBN``: ``mul = scale *
     rsqrt(var + eps)`` and ``add = bias - mean * mul`` from the fp32
     statistics (the batch's in training, gradients flowing through them),
@@ -68,6 +71,7 @@ class BatchNorm(nn.Module):
                  apply_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.apply_dtype = apply_dtype
+        self.update_buffers = True
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -101,10 +105,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, st))
         mean = xf.mean(dim=dims)
         var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.MOMENTUM
-            self.running_mean.mul_(m).add_((1.0 - m) * mean)
-            self.running_var.mul_(m).add_((1.0 - m) * var)
+        if self.update_buffers:
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
         if self.apply_dtype is not None:
             mul = self.weight * torch.rsqrt(var + BN_EPS)
             add = self.bias - mean * mul

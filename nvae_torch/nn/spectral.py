@@ -101,6 +101,7 @@ class SNConv(nn.Module):
         if kernel_size % 2 != 1:
             raise ValueError("SAME padding needs an odd kernel size")
         self.mode = mode
+        self.update_buffers = True  # False: a rematerialized second run
         self.stride = int(stride)
         self.dtype = dtype
         self.weight = nn.Parameter(
@@ -134,7 +135,7 @@ class SNConv(nn.Module):
             w = w.to(torch.promote_types(w.dtype, self.u.dtype))
             w2d = w.reshape(w.shape[0], -1).t()  # (in * kh * kw, out)
             sigma, u_new = power_iteration(w2d, self.u)
-            if self.training:
+            if self.training and self.update_buffers:
                 with torch.no_grad():
                     self.u.copy_(u_new)
             w = w / sigma

@@ -1,6 +1,9 @@
 from nvae_torch.ops.math import (
     bernoulli_log_prob,
     diagonal_gaussian_kl,
+    dml_log_prob,
+    dml_mean,
+    dml_sample,
     gaussian_log_prob,
     normalize_l2,
     slerp,
@@ -10,6 +13,9 @@ from nvae_torch.ops.math import (
 __all__ = [
     "bernoulli_log_prob",
     "diagonal_gaussian_kl",
+    "dml_log_prob",
+    "dml_mean",
+    "dml_sample",
     "gaussian_log_prob",
     "normalize_l2",
     "slerp",

@@ -7,9 +7,10 @@
   regularization (penalty); ``mnist_epoch_sn``: epoch-based warm-up.
 - ``omniglot_deep`` / ``fashion_mnist_deep``: the deeper hierarchy, three
   latent scales (4, 8, 12 groups).
-- ``cifar10_dml`` and ``celeba64`` need the mixture-of-logistics head
-  (and ``celeba64`` rematerialization), which the port does not run yet:
-  they raise, pointing at ROADMAP.md Queue 1 #4.
+- ``cifar10_dml``: 32x32 RGB, a 10-component mixture of discretized
+  logistics, groups (8, 16), two cells a group, batch 128;
+  ``celeba64``: 64x64 RGB, the same head, groups (4, 8, 16) and
+  rematerialized cells, batch 64.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ PRESETS = (
     "cifar10_dml",
     "celeba64",
 )
-WAITING = ("cifar10_dml", "celeba64")
 
 
 def get_preset(name: str) -> Tuple[ModelConfig, TrainConfig]:
@@ -51,11 +51,21 @@ def get_preset(name: str) -> Tuple[ModelConfig, TrainConfig]:
         return (ModelConfig(n_groups_per_scale=(4, 8, 12),
                             n_latent_per_group=20),
                 TrainConfig(dataset=dataset, step_based_warmup=True))
-    if name in WAITING:
-        raise NotImplementedError(
-            f"preset {name!r} needs the mixture-of-logistics (DML) head"
-            + (" and rematerialization" if name == "celeba64" else "")
-            + ", not ported yet (ROADMAP.md Queue 1 #4)"
-        )
+    if name == "cifar10_dml":
+        return (ModelConfig(image_size=32, in_channels=3, likelihood="dml",
+                            n_mix=10, n_encoder_channels=48,
+                            n_decoder_channels=48, n_groups_per_scale=(8, 16),
+                            res_cells_per_group=2),
+                TrainConfig(dataset="cifar10", binary=False,
+                            step_based_warmup=True, batch_size=128))
+    if name == "celeba64":
+        return (ModelConfig(image_size=64, in_channels=3, likelihood="dml",
+                            n_mix=10, n_encoder_channels=48,
+                            n_decoder_channels=48,
+                            n_groups_per_scale=(4, 8, 16),
+                            res_cells_per_group=2, remat=True),
+                TrainConfig(dataset="celeba", binary=False,
+                            step_based_warmup=True, batch_size=64,
+                            data_parallel=0))
     raise ValueError(f"unknown preset {name!r}; available: "
                      f"{', '.join(PRESETS)}")

@@ -13,7 +13,11 @@ import torch.nn as nn
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.models.nvae import LatentParams
 from nvae_torch.nn.blocks import BatchNorm
-from nvae_torch.ops import bernoulli_log_prob, diagonal_gaussian_kl
+from nvae_torch.ops import (
+    bernoulli_log_prob,
+    diagonal_gaussian_kl,
+    dml_log_prob,
+)
 
 
 def kl_per_group(latents: List[LatentParams]) -> torch.Tensor:
@@ -58,14 +62,16 @@ def unbalanced_kl_loss(kl_all: torch.Tensor) -> torch.Tensor:
 def recon_loss(logits: torch.Tensor, x: torch.Tensor,
                likelihood: str = "bernoulli", n_mix: int = 10,
                crop: int = 0) -> torch.Tensor:
-    """Per-sample negative log-likelihood summed over pixels, NHWC.
-    ``crop`` trims a border first."""
-    if likelihood != "bernoulli":
-        raise NotImplementedError(f"likelihood={likelihood!r} not ported yet")
+    """Per-sample negative log-likelihood summed over pixels, NHWC, under
+    the Bernoulli head or the mixture of ``n_mix`` discretized logistics
+    (``likelihood="dml"``, whose log-probability is per pixel).  ``crop``
+    trims a border first."""
     if crop:
         x = x[:, crop:-crop, crop:-crop, :]
         logits = logits[:, crop:-crop, crop:-crop, :]
-    return -bernoulli_log_prob(logits, x).sum(dim=(1, 2, 3))
+    if likelihood == "bernoulli":
+        return -bernoulli_log_prob(logits, x).sum(dim=(1, 2, 3))
+    return -dml_log_prob(logits, x, n_mix=n_mix).sum(dim=(1, 2))
 
 
 def bn_gamma_penalty(model: nn.Module, sr_lambda: float) -> torch.Tensor:

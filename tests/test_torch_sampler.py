@@ -44,10 +44,12 @@ def random_flax_variables(model, seed=0):
     """The model's Flax variables tree (from ``jax.eval_shape``, no JAX
     init run) filled from ``np.random.RandomState(seed)``: glorot-uniform
     kernels, small random biases, BatchNorm scales near 1 and random running
-    statistics, ``h ~ U[0, 1)``, unit spectral ``u``."""
+    statistics, ``h ~ U[0, 1)``, unit spectral ``u``.  The tree is traced
+    on one image of the config's size and channels."""
+    cfg = model.cfg
     shapes = jax.eval_shape(lambda: model.init(
         {"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
-        jnp.zeros((1, 32, 32, 1)), True,
+        jnp.zeros((1, cfg.image_size, cfg.image_size, cfg.in_channels)), True,
     ))
     rng = np.random.RandomState(seed)
 

@@ -121,11 +121,6 @@ def test_posterior_pass_checks_injected_noise():
         tm(x, eps=[np.zeros((2, 1, 1, 1), np.float32)] * len(shapes))
 
 
-def test_remat_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="remat"):
-        TorchNVAE(tcfg.debug_config(remat=True), device="cpu")
-
-
 # ---- losses -----------------------------------------------------------------
 
 
@@ -179,8 +174,15 @@ def test_recon_loss_matches_jax(crop):
     _allclose(tl.recon_loss(torch.from_numpy(logits), torch.from_numpy(x),
                             crop=crop),
               jl.recon_loss(jnp.asarray(logits), jnp.asarray(x), crop=crop))
-    with pytest.raises(NotImplementedError, match="dml"):
-        tl.recon_loss(torch.from_numpy(logits), torch.from_numpy(x), "dml")
+    # The mixture of 2 discretized logistics over 3 channels (14 head
+    # channels), per pixel and summed over H and W.
+    params = rng.randn(3, 8, 8, 14).astype(np.float32)
+    rgb = (rng.randint(0, 256, (3, 8, 8, 3)) / 255.0).astype(np.float32)
+    np.testing.assert_allclose(
+        tl.recon_loss(torch.from_numpy(params), torch.from_numpy(rgb), "dml",
+                      2, crop=crop).numpy(),
+        np.asarray(jl.recon_loss(jnp.asarray(params), jnp.asarray(rgb),
+                                 "dml", 2, crop=crop)), rtol=1e-5)
 
 
 def test_bn_gamma_penalty_scope_matches_jax():

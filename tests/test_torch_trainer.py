@@ -375,6 +375,14 @@ def _configs_seen_by_cli(pkg, argv, monkeypatch, fast_preset):
     (["--batch_size", "8", *TINY_ARCH, "--parity_binarize_255",
       "--ema_decay", "0.5", "--spectral_mode", "forward"], False),
     (["--batch_size", "8", *TINY_ARCH, "--scan_epochs"], False),
+    # The RGB presets on their synthetic stand-ins: DML, no binarization,
+    # celeba64's remat and 64x64 target kept, the preset's batch size.
+    (["--preset", "cifar10_dml", "--dataset", "synthetic_rgb",
+      "--use_pallas", "--batch_size", "16"], False),
+    (["--preset", "celeba64", "--dataset", "synthetic_rgb64",
+      "--use_pallas", "--scan_epochs"], False),
+    (["--batch_size", "8", *TINY_ARCH, "--dataset", "synthetic_rgb",
+      "--remat"], False),
 ])
 def test_preset_flags_not_clobbered(tmp_path, monkeypatch, extra,
                                     fast_preset):
@@ -395,20 +403,49 @@ def test_preset_flags_not_clobbered(tmp_path, monkeypatch, extra,
         assert port["model"]["postprocess_5x5_depthwise"]
 
 
-def test_three_scale_presets_build_and_dml_presets_wait():
-    from nvae_torch.presets import PRESETS, WAITING, get_preset
+# Parameters of the RGB presets (use_pallas_kernels=True, as the chip run
+# drives them), as the JAX model's jax.eval_shape counts them.
+PRESET_PARAMS = {"cifar10_dml": 202_707_746, "celeba64": 710_515_186}
 
-    for name in PRESETS:
-        if name in WAITING:
-            with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-                get_preset(name)
-            continue
-        model_cfg, train_cfg = get_preset(name)
-        assert model_cfg.shapes().base_size >= 1 and train_cfg.dataset
-    m, t = get_preset("omniglot_deep")
-    assert m.n_groups_per_scale == (4, 8, 12) and t.dataset == "omniglot"
-    m, t = get_preset("mnist_step_sr")
-    assert m.spectral_mode == "penalty" and t.step_based_warmup
+
+@pytest.mark.parametrize("name", [
+    "mnist_step_sn", "mnist_step_sn_parity", "mnist_step_sr",
+    "mnist_epoch_sn", "omniglot_deep", "fashion_mnist_deep", "cifar10_dml",
+    "celeba64"])
+def test_every_preset_builds_and_equals_jax_config(name):
+    """Each preset returns the JAX package's configs field for field and
+    builds (on the meta device: no weights); the RGB presets' parameter
+    counts are the JAX model's."""
+    import dataclasses
+
+    from nvae_torch.models.nvae import NVAE
+    from nvae_torch.presets import PRESETS, get_preset
+    from nvae_tpu.presets import get_preset as jax_preset
+
+    assert name in PRESETS
+    model_cfg, train_cfg = get_preset(name)
+    want_model, want_train = jax_preset(name)
+    assert dataclasses.asdict(model_cfg) == dataclasses.asdict(want_model)
+    assert dataclasses.asdict(train_cfg) == dataclasses.asdict(want_train)
+    cfg = dataclasses.replace(model_cfg, use_pallas_kernels=True)
+    model = NVAE(cfg, device="meta")
+    n = sum(p.numel() for p in model.parameters())
+    assert n > 0 and model_cfg.shapes().base_size >= 1
+    if name in PRESET_PARAMS:
+        import jax
+        import jax.numpy as jnp
+
+        from nvae_tpu.models import NVAE as JaxNVAE
+
+        jm = JaxNVAE(dataclasses.replace(want_model, use_pallas_kernels=True))
+        s = cfg.image_size
+        shapes = jax.eval_shape(lambda: jm.init(
+            {"params": jax.random.PRNGKey(0),
+             "sample": jax.random.PRNGKey(1)},
+            jnp.zeros((1, s, s, cfg.in_channels)), True))
+        assert n == PRESET_PARAMS[name] == sum(
+            x.size for x in jax.tree_util.tree_leaves(shapes["params"]))
+        assert model.postprocess.head.weight.shape[0] == 70
 
 
 @pytest.mark.parametrize("extra,match", [
@@ -417,10 +454,6 @@ def test_three_scale_presets_build_and_dml_presets_wait():
     (["--fsdp"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
     (["--data_parallel", "2"], "parallel tiers"),
-    (["--remat"], "rematerialization"),
-    (["--preset", "celeba64"], "Queue 1 #4"),
-    (["--likelihood", "dml"], "DML head"),
-    (["--preset", "cifar10_dml"], "Queue 1 #4"),
 ])
 def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
