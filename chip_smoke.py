@@ -17,7 +17,8 @@ each raising on failure (nothing is caught):
    once (``cudaOccupancyMaxActiveClusters``);
 2. kernels: each kernel against its plain PyTorch version at every shape of
    the sampling and training paths, fp32, at every batch the paths give it
-   (the forwards at 144, 576, 12, 4 and 3; dx and dW/db at 144 and 4): the
+   (the forwards at 144, 576, 72, 12, 4 and 3; dx and dW/db at 144, 72 and
+   4; 72 is a rank's share of phase 12's data-parallel batch): the
    forward and dx (with swish' and in the form without it) at atol 2e-5,
    dW/db (with and without bias) at 1e-4 of the largest |dW| and bitwise
    across two runs;
@@ -94,7 +95,8 @@ each raising on failure (nothing is caught):
    resume for a third, with exact launch counts through the wrappers (each
    run's eager first step, its capture and the forwards of the hooks) and
    as replays (the other steps), and the optimizer's counts in the last
-   checkpoint;
+   checkpoint; the three (per step, bf16, scan) run at the same time, each
+   in its own directory, so their seconds are no measurement;
 8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
    held to a float64 CPU run;
@@ -112,8 +114,8 @@ each raising on failure (nothing is caught):
    8b. the metric suite (a main path) over phase 7's checkpoint: ``python
    -m nvae_torch.cli --mode test`` as a subprocess at the default
    temperatures and backbones (VGG16 at 224, InceptionV3 at 299,
-   random-init), reduced to ``--debug`` (4 test batches of 144), 2
-   attempts and 2,016 FID samples; then ``--eval_parity`` (the
+   random-init), reduced to ``--debug`` (4 test batches of 144), 1
+   attempt and 2,016 FID samples; then ``--eval_parity`` (the
    nearest-299 path) at T=1.0, 1 attempt and 1,440 FID samples: exit
    codes, evaluation.json (its keys, finite values, P&R in [0, 1] or [0,
    2], random-init provenance), each stage's seconds, and exact launches
@@ -149,7 +151,7 @@ each raising on failure (nothing is caught):
     cells) at full width: #1-#4 in fp32 against their plain versions at
     every shape of their paths (4x4x2304 to 64x64x288) and every batch the
     paths give them, as phase 2 holds them, each shape's ring geometry
-    logged; in each postprocess form 3 training steps with exact launches
+    logged; in each postprocess form 2 training steps with exact launches
     (cifar10_dml 46 / 52 of each of #2-#4 a step; celeba64 54 / 60 of #3
     and #4 and twice that of #2, which the backward pass's recompute runs
     again), one more step profiled, and a sampler at batch 144 (launches,
@@ -160,14 +162,41 @@ each raising on failure (nothing is caught):
     cuDNN (loss, gradients, BatchNorm statistics within 1e-6); each
     preset's scan path (2 epochs of 4 steps, the second captured, replays
     counted, one replay profiled); then the CLI as subprocesses with exact
-    counts: cifar10_dml trains 1 epoch, samples (RGB PNGs), scores
-    (``--mode test --debug --eval_attempts 1``, 2,016 FID samples as phase
-    8b) and trains 1 epoch on the
-    scan path; celeba64 trains 1 epoch per step and on the scan path (a
-    CUDA graph of the remat'd step); one request through a
-    ``BatchingSampler`` over the cifar10_dml checkpoint; and #2-#4 timed
+    counts, two at a time: cifar10_dml trains 1 epoch, samples (RGB PNGs)
+    and scores (``--mode test --debug --eval_attempts 1``, 2,016 FID
+    samples as phase 8b) while cifar10_dml trains 1 epoch on the scan path
+    and celeba64 1 epoch per step and 1 on the scan path (a CUDA graph of
+    the remat'd step); one request through a ``BatchingSampler`` over the
+    cifar10_dml checkpoint; and #2-#4 timed
     at each RGB shape at the preset's batch beside their bounds, plain
-    versions and library calls (the fp32 records' ``rgb_shapes``).
+    versions and library calls (the fp32 records' ``rgb_shapes``);
+12. data parallelism (main paths; states its seconds): 12a, two ranks on
+    the one card over gloo (NCCL refuses two ranks on one device), spawned
+    as ``chip_smoke.py --dp-rank DIR``: from a state warmed by 30 Adamax
+    steps, 3 full-width default fp32 SGD steps (lr 1e-6) at global batch
+    144 (72 rows a rank) under deterministic cuDNN against 3
+    single-process steps on the same weights, batches and noise: every
+    step's loss and grad_norm at JAX's lockstep limits (rtol 1e-5 / 1e-4)
+    and every parameter within 1e-5; the single run with each batch's
+    halves swapped within those limits too, and each of two planted faults
+    (BatchNorm statistics, KL balancing coefficients left per rank) outside
+    them; both ranks' states bit for bit equal, exactly 14 launches of each
+    of #2, #3 and #4 a step on each rank, ms per step and the gloo
+    all-reduce of the 160 MB gradient;
+    12b, NCCL at world size 1 in this process: the scan runner with the
+    mesh (its all-reduces captured in the step's graph) against the runner
+    without, phase 5b's epochs and steps under deterministic cuDNN: states
+    and means bit for bit equal, replays and replayed launches equal, ms
+    per step of each; 12c, ``python -m torch.distributed.run
+    --nproc_per_node 2`` over the CLI at full width (gloo): ``--mode train
+    --data_parallel 2`` for an epoch with eval and image hooks (one
+    checkpoint), a resume for a second, then ``--mode serve
+    --data_parallel 2`` answering two requests of 144 rows at two
+    temperatures, held against the single-rank ``Sampler`` for the same
+    dispatch seeds (bitwise, or within 1e-3 where cuDNN picks another
+    algorithm for 72 rows than for 144), SIGTERM to rank 0 (it drains and
+    stops the other rank); exact launch counts on each rank.  Neither
+    two ranks sharing a card nor NCCL over one rank measures scaling.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -191,6 +220,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -222,9 +252,11 @@ PATH_SHAPES = [
 # BATCH rows, the trainer's sample hook 4 x 3 rows and its reconstruction 3;
 # --mode test draws each precision/recall half of a test batch in one call
 # of BATCH // 2 rows; the B=4 training step and NLL set against the CPU.
-# The backward kernels run at BATCH and, in that step, at 4.
+# The backward kernels run at BATCH, in that step at 4, and at BATCH // 2 on
+# each of the two ranks of phase 12's data-parallel steps (whose forwards
+# and sample calls also run BATCH // 2 rows).
 FWD_BATCHES = (BATCH, 4 * BATCH, BATCH // 2, 12, 4, 3)
-BWD_BATCHES = (BATCH, 4)
+BWD_BATCHES = (BATCH, BATCH // 2, 4)
 TRAIN_STEPS = 5
 # One full-width training step at batch 4, card against CPU: fp32 on both
 # sides, other summation orders through ~100 layers forward and back.  A
@@ -327,7 +359,7 @@ SERVER_FLAGS = []  # further flags of the artifact server
 # readings on an H100 (80GB HBM3, 700 W): the fp32 path 5.1e-7 from the
 # host, the same path with TF32 allowed 2.3e-4; each run repeats that
 # control and fails unless it lands outside the limit.
-EVAL_ATTEMPTS = 2
+EVAL_ATTEMPTS = 1  # one: the whole run must end within 1200 s
 EVAL_FID_SAMPLES = 2016
 PARITY_FID_SAMPLES = 1440
 EVAL_TEMPERATURES = 3
@@ -364,7 +396,7 @@ RGB_SHAPES = {
                  (16, 1152, True, 8, 8), (32, 576, False, 0, 3),
                  (64, 288, False, 0, 3)],
 }
-RGB_STEPS = 3
+RGB_STEPS = 2  # two a form: the whole run must end within 1200 s
 RGB_SAMPLE_BATCH = BATCH
 # The B=4 step and NLL card vs CPU (phase 5's and 8's limits) run at the
 # preset's full width with its depth cut to these groups per scale.  At
@@ -384,8 +416,13 @@ RGB_SCAN_STEPS = 3
 RGB_TIMING_ITERS = 20
 
 
+T_IMPORT = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the run's log, with its seconds since the start."""
+    print(f"[chip_smoke {time.monotonic() - T_IMPORT:7.1f} s] {msg}",
+          flush=True)
 
 
 def configs():
@@ -814,15 +851,21 @@ def train_batch(n: int, seed: int, cfg=None) -> torch.Tensor:
         (rng.randint(0, 256, (n, s, s, 3)) / 255.0).astype(np.float32))
 
 
-def train_setup(cfg, device, batch: int):
+def train_setup(cfg, device, batch: int, mesh=None):
+    """Seed-0 weights, Adamax + spectral projection, and the train step;
+    over a data ``mesh`` the state replicated from rank 0 and the
+    data-parallel step (``batch`` is then the global batch)."""
     from nvae_torch.config import TrainConfig
+    from nvae_torch.parallel import shard_state
     from nvae_torch.train.state import create_train_state
     from nvae_torch.train.step import make_train_step
 
     tc = TrainConfig(batch_size=batch, step_based_warmup=True)
     model, state, tx = create_train_state(cfg, tc, total_steps=1000,
                                           device=device, seed=0)
-    return state, make_train_step(model, tx, tc, 1000, 100)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    return state, make_train_step(model, tx, tc, 1000, 100, mesh=mesh)
 
 
 def phase_train(cfg, device, batch=BATCH, steps=TRAIN_STEPS) -> dict:
@@ -1019,7 +1062,7 @@ def replayed_counts() -> dict:
 
 
 def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
-             epochs: int, batch: int = BATCH) -> dict:
+             epochs: int, batch: int = BATCH, mesh=None) -> dict:
     """``epochs`` epochs of ``steps_per_epoch`` full-width steps at
     ``batch`` through the epoch runner (Adamax + spectral projection,
     seed-0 weights), as graph replays or eagerly, with the counts set to 0
@@ -1038,7 +1081,8 @@ def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
     model, state, tx = create_train_state(cfg, tc, total_steps=1000,
                                           device=device, seed=0)
     run = make_epoch_runner(model, tx, tc, 1000, steps_per_epoch,
-                            target_size=cfg.image_size, graph=graph)
+                            target_size=cfg.image_size, graph=graph,
+                            mesh=mesh)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
@@ -1091,7 +1135,7 @@ class deterministic_cudnn:
         torch.backends.cudnn.deterministic = self.was
 
 
-def phase_scan(cfg, device, data) -> dict:
+def phase_scan(cfg, device, data, repeat: bool) -> dict:
     """The scan path (a main path) in one configuration:
 
     - timed: SCAN_EPOCHS epochs of SCAN_STEPS_PER_EPOCH steps as graph
@@ -1101,8 +1145,10 @@ def phase_scan(cfg, device, data) -> dict:
     - check: SCAN_CHECK_STEPS steps as replays and the same steps eagerly,
       from the same seed, under ``deterministic_cudnn``: the two states
       and mean metrics compared;
-    - repeat: those steps eagerly twice with cuDNN's defaults, compared:
-      whether the eager step itself is reproducible."""
+    - repeat (with ``repeat``; run for the default configuration alone,
+      to hold the run time): those steps eagerly
+      twice with cuDNN's defaults, compared: whether the eager step itself
+      is reproducible."""
     timed = scan_run(cfg, device, data, True, SCAN_STEPS_PER_EPOCH,
                      SCAN_EPOCHS)
     run = timed.pop("runner")
@@ -1121,10 +1167,11 @@ def phase_scan(cfg, device, data) -> dict:
                     "launches_per_replay":
                         graphed["runner"].launches_per_replay}
     del eager, graphed
-    a = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
-    b = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
-    out["repeat"] = {"state": state_diff(a["flat"], b["flat"]),
-                     "means_equal": a["means"] == b["means"]}
+    if repeat:
+        a = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
+        b = scan_run(cfg, device, data, False, SCAN_CHECK_STEPS, 1)
+        out["repeat"] = {"state": state_diff(a["flat"], b["flat"]),
+                         "means_equal": a["means"] == b["means"]}
     out["counts"] = {k: timed["counts"][k] + out["check"]["eager_counts"][k]
                      for k in KERNEL_NAMES}
     return out
@@ -1259,7 +1306,8 @@ def phase_se_entry(device) -> dict:
 # argument; the module is the second.
 RUN_WITH_COUNTS = """
 import json, runpy, sys
-path = sys.argv.pop(1)
+import os
+path = sys.argv.pop(1).replace("{rank}", os.environ.get("RANK", "0"))
 module = sys.argv.pop(1)
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
@@ -1303,6 +1351,19 @@ def run_cli(label: str, argv, workdir: str) -> dict:
         f"{f', replayed {shown}' if shown else ''}; {last}")
     return {"seconds": seconds, "counts": counts, "replayed": replayed,
             "stdout": proc.stdout}
+
+
+def run_concurrently(*chains) -> list:
+    """Each of ``chains`` (functions of no argument, whose work is the
+    entry points' subprocesses) in a thread of its own, all at once;
+    returns their results in order and raises the first failure once all
+    have ended.  The runs share the host's cores and the card, so the
+    seconds they log are no measurement."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(chains)) as pool:
+        futures = [pool.submit(c) for c in chains]
+        return [f.result() for f in futures]
 
 
 def check_cli_counts(label, counts, per_forward, steps, forwards,
@@ -3362,15 +3423,15 @@ def rgb_cli_train(label: str, preset: str, workdir: str, scan: bool) -> dict:
 
 def phase_rgb_cli(workdir: str, device) -> tuple:
     """The entry points on the RGB presets at full width, as subprocesses
-    with exact launch counts: ``cifar10_dml`` trains 1 epoch, samples
-    (``--mode sample``, RGB PNGs) and scores (``--mode test --debug
-    --eval_attempts 1``, EVAL_FID_SAMPLES), and trains 1 epoch on the scan
-    path;
-    ``celeba64`` (remat) trains 1 epoch per step and on the scan path (a
-    CUDA graph of the remat'd step); in process, one request through a
-    ``BatchingSampler`` over the ``cifar10_dml`` checkpoint.  Each run's
-    directory is removed after its checks (a celeba64 checkpoint holds
-    ~8.5 GB).  Returns the runs' (launches, replayed)."""
+    with exact launch counts, two chains at once (``run_concurrently``):
+    ``cifar10_dml`` trains 1 epoch, samples (``--mode sample``, RGB PNGs)
+    and scores (``--mode test --debug --eval_attempts 1``,
+    EVAL_FID_SAMPLES), then in process one request goes through a
+    ``BatchingSampler`` over its checkpoint; meanwhile ``cifar10_dml``
+    trains 1 epoch on the scan path, and ``celeba64`` (remat) 1 epoch per
+    step and 1 on the scan path (a CUDA graph of the remat'd step).  Each
+    run's directory is removed after its checks (a celeba64 checkpoint
+    holds ~8.5 GB).  Returns the runs' (launches, replayed)."""
     from nvae_torch import cli
     from nvae_torch.serving import Sampler, variables_from_state
     from nvae_torch.serving_runtime import BatchingSampler
@@ -3379,82 +3440,93 @@ def phase_rgb_cli(workdir: str, device) -> tuple:
 
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     replayed = dict.fromkeys(KERNEL_NAMES, 0)
+    lock = threading.Lock()
 
     def add(rec):
-        for k in KERNEL_NAMES:
-            counts[k] += rec["counts"][k]
-            replayed[k] += rec["replayed"][k]
+        with lock:
+            for k in KERNEL_NAMES:
+                counts[k] += rec["counts"][k]
+                replayed[k] += rec["replayed"][k]
 
-    cfgs, batch = rgb_configs("cifar10_dml")
-    cfg = cfgs["cifar10_dml"]
-    wd = os.path.join(workdir, "cifar10_dml")
-    os.makedirs(wd)
-    rec = rgb_cli_train("train cifar10_dml", "cifar10_dml", wd, False)
-    add(rec)
-    report_cli(rec, batch)
-    args = rgb_cli_args("cifar10_dml", wd)
-    rec = run_cli("sample cifar10_dml", ["--mode", "sample", "--n_samples",
-                                         str(batch), *args], wd)
-    check_cli_counts("sample cifar10_dml", rec["counts"],
-                     expected_launches(cfg), 0, 1)
-    add(rec)
-    for t in SAMPLE_TEMPERATURES:
-        d = os.path.join(wd, "results", f"t_{t}")
-        files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
-        with open(os.path.join(d, files[0]), "rb") as f:
-            shape = decode_png(f.read()).shape
-        if len(files) != batch or shape != (32, 32, 3):
-            raise AssertionError(f"cli sample cifar10_dml: {len(files)} PNGs "
-                                 f"of {shape} in {d}")
-    rec = run_cli("test cifar10_dml", [
-        "--mode", "test", "--eval_attempts", "1", "--fid_sample_size",
-        str(EVAL_FID_SAMPLES), *args], wd)
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["fused_swish_depthwise5x5"] = eval_launches(
-        cfg, 1, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, batch)
-    if rec["counts"] != want:
-        raise AssertionError(f"cli test cifar10_dml: launches "
-                             f"{rec['counts']}, expected {want}")
-    add(rec)
-    with open(os.path.join(wd, "logs", "evaluation.json")) as f:
-        check_evaluation("test cifar10_dml", json.load(f), EVAL_TEMPERATURES,
-                         1.0)
-    log(f"test cifar10_dml: {rec['seconds']:.1f} s")
-
-    # One request through the batching server over the checkpoint.
-    parsed = cli.parse_args(["--mode", "serve", *args])
-    model_cfg, train_cfg, _ = cli.configs_from_args(parsed)
-    trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
-    if trainer.maybe_resume() != 1:
-        raise AssertionError("serve cifar10_dml: no checkpoint to restore")
-    sampler = Sampler(model_cfg, variables_from_state(trainer.state),
-                      RGB_SAMPLE_BATCH, device=device)
-    del trainer
-    n = 2 * RGB_SAMPLE_BATCH // 3  # a partial batch, padded
-    reset_counts()
-    with BatchingSampler(sampler, RGB_SAMPLE_BATCH, max_delay_ms=10,
-                         seed=7) as srv:
-        images = srv.submit(n, 0.8).result(timeout=600)
-    served = read_counts()
-    if (images.shape != (n, 32, 32, 3) or not np.isfinite(images).all()
-            or served["fused_swish_depthwise5x5"] != expected_launches(cfg)):
-        raise AssertionError(f"serve cifar10_dml: {images.shape}, {served}")
-    for k in KERNEL_NAMES:
-        counts[k] += served[k]
-    log(f"serve cifar10_dml: {n} rows in one dispatch, launches "
-        f"{ {k: v for k, v in served.items() if v} }")
-    del sampler
-    shutil.rmtree(wd, ignore_errors=True)
-
-    for preset, scan in (("cifar10_dml", True), ("celeba64", False),
-                         ("celeba64", True)):
-        label = f"train {preset}{' scan' if scan else ''}"
-        wd = os.path.join(workdir, label.replace(" ", "_"))
+    def cifar10_dml() -> None:
+        cfgs, batch = rgb_configs("cifar10_dml")
+        cfg = cfgs["cifar10_dml"]
+        wd = os.path.join(workdir, "cifar10_dml")
         os.makedirs(wd)
-        rec = rgb_cli_train(label, preset, wd, scan)
+        rec = rgb_cli_train("train cifar10_dml", "cifar10_dml", wd, False)
         add(rec)
-        report_cli(rec, rgb_configs(preset)[1])
+        report_cli(rec, batch)
+        args = rgb_cli_args("cifar10_dml", wd)
+        rec = run_cli("sample cifar10_dml", ["--mode", "sample",
+                                             "--n_samples", str(batch),
+                                             *args], wd)
+        check_cli_counts("sample cifar10_dml", rec["counts"],
+                         expected_launches(cfg), 0, 1)
+        add(rec)
+        for t in SAMPLE_TEMPERATURES:
+            d = os.path.join(wd, "results", f"t_{t}")
+            files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+            with open(os.path.join(d, files[0]), "rb") as f:
+                shape = decode_png(f.read()).shape
+            if len(files) != batch or shape != (32, 32, 3):
+                raise AssertionError(f"cli sample cifar10_dml: {len(files)} "
+                                     f"PNGs of {shape} in {d}")
+        rec = run_cli("test cifar10_dml", [
+            "--mode", "test", "--eval_attempts", "1", "--fid_sample_size",
+            str(EVAL_FID_SAMPLES), *args], wd)
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["fused_swish_depthwise5x5"] = eval_launches(
+            cfg, 1, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, batch)
+        if rec["counts"] != want:
+            raise AssertionError(f"cli test cifar10_dml: launches "
+                                 f"{rec['counts']}, expected {want}")
+        add(rec)
+        with open(os.path.join(wd, "logs", "evaluation.json")) as f:
+            check_evaluation("test cifar10_dml", json.load(f),
+                             EVAL_TEMPERATURES, 1.0)
+        log(f"test cifar10_dml: {rec['seconds']:.1f} s")
+
+        # One request through the batching server over the checkpoint, in
+        # this process (its own counts: the subprocesses have theirs).
+        parsed = cli.parse_args(["--mode", "serve", *args])
+        model_cfg, train_cfg, _ = cli.configs_from_args(parsed)
+        trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
+        if trainer.maybe_resume() != 1:
+            raise AssertionError("serve cifar10_dml: no checkpoint to "
+                                 "restore")
+        sampler = Sampler(model_cfg, variables_from_state(trainer.state),
+                          RGB_SAMPLE_BATCH, device=device)
+        del trainer
+        n = 2 * RGB_SAMPLE_BATCH // 3  # a partial batch, padded
+        reset_counts()
+        with BatchingSampler(sampler, RGB_SAMPLE_BATCH, max_delay_ms=10,
+                             seed=7) as srv:
+            images = srv.submit(n, 0.8).result(timeout=600)
+        served = read_counts()
+        if (images.shape != (n, 32, 32, 3) or not np.isfinite(images).all()
+                or served["fused_swish_depthwise5x5"]
+                != expected_launches(cfg)):
+            raise AssertionError(f"serve cifar10_dml: {images.shape}, "
+                                 f"{served}")
+        add({"counts": served, "replayed": dict.fromkeys(KERNEL_NAMES, 0)})
+        log(f"serve cifar10_dml: {n} rows in one dispatch, launches "
+            f"{ {k: v for k, v in served.items() if v} }")
+        del sampler
         shutil.rmtree(wd, ignore_errors=True)
+
+    def the_other_trains() -> None:
+        for preset, scan in (("cifar10_dml", True), ("celeba64", False),
+                             ("celeba64", True)):
+            label = f"train {preset}{' scan' if scan else ''}"
+            wd = os.path.join(workdir, label.replace(" ", "_"))
+            os.makedirs(wd)
+            rec = rgb_cli_train(label, preset, wd, scan)
+            add(rec)
+            report_cli(rec, rgb_configs(preset)[1])
+            shutil.rmtree(wd, ignore_errors=True)
+
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    run_concurrently(cifar10_dml, the_other_trains)
     return counts, replayed
 
 
@@ -3480,6 +3552,580 @@ def phase_rgb_timing(device) -> dict:
                     "bound_by": "bytes" if b_bytes >= b_ops
                     else "operations"})
     return rows
+
+
+# ---- phase 12: data parallelism -------------------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 3
+# 12a holds the data-parallel step against the single one from a state
+# warmed by DP_WARM_STEPS Adamax steps, stepping with plain SGD at DP_LR.
+# From the seeded init the full-width fp32 step is chaotic: the single run
+# on its batches with the halves swapped (the same function summed in
+# another order) moves step 0's loss by 1.7e-5 and grad_norm by 1.8e-2,
+# and the third step's loss by 2.6x; from the warm state, no step's loss
+# by more than 6.3e-8, grad_norm by 2.4e-5, a parameter by 1.2e-7
+# (``chip_dp_probe.py`` on an H100 80GB HBM3 at 700 W).  There JAX's
+# lockstep limits hold as they are, at every step.
+DP_WARM_STEPS = 30
+DP_LR = 1e-6
+DP_LOSS_RTOL, DP_GRAD_NORM_RTOL, DP_PARAMS_ATOL = 1e-5, 1e-4, 1e-5
+# Planted faults, each run for one step on the ranks and each of which must
+# fail a limit: the BatchNorm statistics or the KL balancing coefficients
+# left per rank (loss 2.5e-2 and 1.3e-2 from the single run there).
+DP_FAULTS = ("bn_stats_per_rank", "kl_coeff_per_rank")
+DP_ALLREDUCE_ITERS = 3
+DP_SERVE_TEMPERATURES = (0.7, 1.0)
+DP_SERVE_ATOL = PROB_ATOL  # if not bitwise: another cuDNN plan per batch
+
+
+def dp_env(port: int, rank=None) -> dict:
+    """Two ranks on the one card: gloo (NCCL refuses two ranks on one
+    device), the coordinator at ``localhost:port``."""
+    env = dict(port_env(), NVAE_TORCH_DIST_BACKEND="gloo")
+    if rank is not None:
+        env.update(NVAE_TORCH_COORDINATOR=f"localhost:{port}",
+                   NVAE_TORCH_NUM_PROCESSES=str(DP_RANKS),
+                   NVAE_TORCH_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    return env
+
+
+class SGDSteps:
+    """Plain SGD steps (``p -= DP_LR * g``, a linear update, so the
+    parameters track the gradients) of the default configuration at
+    global batch BATCH from a saved start, on one model reloaded for each
+    run; over a ``mesh`` each rank steps on its rows of every batch."""
+
+    def __init__(self, device, mesh=None):
+        from nvae_torch.config import TrainConfig
+        from nvae_torch.train import optim as topt
+        from nvae_torch.train.state import create_train_state
+
+        self.cfg = configs()["default"]
+        self.tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
+        self.tx = topt.GradientTransformation(
+            lambda params: None,
+            lambda updates, state, params=None: (
+                {k: -DP_LR * g for k, g in updates.items()}, None))
+        self.model, _, _ = create_train_state(self.cfg, self.tc, 1000,
+                                              device=device, tx=self.tx)
+        self.device, self.mesh = device, mesh
+
+    def run(self, start: dict, steps: int, swap: bool = False) -> dict:
+        """``steps`` steps from ``start`` (a state dict and a step count)
+        on ``train_batch(BATCH, 10 +
+        i)``; ``swap`` swaps each batch's halves and the noise's with them.
+        Returns each step's metrics, the flat parameters after each step
+        (on the host) and the state."""
+        from nvae_torch.models.nvae import posterior_noise_shapes
+        from nvae_torch.parallel import shard_batch, shard_state
+        from nvae_torch.train.state import TrainState
+        from nvae_torch.train.step import make_train_step, step_seed
+
+        self.model.load_state_dict(start["sd"])
+        state = TrainState(start["step"], 0, self.model, None, 0)
+        if self.mesh is not None:
+            state = shard_state(state, self.mesh)
+        step = make_train_step(self.model, self.tx, self.tc, 1000, 100,
+                               mesh=self.mesh)
+        out = {"metrics": [], "params": [], "ms": []}
+        for i in range(steps):
+            b = train_batch(BATCH, 10 + i).to(self.device)
+            eps = None
+            if swap:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    step_seed(state.seed, state.step, 0))
+                perm = torch.arange(BATCH).roll(BATCH // 2).to(self.device)
+                b = b[perm]
+                eps = [[torch.randn(sh, generator=gen,
+                                    device=self.device)[perm]
+                        for sh in posterior_noise_shapes(self.cfg, BATCH)]]
+            if self.mesh is not None:
+                b = shard_batch(b, self.mesh)
+            out["rows"] = b.shape[0]
+            t0 = time.monotonic()
+            state, m = step(state, b, eps=eps)
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["ms"].append(1e3 * (time.monotonic() - t0))
+            out["params"].append(torch.cat([
+                p.detach().reshape(-1) for p in self.model.parameters()
+            ]).cpu())
+        out["state"] = state
+        return out
+
+
+class dp_fault:
+    """A planted fault of the data-parallel step, while the block is open:
+    ``bn_stats_per_rank`` leaves the BatchNorm statistics to each rank's
+    rows, ``kl_coeff_per_rank`` the KL balancing coefficients."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        import contextlib
+
+        import nvae_torch.train.losses as losses
+        import nvae_torch.train.step as step
+
+        self.saved = (step.batch_stats_over, losses.balanced_kl_loss)
+        if self.kind == "bn_stats_per_rank":
+            step.batch_stats_over = lambda m, mesh: contextlib.nullcontext()
+        else:
+            kl = losses.balanced_kl_loss
+            losses.balanced_kl_loss = lambda k, a, mesh=None: kl(k, a)
+
+    def __exit__(self, *exc):
+        import nvae_torch.train.losses as losses
+        import nvae_torch.train.step as step
+
+        step.batch_stats_over, losses.balanced_kl_loss = self.saved
+
+
+def dp_rank(workdir: str) -> int:
+    """One rank of phase 12a (``chip_smoke.py --dp-rank DIR``, its rank and
+    coordinator in the environment), under deterministic cuDNN: once the
+    warm start is in ``workdir`` (the rank starts while the phase makes
+    it), DP_STEPS SGD steps over the gloo group from it, its rows of each
+    batch, with the counts set to 0 just before and read just after; one
+    step with each planted fault; then the all-reduce of a gradient's bytes
+    timed.  Writes its record (and rank 0 its parameters) to
+    ``workdir``."""
+    sys.path.insert(0, ROOT)
+    from nvae_torch.parallel import initialize, make_mesh
+    from nvae_torch.parallel.mesh import checksums, replica_mismatches
+    from nvae_torch.parallel.mesh import state_tensors_named
+
+    initialize()
+    mesh = make_mesh()
+    device = mesh.device
+    runs = SGDSteps(device, mesh)
+    path, t0 = os.path.join(workdir, "dp_start.pt"), time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > 600:
+            raise AssertionError(f"dp rank: no {path} in 600 s")
+        time.sleep(0.1)
+    start = torch.load(path)
+    with deterministic_cudnn():
+        torch.cuda.synchronize(device)
+        reset_counts()
+        sound = runs.run(start, DP_STEPS)
+        counts = read_counts()
+        state = sound["state"]
+        rec = {"rank": mesh.rank, "device": str(device),
+               "rows": sound["rows"], "counts": counts,
+               "metrics": sound["metrics"], "step_ms": sound["ms"],
+               "mismatches": replica_mismatches(state, mesh),
+               "checksums": checksums(list(state_tensors_named(
+                   state).values())).tolist()}
+        params = {"sound": sound["params"][-1]}
+        del sound, state
+        rec["faults"] = {}
+        for kind in DP_FAULTS:
+            with dp_fault(kind):
+                r = runs.run(start, 1)
+            rec["faults"][kind] = {
+                "metrics": r["metrics"],
+                "mismatches": len(replica_mismatches(r["state"], mesh))}
+            params[kind] = r["params"][-1]
+            del r
+    grad = torch.ones(params["sound"].numel(), device=device)
+    mesh.all_reduce_(grad)
+    torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    for _ in range(DP_ALLREDUCE_ITERS):
+        mesh.all_reduce_(grad)
+    torch.cuda.synchronize(device)
+    rec["allreduce_bytes"] = 4 * grad.numel()
+    rec["allreduce_ms"] = 1e3 * (time.monotonic() - t0) / DP_ALLREDUCE_ITERS
+    if mesh.rank == 0:
+        torch.save(params, os.path.join(workdir, "dp_rank0_params.pt"))
+    with open(os.path.join(workdir, f"dp_rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_readings(metrics: list, params, single: dict) -> dict:
+    """How far a run is from the single one: each step's loss and
+    grad_norm relative to the single run's, and its parameters after its
+    last step (the largest absolute difference)."""
+    n = len(metrics)
+    return {
+        "loss": [abs(m["loss"] - s["loss"]) / abs(s["loss"])
+                 for m, s in zip(metrics, single["metrics"])],
+        "grad_norm": [abs(m["grad_norm"] - s["grad_norm"]) / s["grad_norm"]
+                      for m, s in zip(metrics, single["metrics"])],
+        "params": float((params - single["params"][n - 1]).abs().max())}
+
+
+def dp_over_limits(r: dict) -> list:
+    """The limits a run's readings break."""
+    return [k for k, bad in (
+        ("loss", max(r["loss"]) > DP_LOSS_RTOL),
+        ("grad_norm", max(r["grad_norm"]) > DP_GRAD_NORM_RTOL),
+        ("params", r["params"] > DP_PARAMS_ATOL)) if bad]
+
+
+def phase_dp_steps(device, workdir: str) -> dict:
+    """12a: two ranks on the one card over gloo against DP_STEPS single SGD
+    steps here, from the same warm start, on the same batches and noise,
+    all under deterministic cuDNN: every step's loss and grad_norm and the
+    parameters at JAX's lockstep limits; the single run on its batches with
+    the halves swapped (a sound reordering) within them too, and each
+    planted fault outside them; both ranks' states equal bit for bit and
+    exactly 14 launches of each of #2, #3 and #4 per step on each rank."""
+    cfg = configs()["default"]
+    # The ranks start up meanwhile, and wait for the start.
+    port = free_port()
+    logs = [open(os.path.join(workdir, f"dp_rank{r}.log"), "w")
+            for r in range(DP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dp-rank",
+         workdir], cwd=workdir, env=dp_env(port, r), stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(DP_RANKS)]
+    try:
+        with deterministic_cudnn():
+            state, step = train_setup(cfg, device, BATCH)
+            for i in range(DP_WARM_STEPS):
+                state, _ = step(state,
+                                train_batch(BATCH, 1000 + i).to(device))
+            start = {"sd": {k: v.detach().cpu() for k, v in
+                            state.model.state_dict().items()},
+                     "step": state.step}
+            del state, step
+            runs = SGDSteps(device)
+            single = runs.run(start, DP_STEPS)
+            swapped = runs.run(start, DP_STEPS, swap=True)
+        del runs, single["state"], swapped["state"]
+        torch.cuda.empty_cache()
+        path = os.path.join(workdir, "dp_start.pt")
+        torch.save(start, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        tails = [open(f.name).read()[-3000:] for f in logs]
+        raise AssertionError(f"dp ranks exited {rcs}:\n" + "\n".join(tails))
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(workdir, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    for k in TRAIN_KERNELS["float32"]:
+        want[k] = expected_launches(cfg) * DP_STEPS
+    for rec in ranks:
+        if rec["counts"] != want:
+            raise AssertionError(f"dp rank {rec['rank']}: launches "
+                                 f"{rec['counts']}, expected {want}")
+        if rec["mismatches"] or rec["rows"] != BATCH // DP_RANKS:
+            raise AssertionError(f"dp rank {rec['rank']}: {rec}")
+    if ranks[0]["checksums"] != ranks[1]["checksums"] or (
+            ranks[0]["metrics"] != ranks[1]["metrics"]):
+        raise AssertionError("dp: the ranks' states or metrics differ")
+    params = torch.load(os.path.join(workdir, "dp_rank0_params.pt"))
+    readings = {
+        "dp": dp_readings(ranks[0]["metrics"], params["sound"], single),
+        "halves swapped": dp_readings(swapped["metrics"],
+                                      swapped["params"][-1], single),
+        **{kind: dp_readings(ranks[0]["faults"][kind]["metrics"],
+                             params[kind], single) for kind in DP_FAULTS}}
+    for name, r in readings.items():
+        log(f"dp 12a {name} vs single, per step: loss "
+            + ", ".join(f"{x:.3g}" for x in r["loss"]) + "; grad_norm "
+            + ", ".join(f"{x:.3g}" for x in r["grad_norm"])
+            + f"; parameters {r['params']:.3g} (limits {DP_LOSS_RTOL}, "
+            f"{DP_GRAD_NORM_RTOL}, {DP_PARAMS_ATOL}): over "
+            f"{dp_over_limits(r) or 'none'}")
+    for name in ("dp", "halves swapped"):
+        if dp_over_limits(readings[name]):
+            raise AssertionError(f"dp 12a: {name} vs the single run "
+                                 f"{readings[name]}")
+    for kind in DP_FAULTS:
+        if not dp_over_limits(readings[kind]):
+            raise AssertionError(f"dp 12a: the planted fault {kind} passes "
+                                 f"the limits {readings[kind]}")
+    log(f"dp 12a: {DP_RANKS} ranks on {ranks[0]['device']} over gloo, "
+        f"{DP_STEPS} SGD steps of {BATCH} rows ({BATCH // DP_RANKS} a rank) "
+        f"from {DP_WARM_STEPS} Adamax steps: ms per step "
+        f"{[round(x, 2) for x in ranks[0]['step_ms']]} (two ranks sharing "
+        f"one card: no scaling measured); gloo all-reduce of "
+        f"{ranks[0]['allreduce_bytes'] / 1e6:.1f} MB "
+        f"{ranks[0]['allreduce_ms']:.2f} ms; losses "
+        + ", ".join(f"{a['loss']:.9g} vs {b['loss']:.9g}" for a, b in
+                    zip(ranks[0]["metrics"], single["metrics"]))
+        + "; grad_norms "
+        + ", ".join(f"{a['grad_norm']:.9g} vs {b['grad_norm']:.9g}" for a, b
+                    in zip(ranks[0]["metrics"], single["metrics"]))
+        + "; tensors differing across the ranks under each fault "
+        + str({k: ranks[0]["faults"][k]["mismatches"] for k in DP_FAULTS})
+        + f"; per-rank launches {ranks[0]['counts']}")
+    return {"ranks": ranks, "readings": readings,
+            "counts": {k: sum(r["counts"][k] for r in ranks)
+                       for k in KERNEL_NAMES}}
+
+
+def phase_dp_graph(device) -> dict:
+    """12b: NCCL at world size 1, in this process: the scan runner with the
+    mesh (its collectives captured in the step's graph) against the runner
+    without, phase 5b's epochs and steps, under deterministic cuDNN: the
+    states bit for bit equal (a sum over one rank is exact), the replays
+    and each kernel's replayed launches equal, ms per step of each."""
+    import torch.distributed as dist
+
+    from nvae_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=device)
+    try:
+        mesh = make_mesh(device=device)
+        cfg = configs()["default"]
+        data = scan_data(device)
+        with deterministic_cudnn():
+            runs = {name: scan_run(cfg, device, data, True,
+                                   SCAN_STEPS_PER_EPOCH, SCAN_EPOCHS,
+                                   mesh=m)
+                    for name, m in (("plain", None), ("mesh", mesh))}
+        del data
+    finally:
+        dist.destroy_process_group()
+    plain, meshed = runs["plain"], runs["mesh"]
+    diff = state_diff(meshed["flat"], plain["flat"])
+    same = {"state": diff["bitwise"],
+            "means": meshed["means"] == plain["means"],
+            "replays": meshed["runner"].replays == plain["runner"].replays,
+            "replayed": meshed["replayed"] == plain["replayed"],
+            "counts": meshed["counts"] == plain["counts"]}
+    log(f"dp 12b: NCCL, world 1, scan runner with the mesh vs without: "
+        f"{same}, {meshed['runner'].replays} replays each, replayed "
+        f"{ {k: v for k, v in meshed['replayed'].items() if v} }; ms per "
+        f"step of the last epoch {meshed['ms_per_step']:.2f} with the mesh "
+        f"vs {plain['ms_per_step']:.2f} without")
+    if not all(same.values()):
+        raise AssertionError(f"dp 12b: {same} {diff}")
+    return {"same": same, "ms_per_step": meshed["ms_per_step"],
+            "plain_ms_per_step": plain["ms_per_step"],
+            "counts": {k: plain["counts"][k] + meshed["counts"][k]
+                       for k in KERNEL_NAMES},
+            "replayed": {k: plain["replayed"].get(k, 0)
+                         + meshed["replayed"].get(k, 0)
+                         for k in KERNEL_NAMES}}
+
+
+def torchrun_command(counts_path: str, argv) -> list:
+    """``python -m torch.distributed.run --nproc_per_node DP_RANKS`` over
+    the port's CLI, each rank writing its launch counts to
+    ``counts_path`` with ``{rank}`` replaced."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(DP_RANKS), "--no-python",
+            sys.executable, "-c", RUN_WITH_COUNTS, counts_path,
+            "nvae_torch.cli", *argv]
+
+
+def dp_counts(workdir: str, label: str) -> list:
+    out = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(workdir, f"{label}_counts_{r}.json")) as f:
+            out.append(json.load(f)["launches"])
+    return out
+
+
+def run_torchrun(label: str, argv, workdir: str) -> list:
+    counts = os.path.join(workdir, f"{label}_counts_{{rank}}.json")
+    t0 = time.monotonic()
+    proc = subprocess.run(torchrun_command(counts, argv), cwd=workdir,
+                          env=dp_env(0), capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {label} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    out = dp_counts(workdir, label)
+    log(f"dp 12c {label}: exit 0 in {time.monotonic() - t0:.1f} s, "
+        f"launches per rank {out}")
+    return out
+
+
+def rank_pid(parent: int, rank: int) -> int:
+    """The pid of the child of ``parent`` whose environment says RANK."""
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != parent:
+                continue
+            with open(f"/proc/{d}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if f"RANK={rank}".encode() in env:
+            return int(d)
+    raise AssertionError(f"no rank {rank} under pid {parent}")
+
+
+def phase_dp_cli(workdir: str, device) -> dict:
+    """12c: the entry points over torchrun, two ranks on the one card over
+    gloo: ``--mode train --data_parallel 2`` at full width (1 epoch with
+    eval and image hooks, one checkpoint); then, at the same time, a resume
+    for a second epoch and ``--mode serve --data_parallel 2`` over a copy
+    of that checkpoint answering two HTTP requests of BATCH rows at two
+    temperatures, whose images are held against the single-rank
+    ``Sampler`` for the same dispatch seeds; exact launch counts on each
+    rank."""
+    from nvae_torch.train import checkpoint as ckpt
+
+    per_fwd = expected_launches(configs()["default"])
+    args = [*cli_args(workdir), "--data_parallel", str(DP_RANKS)]
+    models = os.path.join(workdir, "models")
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def train(label: str, epochs: int, hooks: list) -> None:
+        per_rank = run_torchrun(label, ["--mode", "train", "--epochs",
+                                        str(epochs), *args, *hooks], workdir)
+        # Each rank: its rows of 4 steps and 4 eval batches; rank 0 also
+        # the sample and reconstruction hooks.
+        for r, c in enumerate(per_rank):
+            check_cli_counts(f"dp {label} rank {r}", c, per_fwd, CLI_BATCHES,
+                             0 if hooks else CLI_BATCHES + (2 if r == 0
+                                                            else 0))
+            for k, v in c.items():
+                counts[k] += v
+        if ckpt.all_steps(models) != [CLI_BATCHES * e
+                                      for e in range(1, epochs + 1)]:
+            raise AssertionError(f"dp {label}: checkpoints "
+                                 f"{ckpt.all_steps(models)}")
+
+    train("train", 1, [])
+    serve_dir = os.path.join(workdir, "serve")
+    shutil.copytree(models, os.path.join(serve_dir, "models"))
+    # The resume skips the hooks, which the first run has shown.
+    _, served = run_concurrently(
+        lambda: train("resume", 2, ["--evaluate_frequency", "0",
+                                    "--sample_frequency", "0"]),
+        lambda: dp_serve(serve_dir, device, per_fwd))
+    lines = read_jsonl(os.path.join(workdir, "logs", "metrics.jsonl"))
+    if [r["step"] for r in lines if "train/loss" in r] != [0, 1] or [
+            r["step"] for r in lines if "test/elbo" in r] != [0]:
+        raise AssertionError(f"dp train: metrics lines {lines}")
+    for k, v in served["counts"].items():
+        counts[k] += v
+    return {**served, "counts": counts}
+
+
+def dp_serve(workdir: str, device, per_fwd: int) -> dict:
+    """``--mode serve --data_parallel 2`` over the checkpoint in
+    ``workdir``: two requests of BATCH rows at DP_SERVE_TEMPERATURES, held
+    against the single-rank ``Sampler`` for the same dispatch seeds, then
+    SIGTERM to rank 0 (it drains and stops the other rank); exact launch
+    counts on each rank."""
+    import dataclasses
+    import signal
+
+    from nvae_torch.presets import get_preset
+    from nvae_torch.serving import Sampler
+    from nvae_torch.serving_runtime import dispatch_seed
+    from nvae_torch.train import checkpoint as ckpt
+
+    args = [*cli_args(workdir), "--data_parallel", str(DP_RANKS)]
+    port = free_port()
+    seed = 1  # the CLI's --seed default: the server's dispatch seeds
+    counts_path = os.path.join(workdir, "serve_counts_{rank}.json")
+    log_path = os.path.join(workdir, "dp_serve.log")
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            torchrun_command(counts_path, [
+                "--mode", "serve", *args, "--serve_port", str(port),
+                "--serve_max_delay_ms", str(SERVE_MAX_DELAY_MS)]),
+            cwd=workdir, env=dp_env(0), stdout=log_f,
+            stderr=subprocess.STDOUT)
+        try:
+            t0 = time.monotonic()
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"dp serve exited {proc.returncode}:"
+                                         f"\n{open(log_path).read()[-4000:]}")
+                try:
+                    http_json(port, "/healthz")
+                    break
+                except OSError:
+                    if time.monotonic() - t0 > 300:
+                        raise AssertionError("dp serve: not up in 300 s")
+                    time.sleep(0.25)
+            up = time.monotonic() - t0
+            served = [np.load(io.BytesIO(http(port, "/sample", {
+                "n": BATCH, "temperature": t, "format": "npy"})[2]))
+                for t in DP_SERVE_TEMPERATURES]
+            info = http_json(port, "/stats")
+            os.kill(rank_pid(proc.pid, 0), signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        raise AssertionError(f"dp serve exited {rc} after SIGTERM:\n"
+                             f"{open(log_path).read()[-4000:]}")
+    per_rank = dp_counts(workdir, "serve")
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    # Each rank: its rows of the warm-up call and of each dispatch.
+    want["fused_swish_depthwise5x5"] = per_fwd * (1 + len(served))
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for r, c in enumerate(per_rank):
+        if c != want:
+            raise AssertionError(f"dp serve rank {r}: launches {c}, want "
+                                 f"{want}")
+        for k, v in c.items():
+            counts[k] += v
+    models = os.path.join(workdir, "models")
+    payload = ckpt.load_payload(models, ckpt.all_steps(models)[-1])
+    sd = {k[len("model/"):]: v for k, v in payload.items()
+          if k.startswith("model/")}
+    cfg = get_preset("mnist_step_sn")[0]
+    sampler = Sampler(dataclasses.replace(cfg, use_pallas_kernels=True), sd,
+                      BATCH, device=device)
+    diffs, bitwise = [], []
+    for d, (t, got) in enumerate(zip(DP_SERVE_TEMPERATURES, served)):
+        ref = sampler(dispatch_seed(seed, d), torch.full((BATCH,), t))
+        ref = ref.cpu().numpy()
+        diffs.append(float(np.abs(got - ref).max()))
+        bitwise.append(bool(np.array_equal(got, ref)))
+    log(f"dp 12c serve: up in {up:.1f} s over {info['weights']}; "
+        f"{len(served)} requests of {BATCH} rows at T="
+        f"{DP_SERVE_TEMPERATURES}: bitwise against the single-rank sampler "
+        f"{bitwise}, max |diff| {diffs}; per-rank launches {per_rank}")
+    if max(diffs) > DP_SERVE_ATOL:
+        raise AssertionError(f"dp serve: images {diffs} from the single "
+                             f"sampler's")
+    return {"counts": counts, "serve_bitwise": bitwise, "serve_diffs": diffs}
+
+
+def phase_data_parallel(device) -> dict:
+    """Phase 12: 12a, 12b and 12c, with its seconds."""
+    t0 = time.monotonic()
+    workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_dp_")
+    try:
+        steps = phase_dp_steps(device, workdir)
+        t1 = time.monotonic()
+        graph = phase_dp_graph(device)
+        t2 = time.monotonic()
+        cli = phase_dp_cli(workdir, device)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.monotonic() - t0
+    log(f"phase 12 (data parallel) took {seconds:.1f} s: 12a {t1 - t0:.1f}, "
+        f"12b {t2 - t1:.1f}, 12c {t0 + seconds - t2:.1f}")
+    return {"counts": {k: steps["counts"][k] + graph["counts"][k]
+                       + cli["counts"][k] for k in KERNEL_NAMES},
+            "replayed": graph["replayed"], "seconds": seconds}
 
 
 def kernel_records(errs, launches, entries) -> list:
@@ -3560,11 +4206,16 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--kernel-times", metavar="ROOT",
         help="only time kernels #1-#5 of the repository tree at ROOT")
+    parser.add_argument("--dp-rank", metavar="DIR",
+                        help="run one rank of phase 12a (started by phase "
+                             "12 itself), writing its record to DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
         return 1
+    if args.dp_rank:
+        return dp_rank(args.dp_rank)
     if args.kernel_times:
         kernel_times(args.kernel_times)
         return 0
@@ -3673,7 +4324,7 @@ def main(argv=None) -> int:
     scans = {}
     data = scan_data(device)
     for name, cfg in scan_configs().items():
-        rec = phase_scan(cfg, device, data)
+        rec = phase_scan(cfg, device, data, repeat=name == "default")
         r = rec["timed"]
         log(f"scan {name}: epochs "
             + ", ".join(f"{t:.3f}" for t in r["epoch_seconds"])
@@ -3689,9 +4340,10 @@ def main(argv=None) -> int:
             f"deterministic cuDNN: {rec['check']['state']}, means equal "
             f"{rec['check']['means_equal']}, peak memory "
             f"{rec['check']['graph_peak_mem_gb']:.2f} / "
-            f"{rec['check']['eager_peak_mem_gb']:.2f} GB; eager vs eager, "
-            f"cuDNN's defaults: {rec['repeat']['state']}, means equal "
-            f"{rec['repeat']['means_equal']}")
+            f"{rec['check']['eager_peak_mem_gb']:.2f} GB"
+            + (f"; eager vs eager, cuDNN's defaults: "
+               f"{rec['repeat']['state']}, means equal "
+               f"{rec['repeat']['means_equal']}" if "repeat" in rec else ""))
         check_scan(name, cfg, rec)
         for k, v in rec["counts"].items():
             launches[k] += v
@@ -3704,15 +4356,16 @@ def main(argv=None) -> int:
         launches[k] += v
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_")
     try:
-        cli_rec = phase_cli(workdir)
+        torch.cuda.empty_cache()  # the subprocesses need the card's memory
+        cli_rec, cli16, cli_scan = run_concurrently(
+            lambda: phase_cli(workdir), lambda: phase_cli_bf16(workdir),
+            lambda: phase_cli_scan(workdir))
         for k, v in cli_rec["counts"].items():
             launches[k] += v
         report_cli(cli_rec)
-        cli16 = phase_cli_bf16(workdir)
         for k, v in cli16["counts"].items():
             launches[k] += v
         report_cli(cli16)
-        cli_scan = phase_cli_scan(workdir)
         for k, v in cli_scan["counts"].items():
             launches[k] += v
         for k, v in cli_scan["replayed"].items():
@@ -3759,6 +4412,11 @@ def main(argv=None) -> int:
         launches[k] += rgb_launches[k] + cli_launches[k]
         replayed[k] += rgb_replayed[k] + cli_replayed[k]
     log(f"RGB entry points done at {time.monotonic() - t_start:.1f} s")
+    dp = phase_data_parallel(device)
+    for k in KERNEL_NAMES:
+        launches[k] += dp["counts"][k]
+        replayed[k] += dp["replayed"][k]
+    log(f"data parallel done at {time.monotonic() - t_start:.1f} s")
     for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
               "se_gate"):
         if launches[k] == 0:

@@ -15,9 +15,14 @@ Modes:
           in --serve_dtype, hot reload from --model_save_dir
 
 It runs on the card unless --cpu asks for the CPU, and raises if there is
-no card.  A flag whose path is not ported yet stops the run with a message
-naming what it waits for; the JAX CLI's pipeline-schedule flags are not
-declared, so argparse rejects them.  bf16 (--compute_dtype,
+no card.  --data_parallel N trains, tests and serves over N ranks, one
+process per device, started by a launcher:
+  torchrun --nproc_per_node N -m nvae_torch.cli ... --data_parallel N
+(N must be the launcher's world size, or 0 for it; rank 0 alone writes
+logs, images, checkpoints and evaluation.json, and serves HTTP).  A flag
+whose path is not ported yet (--fsdp, --pp_stages) stops the run with a
+message naming what it waits for; the JAX CLI's pipeline-schedule flags are
+not declared, so argparse rejects them.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
 preset as in the JAX CLI.  --scan_epochs stages the training set on the
 device and replays each step as one CUDA graph (with --cpu the same steps
@@ -109,8 +114,8 @@ def parse_args(argv=None):
     p.add_argument("--likelihood", type=str, default="",
                    help="bernoulli|dml; default picks by dataset")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="Devices on the data axis (0 = all; the port runs "
-                        "on one)")
+                   help="Ranks on the data axis: 0 or the launcher's world "
+                        "size (torchrun --nproc_per_node N)")
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--profile_dir", type=str, default="",
                    help="Write a torch.profiler trace of one epoch here")
@@ -207,19 +212,19 @@ def parse_args(argv=None):
 
 
 # What a flag the port does not run yet waits for.
-_PARALLEL = "the parallel tiers (ROADMAP.md Queue 1 #9)"
-_WAITING_FLAGS = {_PARALLEL: ("fsdp",)}
+_FSDP = "FSDP, the parallel tiers' slice 9b (ROADMAP.md Queue 1 #9b)"
+_PIPELINE = ("the pipeline, the parallel tiers' slice 9c (ROADMAP.md Queue 1 "
+             "#9c)")
 
 
 def refuse_unported(args) -> None:
     """Stop with ``SystemExit`` on a flag the port does not run yet, naming
     what it waits for."""
-    defaults = vars(parse_args([]))
-    reasons = [f"--{k} waits for {why}" for why, flags in _WAITING_FLAGS.items()
-               for k in flags if getattr(args, k) != defaults[k]]
-    for k in ("pp_stages", "data_parallel"):
-        if getattr(args, k) > 1:
-            reasons.append(f"--{k} > 1 waits for {_PARALLEL}")
+    reasons = []
+    if args.fsdp:
+        reasons.append(f"--fsdp waits for {_FSDP}")
+    if args.pp_stages > 1:
+        reasons.append(f"--pp_stages > 1 waits for {_PIPELINE}")
     if reasons:
         raise SystemExit("not ported yet: " + "; ".join(reasons))
 
@@ -354,7 +359,20 @@ def configs_from_args(args):
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
-    print(f"Args: {vars(args)}")
+
+    from nvae_torch.parallel import initialize, is_primary, make_mesh
+
+    # Before anything touches the card: binds this rank to its device.
+    initialize(device="cpu" if args.cpu else "cuda")
+    try:
+        # --data_parallel must be 0 or the launcher's world size.
+        mesh = make_mesh(args.data_parallel,
+                         device="cpu" if args.cpu else None)
+    except ValueError as e:
+        raise SystemExit(f"--data_parallel: {e}") from None
+    primary = is_primary()
+    if primary:
+        print(f"Args: {vars(args)}")
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -364,7 +382,10 @@ def main(argv=None):
     from nvae_torch.utils.logging import MetricsLogger
 
     model_cfg, train_cfg, bundle = configs_from_args(args)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = (mesh.device if mesh is not None
+              else resolve_device("cpu" if args.cpu else "cuda"))
+    if mesh is not None and primary:
+        print(f"Mesh: {mesh.size} ranks over {mesh.backend}", flush=True)
 
     if args.scale_temperatures is not None and len(
             args.scale_temperatures) != model_cfg.n_latent_scales:
@@ -379,21 +400,28 @@ def main(argv=None):
         binarize=train_cfg.binary if args.mode == "train" else args.binary_eval,
         parity_binarize_255=args.parity_binarize_255, seed=args.seed,
         device=device, debug=args.debug,
+        # --mode test takes the whole test set on every rank, as JAX's
+        # global batches hold it; its feature passes split the rows.
+        mesh=mesh if args.mode == "train" else None,
+        grad_accum=train_cfg.grad_accum,
     )
-    print(f"Dataset {bundle.name}: {len(bundle.train_x)} train / "
-          f"{len(bundle.test_x)} test, {len(train_iter)} batches/epoch")
+    if primary:
+        print(f"Dataset {bundle.name}: {len(bundle.train_x)} train / "
+              f"{len(bundle.test_x)} test, {len(train_iter)} batches/epoch")
 
-    logger = MetricsLogger(args.tensorboard_log_dir)
+    logger = MetricsLogger(args.tensorboard_log_dir) if primary else None
     try:
         trainer = Trainer(model_cfg, train_cfg,
                           steps_per_epoch=len(train_iter), logger=logger,
-                          device=device)
+                          device=device, mesh=mesh)
         if args.mode == "train":
             result = trainer.fit(train_iter, test_iter,
                                  profile_dir=args.profile_dir or None)
             last = result.history[-1] if result.history else {}
-            print(f"Training done: best_loss={result.best_loss:.3f} "
-                  f"last_throughput={last.get('images_per_sec', 0):.1f} img/s")
+            if primary:
+                print(f"Training done: best_loss={result.best_loss:.3f} "
+                      f"last_throughput="
+                      f"{last.get('images_per_sec', 0):.1f} img/s")
         elif args.mode == "serve":
             _serve(args, trainer)
         elif args.mode == "test":
@@ -401,7 +429,8 @@ def main(argv=None):
         else:  # sample
             _sample(args, trainer)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 def _test(args, trainer, test_iter) -> None:
@@ -410,8 +439,9 @@ def _test(args, trainer, test_iter) -> None:
     start = trainer.maybe_resume()
     if args.use_ema:
         trainer.swap_in_ema()
-    print(f"Evaluating checkpoint at epoch {start}"
-          f"{' (EMA weights)' if args.use_ema else ''}")
+    if trainer.primary:
+        print(f"Evaluating checkpoint at epoch {start}"
+              f"{' (EMA weights)' if args.use_ema else ''}")
     timings = {}
     evaluation = evaluate_model(
         trainer,
@@ -429,7 +459,10 @@ def _test(args, trainer, test_iter) -> None:
         parity_fid_uint8=args.parity_fid_uint8 or args.eval_parity,
         parity_unit_input=args.parity_unit_input or args.eval_parity,
         timings=timings,
+        mesh=trainer.mesh,
     )
+    if not trainer.primary:
+        return
     print(f"Negative log likelihood: {evaluation.nll}")
     print(evaluation)
     print(f"Stage seconds: {json.dumps(timings)}")
@@ -443,6 +476,8 @@ def _sample(args, trainer) -> None:
     from nvae_torch.utils.images import sample_sweep_to_dirs, sample_to_dir
 
     start = trainer.maybe_resume()
+    if not trainer.primary:
+        return  # sampling needs no collective: rank 0 writes the images
     if args.use_ema:
         trainer.swap_in_ema()
     print(f"Sampling the checkpoint of epoch {start} (step "
@@ -475,6 +510,9 @@ def _serve(args, trainer) -> None:
     start = trainer.maybe_resume()
     if args.use_ema:
         trainer.swap_in_ema()
+    if trainer.mesh is not None:
+        _serve_mesh(args, trainer, start)
+        return
     print(f"Serving checkpoint at epoch {start} (step {trainer.state.step};"
           f" untrained weights if 0 and no checkpoint)"
           f"{' (EMA weights)' if args.use_ema else ''}")
@@ -492,6 +530,45 @@ def _serve(args, trainer) -> None:
         drain_signals=True, reloader_factory=reloader_factory,
         follow_seconds=args.serve_follow_s,
         fulfill_workers=args.serve_fetch_workers)
+
+
+def _serve_mesh(args, trainer, start: int) -> None:
+    """``--mode serve --data_parallel N``: one batch shape, split over the
+    ranks (:func:`nvae_torch.serving.build_mesh_sampler`); rank 0 runs the
+    HTTP server and the others follow its dispatches until it stops.  The
+    weights are fixed: there is no reload, as in the JAX CLI."""
+    from nvae_torch import serving_http
+    from nvae_torch.serving import build_mesh_sampler, variables_from_state
+    from nvae_torch.serving_http import warm
+
+    if args.serve_batches and set(args.serve_batches) != {args.batch_size}:
+        raise SystemExit("--serve_batches is for single-rank serving; the "
+                         "mesh sampler serves one batch shape, --batch_size")
+    st = tuple(args.scale_temperatures) if args.scale_temperatures else None
+    call = build_mesh_sampler(
+        trainer.model_cfg, variables_from_state(trainer.state),
+        args.batch_size, trainer.mesh, scale_temperatures=st,
+        output_dtype=args.serve_output, serve_dtype=args.serve_dtype)
+    call.sampler.step = int(trainer.state.step)
+    if not trainer.primary:
+        call.follow()
+        return
+    try:
+        warm(call, [args.batch_size])
+        print(f"Serving checkpoint at epoch {start} (step "
+              f"{trainer.state.step}) on http://{args.serve_host}:"
+              f"{args.serve_port} (batch {args.batch_size} over "
+              f"{trainer.mesh.size} ranks, max_delay "
+              f"{args.serve_max_delay_ms} ms, weights "
+              f"{call.info['serve_dtype']}, compute "
+              f"{trainer.model_cfg.compute_dtype})", flush=True)
+        serving_http.serve(
+            call, args.batch_size, host=args.serve_host,
+            port=args.serve_port, max_delay_ms=args.serve_max_delay_ms,
+            seed=args.seed, drain_signals=True,
+            fulfill_workers=args.serve_fetch_workers)
+    finally:
+        call.close()
 
 
 def _build_serve_call(args, trainer):

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from nvae_torch.data.datasets import DataBundle
 from nvae_torch.device import DeviceLike, resolve_device
+from nvae_torch.parallel.mesh import shard_batch
 from nvae_torch.utils.seeds import derive_seed
 
 _INV_255 = float(np.float32(1.0 / 255.0))
@@ -80,6 +81,12 @@ class BatchIterator:
     k.  An epoch's order is JAX's, ``np.random.RandomState(hash((e,
     0x5EED)) % 2**31).shuffle`` (a tuple of ints hashes the same in every
     process), so both packages see the same batches.
+
+    Over a data ``mesh`` every rank takes the same order and the same
+    binarization draws, prepares the global batch and yields its rows of
+    it (``parallel.mesh.shard_batch``, microbatch-major under
+    ``grad_accum``); ``batch_size`` and ``len()`` stay the global batch's
+    and the global batch count.
     """
 
     def __init__(
@@ -95,7 +102,11 @@ class BatchIterator:
         seed: int = 0,
         device: DeviceLike = "cuda",
         max_batches: Optional[int] = None,
+        mesh=None,
+        grad_accum: int = 1,
     ):
+        self.mesh = mesh
+        self.grad_accum = grad_accum
         self.images = images
         self.batch_size = batch_size
         self.target_size = target_size
@@ -143,11 +154,14 @@ class BatchIterator:
             return None
         gen = torch.Generator(device=self.device).manual_seed(
             batch_seed(self.seed, e, b))
-        return prepare_batch(
+        batch = prepare_batch(
             self._to_device(idx), gen, target_size=self.target_size,
             binarize=self.binarize,
             parity_binarize_255=self.parity_binarize_255,
         )
+        if self.mesh is None:
+            return batch
+        return shard_batch(batch, self.mesh, self.grad_accum)
 
     def epoch(self, epoch_idx: Optional[int] = None) -> Iterator[torch.Tensor]:
         """One pass over the data: one shuffle, fresh binarization noise."""
@@ -181,15 +195,19 @@ def make_iterators(
     seed: int = 0,
     device: DeviceLike = "cuda",
     debug: bool = False,
+    mesh=None,
+    grad_accum: int = 1,
 ) -> Tuple[BatchIterator, BatchIterator]:
     """(train, test) iterators on ``device``; ``debug`` truncates both to 4
-    batches, the reference's smoke-test fixture (``train.py:103-105``)."""
+    batches, the reference's smoke-test fixture (``train.py:103-105``).
+    Over a data ``mesh`` each yields this rank's rows of every global batch
+    (the training set's microbatch-major under ``grad_accum``)."""
     max_batches = 4 if debug else None
     kw = dict(target_size=target_size, binarize=binarize,
               parity_binarize_255=parity_binarize_255, device=device,
-              max_batches=max_batches)
+              max_batches=max_batches, mesh=mesh)
     train = BatchIterator(bundle.train_x, batch_size, shuffle=True, seed=seed,
-                          **kw)
+                          grad_accum=grad_accum, **kw)
     test = BatchIterator(bundle.test_x, batch_size, shuffle=False,
                          seed=seed + 1, **kw)
     return train, test

@@ -154,6 +154,7 @@ def evaluate_model(
     parity_fid_uint8: bool = False,
     parity_unit_input: bool = False,
     timings: Optional[dict] = None,
+    mesh=None,
 ) -> ModelEvaluation:
     """The full evaluation of ``trainer``'s model (anything with ``.model``)
     on its device.  FID features come from ``fid_backbone`` (InceptionV3
@@ -175,6 +176,11 @@ def evaluate_model(
     ``timings``, when given a dict, receives the wall seconds of each
     stage (sampling, each backbone's features, precision/recall, PPL, the
     host FID, the NLL), the device synchronized at each stage's end.
+
+    ``mesh`` (``parallel.mesh.DataMesh``, JAX's ``mesh=``): every rank
+    runs the protocol on the same samples; the feature passes and P&R split
+    their rows over the ranks and gather them, so every rank returns the
+    same evaluation.
     """
     model = trainer.model
     device = model.decoder.h.device
@@ -190,14 +196,17 @@ def evaluate_model(
     clock = _StageClock(device, timings)
     sample = clock.timed("sampling", _sampler(model, binary))
     features = clock.timed(f"{feature_backbone} features",
-                           lambda x: extract_features(x, extractor))
+                           lambda x: extract_features(x, extractor,
+                                                      mesh=mesh))
     fid_features = clock.timed(
         f"{fid_backbone} features",
         lambda x: extract_features(
-            quantize_uint8(x) if parity_fid_uint8 else x, fid_extractor))
+            quantize_uint8(x) if parity_fid_uint8 else x, fid_extractor,
+            mesh=mesh))
     precision_recall = clock.timed(
         "precision/recall",
-        lambda ref, ev: knn_precision_recall_features(ref, ev, device=device))
+        lambda ref, ev: knn_precision_recall_features(ref, ev, device=device,
+                                                      mesh=mesh))
 
     def ppl_images(z1, z2, last_s, seed_):
         za, zb = ppl_mod.slerp_pair(z1, z2, torch.Generator(

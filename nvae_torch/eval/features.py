@@ -250,10 +250,26 @@ def get_extractor(
                              str(resolve_device(device)))
 
 
-def extract_features(images, extractor, batch_size: int = 256) -> np.ndarray:
+def extract_features(images, extractor, batch_size: int = 256,
+                     mesh=None) -> np.ndarray:
     """(N, D) numpy features of ``images`` (numpy, a tensor or anything
     sliceable, such as an ``ImageDirectory``), ``batch_size`` at a time,
-    copied to the host once at the end."""
-    out = [extractor(images[i:i + batch_size])
-           for i in range(0, len(images), batch_size)]
+    copied to the host once at the end.
+
+    ``mesh`` (``parallel.mesh.DataMesh``): each batch is padded with zero
+    images to a multiple of the rank count, each rank extracts its rows,
+    the ranks gather the features and the padding rows are dropped, so
+    every rank returns all of them (JAX's ``mesh=``).  That holds for an
+    extractor that treats each image on its own, as every backbone here
+    does."""
+    out = []
+    for i in range(0, len(images), batch_size):
+        batch = images[i:i + batch_size]
+        if mesh is None:
+            out.append(extractor(batch))
+            continue
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(np.asarray(batch, np.float32))
+        out.append(mesh.map_rows(batch.to(mesh.device, torch.float32),
+                                 extractor))
     return torch.cat(out).cpu().numpy()

@@ -13,8 +13,13 @@ may be shorter), with a running top-(k+1) merge for the radii and an OR for
 membership, so a tile is at most ``row_batch_size`` squared.  The distance
 products run in full fp32 (``fp32_math``: no TF32 on the card), as the JAX
 package runs them at ``Precision.HIGHEST``: a sample near a sphere's
-boundary needs it.  The JAX package's ``mesh=`` sharding waits for the
-parallel tiers (ROADMAP.md Queue 1 #9).
+boundary needs it.
+
+``mesh=`` (``parallel.mesh.DataMesh``) splits the rows of every pass over
+the ranks, as JAX's ``mesh=`` shards them: each rank finds the radii, the
+membership and the realism of its block of rows against all columns, and
+the ranks gather the blocks (``DataMesh.map_rows``), so each row's numbers
+are those of the single-device pass and every rank holds the result.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ def pairwise_sq_dists(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(norm_u - 2.0 * cross + norm_v, min=0.0)
 
 
-def _knn_radii(features: torch.Tensor, k: int) -> torch.Tensor:
-    """Distance to the k-th nearest other sample, per row, from the full
+def _knn_radii(features: torch.Tensor, k: int,
+               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Distance of each of ``rows`` (samples of ``features``, by default
+    all of them) to its k-th nearest other sample, from the full distance
     matrix (the k+1 smallest include the sample itself, at 0)."""
-    d = pairwise_sq_dists(features, features)
+    d = pairwise_sq_dists(features if rows is None else rows, features)
     return torch.topk(d, k + 1, dim=1, largest=False).values[:, k]
 
 
@@ -63,20 +70,31 @@ def _knn_radii_rows(rows: torch.Tensor, features: torch.Tensor, k: int,
     return best[:, k]
 
 
-def _knn_radii_batched(features: torch.Tensor, k: int,
-                       row_batch_size: int) -> torch.Tensor:
-    """Row blocks of ``_knn_radii_rows``: O(row_batch^2) memory at any N."""
+def _knn_radii_batched(features: torch.Tensor, k: int, row_batch_size: int,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row blocks of ``_knn_radii_rows`` (of ``rows``, by default every
+    sample): O(row_batch^2) memory at any N."""
+    rows = features if rows is None else rows
     col_batch = min(row_batch_size, features.shape[0])
     return torch.cat([
-        _knn_radii_rows(features[i:i + row_batch_size], features, k, col_batch)
-        for i in range(0, features.shape[0], row_batch_size)])
+        _knn_radii_rows(rows[i:i + row_batch_size], features, k, col_batch)
+        for i in range(0, rows.shape[0], row_batch_size)])
 
 
-def _radii_for(features: torch.Tensor, k: int,
-               row_batch_size: int) -> torch.Tensor:
+def _over_rows(mesh, x: torch.Tensor, fn):
+    """``fn(x)``, or with a mesh its rows split over the ranks."""
+    return fn(x) if mesh is None else mesh.map_rows(x, fn)
+
+
+def _radii_for(features: torch.Tensor, k: int, row_batch_size: int,
+               mesh=None) -> torch.Tensor:
     if features.shape[0] > row_batch_size:
-        return _knn_radii_batched(features, k, row_batch_size)
-    return _knn_radii(features, k)
+        def radii(rows):
+            return _knn_radii_batched(features, k, row_batch_size, rows)
+    else:
+        def radii(rows):
+            return _knn_radii(features, k, rows)
+    return _over_rows(mesh, features, radii)
 
 
 def _membership(eval_feats: torch.Tensor, ref_feats: torch.Tensor,
@@ -145,7 +163,8 @@ class ManifoldEstimator:
     surface: membership, realism, nearest neighbours, and the
     ``clamp_to_percentile`` prune (radii above that percentile, linearly
     interpolated, are set to 0).  Runs on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU), each pass's rows split over the ranks of
+    ``mesh`` when one is given."""
 
     def __init__(
         self,
@@ -155,15 +174,17 @@ class ManifoldEstimator:
         clamp_to_percentile: Optional[float] = None,
         eps: float = 1e-5,
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         feats = _as_features(features, self.device)
         self.nhood_sizes = tuple(int(k) for k in nhood_sizes)
         self.row_batch_size = int(row_batch_size)
         self.eps = float(eps)
         self._features = feats
         self.radii: Dict[int, torch.Tensor] = {
-            k: _radii_for(feats, k, self.row_batch_size)
+            k: _radii_for(feats, k, self.row_batch_size, mesh)
             for k in self.nhood_sizes
         }
         if clamp_to_percentile is not None:
@@ -175,8 +196,8 @@ class ManifoldEstimator:
     def membership(self, eval_features, k: int) -> torch.Tensor:
         """(E,) bool membership for one neighbourhood size."""
         ev = _as_features(eval_features, self.device)
-        return _batched_membership(ev, self._features, self.radii[k],
-                                   self.row_batch_size)
+        return _over_rows(self.mesh, ev, lambda rows: _batched_membership(
+            rows, self._features, self.radii[k], self.row_batch_size))
 
     def evaluate(self, eval_features, return_realism: bool = False,
                  return_neighbors: bool = False):
@@ -188,10 +209,15 @@ class ManifoldEstimator:
         radii_mat = torch.stack([self.radii[k] for k in self.nhood_sizes],
                                 dim=1)
         col_batch = min(self.row_batch_size, self._features.shape[0])
-        outs = [_evaluate_rows(ev[i:i + self.row_batch_size], self._features,
-                               radii_mat, col_batch, self.eps)
-                for i in range(0, ev.shape[0], self.row_batch_size)]
-        preds, realism, neighbors = (torch.cat(xs) for xs in zip(*outs))
+
+        def evaluate(rows):
+            outs = [_evaluate_rows(rows[i:i + self.row_batch_size],
+                                   self._features, radii_mat, col_batch,
+                                   self.eps)
+                    for i in range(0, rows.shape[0], self.row_batch_size)]
+            return tuple(torch.cat(xs) for xs in zip(*outs))
+
+        preds, realism, neighbors = _over_rows(self.mesh, ev, evaluate)
         preds = preds.to(torch.int32)
         if return_realism and return_neighbors:
             return preds, realism, neighbors
@@ -211,6 +237,7 @@ def knn_precision_recall_features(
     return_realism: bool = False,
     return_neighbors: bool = False,
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> Dict[str, object]:
     """Precision and recall between reference (real) and eval (generated)
     features on ``device``.
@@ -219,12 +246,13 @@ def knn_precision_recall_features(
     ``precision_k{k}``/``recall_k{k}`` for each; ``return_realism`` adds
     ``realism`` (float32 per eval sample) and ``return_neighbors``
     ``nearest_neighbors`` (int32 index of each eval sample's nearest
-    reference row), both numpy."""
+    reference row), both numpy.  ``mesh`` splits every pass's rows over
+    the ranks (see the module's docstring)."""
     dev = resolve_device(device)
     ref = _as_features(ref_features, dev)
     ev = _as_features(eval_features, dev)
     kw = dict(nhood_sizes=nhood_sizes, row_batch_size=row_batch_size,
-              clamp_to_percentile=clamp_to_percentile, device=dev)
+              clamp_to_percentile=clamp_to_percentile, device=dev, mesh=mesh)
     ref_manifold = ManifoldEstimator(ref, **kw)
     eval_manifold = ManifoldEstimator(ev, **kw)
 

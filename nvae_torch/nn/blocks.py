@@ -58,6 +58,14 @@ class BatchNorm(nn.Module):
     ``update_buffers`` False (a rematerialized cell's second run) leaves
     the running statistics as they are.
 
+    ``mesh`` (a ``parallel.mesh.DataMesh``, set while
+    ``parallel.mesh.batch_stats_over`` is open) takes the batch statistics
+    over the global batch, as they are under JAX's GSPMD: each rank's
+    ``E[x]`` and ``E[x^2]`` are averaged over the ranks (equal row counts)
+    by a sum whose backward sums their gradients over the ranks, so the
+    running statistics stay the same on every rank.  Over one rank the
+    statistics are those of the plain path, bit for bit.
+
     ``apply_dtype`` bf16 is JAX's ``_SplitPrecisionBN``: ``mul = scale *
     rsqrt(var + eps)`` and ``add = bias - mean * mul`` from the fp32
     statistics (the batch's in training, gradients flowing through them),
@@ -72,6 +80,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.apply_dtype = apply_dtype
         self.update_buffers = True
+        self.mesh = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -103,8 +112,10 @@ class BatchNorm(nn.Module):
         dims = (0, 2, 3)
         st = self.running_mean.dtype
         xf = x.to(torch.promote_types(x.dtype, st))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        if self.mesh is not None:
+            mean, sq = self.mesh.mean_with_grad(torch.stack([mean, sq]))
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.update_buffers:
             with torch.no_grad():
                 m = self.MOMENTUM

@@ -3,7 +3,7 @@ serving dtypes, and its one-file artifact (counterpart of
 ``nvae_tpu/serving.py``: ``QuantizedLeaf``, ``quantize_params_int8``,
 ``dequantize_params``, ``cast_params``, ``quantize_output``,
 ``variables_from_state``, ``ReloadableSampler``, ``make_checkpoint_reloader``,
-``export_sampler`` and ``load_artifact``).
+``build_mesh_sampler``, ``export_sampler`` and ``load_artifact``).
 
 :class:`Sampler` is called as ``(seed, temperature) -> images``; a
 temperature vector's length sets the batch size, so one sampler backs
@@ -61,7 +61,8 @@ import torch
 from nvae_torch.config import ModelConfig
 from nvae_torch.convert import channel_axes
 from nvae_torch.device import DeviceLike, fp32_math, resolve_device
-from nvae_torch.models.nvae import NVAE
+from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
+from nvae_torch.parallel.multihost import is_primary
 
 SERVE_DTYPES = ("", "bfloat16", "int8")  # "": as trained (float32)
 INT8_MIN_ELEMS = 4096
@@ -364,6 +365,119 @@ def make_checkpoint_reloader(sampler: Sampler, ckpt_dir: str, state_template,
         return {**sampler.info, "use_ema": ema}
 
     return reload
+
+
+# ---- data-parallel serving -------------------------------------------------
+
+
+class MeshSampler:
+    """A :class:`Sampler` whose batch is split over the ranks of a data
+    mesh (``parallel.mesh.DataMesh``), called as ``(seed, temperature) ->
+    images`` on rank 0 (see :func:`build_mesh_sampler`).
+
+    Rank 0 drives: per call it broadcasts ``(seed, batch)`` and the
+    per-sample temperatures, every rank samples its rows of the global
+    draw (the noise a single device draws for the whole batch, of which
+    each rank keeps its rows), and rank 0 gathers the images.  The other
+    ranks sit in :meth:`follow` until rank 0's :meth:`close`.  The images
+    are the single-device sampler's for the same ``(seed, temperature)``:
+    bitwise where each row's arithmetic does not depend on the batch size
+    (a convolution's algorithm may)."""
+
+    _STOP, _SAMPLE = 0, 1
+
+    def __init__(self, sampler: Sampler, mesh, n_samples: int):
+        self.sampler, self.mesh = sampler, mesh
+        self.n_samples = int(n_samples)
+        self._closed = False
+
+    @property
+    def info(self) -> dict:
+        return {**self.sampler.info, "ranks": self.mesh.size}
+
+    def _sample_rows(self, seed: int, temps: torch.Tensor) -> torch.Tensor:
+        sampler, n = self.sampler, temps.shape[0]
+        rows = self.mesh.rows(n)
+        gen = torch.Generator(device=sampler.device).manual_seed(int(seed))
+
+        def sample(model):
+            eps = [torch.randn(s, generator=gen, device=sampler.device)[rows]
+                   for s in decoder_noise_shapes(sampler.cfg, n)]
+            images, _, _, _ = model.sample(rows.stop - rows.start,
+                                           temps[rows], True, sampler._st,
+                                           eps=eps)
+            return quantize_output(images, sampler.output_dtype)
+
+        return sampler.apply(sample)
+
+    def _header(self, cmd: int, seed: int = 0, n: int = 0) -> torch.Tensor:
+        return torch.tensor([cmd, seed, n], dtype=torch.int64,
+                            device=self.mesh.device)
+
+    def __call__(self, seed: int, temperature) -> torch.Tensor:
+        if not is_primary():
+            raise RuntimeError("rank 0 calls the mesh sampler; the other "
+                               "ranks follow()")
+        temps = torch.as_tensor(np.asarray(temperature, np.float32)
+                                if not isinstance(temperature, torch.Tensor)
+                                else temperature, dtype=torch.float32)
+        if temps.dim() == 0:
+            temps = temps.expand(self.n_samples)
+        n = temps.shape[0]
+        if n % self.mesh.size:
+            raise ValueError(f"batch {n} not divisible by {self.mesh.size} "
+                             f"ranks")
+        temps = temps.to(self.mesh.device).contiguous()
+        self.mesh.broadcast_(self._header(self._SAMPLE, seed, n))
+        self.mesh.broadcast_(temps)
+        return self.mesh.all_gather_rows(self._sample_rows(seed, temps))
+
+    def follow(self) -> int:
+        """The loop of a rank other than 0: sample its rows of every call
+        rank 0 makes, until rank 0 closes.  SIGTERM and SIGINT are ignored
+        meanwhile: rank 0 drains its server and then stops the others.
+        Returns the number of calls followed."""
+        import signal
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        calls = 0
+        while True:
+            header = self.mesh.broadcast_(self._header(self._STOP))
+            cmd, seed, n = header.tolist()
+            if cmd == self._STOP:
+                return calls
+            temps = torch.empty(n, dtype=torch.float32,
+                                device=self.mesh.device)
+            self.mesh.broadcast_(temps)
+            self.mesh.all_gather_rows(self._sample_rows(seed, temps))
+            calls += 1
+
+    def close(self) -> None:
+        """Rank 0: release the followers (once)."""
+        if is_primary() and not self._closed:
+            self._closed = True
+            self.mesh.broadcast_(self._header(self._STOP))
+
+
+def build_mesh_sampler(cfg: ModelConfig, state_dict: dict, n_samples: int,
+                       mesh, scale_temperatures: Optional[Sequence[float]]
+                       = None, output_dtype: str = "",
+                       serve_dtype: str = "") -> MeshSampler:
+    """Data-parallel sampler over the ranks of ``mesh`` (counterpart of
+    JAX's ``build_mesh_sampler``): the weights replicated on every rank's
+    device, each call's ``n_samples`` rows split over the ranks.  Every
+    rank builds it; rank 0 calls it and the others :meth:`MeshSampler.
+    follow`.  A temperature is a float or a per-sample vector (JAX's
+    ``per_sample_temperature``).  Raises ``ValueError`` when ``n_samples``
+    does not split over the ranks."""
+    if n_samples % mesh.size:
+        raise ValueError(f"serving batch {n_samples} not divisible by the "
+                         f"data axis {mesh.size}")
+    sampler = Sampler(cfg, state_dict, n_samples, scale_temperatures,
+                      output_dtype, device=mesh.device,
+                      serve_dtype=serve_dtype)
+    return MeshSampler(sampler, mesh, n_samples)
 
 
 # ---- the serving artifact ----------------------------------------------------

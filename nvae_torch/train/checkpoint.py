@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from nvae_torch.parallel.multihost import is_primary
 from nvae_torch.train.state import TrainState
 
 FILE = "state.pt"
@@ -229,9 +230,14 @@ class AsyncCheckpointWriter:
     periodic one.  ``timings`` lists ``(step, blocking_ms, total_ms)`` of
     each finished write: the time ``save`` held the caller, and the time
     until the write was on disk.
+
+    With a data ``mesh`` (``parallel.mesh.DataMesh``) every rank calls
+    ``save``: the ranks meet at a barrier, then rank 0 alone writes (the
+    state is the same on every rank) and the others return False.
     """
 
-    def __init__(self, ckpt_dir: str):
+    def __init__(self, ckpt_dir: str, mesh=None):
+        self.mesh = mesh
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self._latest = latest_step(self.ckpt_dir)
         self._pool = ThreadPoolExecutor(max_workers=1,
@@ -241,6 +247,10 @@ class AsyncCheckpointWriter:
 
     def save(self, step: int, state: TrainState) -> bool:
         step = int(step)
+        if self.mesh is not None:
+            self.mesh.barrier()
+            if not is_primary():
+                return False
         if self._latest is not None and step <= self._latest:
             return False
         t0 = time.perf_counter()

@@ -32,6 +32,15 @@ same body runs eagerly, with no graph.
 
 As JAX's scan runner (``epoch_runner.py:88``) does, the forward always runs
 in training mode, whatever ``parity_frozen_norm`` says.
+
+Over a data mesh (``parallel.mesh.DataMesh``) every rank stages the whole
+uint8 dataset, draws the same permutation and binarization noise, prepares
+the global batch and keeps its rows (``parallel.mesh.shard_batch``): the
+port's form of JAX's row-sharded ``stage_dataset``, since copying the
+dataset to each card (MNIST's is 47 MB) costs less than a gather across
+ranks each step.  The step's collectives (``train/step.py``) are nodes of
+the captured graph: NCCL's can be captured, gloo's cannot, so a graphed
+runner over a gloo group raises.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from nvae_torch.data.pipeline import prepare_batch
 from nvae_torch.device import DeviceLike, resolve_device
 from nvae_torch.kernels import depthwise
 from nvae_torch.models.nvae import NVAE
+from nvae_torch.parallel.mesh import shard_batch
 from nvae_torch.train.optim import GradientTransformation, state_tensors
 from nvae_torch.train.state import TrainState
 from nvae_torch.train.step import StepBody, metric_means, step_seed
@@ -92,10 +102,11 @@ class EpochRunner:
     def __init__(self, model: NVAE, tx: GradientTransformation,
                  train_cfg: TrainConfig, total_steps: int,
                  steps_per_epoch: int, target_size: int = 32, *,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, mesh=None):
         refuse_grad_accum(train_cfg)
         self.body = StepBody(model, tx, train_cfg, total_steps,
-                             steps_per_epoch, train=True)
+                             steps_per_epoch, train=True, mesh=mesh)
+        self.mesh = mesh
         self.train_cfg = train_cfg
         self.steps_per_epoch = steps_per_epoch
         self.batch_size = train_cfg.batch_size
@@ -105,6 +116,10 @@ class EpochRunner:
         if self.graphed and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs the model on the card, "
                              f"not {device}")
+        if self.graphed and mesh is not None and mesh.backend != "nccl":
+            raise ValueError(f"a CUDA graph captures NCCL's collectives, "
+                             f"not {mesh.backend}'s: run the group on NCCL, "
+                             f"or make the runner with graph=False")
         self.data_generator = torch.Generator(device=device)
         self._perm_generator = torch.Generator(device=device)
         self._rows: Optional[torch.Tensor] = None  # the epoch's batches
@@ -133,6 +148,8 @@ class EpochRunner:
                               binarize=tc.binary,
                               parity_binarize_255=tc.parity_binarize_255,
                               uniform=uniform).to(self.body.dtype)
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         opt_state, metrics = self.body(opt_state, batch,
                                        eps=None if eps is None else [eps])
         if self._sums is None:
@@ -244,7 +261,8 @@ class EpochRunner:
 def make_epoch_runner(model: NVAE, tx: GradientTransformation,
                       train_cfg: TrainConfig, total_steps: int,
                       steps_per_epoch: int, target_size: int = 32, *,
-                      graph: Optional[bool] = None) -> EpochRunner:
+                      graph: Optional[bool] = None,
+                      mesh=None) -> EpochRunner:
     """Returns ``run_epoch(state, data_u8, epoch_idx, *, perm=None,
     uniforms=None, eps=None) -> (state, means)``.
 
@@ -260,7 +278,9 @@ def make_epoch_runner(model: NVAE, tx: GradientTransformation,
     (one (B, S, S, C) tensor per step) and the posterior noise ``eps`` (one
     list of NHWC draws per step, in the posterior pass's order); injected
     noise runs eagerly.  Raises ``ValueError`` for ``grad_accum > 1``, as
-    JAX's trainer does.
+    JAX's trainer does.  With a ``mesh`` each rank runs its rows of every
+    global batch (see the module's docstring); the injected noise is the
+    global batch's.
     """
     return EpochRunner(model, tx, train_cfg, total_steps, steps_per_epoch,
-                       target_size, graph=graph)
+                       target_size, graph=graph, mesh=mesh)

@@ -42,12 +42,18 @@ def kl_alphas(n_scales: int, groups_per_scale: Sequence[int],
     return alphas / alphas.min()
 
 
-def balanced_kl_loss(kl_all: torch.Tensor, alphas: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def balanced_kl_loss(kl_all: torch.Tensor, alphas: torch.Tensor,
+                     mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample KL with warm-up balancing: coefficients
     ``(mean_b |KL_g| + 0.01) / alpha_g * sum_g(...)`` over their mean,
-    detached (JAX's ``stop_gradient``).  Returns ``(loss_b, coeffs_g)``."""
-    kl_coeff = kl_all.abs().mean(dim=1) + 0.01
+    detached (JAX's ``stop_gradient``).  ``mean_b`` is over the global
+    batch: with a ``mesh`` (``parallel.mesh.DataMesh``) the ranks' means
+    are averaged, so every rank weighs the groups alike.  Returns
+    ``(loss_b, coeffs_g)``."""
+    abs_mean = kl_all.abs().mean(dim=1)
+    if mesh is not None:
+        abs_mean = mesh.mean(abs_mean.detach())
+    kl_coeff = abs_mean + 0.01
     total_kl = kl_coeff.sum()
     kl_coeff = kl_coeff / alphas * total_kl
     kl_coeff = (kl_coeff / kl_coeff.mean()).detach()
@@ -111,11 +117,14 @@ def beta_schedule(step, epoch, *, train_cfg: TrainConfig,
 
 def elbo_loss(output, x: torch.Tensor, beta: torch.Tensor,
               model_cfg: ModelConfig, *,
-              alphas: Optional[torch.Tensor] = None
+              alphas: Optional[torch.Tensor] = None, mesh=None
               ) -> Tuple[torch.Tensor, dict]:
     """``mean(recon + beta * kl)``, with balancing while ``beta < 1``.
     ``alphas`` are :func:`kl_alphas` of the config, made once by a caller
     that steps many times (a CUDA graph cannot copy them to the card).
+    With a ``mesh`` ``x`` is this rank's rows, and the balancing
+    coefficients are the global batch's; the loss and metrics stay this
+    rank's means (the step averages them over the ranks).
     Returns ``(loss, metrics)``; the step adds the penalties."""
     rl = recon_loss(output.logits, x, model_cfg.likelihood, model_cfg.n_mix)
     kl_all = kl_per_group(output.latents)
@@ -125,7 +134,7 @@ def elbo_loss(output, x: torch.Tensor, beta: torch.Tensor,
     beta = beta.to(kl_all.device)
     # Both forms, and the one beta picks on the device: a branch on beta
     # would read it back to the host.
-    balanced, _ = balanced_kl_loss(kl_all, alphas)
+    balanced, _ = balanced_kl_loss(kl_all, alphas, mesh)
     kl = torch.where(beta < 1.0, balanced, unbalanced_kl_loss(kl_all))
     loss = (rl + beta * kl).mean()
     metrics = {

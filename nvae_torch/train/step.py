@@ -16,7 +16,12 @@ from torch.profiler import record_function
 
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.device import fp32_math
-from nvae_torch.models.nvae import NVAE, discard_buffer_updates
+from nvae_torch.models.nvae import (
+    NVAE,
+    discard_buffer_updates,
+    posterior_noise_shapes,
+)
+from nvae_torch.parallel.mesh import batch_stats_over
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
     GradientTransformation,
@@ -37,6 +42,21 @@ def step_seed(seed: int, step: int, microbatch: int) -> int:
     return derive_seed(seed, step, microbatch)
 
 
+def global_noise_rows(cfg: ModelConfig, rows: int, mesh, eps, generator,
+                      device, dtype) -> list:
+    """This rank's ``rows`` of a posterior pass's noise over the global
+    batch (``rows`` times the rank count): of ``eps`` (the global batch's
+    draws) or of a draw of the global batch's shapes from ``generator``,
+    the draw a single device makes, so the noise does not depend on the
+    rank count."""
+    n = rows * mesh.size
+    if eps is None:
+        dt = torch.promote_types(dtype, torch.float32)
+        eps = [torch.randn(s, generator=generator, device=device, dtype=dt)
+               for s in posterior_noise_shapes(cfg, n)]
+    return [torch.as_tensor(e)[mesh.rows(n)] for e in eps]
+
+
 class StepBody:
     """The training step's work on the device, shared by
     :func:`make_train_step` and the epoch runner
@@ -54,11 +74,30 @@ class StepBody:
     it before each microbatch, which only an eager caller can do: a graph
     replays with the seed set before the replay).  ``train`` is the
     forward's mode.
+
+    With a ``mesh`` (``parallel.mesh.DataMesh``) the body is one rank's
+    share of a data-parallel step that equals the single-device step on the
+    global batch, as JAX's GSPMD step does:
+
+    - the batch is this rank's rows, microbatch-major under ``grad_accum``
+      (``parallel.mesh.shard_batch``);
+    - the posterior noise is the global batch's draw, of which the rank
+      keeps its rows (so the noise does not depend on the rank count);
+    - BatchNorm takes its statistics and the KL balancing its coefficients
+      over the global batch;
+    - the gradients (one buffer) are summed over the ranks and divided by
+      their count before the norm, the clipping and the optimizer, so every
+      rank applies the same update; the batch metrics are averaged too.
     """
+
+    # The metrics that depend on the batch; the others are the same on
+    # every rank.
+    BATCH_METRICS = ("loss", "reconstruction_loss", "kl_loss", "kl_raw")
 
     def __init__(self, model: NVAE, tx: GradientTransformation,
                  train_cfg: TrainConfig, total_steps: int,
-                 steps_per_epoch: int, *, train: bool, grad_accum: int = 1):
+                 steps_per_epoch: int, *, train: bool, grad_accum: int = 1,
+                 mesh=None):
         self.model = model
         self.tx = tx
         self.train_cfg = train_cfg
@@ -68,25 +107,34 @@ class StepBody:
         self.total_epochs = max(total_steps // self.steps_per_epoch, 1)
         self.train = train
         self.grad_accum = max(int(grad_accum), 1)
+        self.mesh = mesh
         self.params = dict(model.named_parameters())
         self.device = model.decoder.h.device
         self.dtype = model.decoder.h.dtype
         self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self._grads: Optional[Dict[str, torch.Tensor]] = None
+        self._flat: Optional[torch.Tensor] = None
         self.alphas = losses.kl_alphas(self.model_cfg.n_latent_scales,
                                        self.model_cfg.n_groups_per_scale,
                                        device=self.device)
 
     def _bind_grads(self) -> Dict[str, torch.Tensor]:
-        """The body's own gradient buffers, zeroed and bound as each
-        parameter's ``.grad``, so that the backward pass adds into them."""
+        """The body's own gradient buffers, views of one flat buffer (one
+        all-reduce sums them), zeroed and bound as each parameter's
+        ``.grad``, so that the backward pass adds into them."""
         if self._grads is None:
-            self._grads = {k: torch.zeros_like(p)
-                           for k, p in self.params.items()}
+            ps = list(self.params.values())
+            self._flat = torch.zeros(sum(p.numel() for p in ps),
+                                     dtype=ps[0].dtype, device=self.device)
+            self._grads, offset = {}, 0
+            for k, p in self.params.items():
+                self._grads[k] = self._flat.as_strided(p.shape, p.stride(),
+                                                       offset)
+                offset += p.numel()
         for k, p in self.params.items():
             p.grad = self._grads[k]
-        torch._foreach_zero_(list(self._grads.values()))
+        self._flat.zero_()
         return self._grads
 
     def __call__(self, opt_state, batch: torch.Tensor, *,
@@ -110,15 +158,21 @@ class StepBody:
         model.train(self.train)
         grads = self._bind_grads()
         totals: dict = {}
-        with fp32_math():
+        mesh = self.mesh
+        with fp32_math(), batch_stats_over(model, mesh):
             for i, mb in enumerate(batch.chunk(self.grad_accum)):
                 if seeds is not None:
                     self.generator.manual_seed(seeds[i])
+                eps_i = None if eps is None else eps[i]
+                if mesh is not None:
+                    eps_i = global_noise_rows(model_cfg, mb.shape[0], mesh,
+                                              eps_i, self.generator,
+                                              self.device, self.dtype)
                 with record_function("train_step.forward"):
-                    out = model(mb, generator=self.generator,
-                                eps=None if eps is None else eps[i])
+                    out = model(mb, generator=self.generator, eps=eps_i)
                     loss, metrics = losses.elbo_loss(out, mb, beta, model_cfg,
-                                                     alphas=self.alphas)
+                                                     alphas=self.alphas,
+                                                     mesh=mesh)
                     bn_loss = losses.bn_gamma_penalty(model,
                                                       model_cfg.sr_lambda)
                     loss = loss + bn_loss
@@ -135,6 +189,11 @@ class StepBody:
                     v = v.detach()
                     totals[k] = v if k not in totals else totals[k] + v
             with record_function("train_step.update"):
+                if mesh is not None:
+                    mesh.all_reduce_(self._flat).div_(mesh.size)
+                    keys = [k for k in self.BATCH_METRICS if k in totals]
+                    means = mesh.mean(torch.stack([totals[k] for k in keys]))
+                    totals.update(zip(keys, means.unbind()))
                 if self.grad_accum > 1:
                     grads = {k: g / self.grad_accum for k, g in grads.items()}
                     totals = {k: v / self.grad_accum
@@ -164,6 +223,7 @@ def make_train_step(
     train_cfg: TrainConfig,
     total_steps: int,
     steps_per_epoch: int,
+    mesh=None,
 ):
     """Returns ``step(state, batch, *, eps=None) -> (state, metrics)``.
 
@@ -202,10 +262,16 @@ def make_train_step(
     ``kl_loss``, ``kl_raw``, ``beta``, ``bn_loss``, ``spectral_loss``
     (penalty mode only) and ``grad_norm`` (global L2 norm of the gradients,
     before the update).
+
+    With a ``mesh`` (``parallel.mesh.DataMesh``) every rank calls the step
+    on its rows of the global batch (``parallel.mesh.shard_batch``) with
+    the same state; ``eps`` is then the global batch's noise.  The step
+    equals the single-device step on the global batch (see
+    :class:`StepBody`), and its metrics are the global batch's.
     """
     body = StepBody(model, tx, train_cfg, total_steps, steps_per_epoch,
                     train=not train_cfg.parity_frozen_norm,
-                    grad_accum=train_cfg.grad_accum)
+                    grad_accum=train_cfg.grad_accum, mesh=mesh)
 
     def step(state: TrainState, batch, *,
              eps: Optional[Sequence[Sequence]] = None
@@ -233,7 +299,7 @@ def make_train_step(
 
 
 def make_eval_step(model: NVAE, train_cfg: TrainConfig,
-                   bn_batch_stats: bool = True):
+                   bn_batch_stats: bool = True, mesh=None):
     """Returns ``eval_fn(state, batch, *, generator=None, eps=None) ->
     metrics``: ``reconstruction_loss``, ``kl_loss`` (the unbalanced KL sum)
     and ``elbo``, batch means as tensors on the device, from one posterior
@@ -247,7 +313,9 @@ def make_eval_step(model: NVAE, train_cfg: TrainConfig,
     the held-out KL).  Otherwise the pass runs in eval mode.  Either way
     every buffer keeps its bits and the model its mode.  Noise as in the
     train step: ``generator``, or ``eps`` (one list of NHWC draws in the
-    posterior pass's order).
+    posterior pass's order).  With a ``mesh``, as in the train step: the
+    batch is this rank's rows, the noise and the BatchNorm statistics are
+    the global batch's, and so are the returned means.
     """
     model_cfg: ModelConfig = model.cfg
 
@@ -256,19 +324,23 @@ def make_eval_step(model: NVAE, train_cfg: TrainConfig,
                 eps: Optional[Sequence] = None) -> dict:
         m = state.model
         with (torch.no_grad(), fp32_math(),
-              discard_buffer_updates(m, train=bn_batch_stats)):
+              discard_buffer_updates(m, train=bn_batch_stats),
+              batch_stats_over(m, mesh)):
             h = m.decoder.h
             if not isinstance(batch, torch.Tensor):
                 batch = torch.from_numpy(np.array(batch, dtype=np.float32))
             batch = batch.to(device=h.device, dtype=h.dtype)
+            if mesh is not None:
+                eps = global_noise_rows(model_cfg, batch.shape[0], mesh, eps,
+                                        generator, h.device, h.dtype)
             out = m(batch, generator=generator, eps=eps)
             rl = losses.recon_loss(out.logits, batch, model_cfg.likelihood,
                                    model_cfg.n_mix)
             kl = losses.kl_per_group(out.latents).sum(dim=0)
-            return {
-                "reconstruction_loss": rl.mean(),
-                "kl_loss": kl.mean(),
-                "elbo": (rl + kl).mean(),
-            }
+            means = torch.stack([rl.mean(), kl.mean(), (rl + kl).mean()])
+            if mesh is not None:
+                means = mesh.mean(means)
+            return dict(zip(("reconstruction_loss", "kl_loss", "elbo"),
+                            means.unbind()))
 
     return eval_fn

@@ -22,8 +22,17 @@ the host between steps.  With ``scan_epochs`` the training set is staged on
 the device once and each epoch runs through the epoch runner
 (``train/epoch_runner.py``: one CUDA graph replay per step on the card);
 the hooks, checkpoints and early stopping run between epochs as on the
-per-step path.  The JAX package's mesh and pipeline paths are not ported
-yet: their settings raise.
+per-step path.
+
+With a data ``mesh`` (``parallel.mesh.DataMesh``, one per rank of a
+``torchrun`` launch) every rank builds the same state, which
+``parallel.mesh.shard_state`` replicates from rank 0, and steps on its rows
+of each global batch; the state stays the same on every rank, bit for bit.
+Every rank evaluates (the held-out means are the global batch's) and
+restores; rank 0 alone logs, dumps images, writes checkpoints and traces.
+An interrupt is honoured at the end of the epoch on every rank together.
+The FSDP layout and the pipeline wait for ROADMAP.md Queue 1 #9b and #9c:
+their settings raise.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
+from nvae_torch.parallel import is_primary, shard_state
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train.epoch_runner import (
     make_epoch_runner,
@@ -70,18 +80,21 @@ class TrainResult:
     interrupted: bool = False
 
 
-def _check_supported(tc: TrainConfig) -> None:
+def _check_supported(tc: TrainConfig, param_sharding: str) -> None:
     waiting = []
     if tc.pipeline_stages > 1:
-        waiting.append("pipeline_stages > 1 (ROADMAP.md Queue 1 #9)")
-    if tc.data_parallel > 1 or tc.model_parallel > 1:
-        waiting.append("data_parallel or model_parallel > 1 "
-                       "(ROADMAP.md Queue 1 #9)")
+        waiting.append("pipeline_stages > 1 (the pipeline, ROADMAP.md "
+                       "Queue 1 #9c)")
+    if tc.model_parallel > 1:
+        waiting.append("model_parallel > 1 (tensor parallelism, ROADMAP.md "
+                       "Queue 1 #9b)")
+    if param_sharding == "fsdp":
+        waiting.append("param_sharding='fsdp' (ROADMAP.md Queue 1 #9b)")
     if waiting:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(waiting)}; the port trains on one "
-            "device"
-        )
+        raise NotImplementedError(f"not ported yet: {', '.join(waiting)}")
+    if param_sharding != "replicated":
+        raise ValueError(f"param_sharding must be 'replicated' or 'fsdp', "
+                         f"got {param_sharding!r}")
 
 
 def _accumulate(sums: Dict[str, torch.Tensor], metrics: dict) -> None:
@@ -92,8 +105,9 @@ def _accumulate(sums: Dict[str, torch.Tensor], metrics: dict) -> None:
 
 class Trainer:
     """Builds the model, optimizer and train step on ``device`` (the card
-    unless ``"cpu"`` is asked for; raises if there is no card) and runs the
-    epoch loop."""
+    unless ``"cpu"`` is asked for; raises if there is no card; with a
+    ``mesh``, the mesh's device) and runs the epoch loop.  ``logger`` is
+    rank 0's alone: pass None on the other ranks."""
 
     def __init__(
         self,
@@ -102,8 +116,10 @@ class Trainer:
         steps_per_epoch: int,
         logger: Optional[MetricsLogger] = None,
         device: DeviceLike = "cuda",
+        mesh=None,
+        param_sharding: str = "replicated",
     ):
-        _check_supported(train_cfg)
+        _check_supported(train_cfg, param_sharding)
         if train_cfg.scan_epochs:
             refuse_grad_accum(train_cfg)
         self.model_cfg = model_cfg
@@ -111,12 +127,18 @@ class Trainer:
         self.steps_per_epoch = steps_per_epoch
         self.total_steps = steps_per_epoch * train_cfg.epochs
         self.logger = logger
+        self.mesh = mesh
+        self.primary = is_primary()
         self.model, self.state, self.tx = create_train_state(
-            model_cfg, train_cfg, self.total_steps, device=device
+            model_cfg, train_cfg, self.total_steps,
+            device=device if mesh is None else mesh.device
         )
+        if mesh is not None:
+            self.state = shard_state(self.state, mesh)
         self.device = self.model.decoder.h.device
         self.step_fn = make_train_step(
-            self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch
+            self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch,
+            mesh=mesh,
         )
         self._eval_fn = None
         self._epoch_runner = None  # built lazily for the scan-epochs path
@@ -189,9 +211,11 @@ class Trainer:
         """The eval step over the whole test set: means of
         ``reconstruction_loss``, ``kl_loss`` and ``elbo``, and
         ``eval_ms_per_batch``.  Batch ``i`` draws its noise from
-        ``derive_seed(run seed, "eval", epoch, i)``."""
+        ``derive_seed(run seed, "eval", epoch, i)``.  With a mesh every rank
+        calls it on its rows of each batch."""
         if self._eval_fn is None:
-            self._eval_fn = make_eval_step(self.model, self.train_cfg)
+            self._eval_fn = make_eval_step(self.model, self.train_cfg,
+                                           mesh=self.mesh)
         t0 = time.perf_counter()
         sums: Dict[str, torch.Tensor] = {}
         n = 0
@@ -212,7 +236,14 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore the checkpoint of epoch ``resume_from``, else the latest
-        one, if present; returns the epoch to start from."""
+        one, if present; returns the epoch to start from.  With a mesh
+        every rank restores, then waits for the others."""
+        epoch = self._resume()
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return epoch
+
+    def _resume(self) -> int:
         tc = self.train_cfg
         if tc.resume_from > 0:
             step = tc.resume_from * self.steps_per_epoch
@@ -227,6 +258,11 @@ class Trainer:
             return 0
         return int(step) // self.steps_per_epoch
 
+    def _any_rank(self, flag: bool) -> bool:
+        """True on every rank when ``flag`` is True on any."""
+        t = torch.tensor([float(flag)], device=self.mesh.device)
+        return bool(self.mesh.all_reduce_(t).item() > 0)
+
     # ---- main loop --------------------------------------------------------
 
     def fit(
@@ -240,7 +276,7 @@ class Trainer:
         history = []
         best_loss, best_state, patience_left = float("inf"), None, tc.patience
         start_epoch = self.maybe_resume()
-        writer = ckpt.AsyncCheckpointWriter(self.ckpt_dir)
+        writer = ckpt.AsyncCheckpointWriter(self.ckpt_dir, mesh=self.mesh)
         # Preemption: on SIGTERM/SIGINT finish the step, save the full
         # state and return.  A handler can only be set from the main thread.
         self._interrupted = False
@@ -259,14 +295,15 @@ class Trainer:
             self._epoch_runner = make_epoch_runner(
                 self.model, self.tx, tc, self.total_steps,
                 train_iter.batches_per_epoch,
-                target_size=train_iter.target_size,
+                target_size=train_iter.target_size, mesh=self.mesh,
             )
             self._staged_data = stage_dataset(train_iter.images, self.device)
         try:
             for epoch in range(start_epoch, tc.epochs):
                 t0 = time.perf_counter()
                 profiler = None
-                if profile_dir and epoch == start_epoch + 1:
+                if (profile_dir and self.primary
+                        and epoch == start_epoch + 1):
                     from torch.profiler import ProfilerActivity, profile
 
                     acts = [ProfilerActivity.CPU] + (
@@ -290,7 +327,7 @@ class Trainer:
                         self.state, metrics = self.step_fn(self.state, batch)
                         n_batches += 1
                         _accumulate(sums, metrics)
-                        if self._interrupted:
+                        if self._interrupted and self.mesh is None:
                             break
                     means = metric_means(sums, n_batches)  # one fetch
                 if profiler is not None:
@@ -309,14 +346,18 @@ class Trainer:
                     self.logger.scalars(epoch, means, prefix="train/")
 
                 # Preemption exit: skip the hooks, drop to the final save.
+                if self.mesh is not None:
+                    self._interrupted = self._any_rank(self._interrupted)
                 if self._interrupted:
                     break
 
-                if (self.logger and test_iter is not None
+                if ((self.logger or self.mesh is not None)
+                        and test_iter is not None
                         and tc.evaluate_frequency
                         and epoch % tc.evaluate_frequency == 0):
-                    self.logger.scalars(epoch, self.evaluate(test_iter, epoch),
-                                        prefix="test/")
+                    test_means = self.evaluate(test_iter, epoch)
+                    if self.logger:
+                        self.logger.scalars(epoch, test_means, prefix="test/")
 
                 if (self.logger and tc.sample_frequency
                         and epoch % tc.sample_frequency == 0):
@@ -363,6 +404,8 @@ class Trainer:
             writer.close()
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's checkpoints are on disk
         if self.logger:
             for step, blocking_ms, total_ms in writer.timings:
                 self.logger.scalars(step, {"blocking_ms": blocking_ms,

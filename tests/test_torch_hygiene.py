@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
                  ("utils", "logging.py"), ("utils", "seeds.py"),
                  ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",),
                  ("serving.py",), ("serving_http.py",),
-                 ("export_serving.py",)):
+                 ("export_serving.py",), ("parallel", "__init__.py"),
+                 ("parallel", "mesh.py"), ("parallel", "multihost.py")):
         assert os.path.join("nvae_torch", *path) in rel
     bad = [
         (os.path.relpath(f, ROOT), mod)

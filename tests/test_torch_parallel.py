@@ -1,0 +1,338 @@
+"""The port's data parallelism (``nvae_torch.parallel``, ``--data_parallel``)
+on the CPU: twins of ``tests/test_parallel.py``'s DP tests and
+``tests/test_multihost.py``.
+
+One world of two gloo ranks per module (``tests/test_torch_dist_worker.py``)
+runs every check that needs ranks, while this process runs JAX's side: the
+units of ``parallel/multihost.py`` and ``parallel/mesh.py``, the world-2
+step against the port's single-device step and against JAX's
+``make_train_step`` over a 2-device data mesh, the scan runner at world 2,
+and the CLI's ``--data_parallel 2``.
+
+The central property, as in JAX: a data-parallel step equals the single
+device's step on the global batch.  Tolerances (JAX's SGD lockstep,
+``test_sgd_lockstep_every_step_tight``): SGD at lr 1e-5, loss and the other
+metrics at rtol 1e-5, ``grad_norm`` at rtol 1e-4, parameters within 1e-5,
+BatchNorm running statistics within 1e-4 (against JAX, 3e-5 of
+``max(1, |value|)``, ``tests/test_torch_train_step.py``'s limit across the
+two frameworks).  Adamax, one step: each parameter within ``2 lr`` of the
+single run (Adamax moves a coordinate by about ``lr``, whatever the
+gradient's size, so a near-zero gradient whose sign differs moves it the
+other way).  After every step the ranks' states are equal bit for bit.
+The JAX side runs its plain depthwise path (``use_pallas_kernels=False``:
+a Pallas compile in interpret mode would double this file's time); the
+port's runs its kernel wrappers' CPU path, held against the Pallas kernels
+by ``tests/test_torch_train_step.py``.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from nvae_torch import config as tcfg
+from nvae_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
+from nvae_torch.models.nvae import NVAE as TorchNVAE
+from nvae_torch.models.nvae import posterior_noise_shapes
+from nvae_torch.parallel import (
+    DataMesh,
+    initialize,
+    make_mesh,
+    process_count,
+    process_local_rows,
+    shard_batch,
+)
+from nvae_tpu import config as jcfg
+from nvae_tpu.models import NVAE as JaxNVAE
+from nvae_tpu.parallel import make_mesh as jax_make_mesh
+from nvae_tpu.parallel import shard_batch as jax_shard_batch
+from nvae_tpu.parallel import shard_state as jax_shard_state
+from nvae_tpu.train.state import TrainState as JaxState
+from nvae_tpu.train.step import make_train_step as jax_train_step
+from tests.test_torch_dist_worker import (
+    BATCH,
+    SGD_LR,
+    STEP_RUNS,
+    TINY,
+    batches,
+    spawn_world,
+)
+from tests.test_torch_sampler import random_flax_variables
+
+LOSS_RTOL, GRAD_NORM_RTOL, PARAMS_ATOL, BN_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
+BN_STATS_TOL = 3e-5  # across the frameworks, of max(1, |value|)
+JAX_STEPS = 3
+
+
+def _jax_mesh_runs(directory):
+    """JAX's side, written to ``directory/jax_inputs.pt`` for the ranks:
+    the same random weights in both packages, and the noise of JAX's
+    2-device mesh run, recorded as it runs.  An ordered callback cannot run
+    on two devices, so the draws come unordered: whole (gathered), one
+    microbatch's after the other's (the scan's iterations run in turn), in
+    any order within one.  Within a microbatch each group's draw has a
+    shape of its own, which puts them back in the posterior pass's order.
+    Returns each accum's per-step (metrics, params, batch_stats)."""
+    cfg = jcfg.debug_config(**{**TINY, "use_pallas_kernels": False})
+    jm = JaxNVAE(cfg)
+    variables = random_flax_variables(jm, seed=4)
+    tm = TorchNVAE(tcfg.debug_config(**TINY), device="cpu")
+    tx = optax.sgd(SGD_LR)
+    mesh = jax_make_mesh(n_data=2, devices=jax.devices()[:2])
+    draws, real_normal = [], jax.random.normal
+
+    def normal(*args, **kwargs):
+        out = real_normal(*args, **kwargs)
+        jax.debug.callback(lambda v: draws.append(np.array(v, copy=True)),
+                           out)
+        return out
+
+    eps, runs = {}, {}
+    for accum in (1, 2):
+        order = [s[1:] for s in posterior_noise_shapes(tm.cfg, 1)]
+        assert len(set(order)) == len(order)
+        tc = jcfg.TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                              grad_accum=accum)
+        step = jax_train_step(jm, tx, tc, 100, 50, donate=False, mesh=mesh)
+        js = jax_shard_state(JaxState(
+            step=jnp.zeros((), jnp.int32), epoch=jnp.zeros((), jnp.int32),
+            params=variables["params"],
+            batch_stats=variables["batch_stats"],
+            spectral=variables.get("spectral", {}),
+            opt_state=tx.init(variables["params"]),
+            rng=jax.random.PRNGKey(7)), mesh)
+        eps[accum], runs[accum] = [], []
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(jax.random, "normal", normal)
+            for b in batches(JAX_STEPS):
+                js, met = step(js, jax_shard_batch(jnp.asarray(b), mesh))
+                jax.effects_barrier()
+                assert len(draws) == accum * len(order)
+                mbs = [draws[i * len(order):(i + 1) * len(order)]
+                       for i in range(accum)]
+                eps[accum].append([sorted(mb, key=lambda e: order.index(
+                    e.shape[1:])) for mb in mbs])
+                draws.clear()
+                runs[accum].append((
+                    {k: float(v) for k, v in met.items()},
+                    jax.device_get(js.params),
+                    jax.device_get(js.batch_stats)))
+    tmp = directory / "jax_inputs.tmp"
+    torch.save({"state_dict": state_dict_from_flax(variables, tm),
+                "eps": eps}, tmp)
+    tmp.rename(directory / "jax_inputs.pt")
+    return runs
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The world's results, JAX's mesh runs (made while the ranks run
+    their other tasks), and the world's directory."""
+    d = tmp_path_factory.mktemp("dp_world")
+    (d / "cli").mkdir()
+    ranks = spawn_world(d, ["units", "steps", "scan", "cli", "jax_steps"])
+    try:
+        jax_mesh = _jax_mesh_runs(d)
+    except BaseException:
+        ranks.kill()
+        raise
+    return ranks.results(), jax_mesh, d
+
+
+def _max_diff(a: dict, b: dict, keys=None) -> float:
+    keys = a.keys() if keys is None else keys
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in keys)
+
+
+def _params(sd: dict) -> list:
+    return [k for k in sd if "running_" not in k and not k.endswith(".u")]
+
+
+# ---- units, in this process ------------------------------------------------
+
+
+def test_initialize_single_process_is_noop():
+    initialize(num_processes=1, device="cpu")
+    assert not torch.distributed.is_initialized() and process_count() == 1
+    assert process_local_rows(144) == (0, 144)
+
+
+def test_make_mesh_refuses_what_waits_and_needs_a_group():
+    """A model axis waits for #9b; a process with no group has no data
+    axis, and a data axis of 2 needs a launcher's 2 ranks."""
+    with pytest.raises(NotImplementedError, match="#9b"):
+        make_mesh(0, 2, device="cpu")
+    assert make_mesh(device="cpu") is None and make_mesh(1) is None
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        make_mesh(2, device="cpu")
+
+
+def test_shard_batch_is_microbatch_major():
+    """Rank r holds, for each microbatch i of m rows, global rows
+    ``[i m + r m / N, i m + (r + 1) m / N)`` (JAX's ``P(None, "data")``
+    pin); with one microbatch, the contiguous block."""
+    mesh = DataMesh(rank=1, size=2, device=torch.device("cpu"))
+    x = torch.arange(16)
+    assert shard_batch(x, mesh).tolist() == list(range(8, 16))
+    assert shard_batch(x, mesh, 2).tolist() == [4, 5, 6, 7, 12, 13, 14, 15]
+    with pytest.raises(ValueError, match="not divisible"):
+        shard_batch(torch.arange(6), mesh, 2)
+
+
+def test_batch_stats_over_leaves_no_mesh_behind():
+    """While ``batch_stats_over`` is open every BatchNorm holds the mesh;
+    it refuses to open over a model that holds one, and leaves none behind
+    when its block raises."""
+    from nvae_torch.nn.blocks import BatchNorm
+    from nvae_torch.parallel.mesh import batch_stats_over
+
+    model = TorchNVAE(tcfg.debug_config(**TINY), device="cpu")
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    mesh = DataMesh(rank=0, size=1, device=torch.device("cpu"))
+    with pytest.raises(KeyError):
+        with batch_stats_over(model, mesh):
+            assert bns and all(m.mesh is mesh for m in bns)
+            with pytest.raises(RuntimeError, match="open already"):
+                with batch_stats_over(model.decoder, mesh):
+                    pass
+            raise KeyError("out of the block")
+    assert all(m.mesh is None for m in bns)
+
+
+def test_data_parallel_settings_are_checked():
+    """``--data_parallel 2`` in a world of 1 stops the CLI naming the
+    launcher (``make_mesh``'s check); FSDP waits for #9b."""
+    from nvae_torch import cli
+    from nvae_torch.train.trainer import Trainer
+
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
+        cli.main(["--mode", "train", "--cpu", "--data_parallel", "2"])
+    cfg = tcfg.debug_config(**TINY)
+    with pytest.raises(NotImplementedError, match="#9b"):
+        Trainer(cfg, tcfg.TrainConfig(), 4, device="cpu",
+                param_sharding="fsdp")
+
+
+# ---- at world 2 ------------------------------------------------------------
+
+
+def test_world2_multihost_and_mesh_units(world):
+    (r0, r1), _, _ = world
+    u0, u1 = r0["units"], r1["units"]
+    assert (u0["rows"], u1["rows"]) == ((0, 72), (72, 144))
+    assert u0["primary"] and not u1["primary"]
+    assert "not divisible by 2" in u0["odd_rows"]
+    assert "needs 3 ranks" in u0["n_data_3"] and "#9b" in u0["n_model_2"]
+    assert u1["global_batch"].tolist() == [[1, 1]] * 3
+    # Ranks that start apart are replicated from rank 0, and a changed
+    # value on one rank is found.
+    assert u0["before"] and u0["after"] == [] == u1["after"]
+    assert _max_diff(u0["weights"], u1["weights"]) == 0.0
+    assert u0["perturbed"] == ["model/decoder.h"] == u1["perturbed"]
+    assert u0["iterator"] and u1["iterator"]
+    want = [2.0 * i for i in range(7)]
+    assert u0["map_rows"][:, 0].tolist() == [w + (i >= 4)
+                                             for i, w in enumerate(want)]
+
+
+@pytest.mark.parametrize("name", list(STEP_RUNS))
+def test_dp_step_matches_single_step(world, name):
+    """The world-2 step against the single-device step on the global
+    batch: every step's metrics, parameters and BatchNorm statistics."""
+    (r0, r1), _, _ = world
+    single = (r0 if list(STEP_RUNS).index(name) % 2 == 0 else r1)[
+        "steps"][f"single/{name}"]
+    mesh = r0["steps"][name]
+    adamax = STEP_RUNS[name][0] == "adamax"
+    for i, (mm, sm) in enumerate(zip(mesh["metrics"], single["metrics"])):
+        assert mm.keys() == sm.keys()
+        for k in mm:
+            rtol = GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+            np.testing.assert_allclose(mm[k], sm[k], rtol=rtol,
+                                       err_msg=f"{name} step {i} {k}")
+        ms, ss = mesh["states"][i], single["states"][i]
+        keys = _params(ss)
+        limit = 2 * tcfg.TrainConfig().learning_rate if adamax else PARAMS_ATOL
+        assert _max_diff(ms, ss, keys) < limit, (name, i)
+        bn = [k for k in ss if "running_" in k]
+        assert bn and _max_diff(ms, ss, bn) < BN_ATOL, (name, i)
+
+
+def test_dp_state_is_replicated_bitwise_every_step(world):
+    """Parameters, BatchNorm statistics, spectral state, optimizer state
+    and counters are the same on both ranks after every step."""
+    (r0, r1), _, _ = world
+    for name in STEP_RUNS:
+        a, b = r0["steps"][name], r1["steps"][name]
+        assert all(m == [] for m in a["mismatches"] + b["mismatches"])
+        for sa, sb in zip(a["states"], b["states"]):
+            assert all(torch.equal(sa[k], sb[k]) for k in sa), name
+        assert a["metrics"] == b["metrics"]
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_dp_step_matches_jax_mesh_step(world, accum):
+    """The port's world-2 step against JAX's ``make_train_step`` over a
+    2-device data mesh (``shard_state``, ``shard_batch``), from the same
+    weights, batches and noise, at every step."""
+    (r0, r1), jax_mesh, _ = world
+    port = r0["jax_steps"][accum]
+    tm = TorchNVAE(tcfg.debug_config(**TINY), device="meta")
+    for i, (jmet, jparams, jstats) in enumerate(jax_mesh[accum]):
+        tmet = port["metrics"][i]
+        assert set(tmet) == set(jmet)
+        for k in jmet:
+            rtol = GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+            np.testing.assert_allclose(tmet[k], jmet[k], rtol=rtol,
+                                       err_msg=f"accum {accum} step {i} {k}")
+        tree = flax_tree_from_state_dict(port["states"][i], tm)
+        p_err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                    for a, b in zip(jax.tree_util.tree_leaves(tree["params"]),
+                                    jax.tree_util.tree_leaves(jparams)))
+        assert p_err < PARAMS_ATOL, (accum, i, p_err)
+        s_err = max(float((np.abs(np.asarray(a) - np.asarray(b))
+                           / np.maximum(1.0, np.abs(np.asarray(b)))).max())
+                    for a, b in zip(
+                        jax.tree_util.tree_leaves(tree["batch_stats"]),
+                        jax.tree_util.tree_leaves(jstats)))
+        assert s_err < BN_STATS_TOL, (accum, i, s_err)
+    assert r1["jax_steps"][accum]["metrics"] == port["metrics"]
+
+
+def test_scan_runner_world2_matches_single(world):
+    """The epoch runner over the mesh (each rank its rows of each global
+    batch) against the single-device runner: the epoch's means and the
+    state after it, SGD at lr 1e-5."""
+    (r0, r1), _, _ = world
+    mesh, single = r0["scan"]["mesh"], r0["scan"]["single"]
+    assert mesh["step"] == single["step"] == 2
+    for k, v in single["means"].items():
+        rtol = GRAD_NORM_RTOL if k == "grad_norm" else LOSS_RTOL
+        np.testing.assert_allclose(mesh["means"][k], v, rtol=rtol, err_msg=k)
+    ss = single["state"]
+    assert _max_diff(mesh["state"], ss, _params(ss)) < PARAMS_ATOL
+    assert all(torch.equal(mesh["state"][k], r1["scan"]["mesh"]["state"][k])
+               for k in ss)
+
+
+def test_cli_data_parallel_trains_resumes_and_tests(world):
+    """``--mode train --data_parallel 2`` writes one checkpoint per epoch
+    (rank 0 alone), resumes on both ranks, and ``--mode test`` writes
+    ``evaluation.json`` once."""
+    (r0, r1), _, d = world
+    c0, c1 = r0["cli"], r1["cli"]
+    assert c0["steps_1"] == [4] and c0["steps_2"] == [4, 8]
+    assert c1["steps_2"] == [4, 8]
+    assert torch.equal(c0["ckpt_sums"], c1["ckpt_sums"])
+    with open(d / "cli" / "logs" / "metrics.jsonl") as f:
+        lines = [json.loads(x) for x in f]
+    # One line per epoch: rank 1 wrote none.
+    assert [r["step"] for r in lines if "train/loss" in r] == [0, 1]
+    assert sum("test/elbo" in r for r in lines) == 2
+    with open(d / "cli" / "logs" / "evaluation.json") as f:
+        assert "nll" in json.load(f)

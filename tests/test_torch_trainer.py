@@ -449,11 +449,13 @@ def test_every_preset_builds_and_equals_jax_config(name):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mode", "test", "--data_parallel", "2"], "Queue 1 #9"),
-    (["--mode", "serve", "--data_parallel", "2"], "Queue 1 #9"),
+    # --data_parallel N > 1 in a world of 1 names the launcher it needs.
+    (["--mode", "test", "--data_parallel", "2"], "torchrun --nproc_per_node 2"),
+    (["--mode", "serve", "--data_parallel", "2"],
+     "torchrun --nproc_per_node 2"),
     (["--fsdp"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
-    (["--data_parallel", "2"], "parallel tiers"),
+    (["--data_parallel", "2"], "torchrun --nproc_per_node 2"),
 ])
 def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
     with pytest.raises(SystemExit, match=match):
