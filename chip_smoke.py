@@ -197,6 +197,21 @@ each raising on failure (nothing is caught):
     algorithm for 72 rows than for 144), SIGTERM to rank 0 (it drains and
     stops the other rank); exact launch counts on each rank.  Neither
     two ranks sharing a card nor NCCL over one rank measures scaling.
+    12d, FSDP (``--fsdp``), beside them: 12d-1 on 12a's ranks, the state
+    re-sharded at min_size 64 (every conv kernel a shard, the depthwise
+    taps too): 3 SGD steps with the spectral projection from 12a's warm
+    start, replicated and FSDP, against the single process's, at 12a's
+    limits, with the halves-swapped control within them and the planted
+    fault (sigma from each rank's own block of a kernel) outside them,
+    exactly 14 launches of each of #2-#4 a step on each rank, ms per step
+    of both layouts, the gloo all-gather and reduce-scatter ms, peak and
+    at-rest MB per rank; 12d-2 in 12b's NCCL group: the scan runner over
+    the FSDP state (its all-gathers and reduce-scatters captured) bit for
+    bit equal to the runner without a mesh; 12d-3 at the same time as 12c:
+    ``torchrun ... --data_parallel 2 --fsdp`` trains an epoch and resumes
+    for a second, then a world-1 ``--mode sample`` from its checkpoint
+    writes PNGs bit for bit equal to this process's from the same
+    checkpoint restored in the replicated layout.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -1062,10 +1077,12 @@ def replayed_counts() -> dict:
 
 
 def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
-             epochs: int, batch: int = BATCH, mesh=None) -> dict:
+             epochs: int, batch: int = BATCH, mesh=None,
+             fsdp: bool = False) -> dict:
     """``epochs`` epochs of ``steps_per_epoch`` full-width steps at
     ``batch`` through the epoch runner (Adamax + spectral projection,
-    seed-0 weights), as graph replays or eagerly, with the counts set to 0
+    seed-0 weights; with ``fsdp`` its state in the FSDP layout over
+    ``mesh``), as graph replays or eagerly, with the counts set to 0
     just before and read just after.  Returns the counts, each epoch's means
     and seconds, ms per step of the last epoch, the run's peak memory
     (over what was allocated before it began: its model, state, graph and
@@ -1080,6 +1097,10 @@ def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
                      binary=cfg.likelihood == "bernoulli")
     model, state, tx = create_train_state(cfg, tc, total_steps=1000,
                                           device=device, seed=0)
+    if fsdp:
+        from nvae_torch.parallel import shard_state_fsdp
+
+        state = shard_state_fsdp(state, mesh)
     run = make_epoch_runner(model, tx, tc, 1000, steps_per_epoch,
                             target_size=cfg.image_size, graph=graph,
                             mesh=mesh)
@@ -3577,6 +3598,15 @@ DP_FAULTS = ("bn_stats_per_rank", "kl_coeff_per_rank")
 DP_ALLREDUCE_ITERS = 3
 DP_SERVE_TEMPERATURES = (0.7, 1.0)
 DP_SERVE_ATOL = PROB_ATOL  # if not bitwise: another cuDNN plan per batch
+# Phase 12d (FSDP).  12d-1 runs on 12a's ranks: SGD with the spectral
+# projection (sigma, a property of the whole kernel, on the path) from the
+# same warm start, re-sharded at JAX's tests' min_size, so that every conv
+# kernel shards, the depthwise taps among them, against the single run
+# with the same optimizer, at 12a's limits; the planted fault takes sigma
+# (and u) from each rank's own block of a kernel.
+FSDP_TEST_MIN = 64
+FSDP_FAULT = "sigma_from_local_shard"
+FSDP_COLLECTIVE_ITERS = 3
 
 
 def dp_env(port: int, rank=None) -> dict:
@@ -3594,12 +3624,18 @@ class SGDSteps:
     """Plain SGD steps (``p -= DP_LR * g``, a linear update, so the
     parameters track the gradients) of the default configuration at
     global batch BATCH from a saved start, on one model reloaded for each
-    run; over a ``mesh`` each rank steps on its rows of every batch."""
+    run; over a ``mesh`` each rank steps on its rows of every batch.
+    ``spectral`` chains the default spectral projection after the SGD
+    update (sigma of each whole kernel on the path: 12d); ``fsdp_min``
+    holds the state in the FSDP layout at that ``min_size``, on a model
+    built anew for each run (its parameters become shards)."""
 
-    def __init__(self, device, mesh=None):
+    def __init__(self, device, mesh=None, spectral: bool = False,
+                 fsdp_min=None):
         from nvae_torch.config import TrainConfig
+        from nvae_torch.models.nvae import NVAE
+        from nvae_torch.nn.spectral import sn_kernel_names
         from nvae_torch.train import optim as topt
-        from nvae_torch.train.state import create_train_state
 
         self.cfg = configs()["default"]
         self.tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
@@ -3607,27 +3643,48 @@ class SGDSteps:
             lambda params: None,
             lambda updates, state, params=None: (
                 {k: -DP_LR * g for k, g in updates.items()}, None))
-        self.model, _, _ = create_train_state(self.cfg, self.tc, 1000,
-                                              device=device, tx=self.tx)
-        self.device, self.mesh = device, mesh
+        if spectral:
+            self.tx = topt.chain(self.tx, topt.spectral_projection(
+                sn_kernel_names(NVAE(self.cfg, device="meta"))))
+        self.device, self.mesh, self.fsdp_min = device, mesh, fsdp_min
+        self.model = self._model()
+
+    def _model(self):
+        from nvae_torch.train.state import create_train_state
+
+        model, _, _ = create_train_state(self.cfg, self.tc, 1000,
+                                         device=self.device, tx=self.tx)
+        return model
 
     def run(self, start: dict, steps: int, swap: bool = False) -> dict:
         """``steps`` steps from ``start`` (a state dict and a step count)
         on ``train_batch(BATCH, 10 +
         i)``; ``swap`` swaps each batch's halves and the noise's with them.
         Returns each step's metrics, the flat parameters after each step
-        (on the host) and the state."""
+        (on the host, whole), ms per step, the run's peak allocated MB and
+        the state."""
         from nvae_torch.models.nvae import posterior_noise_shapes
-        from nvae_torch.parallel import shard_batch, shard_state
+        from nvae_torch.parallel import (shard_batch, shard_state,
+                                         shard_state_fsdp)
+        from nvae_torch.parallel.mesh import whole
         from nvae_torch.train.state import TrainState
         from nvae_torch.train.step import make_train_step, step_seed
 
+        if self.fsdp_min is not None:
+            self.model = None
+            torch.cuda.empty_cache()
+            self.model = self._model()
         self.model.load_state_dict(start["sd"])
-        state = TrainState(start["step"], 0, self.model, None, 0)
-        if self.mesh is not None:
+        state = TrainState(start["step"], 0, self.model, self.tx.init(
+            dict(self.model.named_parameters())), 0)
+        if self.fsdp_min is not None:
+            state = shard_state_fsdp(state, self.mesh, self.fsdp_min)
+        elif self.mesh is not None:
             state = shard_state(state, self.mesh)
         step = make_train_step(self.model, self.tx, self.tc, 1000, 100,
                                mesh=self.mesh)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
         out = {"metrics": [], "params": [], "ms": []}
         for i in range(steps):
             b = train_batch(BATCH, 10 + i).to(self.device)
@@ -3647,9 +3704,11 @@ class SGDSteps:
             state, m = step(state, b, eps=eps)
             out["metrics"].append({k: float(v) for k, v in m.items()})
             out["ms"].append(1e3 * (time.monotonic() - t0))
-            out["params"].append(torch.cat([
-                p.detach().reshape(-1) for p in self.model.parameters()
-            ]).cpu())
+            with torch.no_grad():
+                out["params"].append(torch.cat([
+                    p.reshape(-1)
+                    for p in whole(list(self.model.parameters()))]).cpu())
+        out["peak_mb"] = torch.cuda.max_memory_allocated(self.device) / 1e6
         out["state"] = state
         return out
 
@@ -3682,15 +3741,141 @@ class dp_fault:
         step.batch_stats_over, losses.balanced_kl_loss = self.saved
 
 
+class fsdp_sigma_fault:
+    """The planted fault of the FSDP step, while the block is open: the
+    spectral projection takes sigma (and u) from each rank's own block of
+    a kernel, a power iteration on its shard with its block of u, not on
+    the whole kernel."""
+
+    def __enter__(self):
+        import nvae_torch.train.optim as optim
+
+        self.saved = (optim.whole, optim.power_iteration)
+        real = optim.power_iteration
+
+        def local(w2d, u):
+            n = w2d.shape[1]
+            if n == u.shape[0]:
+                return real(w2d, u)
+            mine = slice(torch.distributed.get_rank() * n,
+                         (torch.distributed.get_rank() + 1) * n)
+            sigma, u_block = real(w2d, u[mine])
+            u = u.clone()
+            u[mine] = u_block
+            return sigma, u
+
+        optim.whole = lambda tensors, specs=None: list(tensors)
+        optim.power_iteration = local
+
+    def __exit__(self, *exc):
+        import nvae_torch.train.optim as optim
+
+        optim.whole, optim.power_iteration = self.saved
+
+
+def fsdp_state_mb(mesh, device) -> dict:
+    """MB a rank holds at rest of the default configuration's train state
+    (Adamax and the spectral projection, no EMA) in the replicated layout
+    and in the FSDP layout at the default min_size: the whole state
+    (``parallel.mesh.state_bytes``: buffers, u and counters too) and the
+    parameters with their two Adamax moments alone (three tensors of each
+    parameter's shape, as the prediction counts them)."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.parallel import shard_state, shard_state_fsdp
+    from nvae_torch.parallel.mesh import state_bytes
+    from nvae_torch.train.state import create_train_state
+
+    out = {}
+    for layout, shard in (("replicated", shard_state),
+                          ("fsdp", shard_state_fsdp)):
+        _, state, _ = create_train_state(
+            configs()["default"], TrainConfig(batch_size=BATCH), 1000,
+            device=device, seed=0)
+        state = shard(state, mesh)
+        params = sum(p.numel() * p.element_size()
+                     for p in state.model.parameters())
+        out[layout] = {"state_mb": state_bytes(state) / 1e6,
+                       "params_moments_mb": 3 * params / 1e6}
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank(start: dict, mesh, device, params: dict) -> dict:
+    """12d-1 on one of 12a's ranks, under deterministic cuDNN: DP_STEPS
+    SGD steps with the spectral projection from 12a's warm start in the
+    replicated layout, then in the FSDP layout at FSDP_TEST_MIN (the
+    counts set to 0 just before and read just after), then one step with
+    the planted fault; the gloo all-gather of the sharded parameters and
+    the reduce-scatter of their gradients' bytes timed; the state's MB at
+    rest in both layouts at the default min_size.  Puts each run's last
+    parameters in ``params``."""
+    from nvae_torch.parallel.mesh import replica_mismatches, shard_of, whole
+
+    t0 = time.monotonic()
+    rep = SGDSteps(device, mesh, spectral=True).run(start, DP_STEPS)
+    out = {"replicated": {"metrics": rep["metrics"], "step_ms": rep["ms"],
+                          "peak_mb": rep["peak_mb"]}}
+    params["fsdp replicated"] = rep["params"][-1]
+    del rep
+    runs = SGDSteps(device, mesh, spectral=True, fsdp_min=FSDP_TEST_MIN)
+    torch.cuda.synchronize(device)
+    reset_counts()
+    sound = runs.run(start, DP_STEPS)
+    out["counts"] = read_counts()
+    out.update(metrics=sound["metrics"], step_ms=sound["ms"],
+               peak_mb=sound["peak_mb"], rows=sound["rows"],
+               mismatches=replica_mismatches(sound["state"], mesh))
+    params["fsdp"] = sound["params"][-1]
+    del sound
+    ps = list(runs.model.parameters())
+    shards = [p for p in ps if shard_of(p) is not None]
+    n = sum(p.numel() for p in shards)
+    out.update(sharded=len(shards), tensors=len(ps),
+               sharded_elements=n * mesh.size,
+               elements=sum(p.numel() for p in ps) + n * (mesh.size - 1),
+               collective_mb=4 * n * mesh.size / 1e6)
+    with torch.no_grad():
+        whole(shards)
+        torch.cuda.synchronize(device)
+        t = time.monotonic()
+        for _ in range(FSDP_COLLECTIVE_ITERS):
+            whole(shards)
+        torch.cuda.synchronize(device)
+        out["all_gather_ms"] = 1e3 * (time.monotonic() - t) / \
+            FSDP_COLLECTIVE_ITERS
+        packed = torch.zeros(n * mesh.size, device=device)
+        mine = torch.empty(n, device=device)
+        mesh.reduce_scatter_mean_(mine, packed)
+        torch.cuda.synchronize(device)
+        t = time.monotonic()
+        for _ in range(FSDP_COLLECTIVE_ITERS):
+            mesh.reduce_scatter_mean_(mine, packed)
+        torch.cuda.synchronize(device)
+        out["reduce_scatter_ms"] = 1e3 * (time.monotonic() - t) / \
+            FSDP_COLLECTIVE_ITERS
+    del ps, shards, packed, mine
+    with fsdp_sigma_fault():
+        bad = runs.run(start, 1)
+    out["fault"] = {"metrics": bad["metrics"]}
+    params[FSDP_FAULT] = bad["params"][-1]
+    del bad
+    runs.model = None
+    torch.cuda.empty_cache()
+    out["state_mb"] = fsdp_state_mb(mesh, device)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def dp_rank(workdir: str) -> int:
     """One rank of phase 12a (``chip_smoke.py --dp-rank DIR``, its rank and
     coordinator in the environment), under deterministic cuDNN: once the
     warm start is in ``workdir`` (the rank starts while the phase makes
     it), DP_STEPS SGD steps over the gloo group from it, its rows of each
     batch, with the counts set to 0 just before and read just after; one
-    step with each planted fault; then the all-reduce of a gradient's bytes
-    timed.  Writes its record (and rank 0 its parameters) to
-    ``workdir``."""
+    step with each planted fault; 12d-1 (:func:`fsdp_rank`); then the
+    all-reduce of a gradient's bytes timed.  Writes its record (and rank 0
+    its parameters) to ``workdir``."""
     sys.path.insert(0, ROOT)
     from nvae_torch.parallel import initialize, make_mesh
     from nvae_torch.parallel.mesh import checksums, replica_mismatches
@@ -3729,6 +3914,9 @@ def dp_rank(workdir: str) -> int:
                 "mismatches": len(replica_mismatches(r["state"], mesh))}
             params[kind] = r["params"][-1]
             del r
+        runs.model = None
+        torch.cuda.empty_cache()
+        rec["fsdp"] = fsdp_rank(start, mesh, device, params)
     grad = torch.ones(params["sound"].numel(), device=device)
     mesh.all_reduce_(grad)
     torch.cuda.synchronize(device)
@@ -3798,7 +3986,12 @@ def phase_dp_steps(device, workdir: str) -> dict:
             runs = SGDSteps(device)
             single = runs.run(start, DP_STEPS)
             swapped = runs.run(start, DP_STEPS, swap=True)
-        del runs, single["state"], swapped["state"]
+            del runs, single["state"], swapped["state"]
+            # 12d-1's references: the same steps with the projection.
+            runs = SGDSteps(device, spectral=True)
+            single_sn = runs.run(start, DP_STEPS)
+            swapped_sn = runs.run(start, DP_STEPS, swap=True)
+        del runs, single_sn["state"], swapped_sn["state"]
         torch.cuda.empty_cache()
         path = os.path.join(workdir, "dp_start.pt")
         torch.save(start, path + ".tmp")
@@ -3852,6 +4045,7 @@ def phase_dp_steps(device, workdir: str) -> dict:
         if not dp_over_limits(readings[kind]):
             raise AssertionError(f"dp 12a: the planted fault {kind} passes "
                                  f"the limits {readings[kind]}")
+    fsdp = check_fsdp_ranks(ranks, params, single_sn, swapped_sn, want)
     log(f"dp 12a: {DP_RANKS} ranks on {ranks[0]['device']} over gloo, "
         f"{DP_STEPS} SGD steps of {BATCH} rows ({BATCH // DP_RANKS} a rank) "
         f"from {DP_WARM_STEPS} Adamax steps: ms per step "
@@ -3867,9 +4061,69 @@ def phase_dp_steps(device, workdir: str) -> dict:
         + "; tensors differing across the ranks under each fault "
         + str({k: ranks[0]["faults"][k]["mismatches"] for k in DP_FAULTS})
         + f"; per-rank launches {ranks[0]['counts']}")
-    return {"ranks": ranks, "readings": readings,
-            "counts": {k: sum(r["counts"][k] for r in ranks)
-                       for k in KERNEL_NAMES}}
+    return {"ranks": ranks, "readings": readings, "fsdp": fsdp,
+            "counts": {k: sum(r["counts"][k] + r["fsdp"]["counts"][k]
+                              for r in ranks) for k in KERNEL_NAMES}}
+
+
+def check_fsdp_ranks(ranks: list, params: dict, single: dict,
+                     swapped: dict, want: dict) -> dict:
+    """12d-1's checks of the ranks' records: each rank launched exactly
+    ``want`` in its DP_STEPS FSDP steps and holds the same replicated
+    tensors and metrics as the other; the FSDP and the replicated runs and
+    the single run with the halves swapped within 12a's limits of the
+    single run (all SGD with the projection), the planted fault outside
+    them.  Logs the readings and the numbers PERF.md keeps."""
+    fs = [r["fsdp"] for r in ranks]
+    for r, f in zip(ranks, fs):
+        if f["counts"] != want:
+            raise AssertionError(f"fsdp rank {r['rank']}: launches "
+                                 f"{f['counts']}, expected {want}")
+        if f["mismatches"] or f["rows"] != BATCH // DP_RANKS or not (
+                0 < f["sharded"] < f["tensors"]):
+            raise AssertionError(f"fsdp rank {r['rank']}: {f}")
+    if fs[0]["metrics"] != fs[1]["metrics"]:
+        raise AssertionError("fsdp: the ranks' metrics differ")
+    readings = {
+        "fsdp": dp_readings(fs[0]["metrics"], params["fsdp"], single),
+        "fsdp replicated": dp_readings(fs[0]["replicated"]["metrics"],
+                                       params["fsdp replicated"], single),
+        "fsdp halves swapped": dp_readings(swapped["metrics"],
+                                           swapped["params"][-1], single),
+        FSDP_FAULT: dp_readings(fs[0]["fault"]["metrics"],
+                                params[FSDP_FAULT], single)}
+    for name, r in readings.items():
+        log(f"dp 12d-1 {name} vs single (SGD + projection), per step: loss "
+            + ", ".join(f"{x:.3g}" for x in r["loss"]) + "; grad_norm "
+            + ", ".join(f"{x:.3g}" for x in r["grad_norm"])
+            + f"; parameters {r['params']:.3g}: over "
+            f"{dp_over_limits(r) or 'none'}")
+    for name in ("fsdp", "fsdp replicated", "fsdp halves swapped"):
+        if dp_over_limits(readings[name]):
+            raise AssertionError(f"dp 12d-1: {name} vs the single run "
+                                 f"{readings[name]}")
+    if not dp_over_limits(readings[FSDP_FAULT]):
+        raise AssertionError(f"dp 12d-1: the planted fault {FSDP_FAULT} "
+                             f"passes the limits {readings[FSDP_FAULT]}")
+    f = fs[0]
+    mb = f["state_mb"]
+    log(f"dp 12d-1: {DP_RANKS} ranks over gloo, FSDP at min_size "
+        f"{FSDP_TEST_MIN}: {f['sharded']} of {f['tensors']} parameters "
+        f"sharded ({f['sharded_elements']} of {f['elements']} elements); ms "
+        f"per step FSDP {[round(x, 2) for x in f['step_ms']]} vs replicated "
+        f"{[round(x, 2) for x in f['replicated']['step_ms']]} (two ranks "
+        f"sharing one card: no scaling measured); gloo all-gather of "
+        f"{f['collective_mb']:.1f} MB {f['all_gather_ms']:.2f} ms, "
+        f"reduce-scatter {f['reduce_scatter_ms']:.2f} ms; peak allocated "
+        f"MB of the steps FSDP {f['peak_mb']:.1f} vs replicated "
+        f"{f['replicated']['peak_mb']:.1f}; at rest per rank at the default "
+        f"min_size, MB: params+moments FSDP "
+        f"{mb['fsdp']['params_moments_mb']:.1f} vs replicated "
+        f"{mb['replicated']['params_moments_mb']:.1f} (predicted 251.6 vs "
+        f"481.5), whole state {mb['fsdp']['state_mb']:.1f} vs "
+        f"{mb['replicated']['state_mb']:.1f}; per-rank launches "
+        f"{f['counts']}; {f['seconds']:.1f} s on the ranks")
+    return {"readings": readings, "rank0": f}
 
 
 def phase_dp_graph(device) -> dict:
@@ -3877,7 +4131,13 @@ def phase_dp_graph(device) -> dict:
     mesh (its collectives captured in the step's graph) against the runner
     without, phase 5b's epochs and steps, under deterministic cuDNN: the
     states bit for bit equal (a sum over one rank is exact), the replays
-    and each kernel's replayed launches equal, ms per step of each."""
+    and each kernel's replayed launches equal, ms per step of each.  12d-2,
+    in the same group: the runner over the state in the FSDP layout (at
+    the default min_size every large tensor is a shard, whole at world 1:
+    the all-gathers and reduce-scatters are nodes of the graph) against
+    the runner without a mesh: the state bit for bit, every mean but
+    grad_norm bit for bit (the norm sums the shards' squares apart from the
+    replicated ones: another order), grad_norm within 1e-6."""
     import torch.distributed as dist
 
     from nvae_torch.parallel import make_mesh
@@ -3890,10 +4150,17 @@ def phase_dp_graph(device) -> dict:
         cfg = configs()["default"]
         data = scan_data(device)
         with deterministic_cudnn():
-            runs = {name: scan_run(cfg, device, data, True,
-                                   SCAN_STEPS_PER_EPOCH, SCAN_EPOCHS,
-                                   mesh=m)
-                    for name, m in (("plain", None), ("mesh", mesh))}
+            runs, seconds = {}, {}
+            for name, m in (("plain", None), ("mesh", mesh),
+                            ("fsdp", mesh)):
+                t0 = time.monotonic()
+                r = scan_run(cfg, device, data, True, SCAN_STEPS_PER_EPOCH,
+                             SCAN_EPOCHS, mesh=m, fsdp=name == "fsdp")
+                # Drop the runner (its graph's memory) before the next.
+                r["replays"] = r.pop("runner").replays
+                torch.cuda.empty_cache()
+                runs[name], seconds[name] = r, time.monotonic() - t0
+            fsdp_seconds = seconds["fsdp"]
         del data
     finally:
         dist.destroy_process_group()
@@ -3901,22 +4168,44 @@ def phase_dp_graph(device) -> dict:
     diff = state_diff(meshed["flat"], plain["flat"])
     same = {"state": diff["bitwise"],
             "means": meshed["means"] == plain["means"],
-            "replays": meshed["runner"].replays == plain["runner"].replays,
+            "replays": meshed["replays"] == plain["replays"],
             "replayed": meshed["replayed"] == plain["replayed"],
             "counts": meshed["counts"] == plain["counts"]}
     log(f"dp 12b: NCCL, world 1, scan runner with the mesh vs without: "
-        f"{same}, {meshed['runner'].replays} replays each, replayed "
+        f"{same}, {meshed['replays']} replays each, replayed "
         f"{ {k: v for k, v in meshed['replayed'].items() if v} }; ms per "
         f"step of the last epoch {meshed['ms_per_step']:.2f} with the mesh "
         f"vs {plain['ms_per_step']:.2f} without")
     if not all(same.values()):
         raise AssertionError(f"dp 12b: {same} {diff}")
+    fsdp = runs["fsdp"]
+    fdiff = state_diff(fsdp["flat"], plain["flat"])
+    norms = [(a.pop("grad_norm"), b.pop("grad_norm"))
+             for a, b in zip(fsdp["means"], plain["means"])]
+    fsame = {"state": fdiff["bitwise"],
+             "means but grad_norm": fsdp["means"] == plain["means"],
+             "grad_norm": all(abs(a - b) <= 1e-6 * abs(b) for a, b in norms),
+             "replays": fsdp["replays"] == plain["replays"],
+             "replayed": fsdp["replayed"] == plain["replayed"],
+             "counts": fsdp["counts"] == plain["counts"]}
+    log(f"dp 12d-2: NCCL, world 1, scan runner over the FSDP state vs "
+        f"without a mesh: {fsame}, grad_norms {norms}; ms per step of the "
+        f"last epoch {fsdp['ms_per_step']:.2f} FSDP vs "
+        f"{plain['ms_per_step']:.2f} without a mesh and "
+        f"{meshed['ms_per_step']:.2f} replicated (12b); peak "
+        f"{fsdp['peak_mem_gb']:.2f} GB vs {plain['peak_mem_gb']:.2f}; "
+        f"{fsdp_seconds:.1f} s")
+    if not all(fsame.values()):
+        raise AssertionError(f"dp 12d-2: {fsame} {fdiff}")
     return {"same": same, "ms_per_step": meshed["ms_per_step"],
             "plain_ms_per_step": plain["ms_per_step"],
+            "fsdp_ms_per_step": fsdp["ms_per_step"],
+            "fsdp_seconds": fsdp_seconds,
             "counts": {k: plain["counts"][k] + meshed["counts"][k]
-                       for k in KERNEL_NAMES},
+                       + fsdp["counts"][k] for k in KERNEL_NAMES},
             "replayed": {k: plain["replayed"].get(k, 0)
                          + meshed["replayed"].get(k, 0)
+                         + fsdp["replayed"].get(k, 0)
                          for k in KERNEL_NAMES}}
 
 
@@ -4108,23 +4397,123 @@ def dp_serve(workdir: str, device, per_fwd: int) -> dict:
     return {"counts": counts, "serve_bitwise": bitwise, "serve_diffs": diffs}
 
 
+def phase_fsdp_cli(workdir: str, device) -> dict:
+    """12d-3: ``--mode train --data_parallel 2 --fsdp`` over torchrun at
+    full width (gloo; at the default min_size the large tensors shard): an
+    epoch with eval and image hooks, then a resume for a second, exact
+    launch counts on each rank, checkpoints of the replicated layout's
+    keys and shapes; then a world-1 ``--mode sample`` from the last one (a
+    subprocess), whose PNGs equal bit for bit those this process writes
+    through the CLI's sampling path from the same checkpoint restored in
+    the replicated layout."""
+    from nvae_torch import cli
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.trainer import Trainer
+
+    t0 = time.monotonic()
+    per_fwd = expected_launches(configs()["default"])
+    args = [*cli_args(workdir), "--data_parallel", str(DP_RANKS), "--fsdp"]
+    models = os.path.join(workdir, "models")
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for label, epochs, hooks in (
+            ("fsdp_train", 1, []),
+            ("fsdp_resume", 2, ["--evaluate_frequency", "0",
+                                "--sample_frequency", "0"])):
+        per_rank = run_torchrun(label, ["--mode", "train", "--epochs",
+                                        str(epochs), *args, *hooks], workdir)
+        # Each rank: its rows of 4 steps and 4 eval batches; rank 0 also
+        # the sample and reconstruction hooks (every rank gathers).
+        for r, c in enumerate(per_rank):
+            check_cli_counts(f"dp {label} rank {r}", c, per_fwd, CLI_BATCHES,
+                             0 if hooks else CLI_BATCHES + (2 if r == 0
+                                                            else 0))
+            for k, v in c.items():
+                counts[k] += v
+        if ckpt.all_steps(models) != [CLI_BATCHES * e
+                                      for e in range(1, epochs + 1)]:
+            raise AssertionError(f"dp {label}: checkpoints "
+                                 f"{ckpt.all_steps(models)}")
+    payload = ckpt.load_payload(models, ckpt.all_steps(models)[-1])
+    sample = run_cli("fsdp_sample", ["--mode", "sample", "--n_samples",
+                                     str(BATCH), *cli_args(workdir)],
+                     workdir)
+    check_cli_counts("fsdp sample", sample["counts"], per_fwd, 0, 1)
+    for k, v in sample["counts"].items():
+        counts[k] += v
+    ref_dir = os.path.join(workdir, "replicated")
+    a = cli.parse_args(["--mode", "sample", "--n_samples", str(BATCH),
+                        *cli_args(workdir), "--sample_dir", ref_dir])
+    model_cfg, train_cfg, _ = cli.configs_from_args(a)
+    trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
+    want = ckpt.flatten_state(trainer.state)
+    shapes = {k: tuple(v.shape) for k, v in want.items()
+              if isinstance(v, torch.Tensor)}
+    if set(payload) != set(want) or any(
+            tuple(payload[k].shape) != s for k, s in shapes.items()):
+        raise AssertionError("dp 12d-3: the FSDP checkpoint's keys or shapes "
+                             "differ from the replicated layout's")
+    del want
+    cli._sample(a, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    def pngs_in(d: str) -> list:
+        # The PNGs' names are uuid4s: compare their bytes, sorted.
+        out = []
+        for n in os.listdir(d):
+            with open(os.path.join(d, n), "rb") as f:
+                out.append(f.read())
+        return sorted(out)
+
+    pngs, same = 0, True
+    for t in SAMPLE_TEMPERATURES:
+        got = pngs_in(os.path.join(workdir, "results", f"t_{t}"))
+        ref = pngs_in(os.path.join(ref_dir, f"t_{t}"))
+        if len(got) != BATCH or len(ref) != BATCH:
+            raise AssertionError(f"dp 12d-3: {len(got)} and {len(ref)} PNGs "
+                                 f"at T={t}")
+        same &= got == ref
+        pngs += len(got)
+    seconds = time.monotonic() - t0
+    log(f"dp 12d-3: torchrun --data_parallel {DP_RANKS} --fsdp train and "
+        f"resume, then a world-1 --mode sample: {pngs} PNGs bit for bit "
+        f"equal to those of the replicated restore: {same}; checkpoint "
+        f"{len(payload)} entries of the replicated layout's shapes; "
+        f"{seconds:.1f} s beside 12c")
+    if not same:
+        raise AssertionError("dp 12d-3: the samples differ from the "
+                             "replicated restore's")
+    return {"counts": counts, "seconds": seconds}
+
+
 def phase_data_parallel(device) -> dict:
-    """Phase 12: 12a, 12b and 12c, with its seconds."""
+    """Phase 12: 12a, 12b and 12c, and 12d (FSDP) beside them: 12d-1 on
+    12a's ranks, 12d-2 in 12b's group, 12d-3 at the same time as 12c; with
+    the seconds of each."""
     t0 = time.monotonic()
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_dp_")
+    fsdp_dir = tempfile.mkdtemp(prefix="nvae_chip_smoke_fsdp_")
     try:
         steps = phase_dp_steps(device, workdir)
         t1 = time.monotonic()
         graph = phase_dp_graph(device)
         t2 = time.monotonic()
-        cli = phase_dp_cli(workdir, device)
+        cli, fsdp_cli = run_concurrently(
+            lambda: phase_dp_cli(workdir, device),
+            lambda: phase_fsdp_cli(fsdp_dir, device))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(fsdp_dir, ignore_errors=True)
     seconds = time.monotonic() - t0
-    log(f"phase 12 (data parallel) took {seconds:.1f} s: 12a {t1 - t0:.1f}, "
-        f"12b {t2 - t1:.1f}, 12c {t0 + seconds - t2:.1f}")
+    rank_fsdp = max(r["fsdp"]["seconds"] for r in steps["ranks"])
+    log(f"phase 12 (data parallel) took {seconds:.1f} s: 12a with 12d-1 "
+        f"{t1 - t0:.1f} (12d-1 {rank_fsdp:.1f} of it on the ranks), 12b "
+        f"with 12d-2 {t2 - t1:.1f} (12d-2 {graph['fsdp_seconds']:.1f}), "
+        f"12c with 12d-3 beside it {t0 + seconds - t2:.1f} (12d-3 "
+        f"{fsdp_cli['seconds']:.1f}); 12d's own: "
+        f"{rank_fsdp + graph['fsdp_seconds']:.1f} s besides 12d-3's launches")
     return {"counts": {k: steps["counts"][k] + graph["counts"][k]
-                       + cli["counts"][k] for k in KERNEL_NAMES},
+                       + cli["counts"][k] + fsdp_cli["counts"][k]
+                       for k in KERNEL_NAMES},
             "replayed": graph["replayed"], "seconds": seconds}
 
 
@@ -4207,8 +4596,8 @@ def main(argv=None) -> int:
         "--kernel-times", metavar="ROOT",
         help="only time kernels #1-#5 of the repository tree at ROOT")
     parser.add_argument("--dp-rank", metavar="DIR",
-                        help="run one rank of phase 12a (started by phase "
-                             "12 itself), writing its record to DIR")
+                        help="run one rank of phases 12a and 12d-1 (started "
+                             "by phase 12 itself), writing its record to DIR")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",

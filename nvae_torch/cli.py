@@ -19,10 +19,16 @@ no card.  --data_parallel N trains, tests and serves over N ranks, one
 process per device, started by a launcher:
   torchrun --nproc_per_node N -m nvae_torch.cli ... --data_parallel N
 (N must be the launcher's world size, or 0 for it; rank 0 alone writes
-logs, images, checkpoints and evaluation.json, and serves HTTP).  A flag
-whose path is not ported yet (--fsdp, --pp_stages) stops the run with a
-message naming what it waits for; the JAX CLI's pipeline-schedule flags are
-not declared, so argparse rejects them.  bf16 (--compute_dtype,
+logs, images, checkpoints and evaluation.json, and serves HTTP).  --fsdp
+with it trains in the FSDP layout (parameters, Adamax moments and EMA
+sharded 1/N over the ranks, parallel/mesh.py); in a world of 1 it is the
+replicated layout, as in the JAX CLI.  --mode test, sample and serve read
+the checkpoint, which is whole in either layout, into the replicated
+layout: their results are those of the state gathered once, which equal
+JAX's in either layout.  --pp_stages > 1 stops the run naming the pipeline
+(#9c), and with --fsdp or --scan_epochs also with the JAX CLI's message;
+the JAX CLI's pipeline-schedule flags are not declared, so argparse
+rejects them.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
 preset as in the JAX CLI.  --scan_epochs stages the training set on the
 device and replays each step as one CUDA graph (with --cpu the same steps
@@ -116,7 +122,8 @@ def parse_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=0,
                    help="Ranks on the data axis: 0 or the launcher's world "
                         "size (torchrun --nproc_per_node N)")
-    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--fsdp", action="store_true",
+                   help="Train in the FSDP layout over the data axis")
     p.add_argument("--profile_dir", type=str, default="",
                    help="Write a torch.profiler trace of one epoch here")
     p.add_argument("--parity_binarize_255", action="store_true",
@@ -212,21 +219,21 @@ def parse_args(argv=None):
 
 
 # What a flag the port does not run yet waits for.
-_FSDP = "FSDP, the parallel tiers' slice 9b (ROADMAP.md Queue 1 #9b)"
 _PIPELINE = ("the pipeline, the parallel tiers' slice 9c (ROADMAP.md Queue 1 "
              "#9c)")
 
 
 def refuse_unported(args) -> None:
     """Stop with ``SystemExit`` on a flag the port does not run yet, naming
-    what it waits for."""
-    reasons = []
-    if args.fsdp:
-        reasons.append(f"--fsdp waits for {_FSDP}")
+    what it waits for; ``--pp_stages`` with ``--fsdp`` or
+    ``--scan_epochs`` also with the JAX CLI's refusal
+    (``nvae_tpu/cli.py:416-419``)."""
     if args.pp_stages > 1:
-        reasons.append(f"--pp_stages > 1 waits for {_PIPELINE}")
-    if reasons:
-        raise SystemExit("not ported yet: " + "; ".join(reasons))
+        msg = f"not ported yet: --pp_stages > 1 waits for {_PIPELINE}"
+        if args.fsdp or args.scan_epochs:
+            msg += ("; --pp_stages excludes --fsdp/--scan_epochs (per-stage "
+                    "placement vs whole-mesh GSPMD layouts)")
+        raise SystemExit(msg)
 
 
 def build_configs(args, bundle):
@@ -384,8 +391,12 @@ def main(argv=None):
     model_cfg, train_cfg, bundle = configs_from_args(args)
     device = (mesh.device if mesh is not None
               else resolve_device("cpu" if args.cpu else "cuda"))
+    # The other modes read the checkpoint, whole in either layout.
+    param_sharding = ("fsdp" if args.fsdp and args.mode == "train"
+                      else "replicated")
     if mesh is not None and primary:
-        print(f"Mesh: {mesh.size} ranks over {mesh.backend}", flush=True)
+        print(f"Mesh: {mesh.size} ranks over {mesh.backend}, "
+              f"{param_sharding} layout", flush=True)
 
     if args.scale_temperatures is not None and len(
             args.scale_temperatures) != model_cfg.n_latent_scales:
@@ -413,7 +424,8 @@ def main(argv=None):
     try:
         trainer = Trainer(model_cfg, train_cfg,
                           steps_per_epoch=len(train_iter), logger=logger,
-                          device=device, mesh=mesh)
+                          device=device, mesh=mesh,
+                          param_sharding=param_sharding)
         if args.mode == "train":
             result = trainer.fit(train_iter, test_iter,
                                  profile_dir=args.profile_dir or None)

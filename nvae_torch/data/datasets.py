@@ -148,25 +148,42 @@ def synthetic_dataset(
     """
     rng = np.random.RandomState(seed)
     n = n_train + n_test
-    imgs = np.zeros((n, image_size, image_size), dtype=np.float32)
     n_strokes = rng.randint(1, 4, size=n)
-    for i in range(n):
-        for _ in range(n_strokes[i]):
-            r, c = rng.randint(4, image_size - 4, size=2).astype(np.float64)
-            vr, vc = rng.randn(2) * 1.2
-            for _t in range(rng.randint(8, 20)):
-                rr, cc = int(round(r)), int(round(c))
-                if 0 <= rr < image_size and 0 <= cc < image_size:
-                    imgs[i, rr, cc] = 1.0
-                    if rr + 1 < image_size:
-                        imgs[i, rr + 1, cc] = max(imgs[i, rr + 1, cc], 0.6)
-                    if cc + 1 < image_size:
-                        imgs[i, rr, cc + 1] = max(imgs[i, rr, cc + 1], 0.6)
-                vr += rng.randn() * 0.6
-                vc += rng.randn() * 0.6
-                vr, vc = np.clip(vr, -2, 2), np.clip(vc, -2, 2)
-                r += vr
-                c += vc
+    # The draws of each stroke, in the order the JAX package's loop draws
+    # them: its start, its velocity, its length T, then T (vr, vc) noises.
+    starts, vel0, noise = [], [], []
+    for _ in range(int(n_strokes.sum())):
+        starts.append(rng.randint(4, image_size - 4, size=2))
+        vel0.append(rng.randn(2) * 1.2)
+        steps = rng.randint(8, 20)
+        noise.append(rng.randn(2 * steps).reshape(steps, 2) * 0.6)
+    # Every stroke's random walk at once, step by step, in float64 as the
+    # loop's scalars: pen position t, then v <- clip(v + noise_t), p += v.
+    lengths = np.array([len(x) for x in noise])
+    t_max = int(lengths.max()) if len(noise) else 0
+    nz = np.zeros((len(noise), t_max, 2))
+    for k, x in enumerate(noise):
+        nz[k, :len(x)] = x
+    pos = np.array(starts, dtype=np.float64).reshape(-1, 2)
+    vel = np.array(vel0, dtype=np.float64).reshape(-1, 2)
+    pen = np.empty((len(noise), t_max, 2))
+    for t in range(t_max):
+        pen[:, t] = pos
+        vel = np.clip(vel + nz[:, t], -2, 2)
+        pos = pos + vel
+    rr, cc = np.round(pen).astype(np.int64).transpose(2, 0, 1)
+    img = np.broadcast_to(np.repeat(np.arange(n), n_strokes)[:, None],
+                          rr.shape)
+    on = ((np.arange(t_max) < lengths[:, None]) & (rr >= 0)
+          & (rr < image_size) & (cc >= 0) & (cc < image_size))
+    # A pixel the pen was on is 1.0; one only right of or below it, 0.6,
+    # whatever the order of the loop's writes (1.0 wins every max).
+    imgs = np.zeros((n, image_size, image_size), dtype=np.float32)
+    below = on & (rr + 1 < image_size)
+    right = on & (cc + 1 < image_size)
+    imgs[img[below], rr[below] + 1, cc[below]] = 0.6
+    imgs[img[right], rr[right], cc[right] + 1] = 0.6
+    imgs[img[on], rr[on], cc[on]] = 1.0
     # One-tap box blur for soft edges.
     blurred = imgs.copy()
     blurred[:, 1:, :] += 0.25 * imgs[:, :-1, :]

@@ -1,30 +1,39 @@
-"""The data axis over ``torch.distributed`` (counterpart of the data-parallel
-part of ``nvae_tpu/parallel/mesh.py``).
+"""The data axis over ``torch.distributed`` and the layouts of a train state
+over it (counterpart of ``nvae_tpu/parallel/mesh.py``).
 
 JAX declares a ``("data", "model")`` mesh and GSPMD inserts the gradient
-``psum`` and the cross-replica BatchNorm sums.  Here the ranks of a process
-group are the data axis, and the collectives are written out where the
-training step needs them (``train/step.py``, ``nn/blocks.py``,
-``train/losses.py``): they are :class:`DataMesh`'s methods.
+``psum``, the cross-replica BatchNorm sums and FSDP's all-gathers and
+reduce-scatters.  Here the ranks of a process group are the data axis, and
+the collectives are written out where the training step needs them
+(``train/step.py``, ``nn/blocks.py``, ``train/losses.py``,
+``train/optim.py``): they are :class:`DataMesh`'s methods.
 
 - :func:`make_mesh` builds the data axis over the initialized group
   (``parallel.multihost.initialize``); a ``model`` axis waits for the
-  tensor-parallel slice, ROADMAP.md Queue 1 #9b.
+  tensor-parallel layout, ROADMAP.md Queue 1 #9d.
 - :func:`shard_batch` gives a rank its rows of a global batch, in the
   microbatch-major layout a ``grad_accum`` step needs.
-- :func:`shard_state` replicates a train state from rank 0 and checks it.
+- :func:`shard_state` replicates a train state from rank 0 and checks it
+  (the DP layout).
+- :func:`shard_state_fsdp` is the FSDP (ZeRO-3) layout: each parameter of
+  at least ``min_size`` elements, its two Adamax moments and its EMA are
+  held as this rank's 1/N block (:class:`Shard`, chosen by
+  :func:`fsdp_sharding`); :func:`gathered_params` makes the model read them
+  whole for a pass, through :func:`whole`'s one all-gather, whose backward
+  reduce-scatters the gradients.
 
 JAX's ``data_sharding`` and ``replicated`` are ``NamedSharding``s, a layout
 that the compiler reads; a tensor here has no such layout, so they are not
-kept.  The FSDP and TP layouts (``shard_state_fsdp``, ``shard_state_tp``)
-are slice 9b's.
+kept.  The TP layout (``shard_state_tp``, ``tp_param_sharding``) is #9d's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+import math
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -88,6 +97,32 @@ class DataMesh:
         dist.all_gather(parts, t)
         return torch.cat(parts)
 
+    def all_gather_into(self, out: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """Every rank's 1-D ``t`` into ``out`` (``size * t.numel()``
+        entries), in rank order; returns ``out``.  NCCL gathers into
+        ``out`` in one call (which a CUDA graph can capture); gloo
+        gathers into its rows as views."""
+        if self.backend == "nccl":
+            dist.all_gather_into_tensor(out, t)
+        else:
+            dist.all_gather(list(out.view(self.size, -1).unbind(0)), t)
+        return out
+
+    def reduce_scatter_mean_(self, out: torch.Tensor,
+                             t: torch.Tensor) -> torch.Tensor:
+        """``out`` (1-D, ``t.numel() / size`` entries) becomes this rank's
+        block of the mean of ``t`` over the ranks: the sum, then divided by
+        the rank count, as the data-parallel step's all-reduce takes its
+        mean.  NCCL reduce-scatters; gloo all-reduces the whole of ``t``
+        (in place) and keeps this rank's block.  Returns ``out``."""
+        if self.backend == "nccl":
+            dist.reduce_scatter_tensor(out, t)
+        else:
+            dist.all_reduce(t)
+            out.copy_(t.view(self.size, -1)[self.rank])
+        return out.div_(self.size)
+
     def barrier(self) -> None:
         dist.barrier()
 
@@ -126,8 +161,8 @@ def make_mesh(n_data: int = 0, n_model: int = 1,
     process with no group is a world of 1 without a data axis: None."""
     if n_model > 1:
         raise NotImplementedError(
-            "a model axis waits for tensor parallelism, the parallel "
-            "tiers' slice 9b (ROADMAP.md Queue 1 #9b)")
+            "a model axis waits for the tensor-parallel layout "
+            "(ROADMAP.md Queue 1 #9d)")
     size = dist.get_world_size() if dist.is_initialized() else 1
     if n_data not in (0, size):
         raise ValueError(
@@ -188,8 +223,10 @@ def checksums(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 def replica_mismatches(state, mesh: DataMesh) -> List[str]:
     """The names of the state's tensors and counters that are not the same
     on every rank (by :func:`checksums`); empty when the state is
-    replicated."""
-    named = state_tensors_named(state)
+    replicated.  FSDP's shards (:func:`shard_of`), a block of its own on
+    each rank, are not compared."""
+    named = {k: t for k, t in state_tensors_named(state).items()
+             if shard_of(t) is None}
     names = list(named) + ["step", "epoch", "seed"]
     sums = checksums(list(named.values())).to(mesh.device)
     counters = torch.tensor([state.step, state.epoch, state.seed],
@@ -253,3 +290,264 @@ def batch_stats_over(model: torch.nn.Module, mesh: Optional[DataMesh]):
     finally:
         for m in bns:
             m.mesh = None
+
+
+# ---- FSDP: parameters, Adamax moments and EMA sharded over the ranks --------
+
+FSDP_MIN_SIZE = 65536
+
+
+def fsdp_dim(shape: Sequence[int], n_shard: int,
+             min_size: int = FSDP_MIN_SIZE) -> Optional[int]:
+    """The dimension along which FSDP splits a tensor of ``shape`` over
+    ``n_shard`` ranks, or None where it stays replicated (JAX's
+    ``_fsdp_spec``): a tensor of fewer than ``min_size`` elements stays
+    whole (biases, BatchNorm scales, the spectral vectors: sharding them
+    saves nothing and adds collectives), and so does one with no dimension
+    that ``n_shard`` divides.  So the set of sharded tensors is JAX's, whose
+    layouts hold the same dimensions in another order.
+
+    The dimension differs from JAX's: dimension 0 where ``n_shard`` divides
+    it, else, as JAX, the largest divisible one, ties to the trailing one.
+    JAX's tie-break picks the lane dimension of its HWIO kernels; dimension
+    0 of the port's OIHW kernels, (C, 1, 5, 5) taps and (C,) vectors makes a
+    rank's block one contiguous run of memory (its output channels), which
+    the gather writes without a transpose.  A pure function of the shape,
+    so a parameter, its two Adamax moments and its EMA split alike."""
+    shape = tuple(int(d) for d in shape)
+    numel = 1
+    for d in shape:
+        numel *= d
+    if not shape or numel < min_size:
+        return None
+    dims = [i for i, d in enumerate(shape)
+            if d % n_shard == 0 and d >= n_shard]
+    if not dims:
+        return None
+    return 0 if 0 in dims else max(dims, key=lambda i: (shape[i], i))
+
+
+def fsdp_sharding(shapes: Mapping[str, Sequence[int]], n_shard: int,
+                  min_size: int = FSDP_MIN_SIZE) -> Dict[str, int]:
+    """The FSDP layout of named tensors (JAX's ``fsdp_sharding``): the
+    tensors that split over ``n_shard`` ranks, each with its dimension
+    (:func:`fsdp_dim`); the others stay replicated."""
+    out = {}
+    for name, shape in shapes.items():
+        d = fsdp_dim(shape, n_shard, min_size)
+        if d is not None:
+            out[name] = d
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """What a tensor of the FSDP layout holds: of the whole tensor of
+    ``shape``, this rank's block of ``shape[dim] / mesh.size`` entries along
+    ``dim``, block ``mesh.rank``.  A sharded tensor carries it as its
+    ``fsdp_shard`` attribute (:func:`shard_of`)."""
+
+    mesh: DataMesh
+    dim: int
+    shape: Tuple[int, ...]
+
+    @property
+    def block(self) -> int:
+        return self.shape[self.dim] // self.mesh.size
+
+    @property
+    def shard_shape(self) -> Tuple[int, ...]:
+        s = list(self.shape)
+        s[self.dim] = self.block
+        return tuple(s)
+
+    def of(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (of ``shape``), a contiguous
+        copy."""
+        if tuple(full.shape) != self.shape:
+            raise ValueError(f"a shard of {self.shape} from a tensor of "
+                             f"{tuple(full.shape)}")
+        return full.narrow(self.dim, self.mesh.rank * self.block,
+                           self.block).contiguous()
+
+
+def shard_of(t) -> Optional[Shard]:
+    """The :class:`Shard` a tensor of the FSDP layout holds; None for a
+    whole tensor."""
+    return getattr(t, "fsdp_shard", None)
+
+
+def _shard_(t: torch.Tensor, spec: Shard) -> None:
+    """``t`` becomes ``spec``'s block of itself, in place of the whole (the
+    same tensor object, so that whatever holds it keeps it)."""
+    t.data = spec.of(t.data)
+    t.fsdp_shard = spec
+
+
+def _gather(specs: Sequence[Shard], shards: Sequence[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    """Each shard whole, in one all-gather of all of them: every rank's
+    blocks, packed flat, land in one (N, total) buffer, from which each
+    whole tensor is put together along its dimension."""
+    mesh = specs[0].mesh
+    flat = torch.cat([s.reshape(-1) for s in shards])
+    every = mesh.all_gather_into(
+        flat.new_empty(mesh.size * flat.numel()), flat).view(mesh.size, -1)
+    out, offset = [], 0
+    for spec, s in zip(specs, shards):
+        n = s.numel()
+        blocks = every[:, offset:offset + n].view(mesh.size, *spec.shard_shape)
+        out.append(torch.cat(blocks.unbind(0), dim=spec.dim))
+        offset += n
+    return out
+
+
+def _reduce_scatter(specs: Sequence[Shard], grads: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+    """The transpose of :func:`_gather`: the whole tensors' gradients,
+    packed as the gather packed the shards, in one reduce-scatter whose
+    blocks are the mean over the ranks; each shard's gradient is a view
+    of this rank's block."""
+    mesh = specs[0].mesh
+    packed = []
+    for spec, g in zip(specs, grads):
+        d = spec.dim
+        split = (*spec.shape[:d], mesh.size, spec.block, *spec.shape[d + 1:])
+        packed.append(g.reshape(split).movedim(d, 0).reshape(mesh.size, -1))
+    packed = torch.cat(packed, dim=1)
+    mine = mesh.reduce_scatter_mean_(packed.new_empty(packed.shape[1]),
+                                     packed.view(-1))
+    return [v.view(spec.shard_shape) for v, spec in zip(
+        mine.split([math.prod(spec.shard_shape) for spec in specs]), specs)]
+
+
+class _GatherShards(torch.autograd.Function):
+    """Shards in, whole tensors out, by one all-gather; the backward
+    reduce-scatters the whole tensors' gradients back to the shards, the
+    mean over the ranks, as the data-parallel step's all-reduce takes it
+    for the replicated parameters."""
+
+    @staticmethod
+    def forward(ctx, specs, *shards):
+        ctx.specs = specs
+        return tuple(_gather(specs, shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_reduce_scatter(ctx.specs, grads))
+
+
+def whole(tensors: Sequence[torch.Tensor],
+          specs: Optional[Sequence[Optional[Shard]]] = None
+          ) -> List[torch.Tensor]:
+    """Each tensor whole: a shard (its ``specs`` entry, by default its own
+    :func:`shard_of`) gathered from every rank, any other as it is.  The
+    shards of one dtype go in one all-gather, a collective that every rank
+    must call with the same tensors.  With gradients enabled and a shard
+    that requires them, the gather is differentiable (:class:`_GatherShards`:
+    the backward reduce-scatters)."""
+    tensors = list(tensors)
+    if specs is None:
+        specs = [shard_of(t) for t in tensors]
+    out = list(tensors)
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, (t, spec) in enumerate(zip(tensors, specs)):
+        if spec is not None:
+            groups.setdefault(t.dtype, []).append(i)
+    for idx in groups.values():
+        ss = tuple(specs[i] for i in idx)
+        ts = [tensors[i] for i in idx]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            full = _GatherShards.apply(ss, *ts)
+        else:
+            full = _gather(ss, [t.detach() for t in ts])
+        for i, f in zip(idx, full):
+            out[i] = f
+    return out
+
+
+@contextlib.contextmanager
+def gathered_params(model: torch.nn.Module
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """While it is open, every sharded parameter of ``model`` reads whole:
+    one :func:`whole` gathers them all (a collective: every rank opens it
+    at the same point), and each module's attribute is the whole tensor,
+    so every read of it sees the whole (the forward, the power iteration
+    of forward-mode spectral normalization, the depthwise kernels' taps,
+    the penalties, and a rematerialized cell's second run in the backward
+    pass).  Under autograd the backward pass reduce-scatters the gradients
+    into the shards' ``.grad``.  Yields ``{name: whole tensor}``; with no
+    shard it gathers nothing and yields ``{}``, and so does a nested
+    opening (the attributes are whole already)."""
+    named = [(k, p) for k, p in model.named_parameters()
+             if shard_of(p) is not None]
+    if not named:
+        yield {}
+        return
+    fulls = whole([p for _, p in named])
+    swapped = []
+    try:
+        for (name, p), full in zip(named, fulls):
+            owner, _, attr = name.rpartition(".")
+            m = model.get_submodule(owner)
+            m._parameters[attr] = full
+            swapped.append((m, attr, p))
+        yield {name: full for (name, _), full in zip(named, fulls)}
+    finally:
+        for m, attr, p in swapped:
+            m._parameters[attr] = p
+
+
+def _param_keyed(opt_state, names) -> Iterator[Tuple[dict, str]]:
+    """(dict, key) of every leaf of an optimizer state held in a dict under
+    a parameter's name (``train/optim.py``: Adamax's ``mu`` and ``nu``, the
+    EMA, the spectral ``u`` and sigma)."""
+    stack = [opt_state]
+    while stack:
+        s = stack.pop()
+        if isinstance(s, dict):
+            for k, v in s.items():
+                if k in names and isinstance(v, torch.Tensor):
+                    yield s, k
+                else:
+                    stack.append(v)
+        elif isinstance(s, (tuple, list)):
+            stack.extend(s)
+        elif dataclasses.is_dataclass(s) and not isinstance(s, type):
+            stack.extend(getattr(s, f.name) for f in dataclasses.fields(s))
+
+
+def shard_state_fsdp(state, mesh: DataMesh, min_size: int = FSDP_MIN_SIZE):
+    """The FSDP (ZeRO-3) layout of a train state (JAX's
+    ``shard_state_fsdp``): the state is replicated from rank 0 first
+    (:func:`shard_state`), then each parameter that :func:`fsdp_sharding`
+    selects becomes this rank's block of itself (:class:`Shard`, the same
+    tensor object), and so does every optimizer leaf held under its name
+    with its shape: the two Adamax moments and the EMA, whose elementwise
+    updates then run on the blocks unchanged.  The BatchNorm statistics,
+    the spectral ``u`` vectors and sigmas (a power iteration reads ``u``
+    whole; it has a kernel's output count of entries, under ``min_size``
+    in every preset), the update counts and the counters stay replicated,
+    which is checked as :func:`shard_state` checks the whole state.  Shard
+    a state before its first step: the step's gradient buffers take the
+    shapes of the parameters it first sees."""
+    state = shard_state(state, mesh)
+    params = dict(state.model.named_parameters())
+    specs = {k: Shard(mesh, d, tuple(params[k].shape)) for k, d in
+             fsdp_sharding({k: p.shape for k, p in params.items()},
+                           mesh.size, min_size).items()}
+    with torch.no_grad():
+        for k, spec in specs.items():
+            _shard_(params[k], spec)
+        for d, k in list(_param_keyed(state.opt_state, specs)):
+            if tuple(d[k].shape) == specs[k].shape:
+                _shard_(d[k], specs[k])
+    assert_replicated(state, mesh)
+    return state
+
+
+def state_bytes(state) -> int:
+    """The bytes a rank holds of a train state: its parameters, buffers and
+    optimizer state (a shard's block, not the whole)."""
+    return sum(t.numel() * t.element_size()
+               for t in state_tensors_named(state).values())

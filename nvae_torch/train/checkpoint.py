@@ -17,6 +17,12 @@ template state, as the JAX package restores into a template tree, and
 raises when the two differ (a checkpoint written with an EMA slot into a run
 without one, say).  A write goes to a temporary directory beside the step's
 and is renamed into place, so a step directory is whole or absent.
+
+A state in the FSDP layout (``parallel.mesh.shard_state_fsdp``) is written
+whole: :func:`flatten_state` gathers every shard (a collective, which every
+rank calls), so the file is the replicated layout's, and
+:func:`load_flat_state` copies each rank's block of a whole tensor into its
+shard.  A checkpoint restores into either layout at any world size.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from nvae_torch.parallel.mesh import shard_of, whole
 from nvae_torch.parallel.multihost import is_primary
 from nvae_torch.train.state import TrainState
 
@@ -73,6 +80,7 @@ def _unflatten(template: Any, path: Tuple[str, ...], flat: Dict[str, Any]):
         # Into the live tensor: a captured CUDA graph replays its address.
         if _is_counter(template) and isinstance(value, int):
             return template.fill_(value)
+        value = _block(template, value)
         if not isinstance(value, torch.Tensor) or value.shape != template.shape:
             raise ValueError(f"optimizer leaf {key}: checkpoint has "
                              f"{getattr(value, 'shape', value)!r}, the "
@@ -89,17 +97,30 @@ def _is_counter(v: Any) -> bool:
             and not v.is_floating_point())
 
 
+def _block(template: torch.Tensor, value):
+    """What a template tensor takes of a checkpoint's ``value``: the whole,
+    or, where the template is an FSDP shard, its block of the whole."""
+    spec = shard_of(template)
+    if spec is None or not isinstance(value, torch.Tensor):
+        return value
+    return spec.of(value)
+
+
+@torch.no_grad()
 def flatten_state(state: TrainState) -> Dict[str, Any]:
-    """The state as a checkpoint's flat dict, holding the live tensors."""
+    """The state as a checkpoint's flat dict: the live tensors, and, in
+    the FSDP layout, each shard gathered whole (one all-gather that every
+    rank must call)."""
     flat: Dict[str, Any] = {k: int(getattr(state, k)) for k in _COUNTERS}
-    for k, v in state.model.state_dict().items():
-        flat[f"model/{k}"] = v.detach()
+    for k, v in state.model.state_dict(keep_vars=True).items():
+        flat[f"model/{k}"] = v
     opt: Dict[str, Any] = {}
     _flatten(state.opt_state, (), opt)
     for k, v in opt.items():
-        if _is_counter(v):
-            v = int(v)
-        flat[f"opt/{k}"] = v.detach() if isinstance(v, torch.Tensor) else v
+        flat[f"opt/{k}"] = int(v) if _is_counter(v) else v
+    keys = [k for k, v in flat.items() if isinstance(v, torch.Tensor)]
+    for k, v in zip(keys, whole([flat[k] for k in keys])):
+        flat[k] = v.detach()
     return flat
 
 
@@ -110,9 +131,11 @@ def load_flat_state(template: TrainState, flat: Dict[str, Any]) -> TrainState:
     ``template.model``, the optimizer state's into its leaves, the update
     counts filled from their integers): the train step and a captured CUDA
     graph of it hold those tensors."""
+    live = template.model.state_dict(keep_vars=True)
     sd = {k[len("model/"):]: v for k, v in flat.items()
           if k.startswith("model/")}
-    template.model.load_state_dict(sd)
+    template.model.load_state_dict(
+        {k: _block(live[k], v) if k in live else v for k, v in sd.items()})
     opt = {k[len("opt/"):]: v for k, v in flat.items() if k.startswith("opt/")}
     want: Dict[str, Any] = {}
     _flatten(template.opt_state, (), want)
@@ -232,8 +255,10 @@ class AsyncCheckpointWriter:
     until the write was on disk.
 
     With a data ``mesh`` (``parallel.mesh.DataMesh``) every rank calls
-    ``save``: the ranks meet at a barrier, then rank 0 alone writes (the
-    state is the same on every rank) and the others return False.
+    ``save``: the ranks meet at a barrier and skip the same steps; in the
+    FSDP layout every rank then joins the snapshot's gather; rank 0 alone
+    writes (the state is the same on every rank) and the others return
+    False.
     """
 
     def __init__(self, ckpt_dir: str, mesh=None):
@@ -249,14 +274,17 @@ class AsyncCheckpointWriter:
         step = int(step)
         if self.mesh is not None:
             self.mesh.barrier()
-            if not is_primary():
-                return False
         if self._latest is not None and step <= self._latest:
+            return False
+        self._latest = step
+        if self.mesh is not None and not is_primary():
+            if any(shard_of(p) is not None
+                   for p in state.model.parameters()):
+                flatten_state(state)  # the gather, which rank 0 waits on
             return False
         t0 = time.perf_counter()
         payload = host_snapshot(state)
         blocking_ms = 1e3 * (time.perf_counter() - t0)
-        self._latest = step
 
         def write():
             _write(self.ckpt_dir, step, payload)

@@ -20,6 +20,13 @@ nothing back to the host and a CUDA graph of it (``train/epoch_runner.py``)
 replays with the current values.  The elementwise work runs as multi-tensor
 ``torch._foreach_*`` ops over all the parameters at once, in optax's order
 of operations.  :func:`apply_updates` writes the parameters, in place.
+
+Under the FSDP layout (``parallel.mesh.shard_state_fsdp``) a sharded
+parameter, its update and its Adamax moments and EMA are this rank's block
+of each: the elementwise transforms run on the blocks unchanged, and the
+spectral strategies take sigma and ``u`` from the whole kernel, gathered
+(``parallel.mesh.whole``, one all-gather for all the kernels), so that
+every rank scales its block by the single device's sigma.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from nvae_torch.config import TrainConfig
 from nvae_torch.nn.spectral import power_iteration
+from nvae_torch.parallel.mesh import shard_of, whole
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -195,7 +203,8 @@ def spectral_projection(sn_keys: Iterable[str],
                         eps: float = 1e-9) -> GradientTransformation:
     """After the inner update, rescale each spectral kernel to sigma = 1:
     ``update' = (w + update) / sigma - w``, sigma from one power iteration
-    on the updated kernel; ``u`` takes the new estimate."""
+    on the updated kernel (gathered whole where ``w`` is a shard); ``u``
+    takes the new estimate."""
     keys, init = _spectral_init(sn_keys)
 
     @torch.no_grad()
@@ -203,13 +212,13 @@ def spectral_projection(sn_keys: Iterable[str],
         if params is None:
             raise ValueError("spectral_projection requires params")
         out = dict(updates)
-        for k in keys:
-            w = params[k]
-            w_new = w + updates[k]
-            sigma, u = power_iteration(_w2d(w_new), state.u[k])
+        w_new = [params[k] + updates[k] for k in keys]
+        w_whole = whole(w_new, [shard_of(params[k]) for k in keys])
+        for k, wn, wf in zip(keys, w_new, w_whole):
+            sigma, u = power_iteration(_w2d(wf), state.u[k])
             state.u[k].copy_(u)
             state.sigma[k].copy_(torch.clamp(sigma, min=eps))
-            out[k] = w_new / state.sigma[k] - w
+            out[k] = wn / state.sigma[k] - params[k]
         return out, state
 
     return GradientTransformation(init, update)
@@ -217,15 +226,16 @@ def spectral_projection(sn_keys: Iterable[str],
 
 def spectral_tracking(sn_keys: Iterable[str]) -> GradientTransformation:
     """Track ``u`` and sigma of each spectral kernel from the parameters
-    before the update, leaving the updates alone (penalty mode)."""
+    before the update (gathered whole where they are shards), leaving the
+    updates alone (penalty mode)."""
     keys, init = _spectral_init(sn_keys)
 
     @torch.no_grad()
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("spectral_tracking requires params")
-        for k in keys:
-            sigma, u = power_iteration(_w2d(params[k]), state.u[k])
+        for k, w in zip(keys, whole([params[k] for k in keys])):
+            sigma, u = power_iteration(_w2d(w), state.u[k])
             state.sigma[k].copy_(sigma)
             state.u[k].copy_(u)
         return updates, state
@@ -327,9 +337,21 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
     torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
-    """L2 norm of all the tensors together (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors.values()))
+def global_norm(tensors: Tensors, mesh=None,
+                sharded: Iterable[str] = ()) -> torch.Tensor:
+    """L2 norm of all the tensors together (``optax.global_norm``).  With a
+    ``mesh`` the tensors named in ``sharded`` are this rank's blocks of
+    theirs (the FSDP layout): their squares are summed over the ranks, in
+    one all-reduce, and the others counted once, so every rank gets the
+    norm of the whole tensors."""
+    sharded = set(sharded) if mesh is not None else set()
+    total = sum(torch.sum(t * t) for k, t in tensors.items()
+                if k not in sharded)
+    if sharded:
+        total = total + mesh.all_reduce_(torch.stack(
+            [torch.sum(t * t) for k, t in tensors.items()
+             if k in sharded]).sum())
+    return torch.sqrt(total)
 
 
 def make_optimizer(train_cfg: TrainConfig, total_steps: int,

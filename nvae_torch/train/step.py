@@ -21,7 +21,11 @@ from nvae_torch.models.nvae import (
     discard_buffer_updates,
     posterior_noise_shapes,
 )
-from nvae_torch.parallel.mesh import batch_stats_over
+from nvae_torch.parallel.mesh import (
+    batch_stats_over,
+    gathered_params,
+    shard_of,
+)
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
     GradientTransformation,
@@ -88,6 +92,19 @@ class StepBody:
     - the gradients (one buffer) are summed over the ranks and divided by
       their count before the norm, the clipping and the optimizer, so every
       rank applies the same update; the batch metrics are averaged too.
+
+    Under the FSDP layout (``parallel.mesh.shard_state_fsdp``) a sharded
+    parameter is this rank's block of it.  Each microbatch's forward,
+    penalties and backward pass run inside ``parallel.mesh.gathered_params``:
+    one all-gather makes every sharded parameter whole for the pass, and
+    its backward reduce-scatters the whole gradients into the shards'
+    gradient buffer as their mean over the ranks, once per microbatch (the
+    rows of a microbatch are ``shard_batch``'s, as in the DP layout).  The
+    replicated parameters keep the one flat buffer and its all-reduce;
+    ``grad_norm`` sums the shards' squares over the ranks and counts the
+    replicated gradients once (``optim.global_norm``), so it is the single
+    device's norm, and the optimizer runs on the blocks (``optim.py``: the
+    spectral strategies take sigma from the whole kernel).
     """
 
     # The metrics that depend on the batch; the others are the same on
@@ -114,27 +131,43 @@ class StepBody:
         self.step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self._grads: Optional[Dict[str, torch.Tensor]] = None
+        # The replicated parameters' gradients (all-reduced) and the
+        # shards' (reduce-scattered in the backward pass).
         self._flat: Optional[torch.Tensor] = None
+        self._flat_shards: Optional[torch.Tensor] = None
+        self.sharded = tuple(k for k, p in self.params.items()
+                             if shard_of(p) is not None)
         self.alphas = losses.kl_alphas(self.model_cfg.n_latent_scales,
                                        self.model_cfg.n_groups_per_scale,
                                        device=self.device)
 
+    def _flat_views(self, keys) -> torch.Tensor:
+        """One zero buffer holding the gradients of the parameters
+        ``keys``, each a view of it in its parameter's layout."""
+        ps = [self.params[k] for k in keys]
+        flat = torch.zeros(sum(p.numel() for p in ps), dtype=self.dtype,
+                           device=self.device)
+        offset = 0
+        for k, p in zip(keys, ps):
+            self._grads[k] = flat.as_strided(p.shape, p.stride(), offset)
+            offset += p.numel()
+        return flat
+
     def _bind_grads(self) -> Dict[str, torch.Tensor]:
-        """The body's own gradient buffers, views of one flat buffer (one
-        all-reduce sums them), zeroed and bound as each parameter's
-        ``.grad``, so that the backward pass adds into them."""
+        """The body's own gradient buffers, views of one flat buffer for the
+        replicated parameters (one all-reduce sums them) and one for the
+        shards, zeroed and bound as each parameter's ``.grad``, so that the
+        backward pass adds into them."""
         if self._grads is None:
-            ps = list(self.params.values())
-            self._flat = torch.zeros(sum(p.numel() for p in ps),
-                                     dtype=ps[0].dtype, device=self.device)
-            self._grads, offset = {}, 0
-            for k, p in self.params.items():
-                self._grads[k] = self._flat.as_strided(p.shape, p.stride(),
-                                                       offset)
-                offset += p.numel()
+            self._grads = {}
+            self._flat = self._flat_views(
+                [k for k in self.params if k not in self.sharded])
+            self._flat_shards = self._flat_views(self.sharded)
+            self._grads = {k: self._grads[k] for k in self.params}
         for k, p in self.params.items():
             p.grad = self._grads[k]
         self._flat.zero_()
+        self._flat_shards.zero_()
         return self._grads
 
     def __call__(self, opt_state, batch: torch.Tensor, *,
@@ -168,29 +201,31 @@ class StepBody:
                     eps_i = global_noise_rows(model_cfg, mb.shape[0], mesh,
                                               eps_i, self.generator,
                                               self.device, self.dtype)
-                with record_function("train_step.forward"):
-                    out = model(mb, generator=self.generator, eps=eps_i)
-                    loss, metrics = losses.elbo_loss(out, mb, beta, model_cfg,
-                                                     alphas=self.alphas,
-                                                     mesh=mesh)
-                    bn_loss = losses.bn_gamma_penalty(model,
-                                                      model_cfg.sr_lambda)
-                    loss = loss + bn_loss
-                    metrics["bn_loss"] = bn_loss
-                    if sn_u is not None:
-                        sr = spectral_penalty(self.params, sn_u,
-                                              model_cfg.sr_lambda)
-                        loss = loss + sr
-                        metrics["spectral_loss"] = sr
-                with record_function("train_step.backward"):
-                    loss.backward()
+                with gathered_params(model) as whole:
+                    with record_function("train_step.forward"):
+                        out = model(mb, generator=self.generator, eps=eps_i)
+                        loss, metrics = losses.elbo_loss(
+                            out, mb, beta, model_cfg, alphas=self.alphas,
+                            mesh=mesh)
+                        bn_loss = losses.bn_gamma_penalty(model,
+                                                          model_cfg.sr_lambda)
+                        loss = loss + bn_loss
+                        metrics["bn_loss"] = bn_loss
+                        if sn_u is not None:
+                            sr = spectral_penalty({**self.params, **whole},
+                                                  sn_u, model_cfg.sr_lambda)
+                            loss = loss + sr
+                            metrics["spectral_loss"] = sr
+                    with record_function("train_step.backward"):
+                        loss.backward()
                 metrics["loss"] = loss
                 for k, v in metrics.items():
                     v = v.detach()
                     totals[k] = v if k not in totals else totals[k] + v
             with record_function("train_step.update"):
                 if mesh is not None:
-                    mesh.all_reduce_(self._flat).div_(mesh.size)
+                    if self._flat.numel():
+                        mesh.all_reduce_(self._flat).div_(mesh.size)
                     keys = [k for k in self.BATCH_METRICS if k in totals]
                     means = mesh.mean(torch.stack([totals[k] for k in keys]))
                     totals.update(zip(keys, means.unbind()))
@@ -198,7 +233,7 @@ class StepBody:
                     grads = {k: g / self.grad_accum for k, g in grads.items()}
                     totals = {k: v / self.grad_accum
                               for k, v in totals.items()}
-                totals["grad_norm"] = global_norm(grads)
+                totals["grad_norm"] = global_norm(grads, mesh, self.sharded)
                 updates, opt_state = self.tx.update(grads, opt_state,
                                                     self.params)
                 apply_updates(self.params, updates)
@@ -315,7 +350,8 @@ def make_eval_step(model: NVAE, train_cfg: TrainConfig,
     train step: ``generator``, or ``eps`` (one list of NHWC draws in the
     posterior pass's order).  With a ``mesh``, as in the train step: the
     batch is this rank's rows, the noise and the BatchNorm statistics are
-    the global batch's, and so are the returned means.
+    the global batch's, and so are the returned means; under the FSDP
+    layout the pass reads the parameters gathered whole.
     """
     model_cfg: ModelConfig = model.cfg
 
@@ -325,7 +361,7 @@ def make_eval_step(model: NVAE, train_cfg: TrainConfig,
         m = state.model
         with (torch.no_grad(), fp32_math(),
               discard_buffer_updates(m, train=bn_batch_stats),
-              batch_stats_over(m, mesh)):
+              batch_stats_over(m, mesh), gathered_params(m)):
             h = m.decoder.h
             if not isinstance(batch, torch.Tensor):
                 batch = torch.from_numpy(np.array(batch, dtype=np.float32))

@@ -31,8 +31,17 @@ of each global batch; the state stays the same on every rank, bit for bit.
 Every rank evaluates (the held-out means are the global batch's) and
 restores; rank 0 alone logs, dumps images, writes checkpoints and traces.
 An interrupt is honoured at the end of the epoch on every rank together.
-The FSDP layout and the pipeline wait for ROADMAP.md Queue 1 #9b and #9c:
-their settings raise.
+
+``param_sharding="fsdp"`` with a mesh holds the state in the FSDP layout
+(``parallel.mesh.shard_state_fsdp``: each large parameter, its Adamax
+moments and its EMA as this rank's 1/N block).  What reads the parameters
+whole gathers them on every rank, then rank 0 alone writes: the held-out
+eval and the image hooks open ``parallel.mesh.gathered_params`` on every
+rank, and a checkpoint's snapshot gathers on every rank
+(``train/checkpoint.py``); the EMA swap copies block into block.  Without a
+mesh ``"fsdp"`` is the replicated layout, as in JAX.  The pipeline and the
+tensor-parallel layout wait for ROADMAP.md Queue 1 #9c and #9d: their
+settings raise.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ import torch
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
-from nvae_torch.parallel import is_primary, shard_state
+from nvae_torch.parallel import is_primary, shard_state, shard_state_fsdp
+from nvae_torch.parallel.mesh import gathered_params
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train.epoch_runner import (
     make_epoch_runner,
@@ -86,13 +96,11 @@ def _check_supported(tc: TrainConfig, param_sharding: str) -> None:
         waiting.append("pipeline_stages > 1 (the pipeline, ROADMAP.md "
                        "Queue 1 #9c)")
     if tc.model_parallel > 1:
-        waiting.append("model_parallel > 1 (tensor parallelism, ROADMAP.md "
-                       "Queue 1 #9b)")
-    if param_sharding == "fsdp":
-        waiting.append("param_sharding='fsdp' (ROADMAP.md Queue 1 #9b)")
+        waiting.append("model_parallel > 1 (the tensor-parallel layout, "
+                       "ROADMAP.md Queue 1 #9d)")
     if waiting:
         raise NotImplementedError(f"not ported yet: {', '.join(waiting)}")
-    if param_sharding != "replicated":
+    if param_sharding not in ("replicated", "fsdp"):
         raise ValueError(f"param_sharding must be 'replicated' or 'fsdp', "
                          f"got {param_sharding!r}")
 
@@ -133,7 +141,10 @@ class Trainer:
             model_cfg, train_cfg, self.total_steps,
             device=device if mesh is None else mesh.device
         )
-        if mesh is not None:
+        self.fsdp = param_sharding == "fsdp" and mesh is not None
+        if self.fsdp:
+            self.state = shard_state_fsdp(self.state, mesh)
+        elif mesh is not None:
             self.state = shard_state(self.state, mesh)
         self.device = self.model.decoder.h.device
         self.step_fn = make_train_step(
@@ -176,13 +187,14 @@ class Trainer:
         per-sample ``(n,)`` vector; ``scale_temperatures`` (one per decoder
         scale) selects the annealed path.  The noise comes from a generator
         seeded with ``seed``, by default ``derive_seed(run seed, "sample",
-        step)``."""
+        step)``.  In the FSDP layout every rank must call it (it gathers
+        the parameters)."""
         if seed is None:
             seed = derive_seed(self.state.seed, "sample", self.state.step)
         was = self.model.training
         self.model.eval()
         try:
-            with torch.no_grad(), fp32_math():
+            with torch.no_grad(), fp32_math(), gathered_params(self.model):
                 return self.model.sample(n, temperature, True,
                                          scale_temperatures,
                                          generator=self._generator(seed))
@@ -202,8 +214,8 @@ class Trainer:
 
     def reconstruct_images(self, batch) -> torch.Tensor:
         """Eval-mode reconstructions of the first 3 images of ``batch``,
-        fp32, with noise seeded 0."""
-        with fp32_math():
+        fp32, with noise seeded 0 (in the FSDP layout, on every rank)."""
+        with fp32_math(), gathered_params(self.model):
             return self.model.reconstruct(batch[:3],
                                           generator=self._generator(0))
 
@@ -227,6 +239,20 @@ class Trainer:
         out = metric_means(sums, n)
         out["eval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / max(n, 1)
         return out
+
+    def _image_hooks(self, epoch: int,
+                     test_iter: Optional[BatchIterator]) -> None:
+        """The sample sweep and the test reconstructions, logged."""
+        sweep = self.sample_images_sweep(3, SAMPLE_TEMPERATURES)
+        for t, images in sweep.items():
+            self.logger.images(epoch, f"samples_t{t:.1f}",
+                               images.cpu().numpy())
+        if test_iter is not None:
+            test_batch = next(iter(test_iter.epoch(0)))
+            recon = self.reconstruct_images(test_batch)
+            pair = np.concatenate([test_batch[:3].cpu().numpy(),
+                                   recon.cpu().numpy()], axis=2)
+            self.logger.images(epoch, "test_reconstruction", pair)
 
     # ---- checkpointing ----------------------------------------------------
 
@@ -359,19 +385,12 @@ class Trainer:
                     if self.logger:
                         self.logger.scalars(epoch, test_means, prefix="test/")
 
-                if (self.logger and tc.sample_frequency
+                if ((self.logger or self.fsdp) and tc.sample_frequency
                         and epoch % tc.sample_frequency == 0):
-                    sweep = self.sample_images_sweep(3, SAMPLE_TEMPERATURES)
-                    for t, images in sweep.items():
-                        self.logger.images(epoch, f"samples_t{t:.1f}",
-                                           images.cpu().numpy())
-                    if test_iter is not None:
-                        test_batch = next(iter(test_iter.epoch(0)))
-                        recon = self.reconstruct_images(test_batch)
-                        pair = np.concatenate(
-                            [test_batch[:3].cpu().numpy(),
-                             recon.cpu().numpy()], axis=2)
-                        self.logger.images(epoch, "test_reconstruction", pair)
+                    # Every rank joins the gather; rank 0 alone samples.
+                    with gathered_params(self.model):
+                        if self.logger:
+                            self._image_hooks(epoch, test_iter)
 
                 if (tc.model_save_frequency
                         and epoch % tc.model_save_frequency == 0):

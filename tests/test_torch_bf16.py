@@ -55,7 +55,17 @@ from tests.test_torch_trainer import (  # noqa: F401  (fixtures)
     _jsonl,
     no_tensorboard,
     one_torch_thread,
+    single_torch_thread,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 BF16 = torch.bfloat16
 MODULE_RTOL = 2.0 ** -7

@@ -27,6 +27,16 @@ from nvae_torch.nn import blocks as tb
 from nvae_torch.nn import spectral as ts
 from nvae_tpu.nn import blocks as jb
 from nvae_tpu.nn import spectral as js
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 ATOL = 1e-5
 

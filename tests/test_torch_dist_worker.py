@@ -1,5 +1,6 @@
-"""Ranks of the small gloo worlds that the port's data-parallel tests spawn
-on the CPU (``tests/test_torch_parallel*.py``, ``test_torch_serving_mesh.py``).
+"""Ranks of the small gloo worlds that the port's data-parallel and FSDP
+tests spawn on the CPU (``tests/test_torch_parallel*.py``,
+``test_torch_serving_mesh.py``).
 
 Run as ``python -m tests.test_torch_dist_worker DIR RANK WORLD TASK...`` from
 the repository's root: the rank joins a gloo group over ``file://DIR/store``
@@ -29,6 +30,9 @@ TINY = dict(n_encoder_channels=8, n_decoder_channels=8,
             use_pallas_kernels=True)
 BATCH = 16
 SGD_LR = 1e-5
+# JAX's FSDP tests' min_size: every conv kernel of the debug model shards,
+# the depthwise taps, BatchNorm scales and the decoder's h among them.
+FSDP_MIN = 64
 
 
 class World:
@@ -87,6 +91,18 @@ def sgd(lr):
             {k: -lr * g for k, g in updates.items()}, None))
 
 
+def sgd_sn(lr, cfg):
+    """:func:`sgd`, then the default spectral projection of every spectral
+    kernel (``train/optim.py``): the FSDP runs' SGD, so that sigma, a
+    property of the whole kernel, is on their path."""
+    from nvae_torch.models.nvae import NVAE
+    from nvae_torch.nn.spectral import sn_kernel_names
+    from nvae_torch.train import optim as topt
+
+    return topt.chain(sgd(lr), topt.spectral_projection(
+        sn_kernel_names(NVAE(cfg, device="meta"))))
+
+
 def batches(n_steps: int, seed: int = 0):
     rng = np.random.RandomState(seed)
     return [(rng.rand(BATCH, 32, 32, 1) > 0.5).astype(np.float32)
@@ -94,32 +110,56 @@ def batches(n_steps: int, seed: int = 0):
 
 
 def _snapshot(model) -> dict:
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    """The model's tensors whole (an FSDP shard gathered: a collective)."""
+    from nvae_torch.parallel.mesh import whole
+
+    sd = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        return {k: v.clone() for k, v in zip(sd, whole(sd.values()))}
+
+
+def _moments(state) -> dict:
+    """Adamax's moments as this rank holds them, by parameter name."""
+    from nvae_torch.train.optim import AdamaxState, _find
+
+    a = _find(state.opt_state, AdamaxState)
+    return {"mu": {k: v.clone() for k, v in a.mu.items()},
+            "nu": {k: v.clone() for k, v in a.nu.items()}}
 
 
 def train_run(mesh, optimizer: str, accum: int, n_steps: int,
-              state_dict=None, eps=None, seed: int = 0) -> dict:
-    """``n_steps`` of the debug model from ``state_dict`` (else its seeded
-    init) on :func:`batches`; with a mesh each rank steps on its rows.
-    ``eps`` injects each step's global noise (one list per microbatch).
-    Returns each step's metrics, the state after each step, and with a
-    mesh the tensors that differ across ranks after each step."""
+              state_dict=None, eps=None, seed: int = 0,
+              fsdp: bool = False, remat: bool = False) -> dict:
+    """``n_steps`` of the debug model (with ``remat``, its rematerialized
+    form) from ``state_dict`` (else its seeded init) on :func:`batches`;
+    with a mesh each rank steps on its rows, in the FSDP layout
+    (``min_size`` FSDP_MIN) if ``fsdp``.  ``eps`` injects
+    each step's global noise (one list per microbatch).  Returns each
+    step's metrics, the state after each step (whole), and with a mesh the
+    tensors that differ across ranks after each step; with Adamax, the
+    moments after the first and the last step as this rank holds them,
+    and the dimension of each sharded parameter."""
     from nvae_torch import TrainConfig, debug_config
-    from nvae_torch.parallel import shard_batch
-    from nvae_torch.parallel.mesh import replica_mismatches
+    from nvae_torch.parallel import shard_batch, shard_state_fsdp
+    from nvae_torch.parallel.mesh import replica_mismatches, shard_of
     from nvae_torch.train.state import create_train_state
     from nvae_torch.train.step import make_train_step
 
-    cfg = debug_config(**TINY)
+    cfg = debug_config(**TINY, remat=remat)
     tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
                      grad_accum=accum)
-    tx = sgd(SGD_LR) if optimizer == "sgd" else None
+    tx = {"sgd": lambda: sgd(SGD_LR), "sgd_sn": lambda: sgd_sn(SGD_LR, cfg),
+          "adamax": lambda: None}[optimizer]()
     model, state, tx = create_train_state(cfg, tc, 100, device=CPU, tx=tx,
                                           seed=seed)
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    if fsdp:
+        state = shard_state_fsdp(state, mesh, FSDP_MIN)
     step = make_train_step(model, tx, tc, 100, 50, mesh=mesh)
-    out = {"metrics": [], "states": [], "mismatches": []}
+    out = {"metrics": [], "states": [], "mismatches": [], "moments": [],
+           "dims": {k: shard_of(p).dim for k, p in model.named_parameters()
+                    if shard_of(p) is not None}}
     for i, b in enumerate(batches(n_steps)):
         b = torch.from_numpy(b)
         if mesh is not None:
@@ -129,33 +169,52 @@ def train_run(mesh, optimizer: str, accum: int, n_steps: int,
         out["states"].append(_snapshot(model))
         if mesh is not None:
             out["mismatches"].append(replica_mismatches(state, mesh))
+        if optimizer == "adamax" and i in (0, n_steps - 1):
+            out["moments"].append(_moments(state))
     return out
 
 
-STEP_RUNS = {  # name: (optimizer, grad_accum, steps)
-    "sgd_accum1": ("sgd", 1, 3),
-    "sgd_accum2": ("sgd", 2, 3),
-    "adamax": ("adamax", 1, 1),
+STEP_RUNS = {  # name: (optimizer, grad_accum, steps, remat)
+    "sgd_accum1": ("sgd", 1, 4, False),
+    "sgd_accum2": ("sgd", 2, 4, False),
+    "adamax": ("adamax", 1, 1, False),
+}
+# The FSDP runs, JAX's FSDP tests' steps: SGD lockstep (with the spectral
+# projection) under grad_accum 1 and 2, and with remat (the cells' second
+# run in the backward pass reads the gathered weights), and the Adamax
+# trajectory.
+FSDP_RUNS = {
+    "sgd_sn_accum1": ("sgd_sn", 1, 4, False),
+    "sgd_sn_accum2": ("sgd_sn", 2, 4, False),
+    "sgd_sn_remat": ("sgd_sn", 1, 2, True),
+    "adamax4": ("adamax", 1, 4, False),
 }
 
 
 def task_steps(mesh, inputs):
-    """Each of ``STEP_RUNS`` over the mesh, and on one device (the runs
+    """Each of ``STEP_RUNS`` over the mesh, each of ``FSDP_RUNS`` over the
+    mesh in the FSDP layout, and each on one device (the single runs
     split between the ranks, which need no collective for them)."""
     out = {}
-    for i, (name, (opt, accum, n)) in enumerate(STEP_RUNS.items()):
-        out[name] = train_run(mesh, opt, accum, n)
-    for i, (name, (opt, accum, n)) in enumerate(STEP_RUNS.items()):
+    for name, (opt, accum, n, remat) in STEP_RUNS.items():
+        out[name] = train_run(mesh, opt, accum, n, remat=remat)
+    for name, (opt, accum, n, remat) in FSDP_RUNS.items():
+        out[f"fsdp/{name}"] = train_run(mesh, opt, accum, n, fsdp=True,
+                                        remat=remat)
+    singles = {**STEP_RUNS, **FSDP_RUNS}
+    for i, (name, (opt, accum, n, remat)) in enumerate(singles.items()):
         if i % mesh.size == mesh.rank:
-            out[f"single/{name}"] = train_run(None, opt, accum, n)
+            out[f"single/{name}"] = train_run(None, opt, accum, n,
+                                              remat=remat)
     return out
 
 
 def task_jax_steps(mesh, inputs):
     """The SGD runs from the JAX package's weights with its recorded
     noise, over the mesh: the other side of the comparison with JAX's
-    2-device mesh step.  The test writes them to ``DIR/jax_inputs.pt``
-    while the ranks run the other tasks."""
+    2-device mesh step, under grad_accum 1 and 2 in the replicated layout
+    and 1 in the FSDP layout (key ``"fsdp"``).  The test writes them to
+    ``DIR/jax_inputs.pt`` while the ranks run the other tasks."""
     path = os.path.join(inputs["dir"], "jax_inputs.pt")
     deadline = time.monotonic() + 600
     while not os.path.exists(path):
@@ -164,28 +223,32 @@ def task_jax_steps(mesh, inputs):
         time.sleep(0.2)
     jax_inputs = torch.load(path, weights_only=False)
     eps = jax_inputs["eps"]
-    return {accum: train_run(mesh, "sgd", accum, len(eps[accum]),
-                             state_dict=jax_inputs["state_dict"],
-                             eps=eps[accum])
-            for accum in eps}
+    return {key: train_run(mesh, "sgd", 1 if key == "fsdp" else key,
+                           len(eps[key]), state_dict=jax_inputs["state_dict"],
+                           eps=eps[key], fsdp=key == "fsdp")
+            for key in eps}
 
 
 def task_scan(mesh, inputs):
     """Two SGD steps of the epoch runner (eagerly, on the CPU) over the
-    mesh, and on one device on rank 0."""
+    mesh, in the replicated and the FSDP layout, and on one device on
+    rank 0."""
     from nvae_torch import TrainConfig, debug_config
+    from nvae_torch.parallel import shard_state_fsdp
     from nvae_torch.train.epoch_runner import make_epoch_runner, stage_dataset
     from nvae_torch.train.state import create_train_state
 
     data = (np.random.RandomState(0).rand(2 * BATCH, 28, 28, 1) > 0.5
             ).astype(np.uint8) * np.uint8(255)
     out = {}
-    for name, m in (("mesh", mesh), ("single", None)):
+    for name, m in (("mesh", mesh), ("fsdp", mesh), ("single", None)):
         if m is None and mesh.rank != 0:
             continue
         tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
         model, state, tx = create_train_state(debug_config(**TINY), tc, 2,
                                               device=CPU, tx=sgd(SGD_LR))
+        if name == "fsdp":
+            state = shard_state_fsdp(state, mesh, FSDP_MIN)
         runner = make_epoch_runner(model, tx, tc, 2, 2, mesh=m)
         state, means = runner(state, stage_dataset(data, CPU), 0)
         out[name] = {"means": means, "state": _snapshot(model),
@@ -246,16 +309,118 @@ def task_units(mesh, inputs):
     return out
 
 
-def task_cli(mesh, inputs):
-    """``--mode train --data_parallel 2`` at debug size (one epoch, then a
-    resume to two), then ``--mode test --data_parallel 2``."""
-    from nvae_torch import cli
-    from nvae_torch.parallel.mesh import checksums
+def task_fsdp(mesh, inputs):
+    """The FSDP layout's units at world 2: the bytes a rank holds against
+    the replicated layout, the spectral projection on shards against the
+    projection on the whole kernel (and sigma from the local shard, the
+    fault it must not have), and checkpoints across layouts and world
+    sizes: world 1 -> FSDP-2, FSDP-2 -> world 1 (on rank 0) and FSDP-2 ->
+    replicated-2, each read back whole and compared bit for bit."""
+    from nvae_torch import TrainConfig, debug_config
+    from nvae_torch.nn.spectral import power_iteration
+    from nvae_torch.parallel import shard_state, shard_state_fsdp
+    from nvae_torch.parallel.mesh import (
+        Shard,
+        _shard_,
+        assert_replicated,
+        shard_of,
+        state_bytes,
+    )
     from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train import optim as topt
+    from nvae_torch.train.state import create_train_state
+    from nvae_torch.train.step import make_train_step
 
-    sys.modules["torch.utils.tensorboard"] = None  # no TensorBoard mirror
-    d = os.path.join(inputs["dir"], "cli")
-    argv = ["--dataset", "synthetic", "--debug", "--cpu", "--batch_size",
+    cfg = debug_config(**TINY)
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                     ema_decay=0.9)
+
+    def state(layout, seed=0):
+        model, st, tx = create_train_state(cfg, tc, 4, device=CPU, seed=seed)
+        if layout == "fsdp":
+            st = shard_state_fsdp(st, mesh, FSDP_MIN)
+        elif layout == "replicated":
+            st = shard_state(st, mesh)
+        return st, tx
+
+    out = {}
+    rep, _ = state("replicated")
+    st, tx = state("fsdp")
+    out["bytes"] = {"replicated": state_bytes(rep), "fsdp": state_bytes(st)}
+    named = {f"model/{k}": v
+             for k, v in st.model.state_dict(keep_vars=True).items()}
+    opt = {}
+    ckpt._flatten(st.opt_state, (), opt)  # a leaf's path ends in its name
+    named.update({f"opt/{k}": v for k, v in opt.items()})
+    out["sharded"] = {k: (shard_of(t).shape, shard_of(t).dim, tuple(t.shape))
+                      for k, t in named.items() if shard_of(t) is not None}
+    del rep
+
+    # Note (b): sigma is the whole kernel's.
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(32, 16, 3, 3, generator=g)
+    upd = 1e-2 * torch.randn(w.shape, generator=g)
+    proj = topt.spectral_projection(["k"])
+    whole_out, whole_st = proj.update({"k": upd}, proj.init({"k": w}),
+                                      {"k": w})
+    spec = Shard(mesh, 0, tuple(w.shape))
+    ws = w.clone()
+    _shard_(ws, spec)
+    sh_out, sh_st = proj.update({"k": spec.of(upd)}, proj.init({"k": w}),
+                                {"k": ws})
+    local = spec.of(w + upd)
+    u_block = Shard(mesh, 0, (32,)).of(proj.init({"k": w}).u["k"])
+    sigma_local, _ = power_iteration(local.reshape(local.shape[0], -1).t(),
+                                     u_block)
+    out["projection"] = {
+        "update": torch.equal(sh_out["k"], spec.of(whole_out["k"])),
+        "u": torch.equal(sh_st.u["k"], whole_st.u["k"]),
+        "sigma": torch.equal(sh_st.sigma["k"], whole_st.sigma["k"]),
+        "local_sigma_rel": float(abs(sigma_local - whole_st.sigma["k"])
+                                 / whole_st.sigma["k"])}
+
+    # One Adamax step, so that the moments and the EMA hold values.
+    step = make_train_step(st.model, tx, tc, 4, 4, mesh=mesh)
+    st, _ = step(st, torch.from_numpy(batches(1)[0][mesh.rows(BATCH)]))
+    d = os.path.join(inputs["dir"], "ckpt")
+    trips = {}
+    # world 1 -> FSDP-2: a single state's checkpoint, written by rank 0.
+    if mesh.rank == 0:
+        single, _ = state(None, seed=5)
+        ckpt.save_checkpoint(os.path.join(d, "single"), 1, single)
+    mesh.barrier()
+    payload = ckpt.load_payload(os.path.join(d, "single"), 1)
+    got = ckpt.restore_checkpoint(os.path.join(d, "single"),
+                                  state("fsdp", seed=mesh.rank)[0])
+    trips["world1_to_fsdp2"] = _same(ckpt.flatten_state(got), payload)
+    # FSDP-2 -> world 1 and -> replicated-2, from the stepped state.
+    with ckpt.AsyncCheckpointWriter(os.path.join(d, "fsdp"), mesh) as w_:
+        w_.save(1, st)
+    mesh.barrier()
+    written = ckpt.flatten_state(st)
+    trips["fsdp2_file"] = _same(
+        ckpt.load_payload(os.path.join(d, "fsdp"), 1), written)
+    if mesh.rank == 0:
+        got = ckpt.restore_checkpoint(os.path.join(d, "fsdp"),
+                                      state(None, seed=7)[0])
+        trips["fsdp2_to_world1"] = _same(ckpt.flatten_state(got), written)
+    got = ckpt.restore_checkpoint(os.path.join(d, "fsdp"),
+                                  state("replicated", seed=7)[0])
+    assert_replicated(got, mesh)
+    trips["fsdp2_to_replicated2"] = _same(ckpt.flatten_state(got), written)
+    out["trips"] = trips
+    return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Two flat states with the same keys, every value bit for bit."""
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k] for k in a)
+
+
+def _cli_argv(d: str) -> list:
+    return ["--dataset", "synthetic", "--debug", "--cpu", "--batch_size",
             "8", "--seed", "0", "--n_encoder_channels", "8",
             "--n_decoder_channels", "8", "--n_groups_per_scale", "1", "1",
             "--n_latent_per_group", "2", "--n_preprocess_blocks", "1",
@@ -267,6 +432,22 @@ def task_cli(mesh, inputs):
             "--model_save_dir", os.path.join(d, "models"),
             "--sample_dir", os.path.join(d, "results"),
             "--tensorboard_log_dir", os.path.join(d, "logs")]
+
+
+def task_cli(mesh, inputs):
+    """``--mode train --data_parallel 2`` at debug size (one epoch, then a
+    resume to two), then ``--mode test --data_parallel 2``; then the same
+    training with ``--fsdp`` (its layout at ``min_size`` FSDP_MIN, so that
+    the debug model shards) in a directory of its own."""
+    from nvae_torch import cli
+    from nvae_torch.parallel import shard_state_fsdp
+    from nvae_torch.parallel.mesh import checksums, shard_of
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train import trainer
+
+    sys.modules["torch.utils.tensorboard"] = None  # no TensorBoard mirror
+    d = os.path.join(inputs["dir"], "cli")
+    argv = _cli_argv(d)
     cli.main(["--mode", "train", "--epochs", "1", *argv])
     steps_1 = ckpt.all_steps(os.path.join(d, "models"))
     cli.main(["--mode", "train", "--epochs", "2", *argv])
@@ -278,7 +459,32 @@ def task_cli(mesh, inputs):
               "--eval_temperatures", "1.0", "--fid_sample_size", "8",
               "--feature_backbone", "random_conv", "--fid_backbone",
               "random_conv", "--epochs", "2", *argv])
-    return {"steps_1": steps_1, "steps_2": steps_2, "ckpt_sums": model_sums}
+    f = os.path.join(inputs["dir"], "cli_fsdp")
+    argv = [*_cli_argv(f), "--fsdp"]
+    real, sharded = trainer.shard_state_fsdp, []
+
+    def shard_debug_model(state, mesh):
+        state = shard_state_fsdp(state, mesh, min_size=FSDP_MIN)
+        sharded.append(sum(shard_of(p) is not None
+                           for p in state.model.parameters()))
+        return state
+
+    trainer.shard_state_fsdp = shard_debug_model
+    try:
+        cli.main(["--mode", "train", "--epochs", "1", *argv])
+        cli.main(["--mode", "train", "--epochs", "2", *argv])
+    finally:
+        trainer.shard_state_fsdp = real
+    fsdp_steps = ckpt.all_steps(os.path.join(f, "models"))
+    fsdp_payload = ckpt.load_payload(os.path.join(f, "models"),
+                                     fsdp_steps[-1])
+    return {"steps_1": steps_1, "steps_2": steps_2, "ckpt_sums": model_sums,
+            "fsdp_steps": fsdp_steps, "fsdp_sharded": sharded,
+            "fsdp_vs_dp": {k: float((v.double() - payload[k].double()
+                                     ).abs().max()) if isinstance(
+                                v, torch.Tensor) else v == payload[k]
+                           for k, v in fsdp_payload.items()}
+            if fsdp_payload.keys() == payload.keys() else None}
 
 
 SERVE_BATCH = 8
@@ -343,8 +549,8 @@ def task_eval(mesh, inputs):
 
 
 TASKS = {"units": task_units, "steps": task_steps,
-         "jax_steps": task_jax_steps, "scan": task_scan, "cli": task_cli,
-         "serve": task_serve, "eval": task_eval}
+         "jax_steps": task_jax_steps, "scan": task_scan, "fsdp": task_fsdp,
+         "cli": task_cli, "serve": task_serve, "eval": task_eval}
 
 
 def main(argv) -> None:

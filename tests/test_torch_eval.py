@@ -30,6 +30,16 @@ from nvae_tpu.models import NVAE as JaxNVAE
 from nvae_tpu.train.state import TrainState as JaxState
 from nvae_tpu.train.step import make_eval_step as jax_make_eval_step
 from tests.test_torch_sampler import random_flax_variables
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 RTOL = 1e-5
 ATOL = 1e-5

@@ -27,6 +27,16 @@ from nvae_torch.serving import Sampler, quantize_output
 from nvae_torch.serving_runtime import PAD_TEMPERATURE, BatchingSampler, dispatch_seed
 from nvae_tpu import config as jcfg
 from nvae_tpu.models import NVAE as JaxNVAE
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 ATOL = 1e-4
 

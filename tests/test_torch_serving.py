@@ -46,6 +46,16 @@ from nvae_torch.train.state import create_train_state
 from nvae_tpu import serving as jserving
 from nvae_tpu.models import NVAE as JaxNVAE
 from tests.test_torch_sampler import _models, _record
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 ATOL = 1e-4
 B = 4

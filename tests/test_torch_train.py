@@ -36,6 +36,16 @@ from nvae_tpu.models.nvae import LatentParams as JaxLatents
 from nvae_tpu.train import losses as jl
 from nvae_tpu.train import optim as jopt
 from tests.test_torch_sampler import random_flax_variables
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 ATOL = 1e-4
 RTOL = 1e-6

@@ -47,6 +47,16 @@ from nvae_tpu.train.optim import spectral_projection as jax_projection
 from nvae_tpu.train.state import TrainState as JaxState
 from nvae_tpu.train.step import make_train_step as jax_train_step
 from tests.test_torch_sampler import random_flax_variables
+from tests.test_torch_trainer import single_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread_per_module():
+    """One intra-op thread for the module's tests and its module-scoped
+    fixtures (``tests/test_torch_trainer.py``'s ``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
+
 
 TOTAL_STEPS, STEPS_PER_EPOCH = 100, 50
 SGD_LR = 1e-5

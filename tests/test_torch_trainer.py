@@ -453,7 +453,9 @@ def test_every_preset_builds_and_equals_jax_config(name):
     (["--mode", "test", "--data_parallel", "2"], "torchrun --nproc_per_node 2"),
     (["--mode", "serve", "--data_parallel", "2"],
      "torchrun --nproc_per_node 2"),
-    (["--fsdp"], "parallel tiers"),
+    # --fsdp trains (tests/test_torch_parallel.py); beside --pp_stages it
+    # stops naming the pipeline, and with JAX's refusal of the pair.
+    (["--fsdp", "--pp_stages", "2"], "parallel tiers"),
     (["--pp_stages", "2"], "parallel tiers"),
     (["--data_parallel", "2"], "torchrun --nproc_per_node 2"),
 ])
