@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What holds the depthwise ring kernels and the SE gate back, on one NVIDIA GPU.
+"""What holds the depthwise kernels and the SE gate back, on one NVIDIA GPU.
 
 Run from the repository root (needs a CUDA card and ``nvcc``)::
 
@@ -22,6 +22,19 @@ directly with the launch geometry of ``depthwise.geometry``:
 First it prints each ring kernel's SASS instruction counts
 (``cuobjdump -sass``); then ``as_is`` runs over a sweep of slots per pass G
 and passes ahead P.
+
+``python3 chip_ring_probe.py --bf16 [--parent ROOT] [--no-sweep]`` probes
+the bf16 forward (#2, with swish and the shape's bias) and dW/db (#4) at
+the path shapes, B=144, input sets over twice the L2 as ``chip_smoke.py``
+times them: the sliding-row kernel (``dw5x5_bf16``) as it is, and without
+its copies (``no_copy``), its compute (``no_compute``), its widening
+(``no_widen``: the fp32 ring is never written), its stores (``no_store``),
+or all but the compute loop (``compute_only``: no copies, widening, stores
+or barriers), beside its blocks an SM as the card reports them; with
+``--parent`` the bf16 row ring of the tree at ROOT the same way
+(``as_is``, ``no_copy``, ``no_compute``, ``no_widen``: staged rows never
+widened); then, unless ``--no-sweep``, ``as_is`` over a sweep of G, P,
+chunks a block and batch rows a block.
 
 Then, the same way, variants of ``nvae_torch/kernels/csrc/se_gate.cu``
 (kernel #5) at the model's four SE shapes at B=144, through its C entry with
@@ -63,16 +76,46 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(4, 1536), (8, 768), (16, 384), (32, 192)]
 BATCH = 144
-VARIANTS = {
-    "as_is": [],
-    "no_copy": [("        copy_async(dst + px * kChunk + cl,",
-                 "        if (W < 0) copy_async(dst + px * kChunk + cl,")],
-    "no_compute": [("  auto compute = [&](const Cursor& cur) {\n"
+# The row ring's variants (fp32 #1-#4; in a parent tree, also its bf16 #2
+# and #4, which ran on the ring until the sliding-row kernel replaced them).
+RING_NO_COPY = [("        copy_async(dst + px * kChunk + cl,",
+                 "        if (W < 0) copy_async(dst + px * kChunk + cl,")]
+RING_NO_COMPUTE = [("  auto compute = [&](const Cursor& cur) {\n"
                     "    if (!live) return;",
                     "  auto compute = [&](const Cursor& cur) {\n"
-                    "    if (live) return;")],
+                    "    if (live) return;")]
+# The sliding-row kernel's (bf16 #2 and #4) variants.
+SLIDE_NO_COPY = [("      if (ih >= 0 && ih < H) {",
+                  "      if (ih >= 0 && ih < H && W < 0) {")]
+SLIDE_NO_COMPUTE = [("  auto compute = [&](int q0) {\n",
+                     "  auto compute = [&](int q0) {\n"
+                     "    if (W > 0) return;\n")]
+SLIDE_NO_WIDEN = [("          widen_copy<kOp>(xs +",
+                   "          if (W < 0) widen_copy<kOp>(xs +")]
+SLIDE_NO_STORE = [("            if (s >= kHalo) {  // output row s - 4 is "
+                   "complete", "            if (s >= kHalo && W < 0) {")]
+SLIDE_NO_SYNC = [("    __syncthreads();  // pass p widened for all; pass p - 1 "
+                  "read by all\n", "")]
+VARIANTS = {
+    "as_is": [],
+    "no_copy": RING_NO_COPY + SLIDE_NO_COPY,
+    "no_compute": RING_NO_COMPUTE + SLIDE_NO_COMPUTE,
     "regs80": [("constexpr int kMinBlocks = 4;",
                 "constexpr int kMinBlocks = 3;")],
+    "no_widen": SLIDE_NO_WIDEN,
+    "no_store": SLIDE_NO_STORE,
+    # The compute loop alone, racing on rows that are neither copied nor
+    # widened, with no stores and no barrier.
+    "compute_only": (SLIDE_NO_COPY + SLIDE_NO_WIDEN + SLIDE_NO_STORE
+                     + SLIDE_NO_SYNC),
+}
+# The parent's bf16 ring: its staged rows widened by their copier.
+PARENT_VARIANTS = {
+    "as_is": [],
+    "no_copy": RING_NO_COPY,
+    "no_compute": RING_NO_COMPUTE,
+    "no_widen": [("    if (kStaged) {\n      widen(cur);",
+                  "    if (kStaged) {\n      if (W < 0) widen(cur);")],
 }
 
 
@@ -117,14 +160,16 @@ SE_VARIANTS["skeleton"] = (SE_VARIANTS["no_exchange"] + SE_VARIANTS["no_loads"]
                            + SE_VARIANTS["no_store"])
 
 
-def compile_variants(tmp: str, source: str, variants: dict) -> dict:
+def compile_variants(tmp: str, source: str, variants: dict,
+                     csrc: str = "", tag: str = "") -> dict:
     """Each variant of ``csrc/<source>`` (text substitutions) built into
     ``tmp``, one ``nvcc`` each, all started together; returns the loaded
-    libraries by variant name."""
+    libraries by variant name.  ``csrc``: another tree's source directory
+    (its files named with ``tag``)."""
     from nvae_torch.kernels import _build
 
-    src = open(os.path.join(_build.CSRC_DIR, source)).read()
-    stem = source.split(".")[0]
+    src = open(os.path.join(csrc or _build.CSRC_DIR, source)).read()
+    stem = source.split(".")[0] + tag
     procs = {}
     for name, subs in variants.items():
         text = src
@@ -148,17 +193,20 @@ def compile_variants(tmp: str, source: str, variants: dict) -> dict:
     return libs
 
 
-def build(tmp: str) -> dict:
-    libs = compile_variants(tmp, "depthwise5x5.cu", VARIANTS)
+def build(tmp: str, variants=None, csrc: str = "", tag: str = "") -> dict:
+    libs = compile_variants(tmp, "depthwise5x5.cu", variants or VARIANTS,
+                            csrc, tag)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     geo = ctypes.POINTER(ctypes.c_int)
     for lib in libs.values():
-        lib.nvae_dw5x5_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                       i64, i64, i64, i32, geo, i32, ptr]
+        lib.nvae_dw5x5_fwd.argtypes = lib.nvae_dw5x5_fwd_bf16.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, geo,
+            i32, ptr]
         lib.nvae_dw5x5_dx.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                       i64, i64, i64, geo, i32, ptr]
-        lib.nvae_dw5x5_dw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                      i32, i32, i32, geo, i32, ptr]
+        lib.nvae_dw5x5_dw.argtypes = lib.nvae_dw5x5_dw_bf16.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, geo, i32,
+            ptr]
     return libs
 
 
@@ -223,29 +271,32 @@ def sass_counts(so_path: str) -> None:
             r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
             block)]
         fma = [i for i, op in enumerate(ops) if op.startswith("FFMA")]
-        if not fma or "dw5x5_ring" not in name:
+        if not fma or not ("dw5x5_ring" in name or "dw5x5_bf16" in name):
             continue
         start = max((i for i in range(max(0, fma[0] - 80), fma[0])
                      if ops[i].startswith("LDS")), default=fma[0])
         end = max((i for i in range(fma[-1], min(len(ops), fma[-1] + 120))
                    if ops[i].startswith("STG")), default=fma[-1])
         count = lambda prefix: sum(op.startswith(prefix) for op in ops)
-        print(f"sass {name[name.find('dw5x5_ring'):][:40]}: {len(ops)} "
+        print(f"sass {name[name.find('dw5x5_'):][:48]}: {len(ops)} "
               f"instructions, {count('FFMA')} FFMA, {count('LDS')} LDS; one "
               f"item {end - start + 1} instructions", flush=True)
 
 
-def call(lib, kind, geo, x, k, g):
-    """One launch of kernel ``kind`` through the C entry, as the wrappers."""
+def call(lib, kind, geo, x, k, g, bias=None):
+    """One launch of kernel ``kind`` through the C entry, as the wrappers;
+    bf16 ``x`` goes to the bf16 entries."""
     b, h, w, c = x.shape
     s = torch.cuda.current_stream().cuda_stream
     ga = geo.c_array()
     strides = (k.stride(0), k.stride(1), k.stride(3))
+    bf16 = "_bf16" if x.dtype == torch.bfloat16 else ""
     if kind in ("thin", "fused"):
         y = torch.empty_like(x)
-        err = lib.nvae_dw5x5_fwd(x.data_ptr(), k.data_ptr(), None,
-                                 y.data_ptr(), b, h, w, c, *strides,
-                                 int(kind == "fused"), ga, 0, s)
+        err = getattr(lib, f"nvae_dw5x5_fwd{bf16}")(
+            x.data_ptr(), k.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), b, h,
+            w, c, *strides, int(kind == "fused"), ga, 0, s)
     elif kind == "dx":
         y = torch.empty_like(x)
         err = lib.nvae_dw5x5_dx(g.data_ptr(), k.data_ptr(), x.data_ptr(),
@@ -254,9 +305,9 @@ def call(lib, kind, geo, x, k, g):
         part = torch.empty(geo.blocks_per_chunk, 26, c, device=x.device)
         dk = torch.empty(25, c, device=x.device)
         db = torch.empty(c, device=x.device)
-        err = lib.nvae_dw5x5_dw(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                                dk.data_ptr(), db.data_ptr(), b, h, w, c,
-                                geo.blocks_per_chunk, 1, ga, 0, s)
+        err = getattr(lib, f"nvae_dw5x5_dw{bf16}")(
+            x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
+            db.data_ptr(), b, h, w, c, geo.blocks_per_chunk, 1, ga, 0, s)
     if err:
         raise RuntimeError(f"{kind} launch failed ({err})")
 
@@ -277,16 +328,141 @@ def with_passes(geo, kind, shape, per_pass, ahead):
                                blocks_per_chunk=-(-shape[0] // rows))
 
 
+def parent_geometry(root: str):
+    """``geometry`` of the ``nvae_torch`` under ``root`` (another tree),
+    loaded apart from this tree's module."""
+    import importlib.util
+
+    path = os.path.join(root, "nvae_torch", "kernels", "depthwise.py")
+    spec = importlib.util.spec_from_file_location("parent_depthwise", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod.geometry
+
+
+def slide_with(geo, kind, shape, per_pass, ahead, chunks_per_block,
+               rows=None):
+    """The sliding-row kernel's ``geo`` with another G, P, chunks a block and
+    batch rows a block (default: laid out as geometry() does); None where
+    it does not fit a block."""
+    from nvae_torch.kernels import depthwise as dw
+
+    b, _, w, c = shape
+    strips = -(-w // dw._BF16_STRIP)
+    threads = 32 * strips * chunks_per_block
+    if threads > dw._BF16_MAX_THREADS or chunks_per_block > geo.chunks:
+        return None
+    smem = dw._bf16_smem_bytes(kind, w, per_pass, ahead, chunks_per_block)
+    if smem > dw._MAX_SMEM:
+        return None
+    groups = -(-geo.chunks // chunks_per_block)
+    if rows is None:
+        build_ = 256 if threads <= 256 else 512 if threads <= 512 else 1024
+        per_sm = min(dw._SM_REGS // (dw._BF16_REGS[kind][build_] * threads),
+                     dw._SM_THREADS // threads, dw._SM_BLOCKS,
+                     dw._SM_SMEM // (smem + dw._BLOCK_RESERVED_SMEM))
+        parts = (dw._bf16_dw_parts(b, shape[1], w, c, groups,
+                                   chunks_per_block, per_sm)
+                 if kind == "dw" else -(-b // max(1, 24 // (shape[1] + 4))))
+    else:
+        parts = -(-b // rows)
+    return dataclasses.replace(geo, slots_per_pass=per_pass, ahead=ahead,
+                               smem_bytes=smem, threads=threads,
+                               chunks_per_block=chunks_per_block,
+                               blocks_per_chunk=parts)
+
+
+def bf16_probe(tmp: str, device, parent: str, sweep: bool = True) -> None:
+    """bf16 #2 (with swish and the shape's bias) and #4 (with swish) at the
+    path shapes, B=144: the sliding-row kernel's variants and, with
+    ``parent``, the parent tree's bf16 ring's (see the module's doc); then,
+    with ``sweep``, the sliding kernel's G, P, chunks a block and batch
+    rows a block.  Input sets hold more than twice the L2 of bf16 x, as
+    chip_smoke.py's bf16 timing."""
+    import chip_smoke as cs
+    from nvae_torch.kernels import depthwise as dw
+
+    names = ("as_is", "no_copy", "no_compute", "no_widen", "no_store",
+             "compute_only")
+    libs = build(tmp, {n: VARIANTS[n] for n in names})
+    sass_counts(os.path.join(tmp, "depthwise5x5_as_is.so"))
+    old = {}
+    if parent:
+        old = build(tmp, PARENT_VARIANTS,
+                    os.path.join(parent, "nvae_torch", "kernels", "csrc"),
+                    "_parent")
+        old_geometry = parent_geometry(parent)
+    for h, c, bias, _, _ in cs.PATH_SHAPES:
+        shape = (BATCH, h, h, c)
+        n = BATCH * h * h * c
+        n_sets = int(2 * cs.L2_BYTES // (2 * n)) + 1
+        sets = []
+        for s in range(n_sets):
+            x, k, b = cs.bf16_inputs(h, c, bias, device, seed=s)
+            g = cs.bf16_inputs(h, c, False, device, seed=100 + s)[0]
+            sets.append((x, k, g, b))
+        iters = max(40, n_sets)
+        for kind, gkind in (("fused", "fwd"), ("dw", "dw")):
+            def timed(lib, geo):
+                return cs.time_ms(lambda x, k, g, b: call(
+                    lib, kind, geo, x, k, g, b if kind == "fused" else None),
+                    sets, iters)[0] * 1e3
+
+            geo = dw.geometry(gkind, shape, "bfloat16")
+            occupancy = libs["as_is"].nvae_dw5x5_bf16_blocks_per_sm
+            occupancy.argtypes = [ctypes.c_int] * 4
+            per_sm = occupancy(0 if gkind == "fwd" else 2, geo.threads,
+                               geo.smem_bytes, 0)
+            print(f"bf16 {kind} {BATCH}x{h}x{h}x{c}: {per_sm} blocks an SM "
+                  f"at {geo.threads} threads, {geo.smem_bytes} B", flush=True)
+            for name, lib in libs.items():
+                print(f"bf16 {kind} {BATCH}x{h}x{h}x{c} slide {name} "
+                      f"G={geo.slots_per_pass} P={geo.ahead} "
+                      f"K={geo.chunks_per_block} blocks={geo.blocks}: "
+                      f"{timed(lib, geo):.1f} us", flush=True)
+            if old:
+                ogeo = old_geometry(gkind, shape, "bfloat16")
+                for name, lib in old.items():
+                    print(f"bf16 {kind} {BATCH}x{h}x{h}x{c} ring {name} "
+                          f"G={ogeo.slots_per_pass} P={ogeo.ahead} "
+                          f"blocks={ogeo.blocks}: "
+                          f"{timed(lib, ogeo):.1f} us", flush=True)
+            seen = {geo}
+            for per_pass in ((5, 10) if sweep else ()):
+                for ahead in (1, 2, 4):
+                    for kpb in (1, 2, 4, 8):
+                        for rows in (None, 1, 2, 3, 6):
+                            alt = slide_with(geo, gkind, shape, per_pass,
+                                             ahead, kpb, rows)
+                            if alt is None or alt in seen:
+                                continue
+                            seen.add(alt)
+                            print(f"bf16 {kind} {BATCH}x{h}x{h}x{c} sweep "
+                                  f"G={per_pass} P={ahead} K={kpb} "
+                                  f"rows={rows or 'rule'} "
+                                  f"blocks={alt.blocks}: "
+                                  f"{timed(libs['as_is'], alt):.1f} us",
+                                  flush=True)
+        del sets
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ring_probe: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     device = torch.device("cuda", 0)
+    args = sys.argv[1:]
+    parent = args[args.index("--parent") + 1] if "--parent" in args else ""
     with tempfile.TemporaryDirectory() as tmp:
-        if "--se" not in sys.argv[1:]:
-            ring_probe(tmp, device)
-        se_probe(tmp, device)
+        if "--bf16" in args:
+            bf16_probe(tmp, device, os.path.abspath(parent) if parent else "",
+                       "--no-sweep" not in args)
+        else:
+            if "--se" not in args:
+                ring_probe(tmp, device)
+            se_probe(tmp, device)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -299,7 +475,8 @@ def ring_probe(tmp: str, device) -> None:
     import chip_smoke as cs
     from nvae_torch.kernels import depthwise as dw
 
-    libs = build(tmp)
+    libs = build(tmp, {n: VARIANTS[n]
+                       for n in ("as_is", "no_copy", "no_compute", "regs80")})
     sass_counts(os.path.join(tmp, "depthwise5x5_as_is.so"))
     for h, c in SHAPES:
         shape = (BATCH, h, h, c)

@@ -151,7 +151,10 @@ each raising on failure (nothing is caught):
     cells) at full width: #1-#4 in fp32 against their plain versions at
     every shape of their paths (4x4x2304 to 64x64x288) and every batch the
     paths give them, as phase 2 holds them, each shape's ring geometry
-    logged; in each postprocess form 2 training steps with exact launches
+    logged; the bf16 instances of #2 and #4 at every such shape at 4 rows,
+    with and without swish and bias, at phase 2's bf16 limits, bitwise
+    across two runs, each shape's sliding-row geometry logged (a few
+    seconds); in each postprocess form 2 training steps with exact launches
     (cifar10_dml 46 / 52 of each of #2-#4 a step; celeba64 54 / 60 of #3
     and #4 and twice that of #2, which the backward pass's recompute runs
     again), one more step profiled, and a sampler at batch 144 (launches,
@@ -428,6 +431,7 @@ RGB_CARD_VS_CPU_ROUNDING = 2.0
 REMAT_BATCH = 4
 REMAT_RTOL = 1e-6
 RGB_SCAN_STEPS = 3
+RGB_BF16_BATCH = 4  # bf16 #2 and #4 against their plain versions
 RGB_TIMING_ITERS = 20
 
 
@@ -533,15 +537,25 @@ def phase_build():
         for kernel, regs, st, ld, smem in ptxas_entries(text):
             log(f"  {name}: {kernel}: {regs} registers, spills {st} B "
                 f"stored / {ld} B loaded, {smem} B static shared")
-    # The ring kernels' dynamic shared memory and schedule at each path shape.
+    # The depthwise kernels' dynamic shared memory and schedule at each path
+    # shape: the row ring (fp32 #1-#4, bf16 #3) and the sliding-row kernel
+    # (bf16 #2 and #4), with its blocks an SM as the card reports them.
     for h, c, _, _, _ in PATH_SHAPES:
         for kind, dtype in ((k, d) for d in ("float32", "bfloat16")
                             for k in ("fwd", "dx", "dw")):
             g = dw.geometry(kind, (BATCH, h, h, c), dtype)
-            log(f"  ring {kind} {dtype} {BATCH}x{h}x{h}x{c}: {g.smem_bytes} "
-                f"B dynamic shared, {g.blocks} blocks ({g.blocks_per_chunk} "
-                f"per chunk), {g.slots_per_pass} rows per pass, {g.ahead} "
-                "passes ahead")
+            sliding = dtype == "bfloat16" and kind != "dx"
+            extra = ""
+            if sliding:
+                per_sm = dw._lib().nvae_dw5x5_bf16_blocks_per_sm(
+                    0 if kind == "fwd" else 2, g.threads, g.smem_bytes, 0)
+                extra = (f", {g.threads} threads ({g.chunks_per_block} "
+                         f"chunks) a block, {per_sm} blocks an SM")
+            log(f"  {'sliding' if sliding else 'ring'} {kind} {dtype} "
+                f"{BATCH}x{h}x{h}x{c}: {g.smem_bytes} B dynamic shared, "
+                f"{g.blocks} blocks ({g.blocks_per_chunk} per chunk group), "
+                f"{g.slots_per_pass} rows per pass, {g.ahead} passes "
+                f"ahead{extra}")
     # The gate's clusters at each SE shape, and how many the card holds at
     # once against the rows that need one each.
     for h, c, hd in SE_SHAPES:
@@ -2029,18 +2043,19 @@ def profile_call(label: str, fn) -> dict:
 
 
 def ring_launches(rows) -> dict:
-    """Launches of the depthwise ring kernels in a profile's rows, by
-    wrapper name: ``dw5x5_ring<kind, ...>`` (0 forward, 1 dx, 2 dW/db,
-    whose reduction kernel is not counted again) in fp32 or bf16."""
+    """Launches of the depthwise kernels in a profile's rows, by wrapper
+    name: the row ring ``dw5x5_ring<kind, ...>`` in fp32 or bf16 and the
+    sliding-row kernel ``dw5x5_bf16<kind, ...>`` (bf16), kind 0 forward,
+    1 dx, 2 dW/db (whose reduction kernel is not counted again)."""
     names = {"0": "fused_swish_depthwise5x5",
              "1": "fused_swish_depthwise5x5_dx",
              "2": "fused_swish_depthwise5x5_dw"}
     out = dict.fromkeys(DW_KERNEL_NAMES, 0)
     for _, count, key in rows:
-        m = re.search(r"dw5x5_ring<\s*\(?\w*\)?\s*(\d)", key)
+        m = re.search(r"dw5x5_(ring|bf16)<\s*\(?\w*\)?\s*(\d)", key)
         if m:
-            name = names[m.group(1)] + ("_bf16" if "bfloat16" in key else "")
-            out[name] += count
+            bf16 = m.group(1) == "bf16" or "bfloat16" in key
+            out[names[m.group(2)] + ("_bf16" if bf16 else "")] += count
     return out
 
 
@@ -3172,6 +3187,80 @@ def phase_rgb_kernels(device) -> dict:
                                           (batch, REMAT_BATCH)).items():
             errs.setdefault(k, {}).update(v)
     return errs
+
+
+def phase_rgb_bf16_kernels(device) -> dict:
+    """The bf16 instances of #2 and #4 against their plain versions at every
+    shape of the RGB presets' paths, at RGB_BF16_BATCH rows, with and
+    without swish and bias, at the path shapes' limits: #2 within
+    ``BF16_SUM_ULPS``, at least ``BF16_MIN_EQUAL_SHARE`` bitwise equal where
+    a shape has 10,000 outputs or more, bitwise across two runs; #4 within
+    DW_RTOL of the largest |dW| (and |db|), bitwise across two runs.  Each
+    shape's geometry logged.  Returns the worst of each over the shapes."""
+    from nvae_torch.kernels import depthwise as dw
+
+    t0 = time.monotonic()
+    n = RGB_BF16_BATCH
+    out = {"fwd_err": 0.0, "fwd_sum_ulps": 0.0, "fwd_equal": 1.0,
+           "dw_err": 0.0, "shapes": []}
+    shapes = sorted({(h, c) for v in RGB_SHAPES.values()
+                     for h, c, _, _, _ in v})
+    for h, c in shapes:
+        out["shapes"].append([n, h, h, c])
+        for kind in ("fwd", "dw"):
+            g = dw.geometry(kind, (n, h, h, c), "bfloat16")
+            log(f"  sliding {kind} bfloat16 {n}x{h}x{h}x{c}: {g.smem_bytes} "
+                f"B dynamic shared, {g.threads} threads, {g.blocks} blocks "
+                f"({g.chunks_per_block} chunks each), {g.slots_per_pass} "
+                f"slots per pass, {g.ahead} passes ahead")
+        x, k, b = bf16_inputs(h, c, True, device, batch=n)
+        g = bf16_inputs(h, c, False, device, seed=1, batch=n)[0]
+        for fuse, bias in ((True, True), (True, False), (False, True),
+                           (False, False)):
+            bb = b if bias else None
+            got = dw.fused_swish_depthwise5x5(x, k, bb, fuse_swish=fuse)
+            again = dw.fused_swish_depthwise5x5(x, k, bb, fuse_swish=fuse)
+            want = dw.fused_swish_depthwise5x5_plain(x, k, bb,
+                                                     fuse_swish=fuse)
+            a = dw.fused_swish_depthwise5x5_dw(x, g, fuse_swish=fuse,
+                                               with_bias=bias)
+            a2 = dw.fused_swish_depthwise5x5_dw(x, g, fuse_swish=fuse,
+                                                with_bias=bias)
+            dk_want, db_want = dw.fused_swish_depthwise5x5_dw_plain(
+                x, g, fuse_swish=fuse)
+            torch.cuda.synchronize(device)
+            if not (torch.equal(got, again) and torch.equal(a[0], a2[0])
+                    and (not bias or torch.equal(a[1], a2[1]))):
+                raise AssertionError(f"bf16 #2/#4 {n}x{h}x{h}x{c}: two runs "
+                                     "differ")
+            sum_ulps = float(dw.bf16_sum_ulps(got, want, dw.bf16_sum_scale(
+                x, k, bb, fuse_swish=fuse)).max())
+            equal = float((bf16_ulps(got, want) == 0).float().mean())
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(dk_want.abs().max())
+            dw_err = float((a[0] - dk_want).abs().max())
+            if bias:
+                dw_err = max(dw_err, float((a[1] - db_want).abs().max()))
+                scale = max(scale, float(db_want.abs().max()))
+            log(f"kernel bf16 {n}x{h}x{h}x{c} swish={fuse} bias={bias}: #2 "
+                f"max abs err {err:.3g}, {sum_ulps:.3g} fp32 ulps past one "
+                f"bf16 ulp (limit {dw.BF16_SUM_ULPS}), {100 * equal:.4f}% "
+                f"bitwise equal; #4 max abs err {dw_err:.3g} (limit "
+                f"{DW_RTOL * scale:.3g}); both bitwise repeatable")
+            if not (sum_ulps <= dw.BF16_SUM_ULPS and dw_err <= DW_RTOL * scale
+                    and (got.numel() < 10_000
+                         or equal >= dw.BF16_MIN_EQUAL_SHARE)):
+                raise AssertionError(
+                    f"bf16 #2/#4 {n}x{h}x{h}x{c}: {sum_ulps} fp32 ulps, "
+                    f"{equal} equal, dW err {dw_err} of {scale}")
+            out["fwd_err"] = max(out["fwd_err"], err)
+            out["fwd_sum_ulps"] = max(out["fwd_sum_ulps"], sum_ulps)
+            if got.numel() >= 10_000:
+                out["fwd_equal"] = min(out["fwd_equal"], equal)
+            out["dw_err"] = max(out["dw_err"], dw_err)
+    out["seconds"] = time.monotonic() - t0
+    log(f"bf16 #2 and #4 at the RGB shapes: {out['seconds']:.1f} s")
+    return out
 
 
 def phase_rgb_sampler(cfg, device, weights=None) -> dict:
@@ -4789,6 +4878,7 @@ def main(argv=None) -> int:
     # The records' worst errors cover the RGB shapes too.
     for k, v in phase_rgb_kernels(device).items():
         errs[k].update(v)
+    rgb_bf16 = phase_rgb_bf16_kernels(device)
     log(f"RGB kernels checked at {time.monotonic() - t_start:.1f} s")
     rgb_launches, rgb_replayed = phase_rgb_models(device)
     log(f"RGB models done at {time.monotonic() - t_start:.1f} s")
@@ -4829,6 +4919,16 @@ def main(argv=None) -> int:
     records.append(bf16_record(bf16_errs, launches, bf16_timing))
     records += bf16_backward_records(bf16_bwd_errs, launches, bf16_bwd_timing)
     records.append(se_record(se_errs, launches, se_timing))
+    for rec in records:  # bf16 #2 and #4 at the RGB shapes (phase 11)
+        if rec["name"] == "fused_swish_depthwise5x5_bf16":
+            rec["rgb_check"] = {
+                "shapes": rgb_bf16["shapes"],
+                "max_abs_err": rgb_bf16["fwd_err"],
+                "max_sum_ulps": rgb_bf16["fwd_sum_ulps"],
+                "bitwise_share": rgb_bf16["fwd_equal"]}
+        elif rec["name"] == "fused_swish_depthwise5x5_dw_bf16":
+            rec["rgb_check"] = {"shapes": rgb_bf16["shapes"],
+                                "max_abs_err": rgb_bf16["dw_err"]}
     for rec in records:
         rec["replayed_launches"] = replayed.get(rec["name"], 0)
         if rec["name"] in rgb_timing:

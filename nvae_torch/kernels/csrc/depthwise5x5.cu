@@ -8,10 +8,11 @@
 //     y[b, h, w, c] = sum_{dy, dx} s(x)[b, h + dy - 2, w + dx - 2, c] * k[dy, dx, c]
 //                     (+ bias[c])
 //   with s = swish or the identity, SAME zero padding, NHWC fp32 in and out.
-//   Its bf16 instance (T = __nv_bfloat16; the Pallas kernel's semantics
-//   under compute_dtype=bfloat16) reads bf16 x and taps, applies swish and
-//   sums the 25 taps in fp32, adds an fp32 bias in fp32, and rounds y to
-//   bf16 once (round to nearest even).
+//   Its bf16 instance (the Pallas kernel's semantics under
+//   compute_dtype=bfloat16) is dw5x5_bf16<kFwd, ...>, the sliding-row
+//   kernel below: it reads bf16 x and taps, applies swish and sums the 25
+//   taps in fp32, adds an fp32 bias in fp32, and rounds y to bf16 once
+//   (round to nearest even).
 // - dw5x5_ring<kDx, false, false, kSwishGrad>: _fused_dx_kernel and
 //   _fused_dx_nox_kernel (launched by _make_fused_dw.dx_call), the same
 //   stencil over dy with the taps flipped, k[4 - dy, 4 - dx, c], times
@@ -22,10 +23,12 @@
 //     dW[dy, dx, c] = sum_{b, h, w} s(x)[b, h + dy - 2, w + dx - 2, c] * g[b, h, w, c]
 //     db[c]         = sum_{b, h, w} g[b, h, w, c]
 //   in fp32.
-//   Their bf16 instances (the Pallas kernels' semantics under
-//   compute_dtype=bfloat16) read bf16 dy, x and taps; dx sums the 25 flipped
-//   taps in fp32, multiplies by swish'(x) computed in fp32, and rounds dx to
-//   bf16 once; dW/db are fp32 sums of the widened operands, as in fp32.
+//   The bf16 instances (the Pallas kernels' semantics under
+//   compute_dtype=bfloat16): dx (dw5x5_ring<kDx, ..., __nv_bfloat16>) reads
+//   bf16 dy, x and taps, sums the 25 flipped taps in fp32, multiplies by
+//   swish'(x) computed in fp32, and rounds dx to bf16 once; dW/db
+//   (dw5x5_bf16<kDw, ...> + dw5x5_dw_reduce, the sliding-row kernel) makes
+//   fp32 sums of the widened operands, as in fp32.
 //
 // What bounds them on the card: HBM bytes.  The stencils do 25 multiply-adds
 // (50 FLOP) per output against 8 bytes of device memory (12 with the swish'
@@ -37,7 +40,7 @@
 // law 3.35 TB/s at about 1 us of loaded latency is ~3.4 MB over 132 SMs,
 // about 25 KB of loads outstanding on every SM at all times.
 //
-// Design: one streaming "row ring" shared by all three kernels.
+// Design of the fp32 kernels and bf16 dx: one streaming "row ring".
 // - Persistent blocks on a fixed schedule.  Block i is channel chunk
 //   i / parts (32 channels, one per lane) and walks the contiguous batch rows
 //   [j * B / parts, (j + 1) * B / parts) of part j = i % parts, in order.
@@ -67,16 +70,14 @@
 // - Swish (forward, dW/db) is applied once per staged element, in place, by
 //   the thread that copied it, after its cp.async.wait_group and before the
 //   barrier that publishes the pass (__expf and __fdividef: a few ulp).
-// - bf16: a bf16 element cannot be widened in place, so its rows land by
-//   cp.async in a bf16 staging ring of (P + 1) G rows of W x 32 (64 bytes
-//   a pixel: four 16-byte copies, or sixteen 4-byte ones where C % 8 != 0;
-//   an odd C is refused), and the thread that copied an element widens it,
-//   applies swish (forward, dW/db) and writes it into the fp32 ring in the
-//   same step that applies swish in the fp32 kernel.  dx and dW/db stage
-//   their aux rows the same way in a second staging ring, widened into the
-//   fp32 aux ring (dx: as swish'(x)).  So the compute loop is the fp32
-//   kernel's, instruction for instruction, and only dx's and the forward's
-//   store differs (one bf16 per lane, 64 bytes per warp per pixel).
+// - bf16 dx: a bf16 element cannot be widened in place, so its rows land
+//   by cp.async in a bf16 staging ring of (P + 1) G rows of W x 32 (64
+//   bytes a pixel: four 16-byte copies, or sixteen 4-byte ones where
+//   C % 8 != 0; an odd C is refused), and the thread that copied an
+//   element widens it into the fp32 ring in the step that applies swish in
+//   the fp32 kernels; its aux rows (x) go the same way into the aux ring,
+//   as swish'(x).  So its compute loop is the fp32 kernel's, instruction
+//   for instruction, and only its store differs (one bf16 per lane).
 // - A second "aux" ring of (P + 1) G rows of W' x 32 fp32 carries, per
 //   output row, the operand read at the output position: x for dx's swish'
 //   epilogue (turned into swish'(x) in place by its copier) and g for
@@ -95,9 +96,45 @@
 //   in shared memory that aliases the ring, and the block writes one
 //   (26, 32) slice of the (parts, 26, C) partials.  dw5x5_dw_reduce adds
 //   the parts in order: two launches, no atomics, bitwise repeatable.
-// What holds them back now (PERF.md, PR 4): not the loads, which the ring
+// What holds the ring back (PERF.md, section 6): not the loads, which the ring
 // hides (a build that skips the copies runs as fast), but the stencil's
 // own instruction issue and latency at 32 warps per SM.
+//
+// The sliding-row kernel, dw5x5_bf16 (bf16 #2 and #4): the ring's bf16
+// instances widened every element into the fp32 ring and then ran the fp32
+// stencil, 48 shared loads for 200 FMAs an item, about one item a warp
+// between two block barriers; they ran at 22% of their HBM bound, no
+// faster than fp32.  Here:
+// - A warp is one 32-channel chunk's column strip of kStrip = 4 outputs,
+//   a lane a channel; a block is the S = ceil(W / 4) strips of K chunks
+//   (K a power of two: the geometry picks 2-4 warps a block where rows are
+//   short, a warp a strip where they are long) and the batch rows of one
+//   part, streamed as slots, H + 4 an image, the two halo slots above and
+//   below never copied nor computed.
+// - A pass is G = 5 slots (the register rotation below).  Rows land by
+//   cp.async in bf16 staging rows P passes ahead; the thread that copied
+//   an element widens it, through swish (ex2 and rcp with denormals
+//   flushed), into an fp32 ring of the last two passes (dW/db: and the two
+//   slots before them), rows of W + 4 pixels with zero pads; one
+//   __syncthreads a pass.  No integer division in the loop: each stream
+//   position is carried from pass to pass.
+// - The forward keeps, per lane, 5 x 4 fp32 accumulators: the output rows
+//   in flight.  A real input row is read once per warp (8 shared loads) and
+//   its 100 FMAs go to the 5 rows it feeds, tap row dy to the row that
+//   started dy slots ago, so every output takes its taps in dy-major,
+//   dx-minor order; a row is stored (bias last, rounded once) at the slot
+//   that brings its fifth tap row, through a warp tile as 16-byte stores.
+//   Which register holds which row turns with the slot index mod 5, fixed
+//   by unrolling 5 slots: no moves.
+// - dW/db keeps the 25 tap sums and db per lane and the g rows of the last
+//   5 slots (read as bf16 from their staging rows, widened in registers);
+//   the x row of slot q - 2 meets the g rows of slots q - 4 .. q.  The
+//   strips' sums are added in strip order, then the parts by
+//   dw5x5_dw_reduce: still two launches, no atomics.
+// What holds it back (chip_ring_probe.py --bf16, PERF.md section 6, on an
+// NVIDIA H100 80GB HBM3 at 700 W): the stencil's issue again, now at 1.5
+// instructions an FMA, with the widening (MUFU) and the copies' latency
+// partly serialised behind it; the small shapes are bound by latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +171,7 @@ struct Args {
   int per_pass;  // slots filled per pass (G)
   int ahead;     // passes in flight ahead of the one computed (P)
   int vec;       // 16-byte copies
+  int vec_out;   // bf16 forward: 16-byte stores of y
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -159,11 +197,25 @@ __device__ __forceinline__ float swish_grad(float v) {
   return s * (1.0f + v * (1.0f - s));
 }
 
-enum Op { kIdentity = 0, kSwishOp = 1, kSwishGradOp = 2 };
+// The sliding kernel's swish: the same two approximations with denormals
+// flushed to zero (ex2.approx.ftz, rcp.approx.ftz), which saves their
+// range fix-ups; only a denormal sigmoid, at x < -87, differs, by less
+// than 2^-126 |x|.
+__device__ __forceinline__ float swish_ftz(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
+  return v * r;
+}
+
+enum Op { kIdentity = 0, kSwishOp = 1, kSwishGradOp = 2, kSwishFtzOp = 3 };
 
 template <int kOp>
 __device__ __forceinline__ float apply_op(float v) {
-  return kOp == kSwishOp ? swish(v) : kOp == kSwishGradOp ? swish_grad(v) : v;
+  return kOp == kSwishOp       ? swish(v)
+         : kOp == kSwishGradOp ? swish_grad(v)
+         : kOp == kSwishFtzOp  ? swish_ftz(v)
+                               : v;
 }
 
 // bf16: one copy's staged elements at `sp` (8 for a 16-byte copy, else 2)
@@ -608,6 +660,377 @@ dw5x5_ring(const Args a) {
   }
 }
 
+// ---- bf16 #2 and #4: the sliding-row kernel ---------------------------------
+//
+// The bf16 forward and dW/db (see the header).  One block is a group of K
+// channel chunks (K x 32 channels) and the batch rows of one part; warp w is
+// chunk w / S of the group and column strip w % S, the kStrip output columns
+// [4 (w % S), 4 (w % S) + 4) of every row (S = ceil(W / 4) strips), one
+// channel per lane.  The block streams its images as slots, H + 4 per image
+// (two zero slots above, two below, never copied or computed), G slots a
+// pass, P passes of copies in flight.
+constexpr int kStrip = 4;       // output columns per lane
+constexpr int kMaxThreadsBf16 = 1024;
+
+// Registers a thread may use per build, through __launch_bounds__: the
+// forward's 256-thread build 3 blocks an SM (at most 80), dW/db's 2 (128:
+// its rings allow no more at the path shapes), 512 threads 1 (128), 1024
+// threads 1 (64).  depthwise.py's geometry() assumes the same.
+constexpr int bf16_min_blocks(int kind, int threads) {
+  return threads == 256 ? (kind == kDw ? 2 : 3) : 1;
+}
+
+template <int kKind, bool kSwish, bool kBias, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  bf16_min_blocks(kKind, kMaxThreads))
+dw5x5_bf16(const Args a) {
+  using B16 = __nv_bfloat16;
+  constexpr bool kDwK = kKind == kDw;
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & (kChunk - 1);
+  const int warp = tid / kChunk;
+  const int H = a.H, W = a.W, C = a.C, G = a.per_pass, P = a.ahead;
+  const int S = (W + kStrip - 1) / kStrip;
+  const int K = T / (kChunk * S);
+  const int KC = K * kChunk;
+  const int group = blockIdx.x / a.parts;
+  const int part = blockIdx.x - group * a.parts;
+  const int cb = group * KC;
+  const int strip = warp % S;
+  const int kc = warp / S;
+  const int w0 = strip * kStrip;
+  const int c = cb + kc * kChunk + lane;
+  const bool live = c < C;
+  const int first = (int)((long long)part * a.batch / a.parts);
+  const int last = (int)((long long)(part + 1) * a.batch / a.parts);
+  const int hs = H + kHalo;
+  const int n_slots = (last - first) * hs;
+  const int n_pass = (n_slots + G - 1) / G;
+  // fp32 ring: swish(x) of the last two passes (and, for dW/db, the two
+  // slots before them), per chunk RF rows of S * 4 + 4 pixels x 32 fp32,
+  // two zero pixels on each side.  bf16 staging, per chunk: x of P passes
+  // (read only by its copier), and for dW/db g of P + 1 passes (read by
+  // every warp of the chunk), rows of W pixels x 32.
+  const int RF = 2 * G + (kDwK ? kPad : 0);
+  const int RX = P * G;
+  const int RG = (P + 1) * G;
+  const int PW = S * kStrip + kHalo;
+  const int row_f = PW * kChunk;  // floats per ring row of one chunk
+  const int row_h = W * kChunk;   // bf16 per staging row of one chunk
+  int ring_f = K * RF * row_f;
+  if (kDwK && ring_f < S * K * kSums * kChunk) ring_f = S * K * kSums * kChunk;
+  float* ring = smem;
+  B16* xst = reinterpret_cast<B16*>(smem + ring_f);
+  B16* gst = xst + (size_t)K * RX * row_h;
+  // Forward: each warp's two 4 x 32 bf16 tiles of finished outputs, read
+  // back across the lanes for 16-byte stores.
+  B16* tiles = gst + (size_t)warp * 2 * kStrip * kChunk;
+  const B16* src = static_cast<const B16*>(a.src);
+  const B16* aux = static_cast<const B16*>(a.aux);
+  const bool vec = a.vec;
+
+  // Copy mapping, the same every pass: per slot W pixels of pseg copies
+  // (8 channels, or 2 where the copies are 4 bytes); a thread owns copy
+  // column col0 (+ colstep ...) of slots g0, g0 + gstep, ... of a pass, and
+  // widens what it copied.
+  const int seg = vec ? 8 : 2;
+  const int pseg = KC / seg;
+  const int pshift = __ffs(pseg) - 1;
+  const int per_slot = W << pshift;
+  int g0 = 0, gstep = 1, col0 = tid, colstep = T;
+  if (per_slot <= T) {
+    gstep = T / per_slot;
+    g0 = tid / per_slot;
+    col0 = tid - g0 * per_slot;
+    colstep = per_slot;
+    if (g0 >= gstep) g0 = G;  // a leftover thread: no copies
+  }
+  // Where a pass's first slot lives, carried from pass to pass: its image
+  // and slot in it, its x and g staging rows, its fp32 ring row.
+  struct Pass {
+    int q, img, s, xr, gr, fr;
+  };
+  auto next = [&](Pass& u) {
+    u.q += G;
+    u.s += G;
+    while (u.s >= hs) {
+      u.s -= hs;
+      ++u.img;
+    }
+    u.xr += G;
+    if (u.xr == RX) u.xr = 0;
+    u.gr += G;
+    if (u.gr == RG) u.gr = 0;
+    u.fr += G;
+    if (u.fr >= RF) u.fr -= RF;
+  };
+
+  // Start the copies of the pass at `u`: the real rows of its slots (bf16
+  // x, and g beside them for dW/db), channels past C zero-filled.
+  auto issue = [&](const Pass& u) {
+    int s = u.s + g0, img = u.img;
+    for (int gi = g0; gi < G && u.q + gi < n_slots; gi += gstep) {
+      while (s >= hs) {
+        s -= hs;
+        ++img;
+      }
+      const int ih = s - kPad;
+      if (ih >= 0 && ih < H) {
+        const size_t grow = ((size_t)(first + img) * H + ih) * W * C + cb;
+        B16* xd = xst + (u.xr + gi) * row_h;
+        B16* gd = gst + (u.gr + gi) * row_h;
+        for (int col = col0; col < per_slot; col += colstep) {
+          const int px = col >> pshift;
+          const int ch = (col & (pseg - 1)) * seg;
+          const int k = ch / kChunk;
+          const int at = (k * RX * W + px) * kChunk + ch - k * kChunk;
+          const bool in_c = cb + ch < C;
+          const size_t off = grow + (size_t)px * C + ch;
+          copy_async(xd + at, in_c ? src + off : src, in_c, vec);
+          if (kDwK) {
+            copy_async(gd + at + k * (RG - RX) * row_h,
+                       in_c ? aux + off : aux, in_c, vec);
+          }
+        }
+      }
+      s += gstep;
+    }
+    commit_group();
+  };
+  // This thread's staged x of the pass at `u`, widened (and through swish)
+  // into the fp32 ring: once per element.
+  constexpr int kOp = kSwish ? kSwishFtzOp : kIdentity;
+  auto transform = [&](const Pass& u) {
+    int s = u.s + g0;
+    for (int gi = g0; gi < G && u.q + gi < n_slots; gi += gstep) {
+      while (s >= hs) s -= hs;
+      if (s >= kPad && s < H + kPad) {
+        int fr = u.fr + gi;
+        if (fr >= RF) fr -= RF;
+        const B16* xs = xst + (u.xr + gi) * row_h;
+        float* dst = ring + (fr * PW + kPad) * kChunk;
+        for (int col = col0; col < per_slot; col += colstep) {
+          const int px = col >> pshift;
+          const int ch = (col & (pseg - 1)) * seg;
+          const int k = ch / kChunk;
+          const int cl = ch - k * kChunk;
+          widen_copy<kOp>(xs + (k * RX * W + px) * kChunk + cl,
+                          dst + (k * RF * PW + px) * kChunk + cl, vec);
+        }
+      }
+      s += gstep;
+    }
+  };
+
+  Pass fill{0, 0, 0, 0, 0, 0};
+  for (int p = 0; p < P; ++p) {
+    issue(fill);
+    next(fill);
+  }
+  // The fp32 ring starts at zero: its pad columns stay so.
+  for (int e = tid * 4; e < K * RF * row_f; e += T * 4) {
+    *reinterpret_cast<float4*>(ring + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float tap[kTaps2];
+#pragma unroll
+  for (int t = 0; t < kTaps2; ++t) {
+    tap[t] = !kDwK && live
+                 ? __bfloat162float(static_cast<const B16*>(a.w)[
+                       (t / kTaps) * a.sdy + (t % kTaps) * a.sdx +
+                       (long long)c * a.sc])
+                 : 0.0f;
+  }
+  const float b = kBias && live ? a.bias[c] : 0.0f;
+  __syncthreads();  // the zeros, before any widened row lands
+
+  // The lane's view of ring row r: padded pixel w0 + u (image column
+  // w0 + u - 2), u = 0 .. 7, at xlane[r * row_f + u * 32]; of g staging
+  // row r: column w0 + i at glane[r * row_h + i * 32].
+  const float* xlane = ring + (kc * RF * PW + w0) * kChunk + lane;
+  const B16* glane = gst + (kc * RG * W + w0) * kChunk + lane;
+  const int n_col = min(kStrip, W - w0);  // the strip's columns in the image
+  // Forward: acc[(q - dy) % 5] gathers tap row dy of the output row that
+  // started at slot q - dy; it is stored (with the bias) and cleared at
+  // the slot that completes it, four after its start.  dW/db: gw[q % 5]
+  // holds g of slot q (zero for the halo slots), and the x row of slot
+  // q - 2 meets the g rows of slots q - 4 .. q.  Both in fp32, taps in
+  // dy-major, dx-minor order.  Tap rows that fall outside the image go to
+  // rows that are never stored (forward) or meet g = 0 (dW/db).  The
+  // index q % 5 is static: a pass is a multiple of 5 slots.
+  float acc[kTaps][kStrip];
+  float gw[kTaps][kStrip];
+  float sum[kSums];
+#pragma unroll
+  for (int d = 0; d < kTaps; ++d) {
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i) {
+      acc[d][i] = 0.0f;
+      gw[d][i] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kSums; ++t) sum[t] = 0.0f;
+  B16* y = static_cast<B16*>(a.out);
+  const long long row_y = (long long)W * C;  // elements per image row of y
+  // A finished row's stores: lane `lane` writes channel c of the strip's
+  // columns, or (16-byte stores) lanes 0 .. 15 write channels
+  // 8 (lane % 4) .. + 7 of column w0 + lane / 4.
+  const bool vec_out = a.vec_out;
+  const int out_ch = cb + kc * kChunk + (lane % 4) * 8;
+  const bool out_live = vec_out ? lane < 4 * n_col && out_ch < C : live;
+  // y at output row s - 4 of the slot's image (before the image where
+  // s < 4), this lane's first element; tile: the one the next row uses.
+  B16* yp = y + (vec_out ? (long long)(lane / 4) * C + out_ch : c) +
+            ((long long)first * H - kHalo) * row_y + w0 * (long long)C;
+  int tile = 0;
+  // The compute cursor: slot in the image, ring row (forward: slot q;
+  // dW/db: slot q - 2), g staging row (dW/db).
+  int s = 0;
+  int rr = kDwK ? RF - kPad : 0;
+  int rg = 0;
+
+  auto compute = [&](int q0) {
+    const int n = min(G, n_slots - q0);
+    for (int gi = 0; gi < n; gi += kTaps) {
+#pragma unroll
+      for (int j = 0; j < kTaps; ++j) {
+        if (gi + j < n) {
+          if (!kDwK) {
+            if (s >= kPad && s < H + kPad) {
+              const float* row = xlane + rr * row_f;
+              float v[kStrip + kTaps - 1];
+#pragma unroll
+              for (int u = 0; u < kStrip + kTaps - 1; ++u) {
+                v[u] = row[u * kChunk];
+              }
+#pragma unroll
+              for (int dy = 0; dy < kTaps; ++dy) {
+#pragma unroll
+                for (int dx = 0; dx < kTaps; ++dx) {
+#pragma unroll
+                  for (int i = 0; i < kStrip; ++i) {
+                    acc[(j - dy + kTaps) % kTaps][i] =
+                        fmaf(v[i + dx], tap[dy * kTaps + dx],
+                             acc[(j - dy + kTaps) % kTaps][i]);
+                  }
+                }
+              }
+            }
+            const int kDone = (j + 1) % kTaps;  // started 4 slots ago
+            if (s >= kHalo) {  // output row s - 4 is complete
+              if (vec_out) {
+                B16* t = tiles + tile * kStrip * kChunk;
+                tile ^= 1;
+#pragma unroll
+                for (int i = 0; i < kStrip; ++i) {
+                  t[i * kChunk + lane] = __float2bfloat16_rn(
+                      kBias ? acc[kDone][i] + b : acc[kDone][i]);
+                }
+                __syncwarp();
+                if (out_live) {
+                  *reinterpret_cast<uint4*>(yp) =
+                      *reinterpret_cast<const uint4*>(t + lane * 8);
+                }
+              } else if (live) {
+#pragma unroll
+                for (int i = 0; i < kStrip; ++i) {
+                  if (i < n_col) {
+                    yp[i * C] = __float2bfloat16_rn(
+                        kBias ? acc[kDone][i] + b : acc[kDone][i]);
+                  }
+                }
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < kStrip; ++i) acc[kDone][i] = 0.0f;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kStrip; ++i) gw[j][i] = 0.0f;
+            if (s >= kPad && s < H + kPad) {
+              const B16* grow = glane + rg * row_h;
+#pragma unroll
+              for (int i = 0; i < kStrip; ++i) {
+                if (i < n_col) gw[j][i] = __bfloat162float(grow[i * kChunk]);
+              }
+#pragma unroll
+              for (int i = 0; i < kStrip; ++i) sum[kTaps2] += gw[j][i];
+            }
+            if (s >= kHalo) {  // the x row of slot q - 2 is image row s - 4
+              const float* row = xlane + rr * row_f;
+              float v[kStrip + kTaps - 1];
+#pragma unroll
+              for (int u = 0; u < kStrip + kTaps - 1; ++u) {
+                v[u] = row[u * kChunk];
+              }
+#pragma unroll
+              for (int dy = 0; dy < kTaps; ++dy) {
+                // Output row s - 2 - dy, whose g is in slot q - dy.
+#pragma unroll
+                for (int dx = 0; dx < kTaps; ++dx) {
+#pragma unroll
+                  for (int i = 0; i < kStrip; ++i) {
+                    sum[dy * kTaps + dx] =
+                        fmaf(v[i + dx], gw[(j - dy + kTaps) % kTaps][i],
+                             sum[dy * kTaps + dx]);
+                  }
+                }
+              }
+            }
+            if (++rg == RG) rg = 0;
+          }
+          if (++rr == RF) rr = 0;
+          yp += row_y;
+          if (++s == hs) {
+            s = 0;
+            yp -= kHalo * row_y;  // the next image's output row -4
+          }
+        }
+      }
+    }
+  };
+
+  Pass cur{0, 0, 0, 0, 0, 0};
+  for (int p = 0; p < n_pass; ++p) {
+    wait_pending(P - 1);  // this thread's copies of pass p landed
+    transform(cur);
+    __syncthreads();  // pass p widened for all; pass p - 1 read by all
+    issue(fill);      // pass p + P, into the staging rows pass p left
+    next(fill);
+    compute(cur.q);
+    next(cur);
+  }
+  wait_group<0>();
+
+  if (kDwK) {
+    // The strips' sums of each chunk, added in strip order, in shared
+    // memory that aliases the ring (every read of it is behind this
+    // barrier).
+    __syncthreads();
+    float* red = smem;
+#pragma unroll
+    for (int t = 0; t < kSums; ++t) {
+      red[(warp * kSums + t) * kChunk + lane] = sum[t];
+    }
+    __syncthreads();
+    for (int e = tid; e < K * kSums * kChunk; e += T) {
+      const int k = e / (kSums * kChunk);
+      const int t = (e / kChunk) % kSums;
+      const int ln = e % kChunk;
+      float acc_s = 0.0f;
+      for (int st = 0; st < S; ++st) {
+        acc_s += red[((k * S + st) * kSums + t) * kChunk + ln];
+      }
+      const int ch = cb + k * kChunk + ln;
+      if (ch < C) {
+        static_cast<float*>(a.out)[((size_t)part * kSums + t) * C + ch] =
+            acc_s;
+      }
+    }
+  }
+}
+
 // Stage 2 of dW/db: partials (n_parts, 26, C) summed in order.
 __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
                                 float* __restrict__ dw, float* __restrict__ db,
@@ -625,10 +1048,10 @@ __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
   }
 }
 
-// Shared bytes of one block: the ring and the aux ring (dx, dW/db), rows
-// padded to whole runs, for dW/db at least the warps' sums, and for bf16
-// (elem 2) the staging rows of each stream.  The same formula as geometry()
-// on the host, which the entry points hold it to.
+// Shared bytes of one row-ring block: the ring and the aux ring (dx,
+// dW/db), rows padded to whole runs, for dW/db at least the warps' sums,
+// and for bf16 dx (elem 2) the staging rows of dy and x.  The same formula
+// as geometry() on the host, which the entry points hold it to.
 long long smem_bytes(int kind, int W, int G, int P, int elem) {
   const long long rows = (long long)(P + 1) * G;
   const long long padded = (long long)(W + kRun - 1) / kRun * kRun;
@@ -636,8 +1059,8 @@ long long smem_bytes(int kind, int W, int G, int P, int elem) {
   if (kind != kFwd) f += rows * padded * kChunk;
   if (kind == kDw && f < kWarps * kSums * kChunk) f = kWarps * kSums * kChunk;
   long long bytes = 4 * f;
-  // bf16: the main rows' staging ring, and the aux rows' for dx and dW/db.
-  if (elem == 2) bytes += rows * W * kChunk * 2 * (kind == kFwd ? 1 : 2);
+  // bf16 dx: the staging rings of dy and x.
+  if (elem == 2) bytes += rows * W * kChunk * 2 * 2;
   return bytes;
 }
 
@@ -653,6 +1076,44 @@ bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C,
          (long long)geo[4] != smem_bytes(kind, W, G, P, elem) ||
          geo[4] > kMaxSmem || chunks * parts > 0x7fffffffLL ||
          (long long)batch * (H + kHalo) + G > 0x7fffffffLL;
+}
+
+// The bf16 forward's and dW/db's shared bytes at W, G, P and K chunks a
+// block: the fp32 ring of 2G (+ 2 for dW/db) rows of (S * 4 + 4) x 32K,
+// for dW/db at least the warps' sums, then the bf16 staging rows, P G of
+// x and, for dW/db, (P + 1) G of g, W x 32K each.  The same formula as
+// geometry() on the host.
+long long smem_bytes_bf16(int kind, int W, int G, int P, int K) {
+  const long long S = (W + kStrip - 1) / kStrip;
+  const long long kc = (long long)K * kChunk;
+  const long long rows = 2LL * G + (kind == kDw ? kPad : 0);
+  long long f = rows * (S * kStrip + kHalo) * kc;
+  if (kind == kDw && f < S * K * kSums * kChunk) f = S * K * kSums * kChunk;
+  const long long staged =
+      (long long)P * G + (kind == kDw ? (long long)(P + 1) * G : 0);
+  // The forward's store tiles: two of 4 x 32 bf16 a warp.
+  const long long tiles = kind == kFwd ? S * K * 2 * kStrip * kChunk : 0;
+  return 4 * f + 2 * (staged * W * kc + tiles);
+}
+
+// geo for the bf16 forward and dW/db: {parts, slots per pass (a multiple
+// of 5), passes ahead, threads = 32 S K (K a power of two), shared bytes}.
+bool bad_launch_bf16(const int* geo, int kind, int batch, int H, int W,
+                     int C) {
+  if (batch <= 0 || H <= 0 || W <= 0 || C <= 0 || geo == nullptr) return true;
+  const int parts = geo[0], G = geo[1], P = geo[2], threads = geo[3];
+  const int S = (W + kStrip - 1) / kStrip;
+  if (threads <= 0 || threads > kMaxThreadsBf16 || threads % (kChunk * S)) {
+    return true;
+  }
+  const int K = threads / (kChunk * S);
+  const long long groups = (C + (long long)K * kChunk - 1) / (K * kChunk);
+  return (K & (K - 1)) != 0 || parts < 1 || parts > batch || G < kTaps ||
+         G % kTaps || P < 1 || P > kMaxAhead ||
+         (long long)geo[4] != smem_bytes_bf16(kind, W, G, P, K) ||
+         geo[4] > kMaxSmem || groups * parts > 0x7fffffffLL ||
+         (long long)batch * (H + kHalo) + (long long)(P + 2) * G >
+             0x7fffffffLL;
 }
 
 bool aligned(const void* p, uintptr_t n) {
@@ -676,6 +1137,44 @@ cudaError_t launch(Args a, const int* geo, cudaStream_t stream) {
   const int chunks = (a.C + kChunk - 1) / kChunk;
   kernel<<<chunks * a.parts, kThreads, geo[4], stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int kKind, bool kSwish, bool kBias, int kMaxThreads>
+cudaError_t launch_bf16_block(const Args& a, const int* geo,
+                              cudaStream_t stream) {
+  auto kernel = dw5x5_bf16<kKind, kSwish, kBias, kMaxThreads>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo[4]);
+  if (err != cudaSuccess) return err;
+  // All of the SM's 228 KB as shared memory: the geometry counts on it for
+  // several blocks an SM.
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int S = (a.W + kStrip - 1) / kStrip;
+  const int kc = geo[3] / S;  // channels a block
+  const int groups = (a.C + kc - 1) / kc;
+  kernel<<<groups * a.parts, geo[3], geo[4], stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The bf16 forward or dW/db stage 1, built for the block size geo[3] takes.
+template <int kKind, bool kSwish, bool kBias>
+cudaError_t launch_bf16(Args a, const int* geo, cudaStream_t stream) {
+  a.parts = geo[0];
+  a.per_pass = geo[1];
+  a.ahead = geo[2];
+  // 16-byte copies: 8 bf16 channels.
+  a.vec = a.C % 8 == 0 && aligned16(a.src) && aligned16(a.aux);
+  a.vec_out = a.C % 8 == 0 && aligned16(a.out);
+  if (geo[3] <= 256) {
+    return launch_bf16_block<kKind, kSwish, kBias, 256>(a, geo, stream);
+  }
+  if (geo[3] <= 512) {
+    return launch_bf16_block<kKind, kSwish, kBias, 512>(a, geo, stream);
+  }
+  return launch_bf16_block<kKind, kSwish, kBias, 1024>(a, geo, stream);
 }
 
 // Stage 2 of dW/db on `stream`: the (n_parts, 26, C) partials into dw and db.
@@ -743,7 +1242,7 @@ extern "C" int nvae_dw5x5_fwd_bf16(const void* x, const void* w,
                                    int W, int C, long long sdy, long long sdx,
                                    long long sc, int fuse_swish,
                                    const int* geo, int device, void* stream) {
-  if (bad_launch(geo, kFwd, batch, H, W, C, 2) || C % 2 != 0 ||
+  if (bad_launch_bf16(geo, kFwd, batch, H, W, C) || C % 2 != 0 ||
       !aligned(x, 4) || !aligned(y, 4)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -751,13 +1250,12 @@ extern "C" int nvae_dw5x5_fwd_bf16(const void* x, const void* w,
   if (err != cudaSuccess) return (int)err;
   const Args a = make_args(x, nullptr, w, bias, y, batch, H, W, C, sdy, sdx, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using B16 = __nv_bfloat16;
   if (fuse_swish) {
-    err = bias ? launch<kFwd, true, true, false, B16>(a, geo, s)
-               : launch<kFwd, true, false, false, B16>(a, geo, s);
+    err = bias ? launch_bf16<kFwd, true, true>(a, geo, s)
+               : launch_bf16<kFwd, true, false>(a, geo, s);
   } else {
-    err = bias ? launch<kFwd, false, true, false, B16>(a, geo, s)
-               : launch<kFwd, false, false, false, B16>(a, geo, s);
+    err = bias ? launch_bf16<kFwd, false, true>(a, geo, s)
+               : launch_bf16<kFwd, false, false>(a, geo, s);
   }
   return (int)err;
 }
@@ -831,7 +1329,7 @@ extern "C" int nvae_dw5x5_dw_bf16(const void* x, const void* dy, void* partial,
                                   void* dw, void* db, int batch, int H, int W,
                                   int C, int n_parts, int fuse_swish,
                                   const int* geo, int device, void* stream) {
-  if (bad_launch(geo, kDw, batch, H, W, C, 2) || n_parts != geo[0] ||
+  if (bad_launch_bf16(geo, kDw, batch, H, W, C) || n_parts != geo[0] ||
       C % 2 != 0 || !aligned(x, 4) || !aligned(dy, 4)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -840,11 +1338,43 @@ extern "C" int nvae_dw5x5_dw_bf16(const void* x, const void* dy, void* partial,
   const Args a = make_args(x, dy, nullptr, nullptr, partial, batch, H, W, C,
                            0, 0, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using B16 = __nv_bfloat16;
-  err = fuse_swish ? launch<kDw, true, false, false, B16>(a, geo, s)
-                   : launch<kDw, false, false, false, B16>(a, geo, s);
+  err = fuse_swish ? launch_bf16<kDw, true, false>(a, geo, s)
+                   : launch_bf16<kDw, false, false>(a, geo, s);
   if (err != cudaSuccess) return (int)err;
   return reduce_parts(partial, dw, db, C, n_parts, s);
+}
+
+// Blocks of the bf16 forward (kind 0, swish and bias) or dW/db stage 1
+// (kind 2, swish) that one SM holds at once with `threads` threads and
+// `smem` bytes of dynamic shared memory, or -1 on an error.
+extern "C" int nvae_dw5x5_bf16_blocks_per_sm(int kind, int threads, int smem,
+                                            int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  int n = -1;
+  cudaError_t err = cudaSuccess;
+  auto query = [&](auto kernel) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                          smem);
+    }
+  };
+  if (kind == kFwd) {
+    if (threads <= 256) query(dw5x5_bf16<kFwd, true, true, 256>);
+    else if (threads <= 512) query(dw5x5_bf16<kFwd, true, true, 512>);
+    else query(dw5x5_bf16<kFwd, true, true, 1024>);
+  } else {
+    if (threads <= 256) query(dw5x5_bf16<kDw, true, false, 256>);
+    else if (threads <= 512) query(dw5x5_bf16<kDw, true, false, 512>);
+    else query(dw5x5_bf16<kDw, true, false, 1024>);
+  }
+  return err == cudaSuccess ? n : -1;
 }
 
 extern "C" const char* nvae_cuda_error_string(int err) {

@@ -76,6 +76,18 @@ _IN_FLIGHT = 8_192  # bytes of copies a block keeps in flight, at least
 # A block's shared memory that still lets three share an SM.
 _OCC_SMEM = _SM_SMEM // 3 - _BLOCK_RESERVED_SMEM
 _KINDS = ("fwd", "dx", "dw")
+# The bf16 forward and dW/db (``dw5x5_bf16``): a warp is one chunk's column
+# strip of 4 outputs, a pass 5 slots (the register rotation), up to 1024
+# threads a block.  Registers a thread may use, by kernel and the block
+# size a build is for (its ``__launch_bounds__``).
+_BF16_STRIP = 4
+_BF16_PERIOD = 5
+_BF16_MAX_THREADS = 1024
+_BF16_REGS = {"fwd": {256: 80, 512: 128, 1024: 64},
+              "dw": {256: 128, 512: 128, 1024: 64}}
+_SM_REGS = 65_536
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
 # Element types of x, the taps and y, by name as ``geometry`` takes them.
 _ELEM_BYTES = {"float32": 4, "bfloat16": 2}
 
@@ -259,6 +271,8 @@ def _lib() -> ctypes.CDLL:
                lib.nvae_dw5x5_dx_bf16, lib.nvae_dw5x5_dw,
                lib.nvae_dw5x5_dw_bf16):
         fn.restype = ctypes.c_int
+    lib.nvae_dw5x5_bf16_blocks_per_sm.argtypes = [i32, i32, i32, i32]
+    lib.nvae_dw5x5_bf16_blocks_per_sm.restype = ctypes.c_int
     lib.nvae_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nvae_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -285,15 +299,29 @@ class Geometry:
     ahead: int
     threads: int
     smem_bytes: int
+    # Channel chunks a block takes (the bf16 forward and dW/db: a power of
+    # two; the row ring: 1).  ``blocks_per_chunk`` then counts the blocks
+    # of each group of this many chunks.
+    chunks_per_block: int = 1
+
+    @property
+    def groups(self) -> int:
+        return -(-self.chunks // self.chunks_per_block)
 
     @property
     def blocks(self) -> int:
-        return self.chunks * self.blocks_per_chunk
+        return self.groups * self.blocks_per_chunk
 
     def batch_rows(self, part: int) -> range:
         """The batch rows part ``part`` walks, in order (as the kernel)."""
         n = self.blocks_per_chunk
         return range(part * self.batch // n, (part + 1) * self.batch // n)
+
+    def block_chunks(self, block: int) -> range:
+        """The channel chunks grid block ``block`` takes."""
+        k = self.chunks_per_block
+        g = block // self.blocks_per_chunk
+        return range(g * k, min(self.chunks, (g + 1) * k))
 
     def c_array(self):
         """The geometry as the C entry points take it."""
@@ -303,12 +331,12 @@ class Geometry:
 
 def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
                 elem: int = 4) -> int:
-    """A block's shared memory: the ring of (P + 1) G + 4 rows of (W' + 4) x
-    32 fp32, the aux ring of (P + 1) G rows of W' x 32 (dx, dW/db), W
-    rounded up to W' = whole runs of 4 outputs, for dW/db at least the
-    warps' 26 sums (they alias the ring), and for bf16 (``elem`` 2) a
-    staging ring of (P + 1) G rows of W x 32 bf16 per stream: the main
-    rows, and for dx and dW/db the aux rows."""
+    """A block's shared memory in the row ring: the ring of (P + 1) G + 4
+    rows of (W' + 4) x 32 fp32, the aux ring of (P + 1) G rows of W' x 32
+    (dx, dW/db), W rounded up to W' = whole runs of 4 outputs, for dW/db at
+    least the warps' 26 sums (they alias the ring), and for bf16 dx
+    (``elem`` 2) a staging ring of (P + 1) G rows of W x 32 bf16 for each
+    of dy and x."""
     rows = (ahead + 1) * per_pass
     padded = -(-w // _RUN) * _RUN
     floats = (rows + _HALO) * (padded + _HALO) * _CHUNK
@@ -316,9 +344,109 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
         floats += rows * padded * _CHUNK
     if kind == "dw":
         floats = max(floats, _WARPS * _SUMS * _CHUNK)
-    streams = 1 if kind == "fwd" else 2
-    staged = streams * rows * w * _CHUNK * elem if elem == 2 else 0
+    staged = 2 * rows * w * _CHUNK * elem if elem == 2 else 0
     return 4 * floats + staged
+
+
+def _bf16_smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
+                     chunks_per_block: int) -> int:
+    """A block's shared memory in the bf16 forward and dW/db: the fp32 ring
+    of 2 G (dW/db: 2 G + 2) rows of (S * 4 + 4) x 32 K, S = ceil(W / 4)
+    strips and K chunks, for dW/db at least the warps' 26 sums (they alias
+    it), then the bf16 staging rows of W x 32 K: P G of x, and for dW/db
+    (P + 1) G of g; for the forward two 4 x 32 bf16 store tiles a warp."""
+    strips = -(-w // _BF16_STRIP)
+    kc = _CHUNK * chunks_per_block
+    floats = ((2 * per_pass + (2 if kind == "dw" else 0))
+              * (strips * _BF16_STRIP + _HALO) * kc)
+    if kind == "dw":
+        floats = max(floats, strips * chunks_per_block * _SUMS * _CHUNK)
+    staged = ahead * per_pass + ((ahead + 1) * per_pass if kind == "dw" else 0)
+    # The forward's store tiles: two of 4 x 32 bf16 a warp.
+    tiles = (strips * chunks_per_block * 2 * _BF16_STRIP * _CHUNK
+             if kind == "fwd" else 0)
+    return 4 * floats + 2 * (staged * w * kc + tiles)
+
+
+def _bf16_geometry(kind: str, b: int, h: int, w: int, c: int) -> Geometry:
+    """The bf16 forward's or dW/db's geometry (see :func:`geometry`), as
+    the sweeps of ``chip_ring_probe.py --bf16`` found best at the path
+    shapes (PERF.md, section 6).
+
+    - strips S = ceil(W / 4), one warp each per chunk, at most 32 (W <=
+      128: 1024 threads);
+    - chunks a block K, a power of two no more than the chunks: the
+      forward max(1, 2 // S), dW/db max(1, 4 // S) (two to four warps
+      where the rows are short, a warp a strip where they are long);
+    - slots per pass G = 5; passes ahead P: the forward 1, dW/db 2 where
+      that keeps as many blocks an SM as 1 does;
+    - blocks an SM: as many as the build's registers, the threads and the
+      shared memory allow;
+    - blocks: the forward one image a block, or 24 // (H + 4) images
+      where they are short; dW/db as :func:`_bf16_dw_parts` finds best."""
+    strips = -(-w // _BF16_STRIP)
+    chunks = -(-c // _CHUNK)
+    if strips * _CHUNK > _BF16_MAX_THREADS:
+        raise ValueError(
+            f"the bf16 {kind} kernel takes W <= 128 (one warp per 4 columns, "
+            f"at most {_BF16_MAX_THREADS} threads a block), got shape "
+            f"{(b, h, w, c)}")
+    per_pass = _BF16_PERIOD
+    want = max(1, (2 if kind == "fwd" else 4) // strips)
+    k = 1
+    while k * 2 <= min(want, chunks):
+        k *= 2
+    threads = _CHUNK * strips * k
+    build = 256 if threads <= 256 else 512 if threads <= 512 else 1024
+    most = min(_SM_REGS // (_BF16_REGS[kind][build] * threads),
+               _SM_THREADS // threads, _SM_BLOCKS)
+
+    def smem(ahead):
+        return _bf16_smem_bytes(kind, w, per_pass, ahead, k)
+
+    def per_sm(ahead):
+        return min(most, _SM_SMEM // (smem(ahead) + _BLOCK_RESERVED_SMEM))
+
+    if smem(1) > _MAX_SMEM:
+        raise ValueError(
+            f"width {w} needs {smem(1)} B of shared memory per block in the "
+            f"bf16 {kind} kernel, more than the {_MAX_SMEM} B a Hopper block "
+            f"may use (shape {(b, h, w, c)})")
+    ahead = 2 if (kind == "dw" and smem(2) <= _MAX_SMEM
+                  and per_sm(2) == per_sm(1)) else 1
+    groups = -(-chunks // k)
+    if kind == "fwd":
+        parts = -(-b // max(1, 24 // (h + _HALO)))
+    else:
+        parts = _bf16_dw_parts(b, h, w, c, groups, k, per_sm(ahead))
+    return Geometry(b, chunks, parts, per_pass, ahead, threads,
+                    smem(ahead), k)
+
+
+def _bf16_dw_parts(b: int, h: int, w: int, c: int, groups: int, k: int,
+                   per_sm: int) -> int:
+    """Blocks per chunk group of the bf16 dW/db: the batch rows split evenly
+    into parts, at least enough for two blocks on every SM (where the batch
+    has them), and among those the count that makes the busiest SM's share
+    least.  Blocks spread evenly over the SMs, an SM taking its share at
+    about half of its part of the HBM rate whatever its blocks; the partial
+    sums (written by stage 1, read by the reduction) cost their bytes at
+    the HBM rate."""
+    hbm = 3.35e12
+    img_bytes = h * w * _CHUNK * k * 2 * 2  # an image's x and g, bf16
+    least = min(b, -(-_SMS * min(per_sm, 2) // groups))
+    best = None
+    for rows in range(1, b + 1):
+        parts = -(-b // rows)
+        if parts < least:
+            break
+        if rows > 1 and -(-b // (rows - 1)) == parts:
+            continue
+        t = (-(-groups * parts // _SMS) * rows * img_bytes / (0.5 * hbm / _SMS)
+             + 2 * parts * _SUMS * c * 4 / hbm)
+        if best is None or t < best[0]:
+            best = (t, parts)
+    return best[1] if best else b
 
 
 @functools.lru_cache(maxsize=None)
@@ -348,6 +476,8 @@ def geometry(kind: str, shape: Tuple[int, int, int, int],
         raise ValueError(f"no {kind} kernel for {dtype}")
     elem = _ELEM_BYTES[dtype]
     b, h, w, c = (int(s) for s in shape)
+    if elem == 2 and kind != "dx":
+        return _bf16_geometry(kind, b, h, w, c)
     chunks = -(-c // _CHUNK)
     runs = -(-w // _RUN)
     per_pass = _ROWS * -(-_WARPS * (h + _HALO) // (h * runs))

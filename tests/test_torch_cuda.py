@@ -274,6 +274,50 @@ def test_cuda_bf16_backward_kernels_match_plain(cuda_device, shape,
                 1e-4 * float(db_want.abs().max()))
 
 
+# The RGB presets' depthwise shapes (cifar10_dml, celeba64), at 4 rows.
+RGB_SHAPES = [(4, h, h, c) for h, c in (
+    (4, 2304), (8, 1152), (16, 576), (32, 288), (4, 4608), (8, 2304),
+    (16, 1152), (32, 576), (64, 288))]
+
+
+@pytest.mark.parametrize("shape", RGB_SHAPES)
+@pytest.mark.parametrize("fuse,with_bias", [(True, True), (False, False)])
+def test_cuda_bf16_kernels_at_the_rgb_shapes(cuda_device, shape, fuse,
+                                              with_bias):
+    """The bf16 instances of #2 and #4 at the RGB presets' shapes, at the
+    path shapes' limits: #2 within ``BF16_SUM_ULPS`` and at least
+    ``BF16_MIN_EQUAL_SHARE`` bitwise equal, #4 within 1e-4 of the largest
+    |dW| and |db|; both bitwise across two runs."""
+    bf = torch.bfloat16
+    x, k, b = _inputs(shape, cuda_device)
+    x, k = x.to(bf), k.to(bf)
+    b = b if with_bias else None
+    dy = _inputs(shape, cuda_device, seed=1)[0].to(bf)
+    got = tdw.fused_swish_depthwise5x5(x, k, b, fuse_swish=fuse)
+    again = tdw.fused_swish_depthwise5x5(x, k, b, fuse_swish=fuse)
+    dk, db = tdw.fused_swish_depthwise5x5_dw(x, dy, fuse_swish=fuse,
+                                             with_bias=with_bias)
+    dk2, db2 = tdw.fused_swish_depthwise5x5_dw(x, dy, fuse_swish=fuse,
+                                               with_bias=with_bias)
+    want = tdw.fused_swish_depthwise5x5_plain(x, k, b, fuse_swish=fuse)
+    dk_want, db_want = tdw.fused_swish_depthwise5x5_dw_plain(
+        x, dy, fuse_swish=fuse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(dk, dk2)
+    scale = tdw.bf16_sum_scale(x, k, b, fuse_swish=fuse)
+    assert float(tdw.bf16_sum_ulps(got, want, scale).max()) <= (
+        tdw.BF16_SUM_ULPS)
+    equal = float((got.view(torch.int16) == want.view(torch.int16))
+                  .float().mean())
+    assert equal >= tdw.BF16_MIN_EQUAL_SHARE
+    assert float((dk - dk_want).abs().max()) <= (
+        1e-4 * float(dk_want.abs().max()))
+    if with_bias:
+        assert torch.equal(db, db2)
+        assert float((db - db_want).abs().max()) <= (
+            1e-4 * float(db_want.abs().max()))
+
+
 @pytest.mark.parametrize("fuse,with_bias", [(True, True), (False, False)])
 def test_cuda_function_gradients_match_cpu(cuda_device, fuse, with_bias):
     """The fused op on the card has gradients, equal to the CPU Function's:

@@ -440,16 +440,22 @@ def test_geometry_at_the_rgb_preset_shapes(kind, dtype):
     for n, h, c in PRESET_SHAPES:
         shape = (n, h, h, c)
         geo = tdw.geometry(kind, shape, dtype)
-        covered = sorted((i // geo.blocks_per_chunk, r)
-                         for i in range(geo.blocks)
+        covered = sorted((k, r) for i in range(geo.blocks)
+                         for k in geo.block_chunks(i)
                          for r in geo.batch_rows(i % geo.blocks_per_chunk))
         assert covered == [(k, r) for k in range(-(-c // 32))
                            for r in range(n)], shape
-        assert geo.smem_bytes == tdw._smem_bytes(
-            kind, h, geo.slots_per_pass, geo.ahead,
-            tdw._ELEM_BYTES[dtype]) <= tdw._MAX_SMEM
-        per_sm = min(4, 233_472 // (geo.smem_bytes + 1024))
-        assert geo.blocks <= max(132 * per_sm, geo.chunks), shape
+        if dtype == "bfloat16" and kind != "dx":  # the sliding-row kernel
+            assert geo.smem_bytes == tdw._bf16_smem_bytes(
+                kind, h, geo.slots_per_pass, geo.ahead,
+                geo.chunks_per_block) <= tdw._MAX_SMEM
+            assert geo.threads <= 1024  # more waves than one, by design
+        else:
+            assert geo.smem_bytes == tdw._smem_bytes(
+                kind, h, geo.slots_per_pass, geo.ahead,
+                tdw._ELEM_BYTES[dtype]) <= tdw._MAX_SMEM
+            per_sm = min(4, 233_472 // (geo.smem_bytes + 1024))
+            assert geo.blocks <= max(132 * per_sm, geo.groups), shape
         dt = getattr(torch, dtype)
         x = torch.empty(shape, device="meta", dtype=dt)
         taps = (None if kind == "dw"

@@ -241,3 +241,158 @@ def test_geometry_needs_no_device(monkeypatch):
                 kind, shape)
     with pytest.raises(ValueError, match="kind"):
         tdw.geometry("dy", (1, 4, 4, 32))
+
+
+# The bf16 forward's and dW/db's sliding-row geometry: the path shapes at
+# every batch the paths give them, the RGB presets' shapes at theirs
+# (cifar10_dml at 128, celeba64 at 64, the sample call's 144, the CLI's
+# sweep of 4 x the batch, the P&R halves, the hooks' 12 and 3, the card vs
+# CPU checks' 4), and ragged ones (W % 4 != 0, C % 8 != 0, H and W < 5,
+# more than 8 strips).
+SLIDE_SHAPES = sorted(set(
+    [(n, h, h, c) for h, c in ((4, 1536), (8, 768), (16, 384), (32, 192))
+     for n in (576, 144, 72, 12, 8, 4, 3)]
+    + [(n, h, h, c) for shapes, b in (
+        (((4, 2304), (8, 1152), (16, 576), (32, 288)), 128),
+        (((4, 4608), (8, 2304), (16, 1152), (32, 576), (64, 288)), 64))
+       for h, c in shapes for n in {b, 144, 4 * b, b // 2, 12, 4, 3}]
+    + [(3, 6, 10, 40), (2, 21, 9, 32), (1, 3, 7, 6), (2, 9, 3, 36),
+       (3, 2, 2, 70), (3, 13, 14, 40), (1, 8, 88, 32), (2, 5, 36, 64)]))
+
+
+@pytest.mark.parametrize("shape", SLIDE_SHAPES)
+@pytest.mark.parametrize("kind", ["fwd", "dw"])
+def test_bf16_sliding_geometry_covers_every_row_once(shape, kind):
+    """The grid's blocks cover each (batch row, channel chunk) exactly once,
+    each block a power of two of chunks and its rows in increasing order;
+    a warp per chunk and 4 columns; 5 slots a pass or a multiple (the
+    kernel's register rotation); the shared bytes by the kernel's formula,
+    within a block's; a block fits an SM with the build's registers; the
+    forward an image a block (24 // (H + 4) short ones), dW/db at least two
+    blocks an SM where the batch has them; the same when computed again."""
+    b, _, w, c = shape
+    geo = tdw.geometry(kind, shape, "bfloat16")
+    k = geo.chunks_per_block
+    pairs = [(chunk, row) for i in range(geo.blocks)
+             for chunk in geo.block_chunks(i)
+             for row in geo.batch_rows(i % geo.blocks_per_chunk)]
+    assert sorted(pairs) == [(j, r) for j in range(-(-c // 32))
+                             for r in range(b)]
+    assert len(set(pairs)) == len(pairs)
+    assert all(list(geo.batch_rows(p)) == sorted(geo.batch_rows(p))
+               and len(geo.batch_rows(p)) > 0
+               for p in range(geo.blocks_per_chunk))
+    assert k >= 1 and k & (k - 1) == 0 and k <= geo.chunks
+    strips = -(-w // 4)
+    assert geo.threads == 32 * strips * k <= 1024
+    assert strips * k <= 8 or k == 1
+    assert geo.slots_per_pass % 5 == 0 and 1 <= geo.ahead <= 8
+    assert geo.smem_bytes == tdw._bf16_smem_bytes(
+        kind, w, geo.slots_per_pass, geo.ahead, k) <= tdw._MAX_SMEM
+    regs = {"fwd": {256: 80, 512: 128, 1024: 64},
+            "dw": {256: 128, 512: 128, 1024: 64}}[kind][
+        256 if geo.threads <= 256 else 512 if geo.threads <= 512 else 1024]
+    per_sm = min(65_536 // (regs * geo.threads), 2048 // geo.threads, 32,
+                 233_472 // (geo.smem_bytes + 1024))
+    assert per_sm >= 1
+    if kind == "fwd":  # an image a block, or 24 // (H + 4) short ones
+        rows = max(1, 24 // (shape[1] + 4))
+        assert geo.blocks_per_chunk == -(-b // rows)
+    else:  # two blocks an SM at least, where the batch has them
+        assert geo.blocks_per_chunk >= min(b, -(-132 * min(per_sm, 2)
+                                                // geo.groups))
+    assert tdw.geometry.__wrapped__(kind, shape, "bfloat16") == geo
+
+
+def test_bf16_sliding_geometry_needs_no_device(monkeypatch):
+    """The sliding-row schedule is a function of the shape alone: computed
+    with every device query broken, it equals the cached one."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("geometry queried a device")
+
+    want = {(kind, s): tdw.geometry(kind, s, "bfloat16")
+            for kind in ("fwd", "dw") for s in SLIDE_SHAPES}
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device", "get_device_name"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    for (kind, s), geo in want.items():
+        assert tdw.geometry.__wrapped__(kind, s, "bfloat16") == geo
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dw"])
+def test_bf16_sliding_geometry_refuses_what_it_cannot_take(kind):
+    """Past 128 columns (32 strips: 1024 threads) the bf16 forward and
+    dW/db raise, naming the shape, and so does the wrappers' check; dW/db's
+    rings fit a block up to 88 columns, the forward's up to 128; the row
+    ring still takes 129 columns in fp32."""
+    widest = {"fwd": 128, "dw": 88}[kind]
+    assert tdw.geometry(kind, (1, 8, widest, 32), "bfloat16").threads == (
+        widest * 8)
+    if kind == "dw":
+        with pytest.raises(ValueError, match="shared memory"):
+            tdw.geometry(kind, (1, 8, 92, 32), "bfloat16")
+    with pytest.raises(ValueError, match=r"\(1, 8, 129, 32\)"):
+        tdw.geometry(kind, (1, 8, 129, 32), "bfloat16")
+    with pytest.raises(ValueError, match=r"\(1, 8, 129, 32\)"):
+        tdw._check(torch.empty(1, 8, 129, 32, device="meta",
+                               dtype=torch.bfloat16), None, None)
+    assert tdw.geometry(kind, (1, 8, 129, 32)).threads == 256
+
+
+def test_ring_probe_variants_find_their_source_text():
+    """Every variant of ``chip_ring_probe.py`` (the depthwise kernels'
+    builds without copies, compute, widening, stores, barriers, and the
+    parent tree's bf16 ring's) names text that the source it edits holds
+    exactly once, so a probe on the card builds what it says."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_ring_probe", root / "chip_ring_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    csrc = root / "nvae_torch" / "kernels" / "csrc"
+    depthwise = (csrc / "depthwise5x5.cu").read_text()
+    for name, subs in probe.VARIANTS.items():
+        for old, _ in subs:
+            assert depthwise.count(old) == 1, (name, old)
+    gate = (csrc / "se_gate.cu").read_text()
+    for name, subs in probe.SE_VARIANTS.items():
+        for old, _ in subs:
+            assert gate.count(old) == 1, (name, old)
+    # The parent's ring: its bf16 instances were the row ring's, which this
+    # tree keeps for fp32 and bf16 dx.
+    for name, subs in probe.PARENT_VARIANTS.items():
+        for old, _ in subs:
+            assert depthwise.count(old) == 1, (name, old)
+
+
+def test_profile_counts_both_depthwise_kernels_by_name():
+    """``chip_smoke.py``'s profile phase counts the depthwise launches of a
+    traced replay by kernel name: the row ring's (fp32, bf16 dx) and the
+    sliding-row kernel's (bf16 forward and dW/db), each under its
+    wrapper's name, the dW/db reduction not counted again."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ns = "void (anonymous namespace)::"
+    rows = [(0.0, 20, ns + "dw5x5_bf16<0, true, true, 256>(Args)"),
+            (0.0, 20, ns + "dw5x5_bf16<2, true, false, 256>(Args)"),
+            (0.0, 20, ns + "dw5x5_ring<1, false, false, true, "
+                           "__nv_bfloat16>(Args)"),
+            (0.0, 7, ns + "dw5x5_ring<0, true, true, false, float>(Args)"),
+            (0.0, 3, ns + "dw5x5_ring<2, true, false, false, float>(Args)"),
+            (0.0, 23, "dw5x5_dw_reduce(float const*, float*, float*, int, "
+                      "int)")]
+    assert smoke.ring_launches(rows) == {
+        "fused_swish_depthwise5x5": 7, "depthwise_conv5x5": 0,
+        "fused_swish_depthwise5x5_dx": 0, "fused_swish_depthwise5x5_dw": 3,
+        "fused_swish_depthwise5x5_bf16": 20,
+        "fused_swish_depthwise5x5_dx_bf16": 20,
+        "fused_swish_depthwise5x5_dw_bf16": 20}
