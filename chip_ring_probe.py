@@ -24,17 +24,21 @@ First it prints each ring kernel's SASS instruction counts
 and passes ahead P.
 
 ``python3 chip_ring_probe.py --bf16 [--parent ROOT] [--no-sweep]`` probes
-the bf16 forward (#2, with swish and the shape's bias) and dW/db (#4) at
-the path shapes, B=144, input sets over twice the L2 as ``chip_smoke.py``
-times them: the sliding-row kernel (``dw5x5_bf16``) as it is, and without
-its copies (``no_copy``), its compute (``no_compute``), its widening
-(``no_widen``: the fp32 ring is never written), its stores (``no_store``),
-or all but the compute loop (``compute_only``: no copies, widening, stores
-or barriers), beside its blocks an SM as the card reports them; with
-``--parent`` the bf16 row ring of the tree at ROOT the same way
-(``as_is``, ``no_copy``, ``no_compute``, ``no_widen``: staged rows never
-widened); then, unless ``--no-sweep``, ``as_is`` over a sweep of G, P,
-chunks a block and batch rows a block.
+the bf16 forward (#2, with swish and the shape's bias), dx (#3, with
+swish') and dW/db (#4) at the path shapes, B=144, input sets over twice
+the L2 as ``chip_smoke.py`` times them: the sliding-row kernel
+(``dw5x5_bf16``) as it is, and without its copies (``no_copy``), its
+compute (``no_compute``), its widening (``no_widen``: the fp32 ring is
+never written), its stores (``no_store``: for dx also the swish'
+epilogue), or all but the compute loop (``compute_only``: no copies,
+widening, stores or barriers), and dx built for 3 blocks an SM at 256
+threads (``dx_three_blocks``: up to 80 registers), beside its blocks an SM
+as the card reports them; with ``--parent`` the bf16 dx of the tree at ROOT where it
+is the row ring (a tree from before the sliding-row dx) the same way
+(``as_is``, ``no_copy``: no dy copies, ``no_compute``, ``no_widen``:
+staged rows never widened); then, unless ``--no-sweep``, ``as_is`` over a
+sweep of G, P, chunks a block and batch rows a block (``--sweep dx``, or
+``fused,dx,dw``: only those kernels' sweeps).
 
 Then, the same way, variants of ``nvae_torch/kernels/csrc/se_gate.cu``
 (kernel #5) at the model's four SE shapes at B=144, through its C entry with
@@ -76,17 +80,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(4, 1536), (8, 768), (16, 384), (32, 192)]
 BATCH = 144
-# The row ring's variants (fp32 #1-#4; in a parent tree, also its bf16 #2
-# and #4, which ran on the ring until the sliding-row kernel replaced them).
+# The row ring's variants (fp32 #1-#4; in a parent tree, also its bf16
+# instances, which ran on the ring until the sliding-row kernel replaced
+# them).
 RING_NO_COPY = [("        copy_async(dst + px * kChunk + cl,",
                  "        if (W < 0) copy_async(dst + px * kChunk + cl,")]
 RING_NO_COMPUTE = [("  auto compute = [&](const Cursor& cur) {\n"
                     "    if (!live) return;",
                     "  auto compute = [&](const Cursor& cur) {\n"
                     "    if (live) return;")]
-# The sliding-row kernel's (bf16 #2 and #4) variants.
-SLIDE_NO_COPY = [("      if (ih >= 0 && ih < H) {",
-                  "      if (ih >= 0 && ih < H && W < 0) {")]
+# The sliding-row kernel's (bf16 #2-#4) variants.
+SLIDE_NO_COPY = [("      if (row_in || x_in) {",
+                  "      if ((row_in || x_in) && W < 0) {")]
 SLIDE_NO_COMPUTE = [("  auto compute = [&](int q0) {\n",
                      "  auto compute = [&](int q0) {\n"
                      "    if (W > 0) return;\n")]
@@ -104,12 +109,17 @@ VARIANTS = {
                 "constexpr int kMinBlocks = 3;")],
     "no_widen": SLIDE_NO_WIDEN,
     "no_store": SLIDE_NO_STORE,
+    # bf16 dx's 256-thread build for 3 blocks an SM (80 registers) in
+    # place of 2 (128).
+    "dx_three_blocks": [("  return threads != 256 ? 1 : kind == kFwd ? 3 : 2;",
+                         "  return threads != 256 ? 1 : kind == kDw ? 2 : 3;")],
     # The compute loop alone, racing on rows that are neither copied nor
     # widened, with no stores and no barrier.
     "compute_only": (SLIDE_NO_COPY + SLIDE_NO_WIDEN + SLIDE_NO_STORE
                      + SLIDE_NO_SYNC),
 }
-# The parent's bf16 ring: its staged rows widened by their copier.
+# The parent's bf16 ring (bf16 dx in a tree from before the sliding-row
+# dx): its staged rows widened by their copier.
 PARENT_VARIANTS = {
     "as_is": [],
     "no_copy": RING_NO_COPY,
@@ -202,8 +212,9 @@ def build(tmp: str, variants=None, csrc: str = "", tag: str = "") -> dict:
         lib.nvae_dw5x5_fwd.argtypes = lib.nvae_dw5x5_fwd_bf16.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, i32, geo,
             i32, ptr]
-        lib.nvae_dw5x5_dx.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                      i64, i64, i64, geo, i32, ptr]
+        lib.nvae_dw5x5_dx.argtypes = lib.nvae_dw5x5_dx_bf16.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i64, i64, i64, geo, i32,
+            ptr]
         lib.nvae_dw5x5_dw.argtypes = lib.nvae_dw5x5_dw_bf16.argtypes = [
             ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, geo, i32,
             ptr]
@@ -299,8 +310,9 @@ def call(lib, kind, geo, x, k, g, bias=None):
             w, c, *strides, int(kind == "fused"), ga, 0, s)
     elif kind == "dx":
         y = torch.empty_like(x)
-        err = lib.nvae_dw5x5_dx(g.data_ptr(), k.data_ptr(), x.data_ptr(),
-                                y.data_ptr(), b, h, w, c, *strides, ga, 0, s)
+        err = getattr(lib, f"nvae_dw5x5_dx{bf16}")(
+            g.data_ptr(), k.data_ptr(), x.data_ptr(), y.data_ptr(), b, h, w,
+            c, *strides, ga, 0, s)
     else:
         part = torch.empty(geo.blocks_per_chunk, 26, c, device=x.device)
         dk = torch.empty(25, c, device=x.device)
@@ -364,7 +376,8 @@ def slide_with(geo, kind, shape, per_pass, ahead, chunks_per_block,
                      dw._SM_SMEM // (smem + dw._BLOCK_RESERVED_SMEM))
         parts = (dw._bf16_dw_parts(b, shape[1], w, c, groups,
                                    chunks_per_block, per_sm)
-                 if kind == "dw" else -(-b // max(1, 24 // (shape[1] + 4))))
+                 if kind == "dw" else dw._bf16_geometry(
+                     kind, b, shape[1], w, c).blocks_per_chunk)
     else:
         parts = -(-b // rows)
     return dataclasses.replace(geo, slots_per_pass=per_pass, ahead=ahead,
@@ -373,18 +386,19 @@ def slide_with(geo, kind, shape, per_pass, ahead, chunks_per_block,
                                blocks_per_chunk=parts)
 
 
-def bf16_probe(tmp: str, device, parent: str, sweep: bool = True) -> None:
-    """bf16 #2 (with swish and the shape's bias) and #4 (with swish) at the
-    path shapes, B=144: the sliding-row kernel's variants and, with
-    ``parent``, the parent tree's bf16 ring's (see the module's doc); then,
-    with ``sweep``, the sliding kernel's G, P, chunks a block and batch
-    rows a block.  Input sets hold more than twice the L2 of bf16 x, as
-    chip_smoke.py's bf16 timing."""
+def bf16_probe(tmp: str, device, parent: str,
+               sweep=("fused", "dx", "dw")) -> None:
+    """bf16 #2 (with swish and the shape's bias), #3 (with swish') and #4
+    (with swish) at the path shapes, B=144: the sliding-row kernel's
+    variants and, with ``parent``, the parent tree's bf16 dx ring's (see
+    the module's doc); then, for the kernels in ``sweep``, the sliding
+    kernel's G, P, chunks a block and batch rows a block.  Input sets hold
+    more than twice the L2 of bf16 x, as chip_smoke.py's bf16 timing."""
     import chip_smoke as cs
     from nvae_torch.kernels import depthwise as dw
 
     names = ("as_is", "no_copy", "no_compute", "no_widen", "no_store",
-             "compute_only")
+             "compute_only", "dx_three_blocks")
     libs = build(tmp, {n: VARIANTS[n] for n in names})
     sass_counts(os.path.join(tmp, "depthwise5x5_as_is.so"))
     old = {}
@@ -403,7 +417,7 @@ def bf16_probe(tmp: str, device, parent: str, sweep: bool = True) -> None:
             g = cs.bf16_inputs(h, c, False, device, seed=100 + s)[0]
             sets.append((x, k, g, b))
         iters = max(40, n_sets)
-        for kind, gkind in (("fused", "fwd"), ("dw", "dw")):
+        for kind, gkind in (("fused", "fwd"), ("dx", "dx"), ("dw", "dw")):
             def timed(lib, geo):
                 return cs.time_ms(lambda x, k, g, b: call(
                     lib, kind, geo, x, k, g, b if kind == "fused" else None),
@@ -412,16 +426,18 @@ def bf16_probe(tmp: str, device, parent: str, sweep: bool = True) -> None:
             geo = dw.geometry(gkind, shape, "bfloat16")
             occupancy = libs["as_is"].nvae_dw5x5_bf16_blocks_per_sm
             occupancy.argtypes = [ctypes.c_int] * 4
-            per_sm = occupancy(0 if gkind == "fwd" else 2, geo.threads,
+            per_sm = occupancy(cs.BF16_KIND_INDEX[gkind], geo.threads,
                                geo.smem_bytes, 0)
             print(f"bf16 {kind} {BATCH}x{h}x{h}x{c}: {per_sm} blocks an SM "
                   f"at {geo.threads} threads, {geo.smem_bytes} B", flush=True)
             for name, lib in libs.items():
+                if name.startswith("dx_") and kind != "dx":
+                    continue  # a variant of dx's build alone
                 print(f"bf16 {kind} {BATCH}x{h}x{h}x{c} slide {name} "
                       f"G={geo.slots_per_pass} P={geo.ahead} "
                       f"K={geo.chunks_per_block} blocks={geo.blocks}: "
                       f"{timed(lib, geo):.1f} us", flush=True)
-            if old:
+            if old and kind == "dx":
                 ogeo = old_geometry(gkind, shape, "bfloat16")
                 for name, lib in old.items():
                     print(f"bf16 {kind} {BATCH}x{h}x{h}x{c} ring {name} "
@@ -429,7 +445,7 @@ def bf16_probe(tmp: str, device, parent: str, sweep: bool = True) -> None:
                           f"blocks={ogeo.blocks}: "
                           f"{timed(lib, ogeo):.1f} us", flush=True)
             seen = {geo}
-            for per_pass in ((5, 10) if sweep else ()):
+            for per_pass in ((5, 10) if kind in sweep else ()):
                 for ahead in (1, 2, 4):
                     for kpb in (1, 2, 4, 8):
                         for rows in (None, 1, 2, 3, 6):
@@ -457,8 +473,11 @@ def main() -> int:
     parent = args[args.index("--parent") + 1] if "--parent" in args else ""
     with tempfile.TemporaryDirectory() as tmp:
         if "--bf16" in args:
+            sweep = ("fused", "dx", "dw")
+            if "--sweep" in args:
+                sweep = tuple(args[args.index("--sweep") + 1].split(","))
             bf16_probe(tmp, device, os.path.abspath(parent) if parent else "",
-                       "--no-sweep" not in args)
+                       () if "--no-sweep" in args else sweep)
         else:
             if "--se" not in args:
                 ring_probe(tmp, device)

@@ -32,8 +32,8 @@ each raising on failure (nothing is caught):
    576 and 8 (the serving paths'): within one bf16 ulp of its plain
    version's result plus 32 fp32 ulps of its products' sum, at least
    99.9% of outputs bitwise equal to it, and bitwise across two runs;
-   and the bf16 instances of #3 and #4 at every path shape and batches 144
-   and 4 (the training paths'): dx (with swish' and without) within one
+   and the bf16 instances of #3 and #4 at every path shape and batches
+   144, 72 and 4 (the training paths'): dx (with swish' and without) within one
    bf16 ulp plus 32 fp32 ulps of |swish'(x)| sum |dy w|, at least 99.9%
    bitwise equal, bitwise across two runs; dW/db's fp32 sums at 1e-4 of
    the largest |dW|, bitwise across two runs;
@@ -151,10 +151,10 @@ each raising on failure (nothing is caught):
     cells) at full width: #1-#4 in fp32 against their plain versions at
     every shape of their paths (4x4x2304 to 64x64x288) and every batch the
     paths give them, as phase 2 holds them, each shape's ring geometry
-    logged; the bf16 instances of #2 and #4 at every such shape at 4 rows,
-    with and without swish and bias, at phase 2's bf16 limits, bitwise
-    across two runs, each shape's sliding-row geometry logged (a few
-    seconds); in each postprocess form 2 training steps with exact launches
+    logged; the bf16 instances of #2, #3 and #4 at every such shape at 4
+    rows, with and without swish (#3: swish') and bias, at phase 2's bf16
+    limits, bitwise across two runs, each shape's sliding-row geometry
+    logged (a few seconds); in each postprocess form 2 training steps with exact launches
     (cifar10_dml 46 / 52 of each of #2-#4 a step; celeba64 54 / 60 of #3
     and #4 and twice that of #2, which the backward pass's recompute runs
     again), one more step profiled, and a sampler at batch 144 (launches,
@@ -302,6 +302,8 @@ TRAIN_KERNELS = {
                  "fused_swish_depthwise5x5_dw_bf16"),
 }
 KERNEL_NAMES = DW_KERNEL_NAMES + ("se_gate",)
+# The C entries' kernel kinds (``nvae_dw5x5_bf16_blocks_per_sm``).
+BF16_KIND_INDEX = {"fwd": 0, "dx": 1, "dw": 2}
 # (H = W, C, hidden) of the model's squeeze-excitation blocks (kernel #5),
 # at batch BATCH; then (B, H, W, C, hidden): JAX's test shape; H * W = 63
 # and 25, not multiples of the cluster size; C % 4 != 0 at 32x32 (the
@@ -431,7 +433,7 @@ RGB_CARD_VS_CPU_ROUNDING = 2.0
 REMAT_BATCH = 4
 REMAT_RTOL = 1e-6
 RGB_SCAN_STEPS = 3
-RGB_BF16_BATCH = 4  # bf16 #2 and #4 against their plain versions
+RGB_BF16_BATCH = 4  # bf16 #2-#4 against their plain versions
 RGB_TIMING_ITERS = 20
 
 
@@ -538,17 +540,17 @@ def phase_build():
             log(f"  {name}: {kernel}: {regs} registers, spills {st} B "
                 f"stored / {ld} B loaded, {smem} B static shared")
     # The depthwise kernels' dynamic shared memory and schedule at each path
-    # shape: the row ring (fp32 #1-#4, bf16 #3) and the sliding-row kernel
-    # (bf16 #2 and #4), with its blocks an SM as the card reports them.
+    # shape: the row ring (fp32 #1-#4) and the sliding-row kernel (bf16 #2,
+    # #3 and #4), with its blocks an SM as the card reports them.
     for h, c, _, _, _ in PATH_SHAPES:
         for kind, dtype in ((k, d) for d in ("float32", "bfloat16")
                             for k in ("fwd", "dx", "dw")):
             g = dw.geometry(kind, (BATCH, h, h, c), dtype)
-            sliding = dtype == "bfloat16" and kind != "dx"
+            sliding = dtype == "bfloat16"
             extra = ""
             if sliding:
                 per_sm = dw._lib().nvae_dw5x5_bf16_blocks_per_sm(
-                    0 if kind == "fwd" else 2, g.threads, g.smem_bytes, 0)
+                    BF16_KIND_INDEX[kind], g.threads, g.smem_bytes, 0)
                 extra = (f", {g.threads} threads ({g.chunks_per_block} "
                          f"chunks) a block, {per_sm} blocks an SM")
             log(f"  {'sliding' if sliding else 'ring'} {kind} {dtype} "
@@ -2044,7 +2046,7 @@ def profile_call(label: str, fn) -> dict:
 
 def ring_launches(rows) -> dict:
     """Launches of the depthwise kernels in a profile's rows, by wrapper
-    name: the row ring ``dw5x5_ring<kind, ...>`` in fp32 or bf16 and the
+    name: the row ring ``dw5x5_ring<kind, ...>`` (fp32) and the
     sliding-row kernel ``dw5x5_bf16<kind, ...>`` (bf16), kind 0 forward,
     1 dx, 2 dW/db (whose reduction kernel is not counted again)."""
     names = {"0": "fused_swish_depthwise5x5",
@@ -2054,7 +2056,7 @@ def ring_launches(rows) -> dict:
     for _, count, key in rows:
         m = re.search(r"dw5x5_(ring|bf16)<\s*\(?\w*\)?\s*(\d)", key)
         if m:
-            bf16 = m.group(1) == "bf16" or "bfloat16" in key
+            bf16 = m.group(1) == "bf16"
             out[names[m.group(2)] + ("_bf16" if bf16 else "")] += count
     return out
 
@@ -3190,24 +3192,26 @@ def phase_rgb_kernels(device) -> dict:
 
 
 def phase_rgb_bf16_kernels(device) -> dict:
-    """The bf16 instances of #2 and #4 against their plain versions at every
-    shape of the RGB presets' paths, at RGB_BF16_BATCH rows, with and
-    without swish and bias, at the path shapes' limits: #2 within
-    ``BF16_SUM_ULPS``, at least ``BF16_MIN_EQUAL_SHARE`` bitwise equal where
-    a shape has 10,000 outputs or more, bitwise across two runs; #4 within
-    DW_RTOL of the largest |dW| (and |db|), bitwise across two runs.  Each
-    shape's geometry logged.  Returns the worst of each over the shapes."""
+    """The bf16 instances of #2, #3 and #4 against their plain versions at
+    every shape of the RGB presets' paths, at RGB_BF16_BATCH rows, with and
+    without swish (swish') and bias, at the path shapes' limits: #2 and #3
+    within ``BF16_SUM_ULPS`` (#3 of ``bf16_dx_scale``), at least
+    ``BF16_MIN_EQUAL_SHARE`` bitwise equal where a shape has 10,000 outputs
+    or more, bitwise across two runs; #4 within DW_RTOL of the largest |dW|
+    (and |db|), bitwise across two runs.  Each shape's geometry logged.
+    Returns the worst of each over the shapes."""
     from nvae_torch.kernels import depthwise as dw
 
     t0 = time.monotonic()
     n = RGB_BF16_BATCH
     out = {"fwd_err": 0.0, "fwd_sum_ulps": 0.0, "fwd_equal": 1.0,
+           "dx_err": 0.0, "dx_sum_ulps": 0.0, "dx_equal": 1.0,
            "dw_err": 0.0, "shapes": []}
     shapes = sorted({(h, c) for v in RGB_SHAPES.values()
                      for h, c, _, _, _ in v})
     for h, c in shapes:
         out["shapes"].append([n, h, h, c])
-        for kind in ("fwd", "dw"):
+        for kind in ("fwd", "dx", "dw"):
             g = dw.geometry(kind, (n, h, h, c), "bfloat16")
             log(f"  sliding {kind} bfloat16 {n}x{h}x{h}x{c}: {g.smem_bytes} "
                 f"B dynamic shared, {g.threads} threads, {g.blocks} blocks "
@@ -3258,8 +3262,36 @@ def phase_rgb_bf16_kernels(device) -> dict:
             if got.numel() >= 10_000:
                 out["fwd_equal"] = min(out["fwd_equal"], equal)
             out["dw_err"] = max(out["dw_err"], dw_err)
+        for fuse in (True, False):
+            got = dw.fused_swish_depthwise5x5_dx(g, k, x if fuse else None,
+                                                 fuse_swish=fuse)
+            again = dw.fused_swish_depthwise5x5_dx(
+                g, k, x if fuse else None, fuse_swish=fuse)
+            want = dw.fused_swish_depthwise5x5_dx_plain(g, k, x,
+                                                        fuse_swish=fuse)
+            torch.cuda.synchronize(device)
+            if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+                raise AssertionError(f"bf16 #3 {n}x{h}x{h}x{c}: two runs "
+                                     "differ")
+            sum_ulps = float(dw.bf16_sum_ulps(got, want, dw.bf16_dx_scale(
+                g, k, x, fuse_swish=fuse)).max())
+            equal = float((bf16_ulps(got, want) == 0).float().mean())
+            err = float((got.float() - want.float()).abs().max())
+            log(f"kernel dx bf16 {n}x{h}x{h}x{c} swish'={fuse}: max abs err "
+                f"{err:.3g}, {sum_ulps:.3g} fp32 ulps past one bf16 ulp "
+                f"(limit {dw.BF16_SUM_ULPS}), {100 * equal:.4f}% bitwise "
+                f"equal; bitwise repeatable")
+            if not (sum_ulps <= dw.BF16_SUM_ULPS
+                    and (got.numel() < 10_000
+                         or equal >= dw.BF16_MIN_EQUAL_SHARE)):
+                raise AssertionError(f"bf16 #3 {n}x{h}x{h}x{c}: {sum_ulps} "
+                                     f"fp32 ulps, {equal} equal")
+            out["dx_err"] = max(out["dx_err"], err)
+            out["dx_sum_ulps"] = max(out["dx_sum_ulps"], sum_ulps)
+            if got.numel() >= 10_000:
+                out["dx_equal"] = min(out["dx_equal"], equal)
     out["seconds"] = time.monotonic() - t0
-    log(f"bf16 #2 and #4 at the RGB shapes: {out['seconds']:.1f} s")
+    log(f"bf16 #2-#4 at the RGB shapes: {out['seconds']:.1f} s")
     return out
 
 
@@ -4919,13 +4951,15 @@ def main(argv=None) -> int:
     records.append(bf16_record(bf16_errs, launches, bf16_timing))
     records += bf16_backward_records(bf16_bwd_errs, launches, bf16_bwd_timing)
     records.append(se_record(se_errs, launches, se_timing))
-    for rec in records:  # bf16 #2 and #4 at the RGB shapes (phase 11)
-        if rec["name"] == "fused_swish_depthwise5x5_bf16":
+    for rec in records:  # bf16 #2-#4 at the RGB shapes (phase 11)
+        if rec["name"] in ("fused_swish_depthwise5x5_bf16",
+                           "fused_swish_depthwise5x5_dx_bf16"):
+            kind = "fwd" if rec["name"].endswith("5x5_bf16") else "dx"
             rec["rgb_check"] = {
                 "shapes": rgb_bf16["shapes"],
-                "max_abs_err": rgb_bf16["fwd_err"],
-                "max_sum_ulps": rgb_bf16["fwd_sum_ulps"],
-                "bitwise_share": rgb_bf16["fwd_equal"]}
+                "max_abs_err": rgb_bf16[f"{kind}_err"],
+                "max_sum_ulps": rgb_bf16[f"{kind}_sum_ulps"],
+                "bitwise_share": rgb_bf16[f"{kind}_equal"]}
         elif rec["name"] == "fused_swish_depthwise5x5_dw_bf16":
             rec["rgb_check"] = {"shapes": rgb_bf16["shapes"],
                                 "max_abs_err": rgb_bf16["dw_err"]}

@@ -18,17 +18,15 @@
 //   stencil over dy with the taps flipped, k[4 - dy, 4 - dx, c], times
 //     swish'(x) = sig(x) * (1 + x * (1 - sig(x)))
 //   read at the output position; the nox form (kSwishGrad off) never reads x.
+//   Its bf16 instance is dw5x5_bf16<kDx, ...>, the sliding-row kernel: it
+//   reads bf16 dy, x and taps, sums the 25 flipped taps in fp32, multiplies
+//   by swish'(x) computed in fp32, and rounds dx to bf16 once.
 // - dw5x5_ring<kDw, kSwish, false, false> + dw5x5_dw_reduce: _fused_dw_kernel
 //   (launched by _make_fused_dw.dw_call),
 //     dW[dy, dx, c] = sum_{b, h, w} s(x)[b, h + dy - 2, w + dx - 2, c] * g[b, h, w, c]
 //     db[c]         = sum_{b, h, w} g[b, h, w, c]
-//   in fp32.
-//   The bf16 instances (the Pallas kernels' semantics under
-//   compute_dtype=bfloat16): dx (dw5x5_ring<kDx, ..., __nv_bfloat16>) reads
-//   bf16 dy, x and taps, sums the 25 flipped taps in fp32, multiplies by
-//   swish'(x) computed in fp32, and rounds dx to bf16 once; dW/db
-//   (dw5x5_bf16<kDw, ...> + dw5x5_dw_reduce, the sliding-row kernel) makes
-//   fp32 sums of the widened operands, as in fp32.
+//   in fp32.  Its bf16 instance (dw5x5_bf16<kDw, ...> + dw5x5_dw_reduce, the
+//   sliding-row kernel) makes fp32 sums of the widened operands, as in fp32.
 //
 // What bounds them on the card: HBM bytes.  The stencils do 25 multiply-adds
 // (50 FLOP) per output against 8 bytes of device memory (12 with the swish'
@@ -40,7 +38,7 @@
 // law 3.35 TB/s at about 1 us of loaded latency is ~3.4 MB over 132 SMs,
 // about 25 KB of loads outstanding on every SM at all times.
 //
-// Design of the fp32 kernels and bf16 dx: one streaming "row ring".
+// Design of the fp32 kernels: one streaming "row ring".
 // - Persistent blocks on a fixed schedule.  Block i is channel chunk
 //   i / parts (32 channels, one per lane) and walks the contiguous batch rows
 //   [j * B / parts, (j + 1) * B / parts) of part j = i % parts, in order.
@@ -70,14 +68,6 @@
 // - Swish (forward, dW/db) is applied once per staged element, in place, by
 //   the thread that copied it, after its cp.async.wait_group and before the
 //   barrier that publishes the pass (__expf and __fdividef: a few ulp).
-// - bf16 dx: a bf16 element cannot be widened in place, so its rows land
-//   by cp.async in a bf16 staging ring of (P + 1) G rows of W x 32 (64
-//   bytes a pixel: four 16-byte copies, or sixteen 4-byte ones where
-//   C % 8 != 0; an odd C is refused), and the thread that copied an
-//   element widens it into the fp32 ring in the step that applies swish in
-//   the fp32 kernels; its aux rows (x) go the same way into the aux ring,
-//   as swish'(x).  So its compute loop is the fp32 kernel's, instruction
-//   for instruction, and only its store differs (one bf16 per lane).
 // - A second "aux" ring of (P + 1) G rows of W' x 32 fp32 carries, per
 //   output row, the operand read at the output position: x for dx's swish'
 //   epilogue (turned into swish'(x) in place by its copier) and g for
@@ -100,10 +90,10 @@
 // hides (a build that skips the copies runs as fast), but the stencil's
 // own instruction issue and latency at 32 warps per SM.
 //
-// The sliding-row kernel, dw5x5_bf16 (bf16 #2 and #4): the ring's bf16
-// instances widened every element into the fp32 ring and then ran the fp32
-// stencil, 48 shared loads for 200 FMAs an item, about one item a warp
-// between two block barriers; they ran at 22% of their HBM bound, no
+// The sliding-row kernel, dw5x5_bf16 (bf16 #2, #3 and #4): the row ring's
+// bf16 instances widened every element into the fp32 ring and then ran the
+// fp32 stencil, 48 shared loads for 200 FMAs an item, about one item a warp
+// between two block barriers; they ran at 22-29% of their HBM bound, no
 // faster than fp32.  Here:
 // - A warp is one 32-channel chunk's column strip of kStrip = 4 outputs,
 //   a lane a channel; a block is the S = ceil(W / 4) strips of K chunks
@@ -123,9 +113,25 @@
 //   its 100 FMAs go to the 5 rows it feeds, tap row dy to the row that
 //   started dy slots ago, so every output takes its taps in dy-major,
 //   dx-minor order; a row is stored (bias last, rounded once) at the slot
-//   that brings its fifth tap row, through a warp tile as 16-byte stores.
-//   Which register holds which row turns with the slot index mod 5, fixed
-//   by unrolling 5 slots: no moves.
+//   that brings its fifth tap row, through a warp tile as 16-byte stores
+//   (scalar stores where C % 8 != 0).  Which register holds which row
+//   turns with the slot index mod 5, fixed by unrolling 5 slots: no moves.
+// - dx is the forward's stencil over dy (widened as it is, no swish) with
+//   the taps flipped in registers.  Its swish'(x) epilogue reads x at the
+//   output position: slot q, which completes output row s - 4, stages bf16
+//   x of that image row beside its own dy row (the dy row of slot q - 2),
+//   in (P + 1) G rows as dW/db stages g, so the row is read in its own
+//   pass.  At the store each lane widens its 4 x values, takes swish'
+//   (ex2 and rcp with denormals flushed) in fp32 in registers, multiplies
+//   and rounds once, writing the result over the x values it read: that
+//   slice of the staging row is the warp's 16-byte store tile, so dx
+//   needs no tiles of its own (at 32x32 that keeps 3 blocks an SM).
+//   Widening x into an fp32 aux ring as swish'(x) by its copier, the
+//   ring's way, would cost the same MUFU work (once per element either
+//   way) and more shared bytes (16x16x384: 58,368 B a block against
+//   40,960, 3 blocks an SM against 5); so x stays bf16 until the store.
+//   The nox form copies no x (its rows stay reserved: the geometry is the
+//   shape's alone).
 // - dW/db keeps the 25 tap sums and db per lane and the g rows of the last
 //   5 slots (read as bf16 from their staging rows, widened in registers);
 //   the x row of slot q - 2 meets the g rows of slots q - 4 .. q.  The
@@ -135,6 +141,9 @@
 // NVIDIA H100 80GB HBM3 at 700 W): the stencil's issue again, now at 1.5
 // instructions an FMA, with the widening (MUFU) and the copies' latency
 // partly serialised behind it; the small shapes are bound by latency.
+// dx adds its epilogue (about 10 instructions an output: a shared load,
+// ex2, rcp and the swish' arithmetic; with the stores 13-17% of its time)
+// and a second stream of copies (with dy's, 12-14%).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,11 +169,11 @@ constexpr long long kMaxSmem = 232448;
 enum Kind { kFwd = 0, kDx = 1, kDw = 2 };
 
 struct Args {
-  const void* src;  // the ring's rows: x (forward, dW/db) or dy (dx), T
-  const void* aux;  // per output row: g (dW/db) or x (dx's swish'), T, or null
-  const void* w;    // taps (forward, dx), T
+  const void* src;  // the streamed rows: x (forward, dW/db) or dy (dx)
+  const void* aux;  // per output row: g (dW/db) or x (dx's swish'), or null
+  const void* w;    // taps (forward, dx), fp32 or bf16 as the operands
   const float* bias;
-  void* out;         // y (T), dx, or the (parts, 26, C) partials
+  void* out;         // y, dx, or the (parts, 26, C) partials
   long long sdy, sdx, sc;
   int batch, H, W, C;
   int parts;     // blocks per channel chunk
@@ -173,16 +182,6 @@ struct Args {
   int vec;       // 16-byte copies
   int vec_out;   // bf16 forward: 16-byte stores of y
 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // __expf and __fdividef: a few ulp from expf and IEEE division, far inside
 // the kernels' limits (atol 2e-5), at a quarter of the instructions.
@@ -197,25 +196,31 @@ __device__ __forceinline__ float swish_grad(float v) {
   return s * (1.0f + v * (1.0f - s));
 }
 
-// The sliding kernel's swish: the same two approximations with denormals
-// flushed to zero (ex2.approx.ftz, rcp.approx.ftz), which saves their
-// range fix-ups; only a denormal sigmoid, at x < -87, differs, by less
-// than 2^-126 |x|.
-__device__ __forceinline__ float swish_ftz(float v) {
+// The sliding kernel's sigmoid: the same two approximations with
+// denormals flushed to zero (ex2.approx.ftz, rcp.approx.ftz), which saves
+// their range fix-ups; only a denormal sigmoid, at x < -87, differs, by
+// less than 2^-126.
+__device__ __forceinline__ float sigmoid_ftz(float v) {
   float e, r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(v * -1.4426950408889634f));
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
-  return v * r;
+  return r;
 }
 
-enum Op { kIdentity = 0, kSwishOp = 1, kSwishGradOp = 2, kSwishFtzOp = 3 };
+__device__ __forceinline__ float swish_ftz(float v) {
+  return v * sigmoid_ftz(v);
+}
+
+__device__ __forceinline__ float swish_grad_ftz(float v) {
+  const float s = sigmoid_ftz(v);
+  return s * (1.0f + v * (1.0f - s));
+}
+
+enum Op { kIdentity = 0, kSwishFtzOp = 1 };
 
 template <int kOp>
 __device__ __forceinline__ float apply_op(float v) {
-  return kOp == kSwishOp       ? swish(v)
-         : kOp == kSwishGradOp ? swish_grad(v)
-         : kOp == kSwishFtzOp  ? swish_ftz(v)
-                               : v;
+  return kOp == kSwishFtzOp ? swish_ftz(v) : v;
 }
 
 // bf16: one copy's staged elements at `sp` (8 for a 16-byte copy, else 2)
@@ -325,14 +330,11 @@ struct Stream {
   }
 };
 
-// The shared core; see the header.  kSwish: swish on the ring's rows
-// (forward, dW/db).  kAuxOp: dx's swish' epilogue.  T: the element type of
-// x, dy, the taps and y or dx (float, or __nv_bfloat16 for the staged
-// instances); dW/db's sums are fp32 either way.
-template <int kKind, bool kSwish, bool kBias, bool kAuxOp, typename T>
+// The shared core of the fp32 kernels; see the header.  kSwish: swish on
+// the ring's rows (forward, dW/db).  kAuxOp: dx's swish' epilogue.
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dw5x5_ring(const Args a) {
-  constexpr bool kStaged = sizeof(T) == 2;
   constexpr bool kAux = kKind == kDw || kAuxOp;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -356,24 +358,16 @@ dw5x5_ring(const Args a) {
   const int aux_f = runs * kRun * kChunk;
   float* ring = smem;
   float* aux = smem + (size_t)st.ring_rows * row_f;
-  // bf16 staging rows, past the fp32 rings (the forward has no aux ring):
-  // slot q's row is row q % ((P + 1) G) of the main rows' staging ring and,
-  // for dx and dW/db, of the aux rows' one behind it; W x 32 elements each.
-  const int stage_f = W * kChunk;
-  T* stage = reinterpret_cast<T*>(
-      aux + (kKind != kFwd ? (size_t)st.aux_rows * aux_f : 0));
-  T* astage = stage + (size_t)st.aux_rows * stage_f;
-  const T* src_t = static_cast<const T*>(a.src);
-  const T* aux_t = static_cast<const T*>(a.aux);
+  const float* src_t = static_cast<const float*>(a.src);
+  const float* aux_t = static_cast<const float*>(a.aux);
   const bool vec = a.vec;
 
   // Copy mapping: a slot is per_slot copies (pixel, seg elements of the
   // chunk).  With per_slot <= 256 a thread owns one copy column and the
   // slots g0, g0 + gstep, ... of each pass; wider rows give each thread the
   // columns tid, tid + 256, ... of every slot.
-  const int seg = (vec ? 16 : 4) / (int)sizeof(T);
-  // Copies per pixel: fp32 8 or 32, bf16 4 or 16.
-  const int px_shift = (vec ? 3 : 5) - (kStaged ? 1 : 0);
+  const int seg = vec ? 4 : 1;
+  const int px_shift = vec ? 3 : 5;  // copies per pixel: 8 or 32
   const int per_slot = W << px_shift;
   int g0 = 0, gstep = 1, col0 = tid, colstep = kThreads;
   if (per_slot <= kThreads) {
@@ -400,9 +394,9 @@ dw5x5_ring(const Args a) {
     // Flipping both tap axes maps tap dy * 5 + dx to 24 - (dy * 5 + dx).
     const int u = kKind == kDx ? kTaps2 - 1 - t : t;
     tap[t] = kKind != kDw && live
-                 ? to_float(static_cast<const T*>(a.w)[(u / kTaps) * a.sdy +
-                                                        (u % kTaps) * a.sdx +
-                                                        (long long)c * a.sc])
+                 ? static_cast<const float*>(a.w)[(u / kTaps) * a.sdy +
+                                                  (u % kTaps) * a.sdx +
+                                                  (long long)c * a.sc]
                  : 0.0f;
   }
 #pragma unroll
@@ -411,22 +405,19 @@ dw5x5_ring(const Args a) {
 
   // Start the copies of the pass at `cur`: ring row ih = s - 2 of each slot
   // (zero-filled outside the image), and for dx / dW/db the aux row s - 4
-  // of each slot that ends an output row (bf16: both into staging rows).
+  // of each slot that ends an output row.
   auto issue = [&](const Cursor& cur) {
     for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
       const Slot t = st.slot(cur, gi);
       const int ih = t.s - kPad;
       const bool row_in = ih >= 0 && ih < H;
       const size_t img_row = (size_t)(first + t.img) * H;
-      const T* src = row_in ? src_t + (img_row + ih) * W * C + c0 : src_t;
-      T* dst = kStaged ? stage + (size_t)t.aux * stage_f
-                       : reinterpret_cast<T*>(ring + (size_t)t.ring * row_f +
-                                              kPad * kChunk);
+      const float* src = row_in ? src_t + (img_row + ih) * W * C + c0 : src_t;
+      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
       const bool has_aux = kAux && t.s >= kHalo;
-      const T* asrc =
+      const float* asrc =
           has_aux ? aux_t + (img_row + t.s - kHalo) * W * C + c0 : aux_t;
-      T* adst = kStaged ? astage + (size_t)t.aux * stage_f
-                        : reinterpret_cast<T*>(aux + (size_t)t.aux * aux_f);
+      float* adst = aux + (size_t)t.aux * aux_f;
       for (int col = col0; col < per_slot; col += colstep) {
         const int px = col >> px_shift;
         const int cl = (col - (px << px_shift)) * seg;
@@ -441,32 +432,6 @@ dw5x5_ring(const Args a) {
       }
     }
     commit_group();
-  };
-  // bf16: this thread's staged elements of the pass at `cur`, widened
-  // into the fp32 ring with swish where the fp32 kernel applies it, and its
-  // staged aux elements into the aux ring, as swish'(x) for dx (halo rows
-  // and channels past C were staged as zeros, and swish(0) = 0).
-  constexpr int kMainOp = kSwish ? kSwishOp : kIdentity;
-  constexpr int kAuxWiden = kAuxOp ? kSwishGradOp : kIdentity;
-  auto widen = [&](const Cursor& cur) {
-    const __nv_bfloat16* stage_h =
-        reinterpret_cast<const __nv_bfloat16*>(stage);
-    const __nv_bfloat16* astage_h =
-        reinterpret_cast<const __nv_bfloat16*>(astage);
-    for (int gi = g0; gi < G && cur.q + gi < n_slots; gi += gstep) {
-      const Slot t = st.slot(cur, gi);
-      const bool has_aux = kAux && t.s >= kHalo;
-      const __nv_bfloat16* sp = stage_h + (size_t)t.aux * stage_f;
-      const __nv_bfloat16* asp = astage_h + (size_t)t.aux * stage_f;
-      float* dst = ring + (size_t)t.ring * row_f + kPad * kChunk;
-      float* adst = aux + (size_t)t.aux * aux_f;
-      for (int col = col0; col < per_slot; col += colstep) {
-        const int px = col >> px_shift;
-        const int at = px * kChunk + (col - (px << px_shift)) * seg;
-        widen_copy<kMainOp>(sp + at, dst + at, vec);
-        if (has_aux) widen_copy<kAuxWiden>(asp + at, adst + at, vec);
-      }
-    }
   };
   // Swish on this thread's landed ring elements of the pass at `cur`, and
   // swish' on its aux elements (dx).
@@ -602,14 +567,15 @@ dw5x5_ring(const Args a) {
 #pragma unroll
         for (int o = 0; o < kRows; ++o) {
           if (!out[o]) continue;
-          T* dst = static_cast<T*>(a.out) + ((row0 + o) * W + w0) * C + c;
+          float* dst =
+              static_cast<float*>(a.out) + ((row0 + o) * W + w0) * C + c;
           const float* at = aux_at(o);
 #pragma unroll
           for (int i = 0; i < kRun; ++i) {
             if (i < n_out) {
               float r = kBias ? acc[o][i] + b : acc[o][i];
               if (kAuxOp) r *= at[i * kChunk];
-              store(dst + i * C, r);
+              dst[i * C] = r;
             }
           }
         }
@@ -625,11 +591,7 @@ dw5x5_ring(const Args a) {
   Cursor cur = st.at(0);
   for (int p = 0; p < n_pass; ++p) {
     wait_pending(a.ahead - 1);  // this thread's copies of pass p landed
-    if (kStaged) {
-      widen(cur);
-    } else {
-      transform(cur);
-    }
+    transform(cur);
     __syncthreads();  // pass p visible to all; pass p - 1 read by all
     issue(fill);  // pass p + P, into the rows pass p - 1 read
     st.next(fill);
@@ -660,9 +622,9 @@ dw5x5_ring(const Args a) {
   }
 }
 
-// ---- bf16 #2 and #4: the sliding-row kernel ---------------------------------
+// ---- bf16 #2, #3 and #4: the sliding-row kernel ----------------------------
 //
-// The bf16 forward and dW/db (see the header).  One block is a group of K
+// The bf16 forward, dx and dW/db (see the header).  One block is a group of K
 // channel chunks (K x 32 channels) and the batch rows of one part; warp w is
 // chunk w / S of the group and column strip w % S, the kStrip output columns
 // [4 (w % S), 4 (w % S) + 4) of every row (S = ceil(W / 4) strips), one
@@ -673,19 +635,26 @@ constexpr int kStrip = 4;       // output columns per lane
 constexpr int kMaxThreadsBf16 = 1024;
 
 // Registers a thread may use per build, through __launch_bounds__: the
-// forward's 256-thread build 3 blocks an SM (at most 80), dW/db's 2 (128:
-// its rings allow no more at the path shapes), 512 threads 1 (128), 1024
-// threads 1 (64).  depthwise.py's geometry() assumes the same.
+// forward's 256-thread build 3 blocks an SM (at most 80), dx's and dW/db's
+// 2 (128: at 80, dx spills, and ran 2-12% slower at the path shapes in
+// chip_ring_probe.py's dx_two_blocks; dW/db's rings allow no more), 512
+// threads 1 (128), 1024 threads 1 (64).  depthwise.py's geometry() assumes
+// the same.
 constexpr int bf16_min_blocks(int kind, int threads) {
-  return threads == 256 ? (kind == kDw ? 2 : 3) : 1;
+  return threads != 256 ? 1 : kind == kFwd ? 3 : 2;
 }
 
+// kSwish: swish on the streamed x (forward, dW/db), or dx's swish'(x)
+// epilogue (dx, whose dy rows are widened as they are).
 template <int kKind, bool kSwish, bool kBias, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads,
                                   bf16_min_blocks(kKind, kMaxThreads))
 dw5x5_bf16(const Args a) {
   using B16 = __nv_bfloat16;
   constexpr bool kDwK = kKind == kDw;
+  constexpr bool kDxK = kKind == kDx;
+  constexpr bool kFwdK = kKind == kFwd;
+  constexpr bool kGrad = kDxK && kSwish;  // x staged for swish'(x)
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -708,11 +677,12 @@ dw5x5_bf16(const Args a) {
   const int hs = H + kHalo;
   const int n_slots = (last - first) * hs;
   const int n_pass = (n_slots + G - 1) / G;
-  // fp32 ring: swish(x) of the last two passes (and, for dW/db, the two
-  // slots before them), per chunk RF rows of S * 4 + 4 pixels x 32 fp32,
-  // two zero pixels on each side.  bf16 staging, per chunk: x of P passes
-  // (read only by its copier), and for dW/db g of P + 1 passes (read by
-  // every warp of the chunk), rows of W pixels x 32.
+  // fp32 ring: swish(x) (dx: dy) of the last two passes (and, for dW/db,
+  // the two slots before them), per chunk RF rows of S * 4 + 4 pixels x 32
+  // fp32, two zero pixels on each side.  bf16 staging, per chunk: x (dx:
+  // dy) of P passes (read only by its copier), and for dW/db g, for dx x,
+  // of P + 1 passes (read by every warp of the chunk), rows of W pixels x
+  // 32.
   const int RF = 2 * G + (kDwK ? kPad : 0);
   const int RX = P * G;
   const int RG = (P + 1) * G;
@@ -725,7 +695,8 @@ dw5x5_bf16(const Args a) {
   B16* xst = reinterpret_cast<B16*>(smem + ring_f);
   B16* gst = xst + (size_t)K * RX * row_h;
   // Forward: each warp's two 4 x 32 bf16 tiles of finished outputs, read
-  // back across the lanes for 16-byte stores.
+  // back across the lanes for 16-byte stores (dx: the warp's own slice of
+  // the x staging row it has just read).
   B16* tiles = gst + (size_t)warp * 2 * kStrip * kChunk;
   const B16* src = static_cast<const B16*>(a.src);
   const B16* aux = static_cast<const B16*>(a.aux);
@@ -768,7 +739,10 @@ dw5x5_bf16(const Args a) {
   };
 
   // Start the copies of the pass at `u`: the real rows of its slots (bf16
-  // x, and g beside them for dW/db), channels past C zero-filled.
+  // x or dy, and g beside them for dW/db), and for dx's swish' the x row of
+  // each slot that completes an output row (image row s - 4, the row of
+  // slot q - 2); channels past C zero-filled.
+  const int row_y = W * C;  // elements an image row (< 2^31)
   auto issue = [&](const Pass& u) {
     int s = u.s + g0, img = u.img;
     for (int gi = g0; gi < G && u.q + gi < n_slots; gi += gstep) {
@@ -777,8 +751,12 @@ dw5x5_bf16(const Args a) {
         ++img;
       }
       const int ih = s - kPad;
-      if (ih >= 0 && ih < H) {
-        const size_t grow = ((size_t)(first + img) * H + ih) * W * C + cb;
+      const bool row_in = ih >= 0 && ih < H;
+      const bool x_in = kGrad && s >= kHalo;
+      if (row_in || x_in) {
+        // Image row ih, or for x (ih >= 2 there) row ih - 2: not negative.
+        const size_t grow =
+            ((size_t)(first + img) * H + ih) * (size_t)row_y + cb;
         B16* xd = xst + (u.xr + gi) * row_h;
         B16* gd = gst + (u.gr + gi) * row_h;
         for (int col = col0; col < per_slot; col += colstep) {
@@ -788,10 +766,11 @@ dw5x5_bf16(const Args a) {
           const int at = (k * RX * W + px) * kChunk + ch - k * kChunk;
           const bool in_c = cb + ch < C;
           const size_t off = grow + (size_t)px * C + ch;
-          copy_async(xd + at, in_c ? src + off : src, in_c, vec);
-          if (kDwK) {
+          if (row_in) copy_async(xd + at, in_c ? src + off : src, in_c, vec);
+          if (kDwK || x_in) {
+            const size_t aoff = kDwK ? off : off - 2 * (size_t)row_y;
             copy_async(gd + at + k * (RG - RX) * row_h,
-                       in_c ? aux + off : aux, in_c, vec);
+                       in_c ? aux + aoff : aux, in_c, vec);
           }
         }
       }
@@ -799,9 +778,9 @@ dw5x5_bf16(const Args a) {
     }
     commit_group();
   };
-  // This thread's staged x of the pass at `u`, widened (and through swish)
-  // into the fp32 ring: once per element.
-  constexpr int kOp = kSwish ? kSwishFtzOp : kIdentity;
+  // This thread's staged x of the pass at `u`, widened (and through swish;
+  // dx's dy as it is) into the fp32 ring: once per element.
+  constexpr int kOp = kSwish && !kDxK ? kSwishFtzOp : kIdentity;
   auto transform = [&](const Pass& u) {
     int s = u.s + g0;
     for (int gi = g0; gi < G && u.q + gi < n_slots; gi += gstep) {
@@ -836,9 +815,11 @@ dw5x5_bf16(const Args a) {
   float tap[kTaps2];
 #pragma unroll
   for (int t = 0; t < kTaps2; ++t) {
+    // dx: both tap axes flipped, tap dy * 5 + dx from 24 - (dy * 5 + dx).
+    const int u = kDxK ? kTaps2 - 1 - t : t;
     tap[t] = !kDwK && live
                  ? __bfloat162float(static_cast<const B16*>(a.w)[
-                       (t / kTaps) * a.sdy + (t % kTaps) * a.sdx +
+                       (u / kTaps) * a.sdy + (u % kTaps) * a.sdx +
                        (long long)c * a.sc])
                  : 0.0f;
   }
@@ -846,10 +827,10 @@ dw5x5_bf16(const Args a) {
   __syncthreads();  // the zeros, before any widened row lands
 
   // The lane's view of ring row r: padded pixel w0 + u (image column
-  // w0 + u - 2), u = 0 .. 7, at xlane[r * row_f + u * 32]; of g staging
-  // row r: column w0 + i at glane[r * row_h + i * 32].
+  // w0 + u - 2), u = 0 .. 7, at xlane[r * row_f + u * 32]; of g (dx: x)
+  // staging row r: column w0 + i at glane[r * row_h + i * 32].
   const float* xlane = ring + (kc * RF * PW + w0) * kChunk + lane;
-  const B16* glane = gst + (kc * RG * W + w0) * kChunk + lane;
+  B16* glane = gst + (kc * RG * W + w0) * kChunk + lane;
   const int n_col = min(kStrip, W - w0);  // the strip's columns in the image
   // Forward: acc[(q - dy) % 5] gathers tap row dy of the output row that
   // started at slot q - dy; it is stored (with the bias) and cleared at
@@ -873,7 +854,6 @@ dw5x5_bf16(const Args a) {
 #pragma unroll
   for (int t = 0; t < kSums; ++t) sum[t] = 0.0f;
   B16* y = static_cast<B16*>(a.out);
-  const long long row_y = (long long)W * C;  // elements per image row of y
   // A finished row's stores: lane `lane` writes channel c of the strip's
   // columns, or (16-byte stores) lanes 0 .. 15 write channels
   // 8 (lane % 4) .. + 7 of column w0 + lane / 4.
@@ -885,8 +865,8 @@ dw5x5_bf16(const Args a) {
   B16* yp = y + (vec_out ? (long long)(lane / 4) * C + out_ch : c) +
             ((long long)first * H - kHalo) * row_y + w0 * (long long)C;
   int tile = 0;
-  // The compute cursor: slot in the image, ring row (forward: slot q;
-  // dW/db: slot q - 2), g staging row (dW/db).
+  // The compute cursor: slot in the image, ring row (forward, dx: slot q;
+  // dW/db: slot q - 2), g (dx: x) staging row of slot q.
   int s = 0;
   int rr = kDwK ? RF - kPad : 0;
   int rg = 0;
@@ -920,13 +900,37 @@ dw5x5_bf16(const Args a) {
             }
             const int kDone = (j + 1) % kTaps;  // started 4 slots ago
             if (s >= kHalo) {  // output row s - 4 is complete
-              if (vec_out) {
-                B16* t = tiles + tile * kStrip * kChunk;
-                tile ^= 1;
+              // Its outputs: the bias last (forward), or times swish'(x) of
+              // this slot's staged x row (dx), rounded once.  dx's tile is
+              // the warp's slice of that x row (4 pixels x 32, the tile's
+              // layout): each lane overwrites only the x values it has
+              // read, and no other warp reads the slice.
+              B16* t = kDxK ? glane - lane + rg * row_h
+                            : tiles + tile * kStrip * kChunk;
+              if (!kDxK) tile ^= 1;
+              if (kGrad) {  // all four x values first, then their swish'
+                float xv[kStrip];
 #pragma unroll
                 for (int i = 0; i < kStrip; ++i) {
-                  t[i * kChunk + lane] = __float2bfloat16_rn(
-                      kBias ? acc[kDone][i] + b : acc[kDone][i]);
+                  xv[i] = i < n_col ? __bfloat162float(t[i * kChunk + lane])
+                                    : 0.0f;
+                }
+#pragma unroll
+                for (int i = 0; i < kStrip; ++i) {
+                  acc[kDone][i] *= swish_grad_ftz(xv[i]);
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < kStrip; ++i) {
+                if (kBias) acc[kDone][i] += b;
+              }
+              if (vec_out) {
+#pragma unroll
+                for (int i = 0; i < kStrip; ++i) {
+                  // dx: columns past W are the next row's pixels.
+                  if (!kDxK || i < n_col) {
+                    t[i * kChunk + lane] = __float2bfloat16_rn(acc[kDone][i]);
+                  }
                 }
                 __syncwarp();
                 if (out_live) {
@@ -936,10 +940,7 @@ dw5x5_bf16(const Args a) {
               } else if (live) {
 #pragma unroll
                 for (int i = 0; i < kStrip; ++i) {
-                  if (i < n_col) {
-                    yp[i * C] = __float2bfloat16_rn(
-                        kBias ? acc[kDone][i] + b : acc[kDone][i]);
-                  }
+                  if (i < n_col) yp[i * C] = __float2bfloat16_rn(acc[kDone][i]);
                 }
               }
             }
@@ -978,8 +979,8 @@ dw5x5_bf16(const Args a) {
                 }
               }
             }
-            if (++rg == RG) rg = 0;
           }
+          if (!kFwdK && ++rg == RG) rg = 0;
           if (++rr == RF) rr = 0;
           yp += row_y;
           if (++s == hs) {
@@ -1049,40 +1050,36 @@ __global__ void dw5x5_dw_reduce(const float* __restrict__ partial,
 }
 
 // Shared bytes of one row-ring block: the ring and the aux ring (dx,
-// dW/db), rows padded to whole runs, for dW/db at least the warps' sums,
-// and for bf16 dx (elem 2) the staging rows of dy and x.  The same formula
-// as geometry() on the host, which the entry points hold it to.
-long long smem_bytes(int kind, int W, int G, int P, int elem) {
+// dW/db), rows padded to whole runs, for dW/db at least the warps' sums.
+// The same formula as geometry() on the host, which the entry points hold
+// it to.
+long long smem_bytes(int kind, int W, int G, int P) {
   const long long rows = (long long)(P + 1) * G;
   const long long padded = (long long)(W + kRun - 1) / kRun * kRun;
   long long f = (rows + kHalo) * (padded + kHalo) * kChunk;
   if (kind != kFwd) f += rows * padded * kChunk;
   if (kind == kDw && f < kWarps * kSums * kChunk) f = kWarps * kSums * kChunk;
-  long long bytes = 4 * f;
-  // bf16 dx: the staging rings of dy and x.
-  if (elem == 2) bytes += rows * W * kChunk * 2 * 2;
-  return bytes;
+  return 4 * f;
 }
 
 // geo: {parts, slots per pass (a multiple of kRows), passes ahead, threads,
 // shared bytes}.
-bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C,
-                int elem = 4) {
+bool bad_launch(const int* geo, int kind, int batch, int H, int W, int C) {
   if (batch <= 0 || H <= 0 || W <= 0 || C <= 0 || geo == nullptr) return true;
   const int parts = geo[0], G = geo[1], P = geo[2];
   const long long chunks = (C + kChunk - 1) / kChunk;
   return parts < 1 || parts > batch || G < kRows || G % kRows || P < 1 ||
          P > kMaxAhead || geo[3] != kThreads ||
-         (long long)geo[4] != smem_bytes(kind, W, G, P, elem) ||
+         (long long)geo[4] != smem_bytes(kind, W, G, P) ||
          geo[4] > kMaxSmem || chunks * parts > 0x7fffffffLL ||
          (long long)batch * (H + kHalo) + G > 0x7fffffffLL;
 }
 
-// The bf16 forward's and dW/db's shared bytes at W, G, P and K chunks a
-// block: the fp32 ring of 2G (+ 2 for dW/db) rows of (S * 4 + 4) x 32K,
-// for dW/db at least the warps' sums, then the bf16 staging rows, P G of
-// x and, for dW/db, (P + 1) G of g, W x 32K each.  The same formula as
-// geometry() on the host.
+// The bf16 kernels' shared bytes at W, G, P and K chunks a block: the fp32
+// ring of 2G (+ 2 for dW/db) rows of (S * 4 + 4) x 32K, for dW/db at least
+// the warps' sums, then the bf16 staging rows, P G of x (dx: dy) and, for
+// dW/db and dx, (P + 1) G of g or x, W x 32K each, then the forward's
+// store tiles.  The same formula as geometry() on the host.
 long long smem_bytes_bf16(int kind, int W, int G, int P, int K) {
   const long long S = (W + kStrip - 1) / kStrip;
   const long long kc = (long long)K * kChunk;
@@ -1090,14 +1087,14 @@ long long smem_bytes_bf16(int kind, int W, int G, int P, int K) {
   long long f = rows * (S * kStrip + kHalo) * kc;
   if (kind == kDw && f < S * K * kSums * kChunk) f = S * K * kSums * kChunk;
   const long long staged =
-      (long long)P * G + (kind == kDw ? (long long)(P + 1) * G : 0);
+      (long long)P * G + (kind != kFwd ? (long long)(P + 1) * G : 0);
   // The forward's store tiles: two of 4 x 32 bf16 a warp.
   const long long tiles = kind == kFwd ? S * K * 2 * kStrip * kChunk : 0;
   return 4 * f + 2 * (staged * W * kc + tiles);
 }
 
-// geo for the bf16 forward and dW/db: {parts, slots per pass (a multiple
-// of 5), passes ahead, threads = 32 S K (K a power of two), shared bytes}.
+// geo for the bf16 kernels: {parts, slots per pass (a multiple of 5),
+// passes ahead, threads = 32 S K (K a power of two), shared bytes}.
 bool bad_launch_bf16(const int* geo, int kind, int batch, int H, int W,
                      int C) {
   if (batch <= 0 || H <= 0 || W <= 0 || C <= 0 || geo == nullptr) return true;
@@ -1109,6 +1106,7 @@ bool bad_launch_bf16(const int* geo, int kind, int batch, int H, int W,
   const int K = threads / (kChunk * S);
   const long long groups = (C + (long long)K * kChunk - 1) / (K * kChunk);
   return (K & (K - 1)) != 0 || parts < 1 || parts > batch || G < kTaps ||
+         (long long)W * C > 0x7fffffffLL ||
          G % kTaps || P < 1 || P > kMaxAhead ||
          (long long)geo[4] != smem_bytes_bf16(kind, W, G, P, K) ||
          geo[4] > kMaxSmem || groups * parts > 0x7fffffffLL ||
@@ -1122,15 +1120,15 @@ bool aligned(const void* p, uintptr_t n) {
 
 bool aligned16(const void* p) { return aligned(p, 16); }
 
-template <int kKind, bool kSwish, bool kBias, bool kAuxOp, typename T = float>
+template <int kKind, bool kSwish, bool kBias, bool kAuxOp>
 cudaError_t launch(Args a, const int* geo, cudaStream_t stream) {
   a.parts = geo[0];
   a.per_pass = geo[1];
   a.ahead = geo[2];
-  // 16-byte copies: 4 fp32 or 8 bf16 channels.
-  a.vec = a.C % (16 / (int)sizeof(T)) == 0 && aligned16(a.src) &&
-          aligned16(a.aux) && aligned16(a.out);
-  auto kernel = dw5x5_ring<kKind, kSwish, kBias, kAuxOp, T>;
+  // 16-byte copies: 4 fp32 channels.
+  a.vec = a.C % 4 == 0 && aligned16(a.src) && aligned16(a.aux) &&
+          aligned16(a.out);
+  auto kernel = dw5x5_ring<kKind, kSwish, kBias, kAuxOp>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo[4]);
   if (err != cudaSuccess) return err;
@@ -1159,7 +1157,8 @@ cudaError_t launch_bf16_block(const Args& a, const int* geo,
   return cudaGetLastError();
 }
 
-// The bf16 forward or dW/db stage 1, built for the block size geo[3] takes.
+// The bf16 forward, dx or dW/db stage 1, built for the block size geo[3]
+// takes.
 template <int kKind, bool kSwish, bool kBias>
 cudaError_t launch_bf16(Args a, const int* geo, cudaStream_t stream) {
   a.parts = geo[0];
@@ -1299,16 +1298,17 @@ extern "C" int nvae_dw5x5_dw(const void* x, const void* dy, void* partial,
   return reduce_parts(partial, dw, db, C, n_parts, s);
 }
 
-// The bf16 instance of dx: dy, x, dx (batch, H, W, C) contiguous bf16, w
-// bf16 taps with strides as above, x null for the form without swish; C
-// even and dy, x and dx 4-byte aligned.  Sums and swish'(x) in fp32, dx
+// The bf16 instance of dx, on the sliding-row kernel: dy, x, dx (batch, H,
+// W, C) contiguous bf16, w bf16 taps with strides as above, x null for the
+// form without swish; C even and dy, x and dx 4-byte aligned; geo the bf16
+// dx geometry (see bad_launch_bf16).  Sums and swish'(x) in fp32, dx
 // rounded to bf16 once.
 extern "C" int nvae_dw5x5_dx_bf16(const void* dy, const void* w,
                                   const void* x, void* dx, int batch, int H,
                                   int W, int C, long long sdy, long long sdx,
                                   long long sc, const int* geo, int device,
                                   void* stream) {
-  if (bad_launch(geo, kDx, batch, H, W, C, 2) || C % 2 != 0 ||
+  if (bad_launch_bf16(geo, kDx, batch, H, W, C) || C % 2 != 0 ||
       !aligned(dy, 4) || !aligned(x, 4) || !aligned(dx, 4)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1316,9 +1316,8 @@ extern "C" int nvae_dw5x5_dx_bf16(const void* dy, const void* w,
   if (err != cudaSuccess) return (int)err;
   const Args a = make_args(dy, x, w, nullptr, dx, batch, H, W, C, sdy, sdx, sc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using B16 = __nv_bfloat16;
-  err = x ? launch<kDx, false, false, true, B16>(a, geo, s)
-          : launch<kDx, false, false, false, B16>(a, geo, s);
+  err = x ? launch_bf16<kDx, true, false>(a, geo, s)
+          : launch_bf16<kDx, false, false>(a, geo, s);
   return (int)err;
 }
 
@@ -1344,9 +1343,10 @@ extern "C" int nvae_dw5x5_dw_bf16(const void* x, const void* dy, void* partial,
   return reduce_parts(partial, dw, db, C, n_parts, s);
 }
 
-// Blocks of the bf16 forward (kind 0, swish and bias) or dW/db stage 1
-// (kind 2, swish) that one SM holds at once with `threads` threads and
-// `smem` bytes of dynamic shared memory, or -1 on an error.
+// Blocks of the bf16 forward (kind 0, swish and bias), dx (kind 1, swish')
+// or dW/db stage 1 (kind 2, swish) that one SM holds at once with
+// `threads` threads and `smem` bytes of dynamic shared memory, or -1 on an
+// error.
 extern "C" int nvae_dw5x5_bf16_blocks_per_sm(int kind, int threads, int smem,
                                             int device) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
@@ -1369,6 +1369,10 @@ extern "C" int nvae_dw5x5_bf16_blocks_per_sm(int kind, int threads, int smem,
     if (threads <= 256) query(dw5x5_bf16<kFwd, true, true, 256>);
     else if (threads <= 512) query(dw5x5_bf16<kFwd, true, true, 512>);
     else query(dw5x5_bf16<kFwd, true, true, 1024>);
+  } else if (kind == kDx) {
+    if (threads <= 256) query(dw5x5_bf16<kDx, true, false, 256>);
+    else if (threads <= 512) query(dw5x5_bf16<kDx, true, false, 512>);
+    else query(dw5x5_bf16<kDx, true, false, 1024>);
   } else {
     if (threads <= 256) query(dw5x5_bf16<kDw, true, false, 256>);
     else if (threads <= 512) query(dw5x5_bf16<kDw, true, false, 512>);

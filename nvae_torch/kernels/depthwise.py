@@ -76,20 +76,24 @@ _IN_FLIGHT = 8_192  # bytes of copies a block keeps in flight, at least
 # A block's shared memory that still lets three share an SM.
 _OCC_SMEM = _SM_SMEM // 3 - _BLOCK_RESERVED_SMEM
 _KINDS = ("fwd", "dx", "dw")
-# The bf16 forward and dW/db (``dw5x5_bf16``): a warp is one chunk's column
-# strip of 4 outputs, a pass 5 slots (the register rotation), up to 1024
-# threads a block.  Registers a thread may use, by kernel and the block
-# size a build is for (its ``__launch_bounds__``).
+# The bf16 kernels (``dw5x5_bf16``, the sliding-row kernel): a warp is one
+# chunk's column strip of 4 outputs, a pass 5 slots (the register
+# rotation), up to 1024 threads a block.  Registers a thread may use, by
+# kernel and the block size a build is for (its ``__launch_bounds__``).
 _BF16_STRIP = 4
 _BF16_PERIOD = 5
 _BF16_MAX_THREADS = 1024
 _BF16_REGS = {"fwd": {256: 80, 512: 128, 1024: 64},
+              "dx": {256: 128, 512: 128, 1024: 64},
               "dw": {256: 128, 512: 128, 1024: 64}}
 _SM_REGS = 65_536
 _SM_THREADS = 2048
 _SM_BLOCKS = 32
+# The widest W each bf16 kernel takes: its shared memory (the forward: its
+# 1024 threads) fits a block up to there.
+BF16_WIDEST = {"fwd": 128, "dx": 100, "dw": 88}
 # Element types of x, the taps and y, by name as ``geometry`` takes them.
-_ELEM_BYTES = {"float32": 4, "bfloat16": 2}
+_DTYPES = ("float32", "bfloat16")
 
 
 def _swish_grad(x: torch.Tensor) -> torch.Tensor:
@@ -299,8 +303,8 @@ class Geometry:
     ahead: int
     threads: int
     smem_bytes: int
-    # Channel chunks a block takes (the bf16 forward and dW/db: a power of
-    # two; the row ring: 1).  ``blocks_per_chunk`` then counts the blocks
+    # Channel chunks a block takes (the bf16 kernels: a power of two; the
+    # row ring: 1).  ``blocks_per_chunk`` then counts the blocks
     # of each group of this many chunks.
     chunks_per_block: int = 1
 
@@ -329,14 +333,11 @@ class Geometry:
                                   self.ahead, self.threads, self.smem_bytes)
 
 
-def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
-                elem: int = 4) -> int:
+def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int) -> int:
     """A block's shared memory in the row ring: the ring of (P + 1) G + 4
     rows of (W' + 4) x 32 fp32, the aux ring of (P + 1) G rows of W' x 32
-    (dx, dW/db), W rounded up to W' = whole runs of 4 outputs, for dW/db at
-    least the warps' 26 sums (they alias the ring), and for bf16 dx
-    (``elem`` 2) a staging ring of (P + 1) G rows of W x 32 bf16 for each
-    of dy and x."""
+    (dx, dW/db), W rounded up to W' = whole runs of 4 outputs, and for
+    dW/db at least the warps' 26 sums (they alias the ring)."""
     rows = (ahead + 1) * per_pass
     padded = -(-w // _RUN) * _RUN
     floats = (rows + _HALO) * (padded + _HALO) * _CHUNK
@@ -344,24 +345,25 @@ def _smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
         floats += rows * padded * _CHUNK
     if kind == "dw":
         floats = max(floats, _WARPS * _SUMS * _CHUNK)
-    staged = 2 * rows * w * _CHUNK * elem if elem == 2 else 0
-    return 4 * floats + staged
+    return 4 * floats
 
 
 def _bf16_smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
                      chunks_per_block: int) -> int:
-    """A block's shared memory in the bf16 forward and dW/db: the fp32 ring
-    of 2 G (dW/db: 2 G + 2) rows of (S * 4 + 4) x 32 K, S = ceil(W / 4)
-    strips and K chunks, for dW/db at least the warps' 26 sums (they alias
-    it), then the bf16 staging rows of W x 32 K: P G of x, and for dW/db
-    (P + 1) G of g; for the forward two 4 x 32 bf16 store tiles a warp."""
+    """A block's shared memory in the bf16 kernels: the fp32 ring of 2 G
+    (dW/db: 2 G + 2) rows of (S * 4 + 4) x 32 K, S = ceil(W / 4) strips
+    and K chunks, for dW/db at least the warps' 26 sums (they alias it),
+    then the bf16 staging rows of W x 32 K: P G of x (dx: dy), and for
+    dW/db and dx (P + 1) G of g or x; for the forward two 4 x 32 bf16
+    store tiles a warp (dx stores through its x rows)."""
     strips = -(-w // _BF16_STRIP)
     kc = _CHUNK * chunks_per_block
     floats = ((2 * per_pass + (2 if kind == "dw" else 0))
               * (strips * _BF16_STRIP + _HALO) * kc)
     if kind == "dw":
         floats = max(floats, strips * chunks_per_block * _SUMS * _CHUNK)
-    staged = ahead * per_pass + ((ahead + 1) * per_pass if kind == "dw" else 0)
+    staged = ahead * per_pass + ((ahead + 1) * per_pass if kind != "fwd"
+                                 else 0)
     # The forward's store tiles: two of 4 x 32 bf16 a warp.
     tiles = (strips * chunks_per_block * 2 * _BF16_STRIP * _CHUNK
              if kind == "fwd" else 0)
@@ -369,21 +371,24 @@ def _bf16_smem_bytes(kind: str, w: int, per_pass: int, ahead: int,
 
 
 def _bf16_geometry(kind: str, b: int, h: int, w: int, c: int) -> Geometry:
-    """The bf16 forward's or dW/db's geometry (see :func:`geometry`), as
-    the sweeps of ``chip_ring_probe.py --bf16`` found best at the path
-    shapes (PERF.md, section 6).
+    """A bf16 kernel's geometry (see :func:`geometry`), as the sweeps of
+    ``chip_ring_probe.py --bf16`` found best at the path shapes (PERF.md,
+    section 6); dx takes the forward's rule (the same stencil).
 
     - strips S = ceil(W / 4), one warp each per chunk, at most 32 (W <=
-      128: 1024 threads);
+      128: 1024 threads); the rings fit a block up to ``BF16_WIDEST[kind]``
+      columns (the forward 128, dx 100, dW/db 88), and a wider W raises;
     - chunks a block K, a power of two no more than the chunks: the
-      forward max(1, 2 // S), dW/db max(1, 4 // S) (two to four warps
-      where the rows are short, a warp a strip where they are long);
-    - slots per pass G = 5; passes ahead P: the forward 1, dW/db 2 where
-      that keeps as many blocks an SM as 1 does;
+      forward and dx max(1, 2 // S), dW/db max(1, 4 // S) (two to four
+      warps where the rows are short, a warp a strip where they are long);
+    - slots per pass G = 5; passes ahead P: the forward and dx 1, dW/db 2
+      where that keeps as many blocks an SM as 1 does;
     - blocks an SM: as many as the build's registers, the threads and the
       shared memory allow;
     - blocks: the forward one image a block, or 24 // (H + 4) images
-      where they are short; dW/db as :func:`_bf16_dw_parts` finds best."""
+      where they are short; dx two images a block up to H = 16, one past
+      it (the sweep of ``chip_ring_probe.py --bf16 --sweep dx``); dW/db as
+      :func:`_bf16_dw_parts` finds best."""
     strips = -(-w // _BF16_STRIP)
     chunks = -(-c // _CHUNK)
     if strips * _CHUNK > _BF16_MAX_THREADS:
@@ -392,7 +397,7 @@ def _bf16_geometry(kind: str, b: int, h: int, w: int, c: int) -> Geometry:
             f"at most {_BF16_MAX_THREADS} threads a block), got shape "
             f"{(b, h, w, c)}")
     per_pass = _BF16_PERIOD
-    want = max(1, (2 if kind == "fwd" else 4) // strips)
+    want = max(1, (4 if kind == "dw" else 2) // strips)
     k = 1
     while k * 2 <= min(want, chunks):
         k *= 2
@@ -415,10 +420,12 @@ def _bf16_geometry(kind: str, b: int, h: int, w: int, c: int) -> Geometry:
     ahead = 2 if (kind == "dw" and smem(2) <= _MAX_SMEM
                   and per_sm(2) == per_sm(1)) else 1
     groups = -(-chunks // k)
-    if kind == "fwd":
-        parts = -(-b // max(1, 24 // (h + _HALO)))
-    else:
+    if kind == "dw":
         parts = _bf16_dw_parts(b, h, w, c, groups, k, per_sm(ahead))
+    elif kind == "dx":
+        parts = -(-b // max(1, min(2, 40 // (h + _HALO))))
+    else:
+        parts = -(-b // max(1, 24 // (h + _HALO)))
     return Geometry(b, chunks, parts, per_pass, ahead, threads,
                     smem(ahead), k)
 
@@ -458,6 +465,8 @@ def geometry(kind: str, shape: Tuple[int, int, int, int],
     (and one set of dW bits) on any card.  The wrappers,
     :func:`_check` and :func:`dw_parts` read it, and the C entry points
     refuse a geometry whose shared bytes disagree with their own formula.
+    bf16 takes the sliding-row kernel (:func:`_bf16_geometry`); fp32 the
+    row ring:
 
     - slots per pass G (even: an item is two rows' run of 4 columns):
       enough items for one per warp: 32 at 4x4 (four images), 12 at 8x8, 6
@@ -472,23 +481,22 @@ def geometry(kind: str, shape: Tuple[int, int, int, int],
       [j B / n, (j + 1) B / n)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
-    if dtype not in _ELEM_BYTES:
+    if dtype not in _DTYPES:
         raise ValueError(f"no {kind} kernel for {dtype}")
-    elem = _ELEM_BYTES[dtype]
     b, h, w, c = (int(s) for s in shape)
-    if elem == 2 and kind != "dx":
+    if dtype == "bfloat16":
         return _bf16_geometry(kind, b, h, w, c)
     chunks = -(-c // _CHUNK)
     runs = -(-w // _RUN)
     per_pass = _ROWS * -(-_WARPS * (h + _HALO) // (h * runs))
     # Bytes a pass copies from HBM: its H / (H + 4) real rows, and g or x
     # beside them for dx and dW/db.
-    row_bytes = w * _CHUNK * elem * (1 if kind == "fwd" else 2)
+    row_bytes = w * _CHUNK * 4 * (1 if kind == "fwd" else 2)
     ahead = -(-_IN_FLIGHT * (h + _HALO) // (per_pass * h * row_bytes))
     ahead = min(_MAX_AHEAD, max(1, ahead))
 
     def smem():
-        return _smem_bytes(kind, w, per_pass, ahead, elem)
+        return _smem_bytes(kind, w, per_pass, ahead)
 
     while smem() > _OCC_SMEM and per_pass > _ROWS:
         per_pass -= _ROWS

@@ -173,13 +173,35 @@ def _stencil_reversed(g: torch.Tensor, taps: torch.Tensor,
     return acc
 
 
+def _ulp_steps(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``v`` moved ``n`` fp32 steps up (n > 0) or down."""
+    towards = torch.full_like(v, float("inf") if n > 0 else float("-inf"))
+    for _ in range(abs(n)):
+        v = torch.nextafter(v, towards)
+    return v
+
+
+def _swish_grad_kernel_way(xf: torch.Tensor, steps: int) -> torch.Tensor:
+    """swish'(x) as the bf16 dx kernel takes it, in fp32: sigma =
+    rcp.approx.ftz(1 + ex2.approx.ftz(x * -log2(e))), then s * fma(x,
+    1 - s, 1).  PTX gives ex2.approx at most 2 ulps and rcp.approx at most
+    1 ulp from the rounded results; here both are off by twice that,
+    ``2 * steps`` and ``steps`` fp32 steps in the sign of ``steps``."""
+    e = _ulp_steps(torch.exp2(xf * -1.4426950408889634), 2 * steps)
+    s = _ulp_steps(1.0 / (1.0 + e), steps)
+    inner = (xf.double() * (1.0 - s).double() + 1.0).float()  # one rounding
+    return s * inner
+
+
 @pytest.mark.parametrize("h,c", PATH_SHAPES)
 def test_bf16_dx_limit_takes_another_sum_order_and_refuses_double_rounding(
         h, c):
     """The card's check of bf16 #3 against its plain version passes the same
     products summed in another fp32 order times swish'(x) by another
-    formula, and fails swish'(x) rounded to bf16 before the product, and the
-    products rounded to bf16 before the sum."""
+    formula, or by the kernel's (its sigmoid from the flush-to-zero ex2 and
+    rcp approximations, at twice their error bounds either way), and fails
+    swish'(x) rounded to bf16 before the product, and the products rounded
+    to bf16 before the sum, with either swish'."""
     g = torch.Generator().manual_seed(h)
     dy = torch.randn(2, h, h, c, generator=g).to(BF16)
     x = torch.randn(2, h, h, c, generator=g).to(BF16)
@@ -193,8 +215,14 @@ def test_bf16_dx_limit_takes_another_sum_order_and_refuses_double_rounding(
         BF16).float()
     products_rounded = _stencil_reversed(df, k, round_products=True) * (
         tdw._swish_grad(xf))
-    for got, ok in ((other, True), (swish_rounded, False),
-                    (products_rounded, False)):
+    kernel_way = [_swish_grad_kernel_way(xf, steps) for steps in (2, -2)]
+    cases = [(other, True), (swish_rounded, False), (products_rounded, False)]
+    for grad in kernel_way:
+        cases += [(_stencil_reversed(df, k) * grad, True),
+                  (_stencil_reversed(df, k) * grad.to(BF16).float(), False),
+                  (_stencil_reversed(df, k, round_products=True) * grad,
+                   False)]
+    for got, ok in cases:
         got = got.to(BF16)
         sum_ulps = float(tdw.bf16_sum_ulps(got, want, scale).max())
         equal = float((bf16_ulps(got, want) == 0).mean())

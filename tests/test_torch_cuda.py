@@ -284,10 +284,11 @@ RGB_SHAPES = [(4, h, h, c) for h, c in (
 @pytest.mark.parametrize("fuse,with_bias", [(True, True), (False, False)])
 def test_cuda_bf16_kernels_at_the_rgb_shapes(cuda_device, shape, fuse,
                                               with_bias):
-    """The bf16 instances of #2 and #4 at the RGB presets' shapes, at the
-    path shapes' limits: #2 within ``BF16_SUM_ULPS`` and at least
-    ``BF16_MIN_EQUAL_SHARE`` bitwise equal, #4 within 1e-4 of the largest
-    |dW| and |db|; both bitwise across two runs."""
+    """The bf16 instances of #2, #3 and #4 at the RGB presets' shapes, at
+    the path shapes' limits: #2 and #3 (with swish' where ``fuse``) within
+    ``BF16_SUM_ULPS`` and at least ``BF16_MIN_EQUAL_SHARE`` bitwise equal,
+    #4 within 1e-4 of the largest |dW| and |db|; all bitwise across two
+    runs."""
     bf = torch.bfloat16
     x, k, b = _inputs(shape, cuda_device)
     x, k = x.to(bf), k.to(bf)
@@ -316,6 +317,22 @@ def test_cuda_bf16_kernels_at_the_rgb_shapes(cuda_device, shape, fuse,
         assert torch.equal(db, db2)
         assert float((db - db_want).abs().max()) <= (
             1e-4 * float(db_want.abs().max()))
+    before = tdw.fused_swish_depthwise5x5_dx_bf16.launches
+    dx = tdw.fused_swish_depthwise5x5_dx(dy, k, x if fuse else None,
+                                         fuse_swish=fuse)
+    dx2 = tdw.fused_swish_depthwise5x5_dx(dy, k, x if fuse else None,
+                                          fuse_swish=fuse)
+    assert tdw.fused_swish_depthwise5x5_dx_bf16.launches == before + 2
+    dx_want = tdw.fused_swish_depthwise5x5_dx_plain(dy, k, x,
+                                                    fuse_swish=fuse)
+    torch.cuda.synchronize()
+    assert dx.dtype == bf and torch.equal(dx, dx2)
+    scale = tdw.bf16_dx_scale(dy, k, x, fuse_swish=fuse)
+    assert float(tdw.bf16_sum_ulps(dx, dx_want, scale).max()) <= (
+        tdw.BF16_SUM_ULPS)
+    equal = float((dx.view(torch.int16) == dx_want.view(torch.int16))
+                  .float().mean())
+    assert equal >= tdw.BF16_MIN_EQUAL_SHARE
 
 
 @pytest.mark.parametrize("fuse,with_bias", [(True, True), (False, False)])

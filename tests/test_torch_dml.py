@@ -445,15 +445,14 @@ def test_geometry_at_the_rgb_preset_shapes(kind, dtype):
                          for r in geo.batch_rows(i % geo.blocks_per_chunk))
         assert covered == [(k, r) for k in range(-(-c // 32))
                            for r in range(n)], shape
-        if dtype == "bfloat16" and kind != "dx":  # the sliding-row kernel
+        if dtype == "bfloat16":  # the sliding-row kernel
             assert geo.smem_bytes == tdw._bf16_smem_bytes(
                 kind, h, geo.slots_per_pass, geo.ahead,
                 geo.chunks_per_block) <= tdw._MAX_SMEM
             assert geo.threads <= 1024  # more waves than one, by design
         else:
             assert geo.smem_bytes == tdw._smem_bytes(
-                kind, h, geo.slots_per_pass, geo.ahead,
-                tdw._ELEM_BYTES[dtype]) <= tdw._MAX_SMEM
+                kind, h, geo.slots_per_pass, geo.ahead) <= tdw._MAX_SMEM
             per_sm = min(4, 233_472 // (geo.smem_bytes + 1024))
             assert geo.blocks <= max(132 * per_sm, geo.groups), shape
         dt = getattr(torch, dtype)

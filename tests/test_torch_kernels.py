@@ -243,7 +243,7 @@ def test_geometry_needs_no_device(monkeypatch):
         tdw.geometry("dy", (1, 4, 4, 32))
 
 
-# The bf16 forward's and dW/db's sliding-row geometry: the path shapes at
+# The bf16 kernels' sliding-row geometry: the path shapes at
 # every batch the paths give them, the RGB presets' shapes at theirs
 # (cifar10_dml at 128, celeba64 at 64, the sample call's 144, the CLI's
 # sweep of 4 x the batch, the P&R halves, the hooks' 12 and 3, the card vs
@@ -261,15 +261,16 @@ SLIDE_SHAPES = sorted(set(
 
 
 @pytest.mark.parametrize("shape", SLIDE_SHAPES)
-@pytest.mark.parametrize("kind", ["fwd", "dw"])
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
 def test_bf16_sliding_geometry_covers_every_row_once(shape, kind):
     """The grid's blocks cover each (batch row, channel chunk) exactly once,
     each block a power of two of chunks and its rows in increasing order;
     a warp per chunk and 4 columns; 5 slots a pass or a multiple (the
     kernel's register rotation); the shared bytes by the kernel's formula,
     within a block's; a block fits an SM with the build's registers; the
-    forward an image a block (24 // (H + 4) short ones), dW/db at least two
-    blocks an SM where the batch has them; the same when computed again."""
+    forward an image a block (24 // (H + 4) short ones), dx two images a
+    block up to H = 16 and one past it, dW/db at least two blocks an SM
+    where the batch has them; the same when computed again."""
     b, _, w, c = shape
     geo = tdw.geometry(kind, shape, "bfloat16")
     k = geo.chunks_per_block
@@ -290,6 +291,7 @@ def test_bf16_sliding_geometry_covers_every_row_once(shape, kind):
     assert geo.smem_bytes == tdw._bf16_smem_bytes(
         kind, w, geo.slots_per_pass, geo.ahead, k) <= tdw._MAX_SMEM
     regs = {"fwd": {256: 80, 512: 128, 1024: 64},
+            "dx": {256: 128, 512: 128, 1024: 64},
             "dw": {256: 128, 512: 128, 1024: 64}}[kind][
         256 if geo.threads <= 256 else 512 if geo.threads <= 512 else 1024]
     per_sm = min(65_536 // (regs * geo.threads), 2048 // geo.threads, 32,
@@ -297,6 +299,9 @@ def test_bf16_sliding_geometry_covers_every_row_once(shape, kind):
     assert per_sm >= 1
     if kind == "fwd":  # an image a block, or 24 // (H + 4) short ones
         rows = max(1, 24 // (shape[1] + 4))
+        assert geo.blocks_per_chunk == -(-b // rows)
+    elif kind == "dx":  # two images a block up to H = 16, then one
+        rows = 2 if shape[1] <= 16 else 1
         assert geo.blocks_per_chunk == -(-b // rows)
     else:  # two blocks an SM at least, where the batch has them
         assert geo.blocks_per_chunk >= min(b, -(-132 * min(per_sm, 2)
@@ -311,7 +316,7 @@ def test_bf16_sliding_geometry_needs_no_device(monkeypatch):
         raise AssertionError("geometry queried a device")
 
     want = {(kind, s): tdw.geometry(kind, s, "bfloat16")
-            for kind in ("fwd", "dw") for s in SLIDE_SHAPES}
+            for kind in ("fwd", "dx", "dw") for s in SLIDE_SHAPES}
     for name in ("is_available", "device_count", "get_device_properties",
                  "current_device", "get_device_name"):
         monkeypatch.setattr(torch.cuda, name, refuse)
@@ -319,18 +324,21 @@ def test_bf16_sliding_geometry_needs_no_device(monkeypatch):
         assert tdw.geometry.__wrapped__(kind, s, "bfloat16") == geo
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dw"])
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dw"])
 def test_bf16_sliding_geometry_refuses_what_it_cannot_take(kind):
-    """Past 128 columns (32 strips: 1024 threads) the bf16 forward and
-    dW/db raise, naming the shape, and so does the wrappers' check; dW/db's
-    rings fit a block up to 88 columns, the forward's up to 128; the row
-    ring still takes 129 columns in fp32."""
-    widest = {"fwd": 128, "dw": 88}[kind]
+    """Past 128 columns (32 strips: 1024 threads) the bf16 kernels raise,
+    naming the shape, and so does the wrappers' check; dW/db's rings fit a
+    block up to 88 columns, dx's up to 100, the forward's up to 128
+    (``BF16_WIDEST``), and one column past it raises, naming the shape;
+    the row ring still takes 129 columns in fp32."""
+    widest = {"fwd": 128, "dx": 100, "dw": 88}[kind]
+    assert tdw.BF16_WIDEST[kind] == widest
     assert tdw.geometry(kind, (1, 8, widest, 32), "bfloat16").threads == (
-        widest * 8)
-    if kind == "dw":
-        with pytest.raises(ValueError, match="shared memory"):
-            tdw.geometry(kind, (1, 8, 92, 32), "bfloat16")
+        -(-widest // 4) * 32)
+    if kind != "fwd":
+        with pytest.raises(ValueError,
+                           match=rf"shared memory.*\(1, 8, {widest + 1}, 32\)"):
+            tdw.geometry(kind, (1, 8, widest + 1, 32), "bfloat16")
     with pytest.raises(ValueError, match=r"\(1, 8, 129, 32\)"):
         tdw.geometry(kind, (1, 8, 129, 32), "bfloat16")
     with pytest.raises(ValueError, match=r"\(1, 8, 129, 32\)"):
@@ -343,7 +351,10 @@ def test_ring_probe_variants_find_their_source_text():
     """Every variant of ``chip_ring_probe.py`` (the depthwise kernels'
     builds without copies, compute, widening, stores, barriers, and the
     parent tree's bf16 ring's) names text that the source it edits holds
-    exactly once, so a probe on the card builds what it says."""
+    exactly once, so a probe on the card builds what it says.  The parent's
+    bf16 ring (a tree from before the sliding-row dx) shares its copies and
+    compute with this tree's fp32 ring; its staged rows' widening is gone
+    here with the ring's bf16 instance, so that text must be absent."""
     import importlib.util
     import pathlib
 
@@ -362,16 +373,18 @@ def test_ring_probe_variants_find_their_source_text():
         for old, _ in subs:
             assert gate.count(old) == 1, (name, old)
     # The parent's ring: its bf16 instances were the row ring's, which this
-    # tree keeps for fp32 and bf16 dx.
+    # tree keeps for fp32 alone.
     for name, subs in probe.PARENT_VARIANTS.items():
         for old, _ in subs:
-            assert depthwise.count(old) == 1, (name, old)
+            want = 0 if name == "no_widen" else 1
+            assert depthwise.count(old) == want, (name, old)
+    assert "__nv_bfloat16>" not in depthwise  # no bf16 instance of the ring
 
 
 def test_profile_counts_both_depthwise_kernels_by_name():
     """``chip_smoke.py``'s profile phase counts the depthwise launches of a
-    traced replay by kernel name: the row ring's (fp32, bf16 dx) and the
-    sliding-row kernel's (bf16 forward and dW/db), each under its
+    traced replay by kernel name: the row ring's (fp32) and the
+    sliding-row kernel's (bf16 forward, dx and dW/db), each under its
     wrapper's name, the dW/db reduction not counted again."""
     import importlib.util
     import pathlib
@@ -384,10 +397,9 @@ def test_profile_counts_both_depthwise_kernels_by_name():
     ns = "void (anonymous namespace)::"
     rows = [(0.0, 20, ns + "dw5x5_bf16<0, true, true, 256>(Args)"),
             (0.0, 20, ns + "dw5x5_bf16<2, true, false, 256>(Args)"),
-            (0.0, 20, ns + "dw5x5_ring<1, false, false, true, "
-                           "__nv_bfloat16>(Args)"),
-            (0.0, 7, ns + "dw5x5_ring<0, true, true, false, float>(Args)"),
-            (0.0, 3, ns + "dw5x5_ring<2, true, false, false, float>(Args)"),
+            (0.0, 20, ns + "dw5x5_bf16<1, true, false, 256>(Args)"),
+            (0.0, 7, ns + "dw5x5_ring<0, true, true, false>(Args)"),
+            (0.0, 3, ns + "dw5x5_ring<2, true, false, false>(Args)"),
             (0.0, 23, "dw5x5_dw_reduce(float const*, float*, float*, int, "
                       "int)")]
     assert smoke.ring_launches(rows) == {
