@@ -214,7 +214,27 @@ each raising on failure (nothing is caught):
     ``torchrun ... --data_parallel 2 --fsdp`` trains an epoch and resumes
     for a second, then a world-1 ``--mode sample`` from its checkpoint
     writes PNGs bit for bit equal to this process's from the same
-    checkpoint restored in the replicated layout.
+    checkpoint restored in the replicated layout;
+13. the pipeline (a main path; states its seconds): ``PipelineTrainer``
+    at full width (the default MNIST config, ``use_pallas_kernels``, batch
+    144), every stage on this one card (``devices=[cuda:0] * S``), from
+    seed-0 weights, SGD at lr 1e-5 with the spectral projection, under
+    deterministic cuDNN without TF32: (a) fp32 S=2 M=2 and S=4 M=4 under
+    1f1b, 2 steps each, against the ``grad_accum=M`` step on the same
+    batches and noise, at JAX's pipeline limits (loss within 1e-4
+    relative, parameters and BatchNorm statistics within 2e-6 after each
+    step); (b) S=4 M=4 under gpipe equal to (a)'s 1f1b run bit for bit,
+    stashing 4 microbatch inputs a stage against at most 2; (c) bf16
+    compute and BatchNorm apply with the depthwise postprocess at S=3 M=2
+    against the ``grad_accum=2`` step at JAX's bf16 limits (loss 2e-2
+    relative, parameters 5e-3); (d) exactly the launches of #2-#4 the
+    stage split gives (14 M of each a step where the decoder is the last
+    stage, else 28 M of #2 with its recompute and 14 M of #3 and #4; 6 M
+    more of each with the depthwise postprocess), in the config's dtype and
+    none of the other; (e) the Trainer with ``pipeline_stages=2`` on one
+    card stops with JAX's ``pipeline needs 2 devices`` message.  Each
+    configuration's ms a step (its second) beside the ``grad_accum=M``
+    step's.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -4638,6 +4658,222 @@ def phase_data_parallel(device) -> dict:
             "replayed": graph["replayed"], "seconds": seconds}
 
 
+# ---- phase 13: the pipeline -------------------------------------------------
+
+# (label, config, stages, microbatches, schedule, the run it must equal
+# bit for bit)
+PP_RUNS = (
+    ("fp32 S=2 M=2 1f1b", "default", 2, 2, "1f1b", None),
+    ("fp32 S=4 M=4 1f1b", "default", 4, 4, "1f1b", None),
+    ("fp32 S=4 M=4 gpipe", "default", 4, 4, "gpipe", "fp32 S=4 M=4 1f1b"),
+    ("bf16 depthwise S=3 M=2 1f1b", "depthwise bf16", 3, 2, "1f1b", None),
+)
+PP_STEPS = 2
+PP_LR = 1e-5
+# JAX's pipeline limits (tests/test_pipeline.py): fp32 lockstep, and the
+# bf16 depthwise configuration's.
+PP_LOSS_RTOL = 1e-4
+PP_STATE_ATOL = 2e-6
+PP_BF16_LOSS_RTOL = 2e-2
+PP_BF16_PARAM_ATOL = 5e-3
+
+
+def pp_launches(cfg, n_stages: int, m: int) -> dict:
+    """#2-#4 launches of one pipeline step: each generative cell runs #2
+    in the decoder's forward and again in its recompute when the decoder
+    is not the last stage, #3 and #4 once in the backward pass; each node
+    of the depthwise postprocess (always in the last stage) one of each."""
+    from nvae_torch.parallel.pipeline import stage_names
+
+    cells = (cfg.n_total_groups - 1) * cfg.res_cells_per_group
+    post = (cfg.n_postprocess_blocks * cfg.n_postprocess_cells
+            if cfg.postprocess_5x5_depthwise else 0)
+    fwd = 1 if "decoder" in stage_names(n_stages)[-1] else 2
+    fwd_k, dx_k, dw_k = TRAIN_KERNELS[cfg.compute_dtype]
+    return {fwd_k: (fwd * cells + post) * m, dx_k: (cells + post) * m,
+            dw_k: (cells + post) * m}
+
+
+def pp_sgd(sn_keys):
+    """SGD at ``PP_LR`` with the spectral projection (JAX's lockstep
+    optimizer): a linear update, so the parameters track the gradients."""
+    from nvae_torch.train import optim
+
+    sgd = optim.GradientTransformation(
+        lambda params: None,
+        lambda updates, state, params=None: (
+            {k: -PP_LR * g for k, g in updates.items()}, None))
+    return optim.chain(sgd, optim.spectral_projection(sn_keys))
+
+
+def pp_state(cfg, device, grad_accum: int):
+    """Seed-0 weights on the card and the SGD chain, for a run of
+    ``grad_accum`` microbatches a step."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.nn.spectral import sn_kernel_names
+    from nvae_torch.train.state import create_train_state
+
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                     grad_accum=grad_accum)
+    model, state, _ = create_train_state(cfg, tc, 1000, device=device,
+                                         seed=0)
+    tx = pp_sgd(sn_kernel_names(model))
+    state.opt_state = tx.init(state.params())
+    return tc, state, tx
+
+
+def pp_step_record(fn, device) -> tuple:
+    """``fn()`` timed to the card's end: (its metrics as floats, ms)."""
+    torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    m = fn()
+    torch.cuda.synchronize(device)
+    return {k: float(v) for k, v in m.items()}, 1e3 * (time.monotonic() - t0)
+
+
+def pp_snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def pp_reference(cfg, device, m: int, batches) -> dict:
+    """The ``grad_accum=m`` step over ``batches``: each step's metrics,
+    state and ms."""
+    from nvae_torch.train.step import make_train_step
+
+    tc, state, tx = pp_state(cfg, device, m)
+    step = make_train_step(state.model, tx, tc, 1000, 100)
+    out = {"metrics": [], "states": [], "ms": [],
+           "params": {k for k, _ in state.model.named_parameters()}}
+    for b in batches:
+        def run(b=b):
+            nonlocal state
+            state, metrics = step(state, b)
+            return metrics
+        metrics, ms = pp_step_record(run, device)
+        out["metrics"].append(metrics)
+        out["ms"].append(ms)
+        out["states"].append(pp_snapshot(state.model))
+    return out
+
+
+def pp_run(cfg, device, n_stages: int, m: int, schedule: str,
+           batches) -> dict:
+    """The pipeline over ``batches``, with the counts set to 0 just before
+    and read just after: each step's metrics, merged state and ms, the
+    peak stash and the counts."""
+    from nvae_torch.parallel import PipelineTrainer
+
+    tc, state, _ = pp_state(cfg, device, 1)
+    pp = PipelineTrainer(state.model, tc, 1000, 100, n_stages=n_stages,
+                         n_microbatches=m, devices=[device] * n_stages,
+                         state=state, tx_factory=pp_sgd, schedule=schedule)
+    del state
+    out = {"metrics": [], "states": [], "ms": []}
+    reset_counts()
+    for b in batches:
+        metrics, ms = pp_step_record(lambda b=b: pp.step(b), device)
+        out["metrics"].append(metrics)
+        out["ms"].append(ms)
+        out["states"].append(pp_snapshot(pp.merged_state().model))
+    out["counts"] = read_counts()
+    out["peak_stash"] = pp.peak_stash
+    return out
+
+
+def pp_errors(run: dict, ref: dict, params) -> dict:
+    """The largest relative loss error, and the largest absolute error of
+    the parameters and of the BatchNorm statistics, over the steps."""
+    loss = max(abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1.0)
+               for a, b in zip(run["metrics"], ref["metrics"]))
+    err = {"loss_rel": loss, "params": 0.0, "bn_stats": 0.0}
+    for got, want in zip(run["states"], ref["states"]):
+        for k, v in want.items():
+            kind = "params" if k in params else "bn_stats"
+            err[kind] = max(err[kind], float((got[k] - v).abs().max()))
+    return err
+
+
+def phase_pipeline(device) -> dict:
+    """Phase 13 (see the module docstring): (a)-(e).  Returns the counts
+    of the pipeline runs and the seconds."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.device import fp32_math
+    from nvae_torch.train.trainer import Trainer
+
+    t0 = time.monotonic()
+    cfgs = {**configs(), **bf16_configs()}
+    cfgs = {"default": cfgs["default"],
+            "depthwise bf16": cfgs["depthwise bf16"]}
+    batches = [train_batch(BATCH, 40 + i).to(device)
+               for i in range(PP_STEPS)]
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    runs, refs = {}, {}
+    with fp32_math(deterministic=True):
+        for label, name, n_stages, m, schedule, same in PP_RUNS:
+            cfg = cfgs[name]
+            if (name, m) not in refs:
+                refs[(name, m)] = pp_reference(cfg, device, m, batches)
+            ref = refs[(name, m)]
+            rec = pp_run(cfg, device, n_stages, m, schedule, batches)
+            for k, v in rec["counts"].items():
+                counts[k] += v
+            err = pp_errors(rec, ref, ref["params"])
+            want = dict.fromkeys(KERNEL_NAMES, 0)
+            want.update({k: v * PP_STEPS
+                         for k, v in pp_launches(cfg, n_stages, m).items()})
+            log(f"pipeline {label}: {rec['ms'][-1]:.1f} ms/step (first "
+                f"{rec['ms'][0]:.1f}) against the grad_accum={m} step's "
+                f"{ref['ms'][-1]:.1f} (first {ref['ms'][0]:.1f}); peak "
+                f"stash {rec['peak_stash']}; errors {err}; counts "
+                f"{ {k: v for k, v in rec['counts'].items() if v} }")
+            for i, mt in enumerate(rec["metrics"]):
+                log(f"  step {i}: " + ", ".join(
+                    f"{k} {v:.9g}" for k, v in sorted(mt.items())))
+            if rec["counts"] != want:
+                raise AssertionError(f"pipeline {label}: counts "
+                                     f"{rec['counts']}, expected {want}")
+            if cfg.compute_dtype == "bfloat16":
+                if not (err["loss_rel"] <= PP_BF16_LOSS_RTOL
+                        and err["params"] <= PP_BF16_PARAM_ATOL):
+                    raise AssertionError(f"pipeline {label}: {err}")
+            elif not (err["loss_rel"] <= PP_LOSS_RTOL
+                      and err["params"] <= PP_STATE_ATOL
+                      and err["bn_stats"] <= PP_STATE_ATOL):
+                raise AssertionError(f"pipeline {label}: {err}")
+            if same is not None:
+                other = runs[same]
+                bitwise = (rec["metrics"] == other["metrics"] and all(
+                    torch.equal(a[k], b[k])
+                    for a, b in zip(rec["states"], other["states"])
+                    for k in a))
+                if not (bitwise and rec["peak_stash"] == m
+                        and other["peak_stash"] <= 2):
+                    raise AssertionError(
+                        f"pipeline {label} vs {same}: bitwise {bitwise}, "
+                        f"peak stash {rec['peak_stash']} / "
+                        f"{other['peak_stash']}")
+                log(f"pipeline {label} equals {same} bit for bit; peak "
+                    f"stash {rec['peak_stash']} against "
+                    f"{other['peak_stash']}")
+            runs[label] = rec
+    del runs, refs
+    torch.cuda.empty_cache()
+    try:
+        Trainer(cfgs["default"], TrainConfig(batch_size=BATCH,
+                                             pipeline_stages=2), 4,
+                device=device)
+    except ValueError as e:
+        if "pipeline needs 2 devices (2 stages x dp=1), have 1" not in str(e):
+            raise
+        log(f"pipeline (e): the Trainer with pipeline_stages=2 stops: {e}")
+    else:
+        raise AssertionError("pipeline (e): the Trainer with "
+                             "pipeline_stages=2 ran on one card")
+    seconds = time.monotonic() - t0
+    log(f"phase 13 (pipeline) took {seconds:.1f} s")
+    return {"counts": counts, "seconds": seconds}
+
+
 def kernel_records(errs, launches, entries) -> list:
     """One record per kernel of ``entries`` (name, timing rows, the rows'
     key, the TPU kernel it replaces, the path call it times).  Times and
@@ -4928,6 +5164,9 @@ def main(argv=None) -> int:
         launches[k] += dp["counts"][k]
         replayed[k] += dp["replayed"][k]
     log(f"data parallel done at {time.monotonic() - t_start:.1f} s")
+    for k, v in phase_pipeline(device)["counts"].items():
+        launches[k] += v
+    log(f"pipeline done at {time.monotonic() - t_start:.1f} s")
     for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
               "se_gate"):
         if launches[k] == 0:

@@ -25,10 +25,14 @@ sharded 1/N over the ranks, parallel/mesh.py); in a world of 1 it is the
 replicated layout, as in the JAX CLI.  --mode test, sample and serve read
 the checkpoint, which is whole in either layout, into the replicated
 layout: their results are those of the state gathered once, which equal
-JAX's in either layout.  --pp_stages > 1 stops the run naming the pipeline
-(#9c), and with --fsdp or --scan_epochs also with the JAX CLI's message;
-the JAX CLI's pipeline-schedule flags are not declared, so argparse
-rejects them.  bf16 (--compute_dtype,
+JAX's in either layout.  --pp_stages S > 1 trains through the pipeline
+(parallel/pipeline.py: the four stage modules over S devices, the first S
+cards, or S times the CPU with --cpu; --pp_microbatches microbatches a step,
+--pp_schedule 1f1b or gpipe); with --fsdp or --scan_epochs it stops with the
+JAX CLI's message, and with data parallelism (--data_parallel or a torchrun
+world above 1) it stops naming ROADMAP.md Queue 1 #14.  Its checkpoint is
+the whole model's: --mode test, sample and serve read it on one device
+whatever --pp_stages says.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
 preset as in the JAX CLI.  --scan_epochs stages the training set on the
 device and replays each step as one CUDA graph (with --cpu the same steps
@@ -158,7 +162,20 @@ def parse_args(argv=None):
                         "checkpoint (requires --ema_decay training)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="Microbatches per optimizer step")
-    p.add_argument("--pp_stages", type=int, default=1)
+    p.add_argument("--pp_stages", type=int, default=1,
+                   help="Pipeline parallelism (GPipe): split the model's "
+                        "stage modules over this many devices (2-4); each "
+                        "stage holds 1/S of params+optimizer. Excludes "
+                        "--scan_epochs/--grad_accum/--fsdp and data "
+                        "parallelism")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="GPipe microbatches per optimizer step (0 = "
+                        "pp_stages); the pipeline's gradient accumulation")
+    p.add_argument("--pp_schedule", choices=("1f1b", "gpipe"), default="1f1b",
+                   help="Pipeline dispatch order: 1f1b bounds the "
+                        "boundary-activation stash at O(stages); gpipe is "
+                        "classic fill-drain (O(microbatches)). Bitwise "
+                        "identical results either way")
     p.add_argument("--postprocess_depthwise", action="store_true",
                    help="Depthwise postprocess 5x5 (non-parity, faster)")
     p.add_argument("--use_pallas", action="store_true",
@@ -218,22 +235,25 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-# What a flag the port does not run yet waits for.
-_PIPELINE = ("the pipeline, the parallel tiers' slice 9c (ROADMAP.md Queue 1 "
-             "#9c)")
-
-
 def refuse_unported(args) -> None:
-    """Stop with ``SystemExit`` on a flag the port does not run yet, naming
-    what it waits for; ``--pp_stages`` with ``--fsdp`` or
-    ``--scan_epochs`` also with the JAX CLI's refusal
-    (``nvae_tpu/cli.py:416-419``)."""
-    if args.pp_stages > 1:
-        msg = f"not ported yet: --pp_stages > 1 waits for {_PIPELINE}"
-        if args.fsdp or args.scan_epochs:
-            msg += ("; --pp_stages excludes --fsdp/--scan_epochs (per-stage "
-                    "placement vs whole-mesh GSPMD layouts)")
-        raise SystemExit(msg)
+    """Stop with ``SystemExit`` on a combination of flags the port does not
+    run: ``--pp_stages`` with ``--fsdp`` or ``--scan_epochs`` with the JAX
+    CLI's refusal (``nvae_tpu/cli.py:416-419``), and ``--pp_stages`` with
+    data parallelism, which waits for the pipeline's data-parallel stages
+    (ROADMAP.md Queue 1 #14)."""
+    if args.pp_stages <= 1:
+        return
+    from nvae_torch.parallel.pipeline import DP_WAITS
+
+    if args.fsdp or args.scan_epochs:
+        raise SystemExit("--pp_stages excludes --fsdp/--scan_epochs "
+                         "(per-stage placement vs whole-mesh GSPMD layouts)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.data_parallel > 1 or world > 1:
+        raise SystemExit(
+            f"not ported yet: --pp_stages with data parallelism "
+            f"(--data_parallel {args.data_parallel} in a world of {world}): "
+            f"{DP_WAITS}")
 
 
 def build_configs(args, bundle):
@@ -296,6 +316,8 @@ def build_configs(args, bundle):
         grad_accum=args.grad_accum,
         data_parallel=args.data_parallel,
         pipeline_stages=args.pp_stages,
+        pipeline_microbatches=args.pp_microbatches,
+        pipeline_schedule=args.pp_schedule,
     )
     return model_cfg, train_cfg
 
@@ -340,6 +362,8 @@ def preset_configs(args):
         grad_accum=args.grad_accum,
         data_parallel=args.data_parallel,
         pipeline_stages=args.pp_stages,
+        pipeline_microbatches=args.pp_microbatches,
+        pipeline_schedule=args.pp_schedule,
     )
     return model_cfg, train_cfg
 
@@ -391,9 +415,12 @@ def main(argv=None):
     model_cfg, train_cfg, bundle = configs_from_args(args)
     device = (mesh.device if mesh is not None
               else resolve_device("cpu" if args.cpu else "cuda"))
-    # The other modes read the checkpoint, whole in either layout.
+    # The other modes read the checkpoint, whole in either layout (and
+    # whatever the pipeline's stage count).
     param_sharding = ("fsdp" if args.fsdp and args.mode == "train"
                       else "replicated")
+    if args.mode != "train":
+        train_cfg = dataclasses.replace(train_cfg, pipeline_stages=1)
     if mesh is not None and primary:
         print(f"Mesh: {mesh.size} ranks over {mesh.backend}, "
               f"{param_sharding} layout", flush=True)
@@ -426,6 +453,11 @@ def main(argv=None):
                           steps_per_epoch=len(train_iter), logger=logger,
                           device=device, mesh=mesh,
                           param_sharding=param_sharding)
+        pp = trainer.pipeline
+        if pp is not None:
+            # Data parallelism inside a stage stops the run (#14).
+            print(f"Pipeline: {pp.n_stages} stages x dp=1, {pp.schedule} "
+                  f"over {pp.n_microbatches} microbatches", flush=True)
         if args.mode == "train":
             result = trainer.fit(train_iter, test_iter,
                                  profile_dir=args.profile_dir or None)

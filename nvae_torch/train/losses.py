@@ -83,9 +83,14 @@ def recon_loss(logits: torch.Tensor, x: torch.Tensor,
 def bn_gamma_penalty(model: nn.Module, sr_lambda: float) -> torch.Tensor:
     """``sr_lambda * sum max|gamma|`` over the BatchNorm scales of the
     encoder and decoder towers only (not preprocess, postprocess), the scope
-    of ``losses.py:99-113``."""
+    of ``losses.py:99-113``.  ``model`` is the NVAE or a pipeline stage's
+    modules (``parallel/pipeline.py``), which may hold neither tower: the
+    penalty is then 0.0."""
     total = 0.0
-    for tower in (model.encoder, model.decoder):
+    for name in ("encoder", "decoder"):
+        tower = getattr(model, name, None)
+        if tower is None:
+            continue
         for m in tower.modules():
             if isinstance(m, BatchNorm):
                 total = total + m.weight.abs().max()

@@ -39,9 +39,18 @@ whole gathers them on every rank, then rank 0 alone writes: the held-out
 eval and the image hooks open ``parallel.mesh.gathered_params`` on every
 rank, and a checkpoint's snapshot gathers on every rank
 (``train/checkpoint.py``); the EMA swap copies block into block.  Without a
-mesh ``"fsdp"`` is the replicated layout, as in JAX.  The pipeline and the
-tensor-parallel layout wait for ROADMAP.md Queue 1 #9c and #9d: their
-settings raise.
+mesh ``"fsdp"`` is the replicated layout, as in JAX.
+
+``pipeline_stages`` S > 1 trains through ``parallel.pipeline.PipelineTrainer``
+(GPipe or 1F1B over ``pipeline_microbatches`` microbatches), as JAX's trainer
+does: the stages live on the first S cards (on the CPU, S times the CPU),
+each step runs the pipeline, and once an epoch the stages are merged into
+``state`` (whose model is then the trainer's ``model``) before the image
+hooks, the held-out evaluation, the checkpoint and early stopping.  A
+checkpoint is the whole model's, and resuming splits it back into the stages
+with the optimizer state.  The pipeline excludes a data mesh and
+``scan_epochs``; data parallelism inside a stage waits for ROADMAP.md
+Queue 1 #14, and the tensor-parallel layout for #9d: their settings raise.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
 from nvae_torch.parallel import is_primary, shard_state, shard_state_fsdp
 from nvae_torch.parallel.mesh import gathered_params
+from nvae_torch.parallel.pipeline import PipelineTrainer
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train.epoch_runner import (
     make_epoch_runner,
@@ -90,16 +100,16 @@ class TrainResult:
     interrupted: bool = False
 
 
-def _check_supported(tc: TrainConfig, param_sharding: str) -> None:
-    waiting = []
-    if tc.pipeline_stages > 1:
-        waiting.append("pipeline_stages > 1 (the pipeline, ROADMAP.md "
-                       "Queue 1 #9c)")
+def _check_supported(tc: TrainConfig, param_sharding: str, mesh) -> None:
     if tc.model_parallel > 1:
-        waiting.append("model_parallel > 1 (the tensor-parallel layout, "
-                       "ROADMAP.md Queue 1 #9d)")
-    if waiting:
-        raise NotImplementedError(f"not ported yet: {', '.join(waiting)}")
+        raise NotImplementedError(
+            "not ported yet: model_parallel > 1 (the tensor-parallel "
+            "layout, ROADMAP.md Queue 1 #9d)")
+    if tc.pipeline_stages > 1 and mesh is not None:
+        raise ValueError(
+            "pipeline_stages>1 does its own placement; pass mesh=None")
+    if tc.pipeline_stages > 1 and tc.scan_epochs:
+        raise ValueError("pipeline_stages>1 excludes scan_epochs")
     if param_sharding not in ("replicated", "fsdp"):
         raise ValueError(f"param_sharding must be 'replicated' or 'fsdp', "
                          f"got {param_sharding!r}")
@@ -127,7 +137,7 @@ class Trainer:
         mesh=None,
         param_sharding: str = "replicated",
     ):
-        _check_supported(train_cfg, param_sharding)
+        _check_supported(train_cfg, param_sharding, mesh)
         if train_cfg.scan_epochs:
             refuse_grad_accum(train_cfg)
         self.model_cfg = model_cfg
@@ -147,20 +157,45 @@ class Trainer:
         elif mesh is not None:
             self.state = shard_state(self.state, mesh)
         self.device = self.model.decoder.h.device
+        self.pipeline = None
+        if train_cfg.pipeline_stages > 1:
+            self.pipeline = self._build_pipeline()
+            # The stages own the training state; the merged one holds the
+            # model that the hooks, evaluation and checkpoints read.
+            self.state = self.pipeline.merged_state()
+            self.model = self.state.model
         self.step_fn = make_train_step(
             self.model, self.tx, train_cfg, self.total_steps, steps_per_epoch,
             mesh=mesh,
-        )
+        ) if self.pipeline is None else None
         self._eval_fn = None
         self._epoch_runner = None  # built lazily for the scan-epochs path
         self._staged_data = None
         self._interrupted = False
 
+    def _build_pipeline(self) -> PipelineTrainer:
+        """The pipeline over the first ``pipeline_stages`` cards (on the
+        CPU, the CPU for every stage), from this trainer's state, with
+        ``data_parallel`` (default: the cards over the stages) ranks a
+        stage: more than one raises (ROADMAP.md Queue 1 #14)."""
+        tc = self.train_cfg
+        n = tc.pipeline_stages
+        cpu = self.device.type == "cpu"
+        count = 1 if cpu else torch.cuda.device_count()
+        return PipelineTrainer(
+            self.model, tc, self.total_steps, self.steps_per_epoch,
+            n_stages=n, n_microbatches=tc.pipeline_microbatches,
+            devices=[self.device] * n if cpu else None,
+            dp=tc.data_parallel or max(count // n, 1), state=self.state)
+
     # ---- EMA --------------------------------------------------------------
 
     def ema_params(self):
-        """The EMA parameters from the optimizer state, or None when
-        training ran without ``ema_decay``."""
+        """The EMA parameters from the optimizer state (the pipeline's
+        stages' under ``pipeline_stages``), or None when training ran
+        without ``ema_decay``."""
+        if self.pipeline is not None:
+            return self.pipeline.ema_params()
         return find_ema_params(self.state.opt_state)
 
     def swap_in_ema(self) -> None:
@@ -278,10 +313,16 @@ class Trainer:
         if step is None:
             return 0
         try:
-            self.state = ckpt.restore_checkpoint(self.ckpt_dir, self.state,
+            # The pipeline's merged state has the whole model's layout,
+            # which every checkpoint has.
+            template = (self.state if self.pipeline is None
+                        else self.pipeline.merged_state())
+            self.state = ckpt.restore_checkpoint(self.ckpt_dir, template,
                                                  step)
         except FileNotFoundError:
             return 0
+        if self.pipeline is not None:
+            self.pipeline.load_state(self.state, restore_opt=True)
         return int(step) // self.steps_per_epoch
 
     def _any_rank(self, flag: bool) -> bool:
@@ -350,12 +391,20 @@ class Trainer:
                     sums: Dict[str, torch.Tensor] = {}
                     n_batches = 0
                     for batch in train_iter.epoch(epoch):
-                        self.state, metrics = self.step_fn(self.state, batch)
+                        if self.pipeline is not None:
+                            metrics = self.pipeline.step(batch)
+                        else:
+                            self.state, metrics = self.step_fn(self.state,
+                                                               batch)
                         n_batches += 1
                         _accumulate(sums, metrics)
                         if self._interrupted and self.mesh is None:
                             break
                     means = metric_means(sums, n_batches)  # one fetch
+                    if self.pipeline is not None:
+                        # The hooks, checkpoints and early stopping below
+                        # read the merged state.
+                        self.state = self.pipeline.merged_state()
                 if profiler is not None:
                     profiler.stop()
                     os.makedirs(profile_dir, exist_ok=True)

@@ -453,10 +453,11 @@ def test_every_preset_builds_and_equals_jax_config(name):
     (["--mode", "test", "--data_parallel", "2"], "torchrun --nproc_per_node 2"),
     (["--mode", "serve", "--data_parallel", "2"],
      "torchrun --nproc_per_node 2"),
-    # --fsdp trains (tests/test_torch_parallel.py); beside --pp_stages it
-    # stops naming the pipeline, and with JAX's refusal of the pair.
-    (["--fsdp", "--pp_stages", "2"], "parallel tiers"),
-    (["--pp_stages", "2"], "parallel tiers"),
+    # --fsdp trains (tests/test_torch_parallel.py), and so does
+    # --pp_stages (tests/test_torch_pipeline.py); the pair stops with JAX's
+    # refusal, and the pipeline's data-parallel stages wait for #14.
+    (["--fsdp", "--pp_stages", "2"], "excludes --fsdp/--scan_epochs"),
+    (["--pp_stages", "2", "--data_parallel", "2"], "Queue 1 #14"),
     (["--data_parallel", "2"], "torchrun --nproc_per_node 2"),
 ])
 def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
@@ -490,14 +491,21 @@ def test_cli_scan_epochs_trains_and_resumes_on_the_cpu(tmp_path, capsys,
 @pytest.mark.parametrize("extra", [
     ["--pp_microbatches", "2"], ["--pp_schedule", "gpipe"],
 ])
-def test_flags_of_unported_paths_are_unknown(tmp_path, capsys, extra):
-    """The JAX CLI's pipeline-schedule flags are not declared: argparse
-    stops the run on them.  (Its metric-suite flags are declared since
-    ``--mode test`` runs: tests/test_torch_evaluate.py.)"""
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--mode", "train", *_cli_argv(tmp_path), *extra])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_flags_of_unported_paths_are_unknown(tmp_path, monkeypatch, extra):
+    """The JAX CLI's pipeline-schedule flags, which the port declares now
+    that the pipeline runs, parse into the same ``TrainConfig`` as the JAX
+    CLI builds from the same command line."""
+    argv = ["--mode", "train", "--dataset", "synthetic", "--debug", "--cpu",
+            "--batch_size", "8", *TINY_ARCH, "--pp_stages", "2",
+            "--model_save_dir", str(tmp_path / "m"),
+            "--tensorboard_log_dir", str(tmp_path / "l"), *extra]
+    port = _configs_seen_by_cli("nvae_torch", argv, monkeypatch, False)
+    ref = _configs_seen_by_cli("nvae_tpu", argv, monkeypatch, False)
+    assert port == ref
+    train = port["train"]
+    assert train["pipeline_stages"] == 2
+    assert (train["pipeline_microbatches"], train["pipeline_schedule"]) == (
+        (2, "1f1b") if "--pp_microbatches" in extra else (0, "gpipe"))
 
 
 def _serve_captured(tmp_path, monkeypatch, *extra):
