@@ -66,7 +66,9 @@ each raising on failure (nothing is caught):
    in float32 and in float64, with injected noise (loss, gradients,
    BatchNorm running statistics), and in the depthwise configuration the
    bf16 step on the card and on the CPU (the plain versions), the card's
-   gradient no further from float64 than 1.5 times the CPU's;
+   gradient no further from float64 than 1.5 times the CPU's (the CPU's
+   steps come from a helper process, ``chip_smoke.py --host-refs DIR``,
+   started here: held once phase 5b is done);
    then the device-resident epoch (a main path, ``--scan_epochs``): in
    the default and depthwise configurations in fp32 and the depthwise one
    in bf16, 60,000 synthetic uint8 rows staged on the card and 2 epochs of
@@ -82,8 +84,9 @@ each raising on failure (nothing is caught):
 7. the training entry point (a main path): ``python -m nvae_torch.cli`` as
    subprocesses at full width (``--preset mnist_step_sn --use_pallas``,
    batch 144, synthetic data, ``--debug``): train 2 epochs with eval, image
-   hooks and a checkpoint per epoch, resume for a third, then ``--mode
-   sample``; exit codes, metrics, image directories, checkpoints, 144 PNGs
+   hooks and a checkpoint per epoch, then resume for a third and at the
+   same time ``--mode sample`` over a copy of the second epoch's
+   checkpoint; exit codes, metrics, image directories, checkpoints, 144 PNGs
    per temperature, and exact launch counts (14 of #2, #3 and #4 per step,
    14 of #2 per eval, sampling and reconstruction forward); then, in
    process, the state a Trainer restores equals the step-8 checkpoint;
@@ -99,8 +102,10 @@ each raising on failure (nothing is caught):
    in its own directory, so their seconds are no measurement;
 8. IWAE NLL on that model: K=10 over 2 test batches of 144 (seconds per
    batch), and one B=4 NLL card against CPU (rtol 1e-4), each side also
-   held to a float64 CPU run;
-   then ``--mode serve`` (a main path) as a subprocess over the CLI's
+   held to a float64 CPU run, then the serving artifact (below), in this
+   process while ``--mode serve`` runs (so the seconds of both are no
+   measurement);
+   ``--mode serve`` (a main path) as a subprocess over the CLI's
    checkpoint, int8 weights, bf16 compute, batches 144 and 576: concurrent
    npy and PNG requests, /healthz, /stats answering while a dispatch is in
    flight, /reload to step 8 and to the latest, the load of
@@ -115,20 +120,23 @@ each raising on failure (nothing is caught):
    -m nvae_torch.cli --mode test`` as a subprocess at the default
    temperatures and backbones (VGG16 at 224, InceptionV3 at 299,
    random-init), reduced to ``--debug`` (4 test batches of 144), 1
-   attempt and 2,016 FID samples; then ``--eval_parity`` (the
+   attempt and 1,008 FID samples; then ``--eval_parity`` (the
    nearest-299 path) at T=1.0, 1 attempt and 1,440 FID samples: exit
    codes, evaluation.json (its keys, finite values, P&R in [0, 1] or [0,
    2], random-init provenance), each stage's seconds, and exact launches
    of fp32 #2 (per sample call, NLL posterior pass and ``sample_with_z``
    postprocess),
-   none of any other kernel; in process, each backbone card vs CPU
+   none of any other kernel; then, in process, each backbone card vs
+   CPU
    (relative L2 1e-4) and its ms per image, P&R at 10,000 x 10,000 x 512
    full against streamed at 2,500 (radii, no membership flip, ms) and card
    vs CPU at 2,000, the fp32 device FID against the fp64 host FID on
    10,000 x 2,048 features (and with TF32 allowed, a control that must
    fail that limit); ``python -m nvae_torch.eval.fid --save_stats`` over
    phase 7's t_0.7 PNGs and scoring them against 144 PNGs of noise
-   (``random_conv``), the printed FID against ``scipy.linalg.sqrtm``'s;
+   (``random_conv``), the printed FID against ``scipy.linalg.sqrtm``'s
+   (the two ``--mode test`` runs and the FID command line at once: their
+   seconds are no measurement);
 9. timing: images per second at batch 144 by direct calls and through the
    server, and each kernel's time at each path shape beside its bound (and
    the bound's share of the kernel's time), its plain version and the
@@ -142,9 +150,11 @@ each raising on failure (nothing is caught):
 10. profile: ``torch.profiler`` over one ``sample`` call (fp32, and bf16
     weights with bf16 compute), one training step per configuration
     (fp32, and the depthwise one in bf16) and one graph replay of each
-    scan configuration's step: device busy time against wall time, and
-    the costliest kernels; the replay's ring kernels by name must number
-    what its capture counted;
+    scan configuration's step, analyzed by the package's
+    ``nvae_torch.tools.profile_step``: device busy time against wall time,
+    time by kernel category, the step's parts, the longest idle gaps and
+    the costliest kernels; the replay's depthwise kernels by name must
+    number what its capture counted;
 11. the RGB presets (main paths; run after 10, on a card freed of the
     earlier phases' models and graphs):
     ``cifar10_dml`` (batch 128) and ``celeba64`` (batch 64, rematerialized
@@ -160,24 +170,35 @@ each raising on failure (nothing is caught):
     again), one more step profiled, and a sampler at batch 144 (launches,
     ms a call); for cifar10_dml a B=4 step and B=4 head output and images
     card vs CPU in fp32 and float64 with injected noise, and the B=4 IWAE
-    NLL card vs CPU; for celeba64 2 steps without remat (peak memory) and
-    one step with remat against one without at batch 4 under deterministic
-    cuDNN (loss, gradients, BatchNorm statistics within 1e-6); each
-    preset's scan path (2 epochs of 4 steps, the second captured, replays
-    counted, one replay profiled); then the CLI as subprocesses with exact
-    counts, two at a time: cifar10_dml trains 1 epoch, samples (RGB PNGs)
-    and scores (``--mode test --debug --eval_attempts 1``, 2,016 FID
-    samples as phase 8b) while cifar10_dml trains 1 epoch on the scan path
-    and celeba64 1 epoch per step and 1 on the scan path (a CUDA graph of
-    the remat'd step); one request through a ``BatchingSampler`` over the
+    NLL card vs CPU (the CPU's side from phase 5's helper, which starts
+    on it at phase 9; the B=4 steps held after the preset's scan forms);
+    for cifar10_dml in bf16 (compute and BatchNorm apply) the B=4 step card
+    vs CPU from 30 Adamax steps under deterministic cuDNN (loss within
+    5e-3, gradient and BatchNorm statistics no further from float64 than
+    1.5 times the CPU's) and the B=4 IWAE NLL card vs CPU, 2 training steps
+    at batch 128 with exact launches of the bf16 kernels and none of fp32,
+    and one bf16 sample call at batch 144; for
+    celeba64 one step with remat against one without at batch 4 under
+    deterministic cuDNN (loss, gradients, BatchNorm statistics within
+    1e-6); each
+    preset's scan path (2 epochs of 3 steps, the second captured, replays
+    counted, one replay profiled), and its depthwise form's: 2 steps
+    eagerly and as replays under deterministic cuDNN, bit for bit, with
+    exact launches (the postprocess's too); then the
+    CLI as subprocesses with exact
+    counts, three at a time: cifar10_dml trains 1 epoch and scores
+    (``--mode test --debug --eval_attempts 1``, 1,008 FID samples as phase
+    8b), sampling (RGB PNGs) beside the scoring, while cifar10_dml and
+    celeba64 train 1 epoch each on the scan path (a CUDA graph of the
+    remat'd step); one request through a ``BatchingSampler`` over the
     cifar10_dml checkpoint; and #2-#4 timed
     at each RGB shape at the preset's batch beside their bounds, plain
     versions and library calls (the fp32 records' ``rgb_shapes``);
 12. data parallelism (main paths; states its seconds): 12a, two ranks on
     the one card over gloo (NCCL refuses two ranks on one device), spawned
     as ``chip_smoke.py --dp-rank DIR``: from a state warmed by 30 Adamax
-    steps, 3 full-width default fp32 SGD steps (lr 1e-6) at global batch
-    144 (72 rows a rank) under deterministic cuDNN against 3
+    steps, 2 full-width default fp32 SGD steps (lr 1e-6) at global batch
+    144 (72 rows a rank) under deterministic cuDNN against 2
     single-process steps on the same weights, batches and noise: every
     step's loss and grad_norm at JAX's lockstep limits (rtol 1e-5 / 1e-4)
     and every parameter within 1e-5; the single run with each batch's
@@ -186,7 +207,8 @@ each raising on failure (nothing is caught):
     them; both ranks' states bit for bit equal, exactly 14 launches of each
     of #2, #3 and #4 a step on each rank, ms per step and the gloo
     all-reduce of the 160 MB gradient;
-    12b, NCCL at world size 1 in this process: the scan runner with the
+    12b, NCCL at world size 1 in this process while 12a's ranks step (its
+    ms are no measurement): the scan runner with the
     mesh (its all-reduces captured in the step's graph) against the runner
     without, phase 5b's epochs and steps under deterministic cuDNN: states
     and means bit for bit equal, replays and replayed launches equal, ms
@@ -202,7 +224,7 @@ each raising on failure (nothing is caught):
     two ranks sharing a card nor NCCL over one rank measures scaling.
     12d, FSDP (``--fsdp``), beside them: 12d-1 on 12a's ranks, the state
     re-sharded at min_size 64 (every conv kernel a shard, the depthwise
-    taps too): 3 SGD steps with the spectral projection from 12a's warm
+    taps too): 2 SGD steps with the spectral projection from 12a's warm
     start, replicated and FSDP, against the single process's, at 12a's
     limits, with the halves-swapped control within them and the planted
     fault (sigma from each rank's own block of a kernel) outside them,
@@ -212,9 +234,9 @@ each raising on failure (nothing is caught):
     the FSDP state (its all-gathers and reduce-scatters captured) bit for
     bit equal to the runner without a mesh; 12d-3 at the same time as 12c:
     ``torchrun ... --data_parallel 2 --fsdp`` trains an epoch and resumes
-    for a second, then a world-1 ``--mode sample`` from its checkpoint
-    writes PNGs bit for bit equal to this process's from the same
-    checkpoint restored in the replicated layout;
+    for a second, beside the resume a world-1 ``--mode sample`` from the
+    first epoch's checkpoint writes PNGs bit for bit equal to this
+    process's from the same checkpoint restored in the replicated layout;
 13. the pipeline (a main path; states its seconds): ``PipelineTrainer``
     at full width (the default MNIST config, ``use_pallas_kernels``, batch
     144), every stage on this one card (``devices=[cuda:0] * S``), from
@@ -249,6 +271,7 @@ one call to compare two versions on one card.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import math
@@ -385,7 +408,7 @@ SERVE_SECONDS = 5.0
 SERVER_FLAGS = []  # further flags of the artifact server
 # The metric suite (phase 8b): --mode test over the CLI phase's checkpoint,
 # reduced to --debug (4 test batches of BATCH), EVAL_ATTEMPTS attempts and
-# EVAL_FID_SAMPLES (14 sample calls a temperature at 144, 15 at phase
+# EVAL_FID_SAMPLES (7 sample calls a temperature at 144 and at phase
 # 11's 128; the default is 10,000)
 # at the default temperatures and backbones; then the
 # reference's protocol (--eval_parity) at one temperature, one attempt and
@@ -400,7 +423,7 @@ SERVER_FLAGS = []  # further flags of the artifact server
 # host, the same path with TF32 allowed 2.3e-4; each run repeats that
 # control and fails unless it lands outside the limit.
 EVAL_ATTEMPTS = 1  # one: the whole run must end within 1200 s
-EVAL_FID_SAMPLES = 2016
+EVAL_FID_SAMPLES = 1008  # cut from 2,016: the whole run must end in 1200 s
 PARITY_FID_SAMPLES = 1440
 EVAL_TEMPERATURES = 3
 FEATURE_IMAGES = 4
@@ -453,7 +476,34 @@ RGB_CARD_VS_CPU_ROUNDING = 2.0
 REMAT_BATCH = 4
 REMAT_RTOL = 1e-6
 RGB_SCAN_STEPS = 3
+# The depthwise forms on the scan path: RGB_DW_SCAN_STEPS steps eagerly and
+# as graph replays (the first step eager, the second captured) under
+# deterministic cuDNN, bit for bit.
+RGB_DW_SCAN_STEPS = 2
+# The bf16 form of cifar10_dml (compute and BatchNorm apply bf16): the B=4
+# step card vs CPU at RGB_CPU_GROUPS from DML_WARM_STEPS Adamax steps at
+# the preset's batch holds the loss within BF16_LOSS_RTOL, the gradient
+# and the BatchNorm statistics no further from float64 than
+# CARD_VS_CPU_ROUNDING times the CPU's (``check_bf16_dml_step``); the B=4
+# IWAE NLL card vs CPU in bf16 within BF16_NLL_RTOL, or the card no
+# further from float64 than RGB_CARD_VS_CPU_ROUNDING times the CPU.  Both
+# relative limits are the CPU tests' bf16 loss limit against JAX
+# (``tests/test_torch_bf16_train.py``'s LOSS_RTOL).  From the seeded
+# weights the bf16 gradient is chaotic: the CPU's lies 1.0 (relative L2)
+# from float64 and the card's 2.76, 3.3 apart (the median leaf as far);
+# after 10, 30 and 60 warm-up steps the card's lies 0.0218, 0.0209 and
+# 0.0148 from float64 and the CPU's 0.0229, 0.0223 and 0.0144
+# (``chip_dml_probe.py`` on an NVIDIA H100 80GB HBM3 at 700 W).  The warm
+# start runs under deterministic cuDNN, the same state every run: from it
+# the card's gradient lies 0.01285 and the CPU's 0.01279 from float64, the
+# largest BatchNorm error 0.0172 and 0.0179 (``chip_dml_probe.py
+# --warm-steps 30 30``, same card); with cuDNN's defaults the latter ratio
+# moved between 0.89 and 1.74 from run to run.
+DML_WARM_STEPS = 30
+BF16_LOSS_RTOL = 5e-3
+BF16_NLL_RTOL = 5e-3
 RGB_BF16_BATCH = 4  # bf16 #2-#4 against their plain versions
+BF16 = dict(compute_dtype="bfloat16", bn_apply_dtype="bfloat16")
 RGB_TIMING_ITERS = 20
 
 
@@ -952,11 +1002,12 @@ def phase_train(cfg, device, batch=BATCH, steps=TRAIN_STEPS) -> dict:
     }
 
 
-def one_step_grads(cfg, device, batch, eps, float64=False):
-    """One training step at batch 4 from seed-0 weights with injected noise;
-    the optimizer records the gradients and leaves the parameters alone.
-    Returns (metrics, gradients, BatchNorm running statistics), on the CPU
-    in float64.  ``float64`` runs a float64 copy of the model (CPU only)."""
+def one_step_grads(cfg, device, batch, eps, float64=False, weights=None):
+    """One training step at batch 4 from seed-0 weights (or the state dict
+    ``weights``) with injected noise; the optimizer records the gradients
+    and leaves the parameters alone.  Returns (metrics, gradients,
+    BatchNorm running statistics), on the CPU in float64.  ``float64`` runs
+    a float64 copy of the model (CPU only)."""
     from nvae_torch.config import TrainConfig
     from nvae_torch.models.nvae import NVAE
     from nvae_torch.train import optim
@@ -974,6 +1025,8 @@ def one_step_grads(cfg, device, batch, eps, float64=False):
     # The same seed gives the same weights on every device: they are drawn
     # on the CPU.
     model = NVAE(cfg, device=device, seed=0)
+    if weights is not None:
+        model.load_state_dict(weights)
     if float64:
         model.double()
     model.train()
@@ -990,8 +1043,9 @@ def grad_errors(got, want) -> dict:
     gradient (relative L2, over the parameters whose gradient in ``want``
     is not 0 at 1e-12 of the whole: the biases that feed a training-mode
     BatchNorm have a true gradient of 0, and hold rounding noise alone) and
-    the BatchNorm running statistics (|error| over max(1, |value|)); and
-    the median parameter's gradient (relative L2), the typical leaf."""
+    the BatchNorm running statistics (|error| over max(1, |value|), and
+    all of them together in relative L2); and the median parameter's
+    gradient (relative L2), the typical leaf."""
     (m_a, g_a, s_a), (m_b, g_b, s_b) = got, want
     norm = math.sqrt(sum(float((g ** 2).sum()) for g in g_b.values()))
     num = math.sqrt(sum(float(((g_a[k] - g_b[k]) ** 2).sum()) for k in g_b))
@@ -1000,12 +1054,14 @@ def grad_errors(got, want) -> dict:
     leaf = leaves[-1]
     bn = max(float(((s_a[k] - s_b[k]).abs() / s_b[k].abs().clamp(min=1.0))
                    .max()) for k in s_b)
+    bn_l2 = math.sqrt(sum(float(((s_a[k] - s_b[k]) ** 2).sum()) for k in s_b)
+                      / sum(float((s_b[k] ** 2).sum()) for k in s_b))
     return {
         "loss_rel": abs(m_a["loss"] - m_b["loss"]) / abs(m_b["loss"]),
         "grad_rel_l2": num / norm,
         "worst_leaf_rel_l2": leaf[0], "worst_leaf": leaf[1],
         "median_leaf_rel_l2": leaves[len(leaves) // 2][0],
-        "bn_stats_err": bn,
+        "bn_stats_err": bn, "bn_stats_rel_l2": bn_l2,
     }
 
 
@@ -1045,40 +1101,196 @@ def checked_kernel_errors(device, shapes, fwd_batches, bwd_batches) -> dict:
     return errs
 
 
-def phase_train_vs_cpu(cfg, device, bf16_cfg=None) -> dict:
-    """One full-width training step at batch 4 on the card, on the CPU in
-    float32, and on the CPU in float64 (the reference that tells rounding
-    from fault), from the same weights and injected noise.  With
-    ``bf16_cfg`` (``cfg`` in bf16 compute) also that step on the card and
-    on the CPU (the kernels' plain versions), each held to the same float64
-    step."""
+def train_vs_cpu_inputs(cfg) -> tuple:
+    """The B=4 step's batch and injected noise (``phase_train_vs_cpu``)."""
     from nvae_torch.models.nvae import posterior_noise_shapes
 
     batch = train_batch(4, 3, cfg)
     rng = np.random.RandomState(4)
     eps = [[rng.randn(*s).astype(np.float32)
             for s in posterior_noise_shapes(cfg, 4)]]
+    return batch, eps
+
+
+def cpu_step_refs(cfg, bf16_cfg=None, start=None) -> dict:
+    """The CPU side of ``phase_train_vs_cpu``: the B=4 step on the CPU in
+    float32 (``cpu``) and in float64 (``f64``) from seed-0 weights; with
+    ``bf16_cfg`` also that step on the CPU (``cpu16``, the kernels' plain
+    versions) and, from the state dict ``start`` if given (or from the file
+    it names, once it is there), the float64 step from there
+    (``f64_start``)."""
+    batch, eps = train_vs_cpu_inputs(cfg)
+    out = {"cpu": one_step_grads(cfg, "cpu", batch, eps),
+           "f64": one_step_grads(cfg, "cpu", batch, eps, float64=True)}
+    if bf16_cfg is None:
+        return out
+    if isinstance(start, str):
+        start = HostRefs.wait_load(start)
+    if start is not None:
+        out["f64_start"] = one_step_grads(cfg, "cpu", batch, eps,
+                                          float64=True, weights=start)
+    t0 = time.monotonic()
+    out["cpu16"] = one_step_grads(bf16_cfg, "cpu", batch, eps,
+                                  weights=start)
+    out["cpu16_seconds"] = time.monotonic() - t0
+    return out
+
+
+def train_vs_cpu_card(cfg, device, bf16_cfg=None, bf16_start=None) -> tuple:
+    """The card's side of ``phase_train_vs_cpu``: the fp32 step from seed-0
+    weights and, with ``bf16_cfg``, the bf16 step (from ``bf16_start`` if
+    given) with its exact launches."""
+    batch, eps = train_vs_cpu_inputs(cfg)
     card = one_step_grads(cfg, device, batch, eps)
-    cpu = one_step_grads(cfg, "cpu", batch, eps)
-    ref = one_step_grads(cfg, "cpu", batch, eps, float64=True)
-    out = {"card_vs_cpu": grad_errors(card, cpu),
-           "card_vs_f64": grad_errors(card, ref),
-           "cpu_vs_f64": grad_errors(cpu, ref)}
+    card16 = None
     if bf16_cfg is not None:
         reset_counts()
-        card16 = one_step_grads(bf16_cfg, device, batch, eps)
+        card16 = one_step_grads(bf16_cfg, device, batch, eps,
+                                weights=bf16_start)
         counts = read_counts()
         want = expected_launches(bf16_cfg)
         for k in KERNEL_NAMES:
             if counts[k] != (want if k in TRAIN_KERNELS["bfloat16"] else 0):
                 raise AssertionError(f"bf16 B=4 step: launches {counts}")
-        t0 = time.monotonic()
-        cpu16 = one_step_grads(bf16_cfg, "cpu", batch, eps)
-        out["bf16_cpu_seconds"] = time.monotonic() - t0
+    return card, card16
+
+
+def train_vs_cpu_record(card, card16, host: dict) -> dict:
+    """``phase_train_vs_cpu``'s distances from the card's steps and the
+    CPU's (``cpu_step_refs``' record)."""
+    cpu, ref = host["cpu"], host["f64"]
+    out = {"card_vs_cpu": grad_errors(card, cpu),
+           "card_vs_f64": grad_errors(card, ref),
+           "cpu_vs_f64": grad_errors(cpu, ref)}
+    if card16 is not None:
+        ref = host.get("f64_start", ref)
+        cpu16 = host["cpu16"]
+        out["bf16_cpu_seconds"] = host["cpu16_seconds"]
         out.update({"bf16_card_vs_cpu": grad_errors(card16, cpu16),
                     "bf16_card_vs_f64": grad_errors(card16, ref),
                     "bf16_cpu_vs_f64": grad_errors(cpu16, ref)})
     return out
+
+
+def phase_train_vs_cpu(cfg, device, refs, bf16_cfg=None,
+                       bf16_start=None) -> dict:
+    """One full-width training step at batch 4 on the card, on the CPU in
+    float32, and on the CPU in float64 (the reference that tells rounding
+    from fault), from the same weights and injected noise.  With
+    ``bf16_cfg`` (``cfg`` in bf16 compute) also that step on the card and
+    on the CPU (the kernels' plain versions), each held to the same float64
+    step; from the state dict ``bf16_start`` if given (and then the float64
+    step from there too).  ``refs()`` returns the CPU side
+    (``cpu_step_refs``' record, from the helper process)."""
+    card, card16 = train_vs_cpu_card(cfg, device, bf16_cfg, bf16_start)
+    return train_vs_cpu_record(card, card16, refs())
+
+
+class HostRefs:
+    """The CPU references of the card-vs-CPU checks, computed by a helper
+    process (``chip_smoke.py --host-refs DIR``) while this one goes on with
+    the card: seconds of float32 and float64 work on the host each, off
+    the run's critical path.  ``add`` names a job (a function of this
+    module and its keyword arguments), ``start`` starts the helper, which
+    runs the jobs in order and writes each result to ``DIR/<name>.pt``;
+    ``put`` hands it an input made later (a job waits for its file);
+    ``ref(name)`` returns a function that waits for a result."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="nvae_chip_smoke_host_")
+        self.jobs, self.proc, self.log = [], None, None
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.dir, name.replace(" ", "_") + ".pt")
+
+    def add(self, name: str, fn, **kwargs) -> None:
+        self.jobs.append((name, fn.__name__, kwargs))
+
+    def gate(self, name: str) -> None:
+        """The later jobs wait until ``open_gate(name)``."""
+        self.jobs.append((name, "host_gate",
+                          {"path": self.path(f"{name} open")}))
+
+    def open_gate(self, name: str) -> None:
+        self.put(f"{name} open", True)
+
+    def start(self) -> None:
+        torch.save(self.jobs, os.path.join(self.dir, "jobs.pt"))
+        self.log = open(os.path.join(self.dir, "host_refs.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--host-refs", self.dir], cwd=self.dir, env=port_env(),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def put(self, name: str, obj) -> None:
+        path = self.path(name)
+        torch.save(obj, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    @staticmethod
+    def wait_load(path: str, proc=None, timeout: float = 1200.0):
+        t0 = time.monotonic()
+        while not os.path.exists(path):
+            if proc is not None and proc.poll() is not None:
+                raise AssertionError(f"host references: the helper exited "
+                                     f"{proc.returncode} before {path}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"host references: no {path} in "
+                                     f"{timeout} s")
+            time.sleep(0.1)
+        return torch.load(path, weights_only=False)
+
+    def ref(self, name: str):
+        def wait():
+            t0 = time.monotonic()
+            try:
+                out = self.wait_load(self.path(name), self.proc)
+            except AssertionError:
+                self.log.flush()
+                with open(self.log.name) as f:
+                    raise AssertionError(f"host references: {name}:\n"
+                                         f"{f.read()[-4000:]}")
+            log(f"host reference {name}: waited "
+                f"{time.monotonic() - t0:.1f} s")
+            return out
+        return wait
+
+    def close(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.log is not None:
+            # To standard error: the run's result lines end its output.
+            self.log.close()
+            with open(self.log.name) as f:
+                for line in f.read().splitlines()[-40:]:
+                    print(f"[chip_smoke] host references: {line}",
+                          file=sys.stderr, flush=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def host_gate(path: str) -> bool:
+    """A helper's job that waits for ``HostRefs.open``."""
+    return HostRefs.wait_load(path)
+
+
+def host_refs(workdir: str) -> int:
+    """The helper of ``HostRefs`` (``chip_smoke.py --host-refs DIR``): runs
+    DIR's jobs in order on the CPU, each result to its file, at a lower
+    priority than the run's own processes (``os.nice``: the host's cores
+    drive the card first)."""
+    os.nice(10)
+    sys.path.insert(0, ROOT)
+    jobs = torch.load(os.path.join(workdir, "jobs.pt"), weights_only=False)
+    for name, fn, kwargs in jobs:
+        t0 = time.monotonic()
+        out = globals()[fn](**kwargs)
+        path = os.path.join(workdir, name.replace(" ", "_") + ".pt")
+        torch.save(out, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        print(f"{name}: {time.monotonic() - t0:.1f} s, done at "
+              f"{time.monotonic() - T_IMPORT:.1f} s", flush=True)
+    return 0
 
 
 # ---- phase 5b: the device-resident epoch (--scan_epochs) --------------------
@@ -1112,9 +1324,25 @@ def replayed_counts() -> dict:
     return {fn.__name__: fn.replayed for fn in dw.COUNTED}
 
 
+def scan_train_config(cfg, batch: int):
+    from nvae_torch.config import TrainConfig
+
+    return TrainConfig(batch_size=batch, step_based_warmup=True,
+                       binary=cfg.likelihood == "bernoulli")
+
+
+def scan_start(cfg, device, batch: int):
+    """The scan path's seed-0 ``(model, state, tx)`` (Adamax + spectral
+    projection)."""
+    from nvae_torch.train.state import create_train_state
+
+    return create_train_state(cfg, scan_train_config(cfg, batch),
+                              total_steps=1000, device=device, seed=0)
+
+
 def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
              epochs: int, batch: int = BATCH, mesh=None,
-             fsdp: bool = False) -> dict:
+             fsdp: bool = False, start=None) -> dict:
     """``epochs`` epochs of ``steps_per_epoch`` full-width steps at
     ``batch`` through the epoch runner (Adamax + spectral projection,
     seed-0 weights; with ``fsdp`` its state in the FSDP layout over
@@ -1122,17 +1350,14 @@ def scan_run(cfg, device, data, graph: bool, steps_per_epoch: int,
     just before and read just after.  Returns the counts, each epoch's means
     and seconds, ms per step of the last epoch, the run's peak memory
     (over what was allocated before it began: its model, state, graph and
-    activations), the final state on the host and the runner."""
-    from nvae_torch.config import TrainConfig
+    activations), the final state on the host and the runner.  ``start``
+    (``scan_start``'s ``(model, state, tx)``) replaces the seed-0 state."""
     from nvae_torch.train import checkpoint as ckpt
     from nvae_torch.train.epoch_runner import make_epoch_runner
-    from nvae_torch.train.state import create_train_state
 
     base = torch.cuda.memory_allocated(device)
-    tc = TrainConfig(batch_size=batch, step_based_warmup=True,
-                     binary=cfg.likelihood == "bernoulli")
-    model, state, tx = create_train_state(cfg, tc, total_steps=1000,
-                                          device=device, seed=0)
+    tc = scan_train_config(cfg, batch)
+    model, state, tx = start or scan_start(cfg, device, batch)
     if fsdp:
         from nvae_torch.parallel import shard_state_fsdp
 
@@ -1410,6 +1635,12 @@ def run_cli(label: str, argv, workdir: str) -> dict:
             "stdout": proc.stdout}
 
 
+# Held by a chain of ``run_concurrently`` around its work on the card in
+# this process where another chain may have such work at the same time:
+# ``nvae_torch.device.fp32_math`` sets and restores process-wide flags.
+IN_PROCESS = threading.Lock()
+
+
 def run_concurrently(*chains) -> list:
     """Each of ``chains`` (functions of no argument, whose work is the
     entry points' subprocesses) in a thread of its own, all at once;
@@ -1454,8 +1685,9 @@ def cli_args(workdir: str) -> list:
 
 def phase_cli(workdir: str) -> dict:
     """The training entry point at full width (the ``mnist_step_sn``
-    preset, batch 144, synthetic data, ``--debug``): train 2 epochs, resume
-    for a third, then ``--mode sample``, each a subprocess whose exit code,
+    preset, batch 144, synthetic data, ``--debug``): train 2 epochs, then
+    resume for a third and, at the same time, ``--mode sample`` over a copy
+    of the second epoch's checkpoint, each a subprocess whose exit code,
     artifacts and exact kernel launch counts are checked."""
     from nvae_torch.config import ModelConfig
     from nvae_torch.train import checkpoint as ckpt
@@ -1488,9 +1720,19 @@ def phase_cli(workdir: str) -> dict:
     if "Training done: best_loss=" not in train["stdout"]:
         raise AssertionError("cli train: no 'Training done' line")
 
-    resume = run_cli("resume", ["--mode", "train",
-                                "--epochs", str(CLI_EPOCHS + 1), *args],
-                     workdir)
+    # The sample reads a copy of these checkpoints while the resume
+    # writes the next one beside them.
+    copy = os.path.join(workdir, "sample_models")
+    shutil.copytree(models, copy)
+    resume, sample = run_concurrently(
+        lambda: run_cli("resume", ["--mode", "train",
+                                   "--epochs", str(CLI_EPOCHS + 1), *args],
+                        workdir),
+        lambda: run_cli("sample", ["--mode", "sample", "--n_samples",
+                                   str(BATCH), *args, "--model_save_dir",
+                                   copy, "--tensorboard_log_dir",
+                                   copy + "_logs"], workdir))
+    shutil.rmtree(copy, ignore_errors=True)
     check_cli_counts("resume", resume["counts"], per_fwd, CLI_BATCHES,
                      CLI_BATCHES + 2)
     new = read_jsonl(os.path.join(logs, "metrics.jsonl"))[len(lines):]
@@ -1499,9 +1741,6 @@ def phase_cli(workdir: str) -> dict:
             CLI_BATCHES, steps, steps + CLI_BATCHES]:
         raise AssertionError(f"cli resume: epochs {epochs}, checkpoints "
                              f"{ckpt.all_steps(models)}")
-
-    sample = run_cli("sample", ["--mode", "sample", "--n_samples", str(BATCH),
-                                *args], workdir)
     check_cli_counts("sample", sample["counts"], per_fwd, 0, 1)
     for t in SAMPLE_TEMPERATURES:
         d = os.path.join(workdir, "results", f"t_{t}")
@@ -1700,24 +1939,53 @@ def phase_nll(trainer, device) -> dict:
     return {"values": values, "seconds": seconds, "b4": errs}
 
 
-def nll_card_vs_cpu(label: str, model, x: torch.Tensor, device) -> dict:
-    """One B=4 IWAE NLL (K=3, JAX's crop 2) with injected noise on the
-    card, on the CPU in float32 and in float64, held to NLL_RTOL."""
-    from nvae_torch.eval.nll import make_nll_fn
-    from nvae_torch.models.nvae import NVAE, posterior_noise_shapes
+def nll_noise(cfg) -> list:
+    """The B=4 IWAE NLL's injected noise (K=3) of ``nll_card_vs_cpu``."""
+    from nvae_torch.models.nvae import posterior_noise_shapes
 
     rng = np.random.RandomState(6)
-    eps = [[rng.randn(*s).astype(np.float32)
-            for s in posterior_noise_shapes(model.cfg, 4)] for _ in range(3)]
-    card = float(make_nll_fn(model, 3)(x.to(device), eps=eps))
-    host = NVAE(model.cfg, device="cpu")
-    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return [[rng.randn(*s).astype(np.float32)
+             for s in posterior_noise_shapes(cfg, 4)] for _ in range(3)]
+
+
+def cpu_nll_refs(cfg, x: torch.Tensor, float64: bool = True,
+                 weights=None) -> tuple:
+    """The CPU side of ``nll_card_vs_cpu`` (``nll_bf16_card_vs_cpu``): the
+    B=4 IWAE NLL of ``cfg`` from seed-0 weights (or the state dict
+    ``weights``) on the CPU in float32 and, with ``float64``, in float64
+    (else None)."""
+    from nvae_torch.eval.nll import make_nll_fn
+    from nvae_torch.models.nvae import NVAE
+
+    eps = nll_noise(cfg)
+    host = NVAE(cfg, device="cpu", seed=0)
+    if weights is not None:
+        host.load_state_dict(weights)
     cpu = float(make_nll_fn(host, 3)(x, eps=eps))
+    if not float64:
+        return cpu, None
     host.double()
-    f64 = float(make_nll_fn(host, 3)(x.double(), eps=eps))
+    return cpu, float(make_nll_fn(host, 3)(x.double(), eps=eps))
+
+
+def nll_card_vs_cpu(label: str, model, x: torch.Tensor, device,
+                    refs=None) -> dict:
+    """One B=4 IWAE NLL (K=3, JAX's crop 2) with injected noise on the
+    card, on the CPU in float32 and in float64, held to NLL_RTOL.
+    ``refs()``, if given, returns the CPU's (``cpu_nll_refs``' record over
+    the model's weights, from the helper process)."""
+    from nvae_torch.eval.nll import make_nll_fn
+
+    card = float(make_nll_fn(model, 3)(x.to(device), eps=nll_noise(model.cfg)))
+    if refs is not None:
+        cpu, f64 = refs()
+    else:
+        cpu, f64 = cpu_nll_refs(model.cfg, x, weights={
+            k: v.cpu() for k, v in model.state_dict().items()})
     errs = nll_errors(card, cpu, f64)
     log(f"{label} B=4 card {card!r}, CPU fp32 {cpu!r}, CPU fp64 {f64!r}: "
         f"{errs}")
+    errs["f64"] = f64
     if not (errs["card_vs_f64"] <= NLL_RTOL and (
             errs["card_vs_cpu"] <= NLL_RTOL
             or errs["card_vs_f64"] <= CARD_VS_CPU_ROUNDING
@@ -2014,78 +2282,13 @@ def phase_tool_timing(device) -> list:
     return rows
 
 
-def profile_call(label: str, fn) -> dict:
-    """Where one warm call's time goes: ``torch.profiler`` over ``fn()``;
-    device busy time (sum of kernel times) against the call's wall time,
-    and the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # an operator: its kernels are listed themselves
-        if ev.key.startswith("train_step."):
-            continue  # a step part's span on the device, not a kernel
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    n_kernels = sum(r[1] for r in rows)
-    # The step's parts (its record_function ranges): time on the host's
-    # clock, and the span of their kernels on the device's.
-    parts: dict = {}
-    for ev in prof.events():
-        if ev.name.startswith("train_step."):
-            side = ("host_ms" if ev.device_type == torch.autograd.DeviceType.CPU
-                    else "device_span_ms")
-            part = parts.setdefault(ev.name, {"host_ms": 0.0,
-                                              "device_span_ms": 0.0})
-            part[side] += ev.time_range.elapsed_us() / 1e3
-    log(f"profile {label}: wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%), {n_kernels} "
-        "device kernels")
-    for name, part in sorted(parts.items()):
-        log(f"  {name}: host {part['host_ms']:.1f} ms, device span "
-            f"{part['device_span_ms']:.1f} ms")
-    for ms, count, key in rows[:10]:
-        log(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_kernels": n_kernels, "parts": parts, "top": rows[:10],
-            "rows": rows}
-
-
-def ring_launches(rows) -> dict:
-    """Launches of the depthwise kernels in a profile's rows, by wrapper
-    name: the row ring ``dw5x5_ring<kind, ...>`` (fp32) and the
-    sliding-row kernel ``dw5x5_bf16<kind, ...>`` (bf16), kind 0 forward,
-    1 dx, 2 dW/db (whose reduction kernel is not counted again)."""
-    names = {"0": "fused_swish_depthwise5x5",
-             "1": "fused_swish_depthwise5x5_dx",
-             "2": "fused_swish_depthwise5x5_dw"}
-    out = dict.fromkeys(DW_KERNEL_NAMES, 0)
-    for _, count, key in rows:
-        m = re.search(r"dw5x5_(ring|bf16)<\s*\(?\w*\)?\s*(\d)", key)
-        if m:
-            bf16 = m.group(1) == "bf16"
-            out[names[m.group(2)] + ("_bf16" if bf16 else "")] += count
-    return out
-
-
 def phase_profile(samplers, trainers, scans) -> dict:
     """One ``sample`` call and one training step per configuration, and
     one graph replay of each scan configuration's step (an extra step on
     that runner's state): its device kernels by name hold the replay's
     launch counts."""
+    from nvae_torch.tools.profile_step import profile_call
+
     out = {}
     t = torch.ones(BATCH)
     for name, sampler in samplers.items():
@@ -2101,7 +2304,7 @@ def phase_profile(samplers, trainers, scans) -> dict:
     for name, rec in scans.items():
         graph = rec["runner"].graph
         prof = profile_call(f"scan replay {name}", graph.replay)
-        ring = ring_launches(prof["rows"])
+        ring = prof["depthwise"]
         want = {k: rec["launches_per_replay"].get(k, 0)
                 for k in DW_KERNEL_NAMES}
         if ring != want:
@@ -2782,6 +2985,26 @@ def phase_serve(workdir: str) -> dict:
             "counts": end["counts"]}
 
 
+def phase_serving(workdir: str, device) -> dict:
+    """Phases 8 and 8's NLL over the CLI phase's checkpoints: the restored
+    state (``phase_restored_state``); ``--mode serve`` over HTTP (its own
+    process) while this process runs the IWAE NLL, then the artifact.
+    Returns the launches of the servers."""
+    trainer = phase_restored_state(workdir, device)
+
+    def nll_then_artifact():
+        phase_nll(trainer, device)
+        log("nll done")
+        return phase_artifact(workdir, trainer)
+
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for rec in run_concurrently(lambda: phase_serve(workdir),
+                                nll_then_artifact):
+        for k, v in rec["counts"].items():
+            launches[k] += v
+    return launches
+
+
 def phase_artifact(workdir: str, trainer) -> dict:
     """The serving artifact of the CLI's checkpoint with bf16 compute: fp32,
     bf16 and int8 exports and their bytes, the int8 one loaded on the card
@@ -3110,24 +3333,22 @@ def phase_eval_fid_cli(workdir: str, device) -> dict:
 def phase_eval(workdir: str, device) -> dict:
     """The metric suite at full width (phase 8b): ``--mode test`` over the
     CLI phase's checkpoint, as subprocesses with exact launch counts (#2 in
-    fp32 only, no #3 or #4), its evaluation.json and its stage seconds;
-    then the metric functions in process and the FID command line."""
+    fp32 only, no #3 or #4), its evaluation.json and its stage seconds,
+    the two runs and the FID command line at once (``run_concurrently``:
+    the seconds they log are no measurement); then the metric functions in
+    process."""
     from nvae_torch.config import ModelConfig
 
     cfg = ModelConfig(use_pallas_kernels=True)
-    logs = os.path.join(workdir, "logs")
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     runs = {}
-    for label, extra, attempts, temps, fid_n, pr_max in (
-            ("test", ["--eval_attempts", str(EVAL_ATTEMPTS),
-                      "--fid_sample_size", str(EVAL_FID_SAMPLES)],
-             EVAL_ATTEMPTS, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, 1.0),
-            ("test parity", ["--eval_parity", "--eval_attempts", "1",
-                             "--eval_temperatures", "1.0",
-                             "--fid_sample_size", str(PARITY_FID_SAMPLES)],
-             1, 1, PARITY_FID_SAMPLES, 2.0)):
-        rec = run_cli(label, ["--mode", "test", *extra, *cli_args(workdir)],
-                      workdir)
+
+    def test_run(label, extra, attempts, temps, fid_n, pr_max):
+        # Each run its own evaluation.json: the two run at once.
+        logs = os.path.join(workdir, label.replace(" ", "_") + "_logs")
+        os.makedirs(logs)
+        rec = run_cli(label, ["--mode", "test", *extra, *cli_args(workdir),
+                              "--tensorboard_log_dir", logs], workdir)
         want = dict.fromkeys(KERNEL_NAMES, 0)
         want["fused_swish_depthwise5x5"] = eval_launches(cfg, attempts, temps,
                                                          fid_n)
@@ -3141,14 +3362,34 @@ def phase_eval(workdir: str, device) -> dict:
             rec["stdout"].split("Stage seconds: ")[1].splitlines()[0])
         log(f"{label}: stage seconds {stages}")
         log(f"{label}: evaluation {json.dumps(evaluation)}")
-        runs[label] = {"seconds": rec["seconds"], "stages": stages,
-                       "evaluation": evaluation}
+        return rec, {"seconds": rec["seconds"], "stages": stages,
+                     "evaluation": evaluation}
+
+    tests = (
+        ("test", ["--eval_attempts", str(EVAL_ATTEMPTS),
+                  "--fid_sample_size", str(EVAL_FID_SAMPLES)],
+         EVAL_ATTEMPTS, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, 1.0),
+        ("test parity", ["--eval_parity", "--eval_attempts", "1",
+                         "--eval_temperatures", "1.0",
+                         "--fid_sample_size", str(PARITY_FID_SAMPLES)],
+         1, 1, PARITY_FID_SAMPLES, 2.0))
+    # The two runs side by side with the FID command line (its in-process
+    # part is small), then the backbones at batch 256 here: the card holds
+    # the two runs beside this process's models, not a third large one.
+    torch.cuda.empty_cache()
+    log(f"card memory here before the runs: "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved(device) / 2**30:.2f} GiB reserved")
+    *done, fid_cli = run_concurrently(
+        *[functools.partial(test_run, *t) for t in tests],
+        lambda: phase_eval_fid_cli(workdir, device))
+    for (label, *_), (rec, run) in zip(tests, done):
+        runs[label] = run
         for k, v in rec["counts"].items():
             counts[k] += v
     features = phase_eval_features(device)
     pr = phase_eval_pr(device)
     fid = phase_eval_fid(device)
-    fid_cli = phase_eval_fid_cli(workdir, device)
     return {"runs": runs, "features": features, "pr": pr, "fid": fid,
             "fid_cli": fid_cli, "counts": counts}
 
@@ -3177,8 +3418,9 @@ def step_launches(cfg) -> int:
 
 
 def check_step_counts(label: str, cfg, counts: dict, steps: int) -> None:
-    """``steps`` fp32 training steps' exact launches, none of any other."""
-    fwd, dx, dwk = TRAIN_KERNELS["float32"]
+    """``steps`` training steps' exact launches of the kernels of the
+    config's compute dtype, none of any other."""
+    fwd, dx, dwk = TRAIN_KERNELS[cfg.compute_dtype]
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want.update({fwd: step_launches(cfg) * steps,
                  dx: expected_launches(cfg) * steps,
@@ -3315,22 +3557,44 @@ def phase_rgb_bf16_kernels(device) -> dict:
     return out
 
 
-def phase_rgb_sampler(cfg, device, weights=None) -> dict:
+def rgb_sampler_inputs(cfg) -> tuple:
+    """The seeded model on the CPU (random BatchNorm statistics), the
+    temperatures and the noise of ``phase_rgb_sampler``'s check."""
+    from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
+
+    cpu_model = NVAE(cfg, device="cpu", seed=0)
+    random_bn_stats_(cpu_model, seed=1)
+    rng = np.random.RandomState(2)
+    eps = [rng.randn(*sh).astype(np.float32)
+           for sh in decoder_noise_shapes(cfg, 4)]
+    return cpu_model, torch.tensor([0.6, 0.8, 1.0, 1.2]), eps
+
+
+def cpu_sampler_refs(cfg) -> tuple:
+    """The CPU side of ``phase_rgb_sampler``'s check: the head's output on
+    the CPU in float32 and in float64."""
+    cpu_model, t4, eps = rgb_sampler_inputs(cfg)
+    with torch.inference_mode():
+        cpu = logits(cpu_model, 4, t4, eps)
+        f64 = logits(cpu_model.double(), 4, t4.double(), eps)
+    return cpu, f64
+
+
+def phase_rgb_sampler(cfg, device, weights, refs) -> dict:
     """The RGB sampler at full width over ``weights`` (a state dict), or
     over seeded weights with random BatchNorm statistics: #2's launches per
     ``sample`` call at RGB_SAMPLE_BATCH, ms per call, the images (the
     mixture's mean in [0, 1]); over the seeded weights also the card's head
     output and images against the CPU in float32 and float64 at batch 4
-    with injected noise."""
+    with injected noise (``refs()`` returns the CPU's, ``cpu_sampler_refs``'
+    record, from the helper process)."""
     from nvae_torch.kernels import depthwise as dw
-    from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
     from nvae_torch.ops import dml_mean
     from nvae_torch.serving import Sampler
 
     cpu_model = None
     if weights is None:
-        cpu_model = NVAE(cfg, device="cpu", seed=0)
-        random_bn_stats_(cpu_model, seed=1)
+        cpu_model, t4, eps = rgb_sampler_inputs(cfg)
         weights = cpu_model.state_dict()
     sampler = Sampler(cfg, weights, n_samples=RGB_SAMPLE_BATCH, device=device)
     t = torch.ones(RGB_SAMPLE_BATCH)
@@ -3355,14 +3619,8 @@ def phase_rgb_sampler(cfg, device, weights=None) -> dict:
     if cpu_model is None:
         return {"launches_per_sample": per_call, "ms_per_call": ms}
 
-    rng = np.random.RandomState(2)
-    eps = [rng.randn(*sh).astype(np.float32)
-           for sh in decoder_noise_shapes(cfg, 4)]
-    t4 = torch.tensor([0.6, 0.8, 1.0, 1.2])
     gpu = sampler.apply(lambda m: logits(m, 4, t4.to(device), eps)).cpu()
-    with torch.inference_mode():
-        cpu = logits(cpu_model, 4, t4, eps)
-        f64 = logits(cpu_model.double(), 4, t4.double(), eps)
+    cpu, f64 = refs()
 
     def mean(x):
         return dml_mean(x.permute(0, 2, 3, 1).double(), cfg.n_mix, 3)
@@ -3398,6 +3656,8 @@ def phase_rgb_scan(name: str, cfg, batch: int, device) -> dict:
     captured): exact launches through the wrappers and as replays (a
     replay of a remat step runs #2 in the recompute too), ms per step of
     the second epoch, peak memory."""
+    from nvae_torch.tools.profile_step import profile_call
+
     data = rgb_scan_data(cfg, device, 2 * RGB_SCAN_STEPS * batch)
     rec = scan_run(cfg, device, data, True, RGB_SCAN_STEPS, 2, batch)
     steps = 2 * RGB_SCAN_STEPS
@@ -3422,6 +3682,161 @@ def phase_rgb_scan(name: str, cfg, batch: int, device) -> dict:
     return rec
 
 
+def phase_rgb_dw_scan(name: str, cfg, batch: int, device) -> dict:
+    """The scan path of an RGB preset's depthwise form under deterministic
+    cuDNN: RGB_DW_SCAN_STEPS steps at the preset's batch eagerly and as
+    graph replays (the first step eager, the second captured) from the same
+    seed: the two states and mean metrics bit for bit equal, exact launches
+    in both runs (the postprocess's depthwise layers included, a remat
+    step's recompute running #2 again).  Returns the runs' counts and the
+    replayed launches."""
+    import copy
+
+    data = rgb_scan_data(cfg, device, RGB_DW_SCAN_STEPS * batch)
+    # One seed-0 state (a full-width init is drawn on the host, seconds at
+    # this width) and a copy of it on the card for the eager run.
+    model, state, tx = scan_start(cfg, device, batch)
+    twin = copy.deepcopy(state)
+    with deterministic_cudnn():
+        eager = scan_run(cfg, device, data, False, RGB_DW_SCAN_STEPS, 1,
+                         batch, start=(twin.model, twin, tx))
+        eager.pop("runner")
+        del twin
+        graphed = scan_run(cfg, device, data, True, RGB_DW_SCAN_STEPS, 1,
+                           batch, start=(model, state, tx))
+    del model, state
+    run = graphed.pop("runner")
+    del data
+    diff = state_diff(graphed.pop("flat"), eager.pop("flat"))
+    equal = graphed["means"] == eager["means"]
+    log(f"scan {name}: graph vs eager over {RGB_DW_SCAN_STEPS} steps, "
+        f"deterministic cuDNN: {diff}, means equal {equal}; epoch "
+        f"{graphed['epoch_seconds'][0]:.3f} s (graph) / "
+        f"{eager['epoch_seconds'][0]:.3f} s (eager), peak memory "
+        f"{graphed['peak_mem_gb']:.2f} / {eager['peak_mem_gb']:.2f} GB; "
+        f"per replay "
+        f"{ {k: v for k, v in run.launches_per_replay.items() if v} }")
+    if (run.eager_steps, run.replays) != (1, RGB_DW_SCAN_STEPS - 1):
+        raise AssertionError(f"scan {name}: {run.eager_steps} eager steps, "
+                             f"{run.replays} replays")
+    check_step_counts(f"scan {name} eager", cfg, eager["counts"],
+                      RGB_DW_SCAN_STEPS)
+    check_step_counts(f"scan {name}", cfg, graphed["counts"], 2)
+    check_step_counts(f"scan {name} replays", cfg,
+                      {k: graphed["replayed"].get(k, 0)
+                       for k in KERNEL_NAMES}, RGB_DW_SCAN_STEPS - 1)
+    if not (diff["bitwise"] and equal) or not all(
+            math.isfinite(v) for v in graphed["means"][0].values()):
+        raise AssertionError(f"scan {name}: graph vs eager {diff}, "
+                             f"{graphed['means']} / {eager['means']}")
+    del run
+    return {"counts": {k: eager["counts"][k] + graphed["counts"][k]
+                       for k in KERNEL_NAMES},
+            "replayed": graphed["replayed"]}
+
+
+def dml_warm_start(cfg, device, batch: int, steps: int) -> dict:
+    """The state dict after ``steps`` Adamax steps of ``cfg`` at ``batch``
+    from seed-0 weights (``train_setup``), on the CPU; under deterministic
+    cuDNN, as 12a warms its start, so every run holds the same state (with
+    cuDNN's defaults two runs' states differ in their last bits, and the
+    bf16 step's largest BatchNorm error from there moved between 0.89 and
+    1.74 times the CPU's)."""
+    with deterministic_cudnn():
+        state, step = train_setup(cfg, device, batch)
+        for i in range(steps):
+            state, _ = step(state,
+                            train_batch(batch, 2000 + i, cfg).to(device))
+    return {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+
+def check_bf16_dml_step(label: str, rec: dict) -> None:
+    """The bf16 B=4 step of a DML config from DML_WARM_STEPS Adamax steps
+    card vs CPU (the kernels' plain versions), each held to the fp32 step
+    in float64 from there: the loss card vs CPU within BF16_LOSS_RTOL, the
+    gradient and the BatchNorm statistics no further from float64 than
+    CARD_VS_CPU_ROUNDING times the CPU's (phase 5's bf16 limit)."""
+    card_cpu, card, cpu = (rec["bf16_card_vs_cpu"], rec["bf16_card_vs_f64"],
+                           rec["bf16_cpu_vs_f64"])
+    if not (card_cpu["loss_rel"] <= BF16_LOSS_RTOL
+            and card["grad_rel_l2"] <= CARD_VS_CPU_ROUNDING
+            * cpu["grad_rel_l2"]
+            and card["bn_stats_err"] <= CARD_VS_CPU_ROUNDING
+            * cpu["bn_stats_err"]):
+        raise AssertionError(f"train {label} bf16: card vs CPU {rec}")
+
+
+def nll_bf16_card_vs_cpu(label: str, cfg, x: torch.Tensor, device,
+                         f64: float, refs) -> dict:
+    """One B=4 IWAE NLL (K=3) of a bf16 config from seed-0 weights with
+    injected noise on the card and on the CPU (the kernels' plain
+    versions), each against ``f64``, the fp32 model's in float64 on the
+    CPU on the same weights, batch and noise (``nll_card_vs_cpu``'s): the
+    card within BF16_NLL_RTOL of the CPU, or no further from float64 than
+    RGB_CARD_VS_CPU_ROUNDING times the CPU.  ``refs()`` returns the CPU's
+    (``cpu_nll_refs``' record, from the helper process)."""
+    from nvae_torch.eval.nll import make_nll_fn
+    from nvae_torch.models.nvae import NVAE
+
+    reset_counts()
+    model = NVAE(cfg, device=device, seed=0)
+    card = float(make_nll_fn(model, 3)(x.to(device), eps=nll_noise(cfg)))
+    counts = read_counts()
+    del model
+    cpu = refs()[0]
+    errs = nll_errors(card, cpu, f64)
+    log(f"{label} B=4 card {card!r}, CPU bf16 {cpu!r}, CPU fp64 {f64!r}: "
+        f"{errs}; launches {counts}")
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["fused_swish_depthwise5x5_bf16"] = 3 * expected_launches(cfg)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    if not (math.isfinite(card) and (
+            errs["card_vs_cpu"] <= BF16_NLL_RTOL
+            or errs["card_vs_f64"] <= RGB_CARD_VS_CPU_ROUNDING
+            * errs["cpu_vs_f64"])):
+        raise AssertionError(f"{label}: card vs CPU {errs}")
+    return errs
+
+
+def phase_rgb_bf16_dml(preset: str, cfg, batch: int, device) -> dict:
+    """The bf16 form of an RGB preset (compute and BatchNorm apply bf16) at
+    full width: RGB_STEPS training steps at its batch with exact launches
+    of bf16 #2-#4 and none of fp32 (``phase_rgb_train``), then one bf16
+    ``sample`` call at RGB_SAMPLE_BATCH over the trained weights (bf16 #2
+    once a generative cell, images of the mixture's mean in [0, 1]).
+    Returns the launches."""
+    import dataclasses
+
+    from nvae_torch.serving import Sampler
+
+    cfg16 = dataclasses.replace(cfg, **BF16)
+    label = f"{preset} bf16"
+    counts, weights = phase_rgb_train(label, cfg16, batch, device,
+                                      profile=False)
+    sampler = Sampler(cfg16, weights, n_samples=RGB_SAMPLE_BATCH,
+                      device=device)
+    del weights
+    reset_counts()
+    t0 = time.monotonic()
+    images = sampler(1, torch.ones(RGB_SAMPLE_BATCH)).cpu().numpy()
+    ms = 1e3 * (time.monotonic() - t0)
+    sample_counts = read_counts()
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["fused_swish_depthwise5x5_bf16"] = expected_launches(cfg16)
+    s = cfg16.image_size
+    log(f"sampler {label}: {images.shape}, first call {ms:.1f} ms, "
+        f"launches { {k: v for k, v in sample_counts.items() if v} }")
+    if sample_counts != want or images.shape != (RGB_SAMPLE_BATCH, s, s, 3) \
+            or not (np.isfinite(images).all() and images.min() >= 0.0
+                    and images.max() <= 1.0):
+        raise AssertionError(f"sampler {label}: {images.shape}, "
+                             f"{sample_counts}")
+    del sampler
+    torch.cuda.empty_cache()
+    return {k: counts[k] + sample_counts[k] for k in KERNEL_NAMES}
+
+
 def phase_rgb_train(name: str, cfg, batch: int, device, profile: bool,
                     steps: int = RGB_STEPS) -> tuple:
     """``steps`` full-width training steps at the preset's batch with exact
@@ -3441,6 +3856,8 @@ def phase_rgb_train(name: str, cfg, batch: int, device, profile: bool,
         raise AssertionError(f"train {name}: non-finite metrics")
     check_step_counts(f"train {name}", cfg, rec["counts"], steps)
     if profile:
+        from nvae_torch.tools.profile_step import profile_call
+
         x = train_batch(batch, 99, cfg).to(device)
 
         def one_step():
@@ -3482,15 +3899,52 @@ def phase_remat(cfg, device) -> None:
         raise AssertionError(f"remat vs no remat: {errs}")
 
 
-def phase_rgb_models(device) -> tuple:
+def rgb_cut_configs(cfg) -> tuple:
+    """The B=4 card-vs-CPU configs of a DML preset: its groups cut to
+    RGB_CPU_GROUPS, in fp32 and in bf16."""
+    import dataclasses
+
+    cut = dataclasses.replace(cfg, n_groups_per_scale=RGB_CPU_GROUPS)
+    return cut, dataclasses.replace(cut, **BF16)
+
+
+def add_host_jobs(host: HostRefs) -> None:
+    """The CPU references of phases 5 and 11, in the order they are
+    needed: the B=4 steps of the MNIST configs; then, once the run opens
+    the gate ``rgb`` (``open_gate``), for each RGB preset without remat
+    its sampler's, its B=4 NLLs' and its B=4 steps' (those in bf16 from
+    the warm start that phase 11 hands over)."""
+    for name, cfg in configs().items():
+        host.add(f"train {name}", cpu_step_refs, cfg=cfg,
+                 bf16_cfg=bf16_configs()["depthwise bf16"]
+                 if name == "depthwise" else None)
+    # Not beside the entry points' subprocesses, which need the host's
+    # cores: from phase 9 on (the kernels timed by CUDA events).
+    host.gate("rgb")
+    for preset in RGB_SHAPES:
+        cfg = rgb_configs(preset)[0][preset]
+        if cfg.remat:
+            continue
+        cut, cut16 = rgb_cut_configs(cfg)
+        x4 = train_batch(4, 7, cut)
+        host.add(f"rgb sampler {preset}", cpu_sampler_refs, cfg=cfg)
+        host.add(f"rgb nll {preset}", cpu_nll_refs, cfg=cut, x=x4)
+        host.add(f"rgb nll bf16 {preset}", cpu_nll_refs, cfg=cut16, x=x4,
+                 float64=False)
+        host.add(f"rgb step {preset}", cpu_step_refs, cfg=cut,
+                 bf16_cfg=cut16, start=host.path(f"rgb warm {preset}"))
+
+
+def phase_rgb_models(device, host: HostRefs) -> tuple:
     """The RGB presets in process at full width: per postprocess form,
     RGB_STEPS training steps at the preset's batch and a sampler at
     RGB_SAMPLE_BATCH; for ``cifar10_dml`` a B=4 step and the B=4 IWAE NLL
-    card vs CPU at RGB_CPU_GROUPS; for ``celeba64`` the steps without remat
-    (peak memory) and remat against no remat; the scan path of each
-    preset's own form.  Returns the main paths' (launches, replayed)."""
-    import dataclasses
-
+    card vs CPU at RGB_CPU_GROUPS; for ``celeba64`` remat against no remat
+    (the preset's batch without remat, 46.6 GB at its peak, is no longer
+    stepped: the whole run must end within 1200 s); the scan path of each
+    preset's two forms; the CPU's side of the checks comes from ``host``
+    (``add_host_jobs``' helper).  Returns the main paths' (launches,
+    replayed)."""
     from nvae_torch.models.nvae import NVAE
 
     launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -3505,37 +3959,56 @@ def phase_rgb_models(device) -> tuple:
                 launches[k] += v
             # Seeded weights against the CPU once a preset (cifar10_dml's
             # own form), else the weights the steps left.
+            seeded = label == preset and not cfg.remat
             reset_counts()
             rec = phase_rgb_sampler(
-                cfg, device,
-                None if label == preset and not cfg.remat else weights)
+                cfg, device, None if seeded else weights,
+                host.ref(f"rgb sampler {preset}"))
             for k, v in read_counts().items():
                 launches[k] += v
             del weights
             log(f"sampler {label}: {rec}")
         cfg = cfgs[preset]
         if cfg.remat:
-            plain = dataclasses.replace(cfg, remat=False)
-            counts, _ = phase_rgb_train(f"{preset} without remat", plain,
-                                        batch, device, profile=False, steps=2)
-            for k, v in counts.items():
-                launches[k] += v
             phase_remat(cfg, device)
         else:
-            cut = dataclasses.replace(cfg, n_groups_per_scale=RGB_CPU_GROUPS)
+            cut, cut16 = rgb_cut_configs(cfg)
             label = f"{preset} groups {RGB_CPU_GROUPS}"
-            check_train_vs_cpu(label, phase_train_vs_cpu(cut, device),
-                               RGB_CARD_VS_CPU_ROUNDING)
+            # The warm start first: the helper steps from it on the CPU
+            # while the card goes on.
+            warm = dml_warm_start(cut, device, batch, DML_WARM_STEPS)
+            host.put(f"rgb warm {preset}", warm)
             model = NVAE(cut, device=device, seed=0)
-            nll_card_vs_cpu(f"nll {label}", model, train_batch(4, 7, cut),
-                            device)
+            x4 = train_batch(4, 7, cut)
+            f64 = nll_card_vs_cpu(f"nll {label}", model, x4, device,
+                                  host.ref(f"rgb nll {preset}"))["f64"]
             del model
+            nll_bf16_card_vs_cpu(f"nll {label} bf16", cut16, x4, device, f64,
+                                 host.ref(f"rgb nll bf16 {preset}"))
+            for k, v in phase_rgb_bf16_dml(preset, cfg, batch,
+                                           device).items():
+                launches[k] += v
         log(f"{preset} in process at {time.monotonic() - t0:.1f} s")
         rec = phase_rgb_scan(preset, cfg, batch, device)
         for k in KERNEL_NAMES:
             launches[k] += rec["counts"][k]
             replayed[k] += rec["replayed"].get(k, 0)
         torch.cuda.empty_cache()
+        rec = phase_rgb_dw_scan(f"{preset} depthwise",
+                                cfgs[f"{preset} depthwise"], batch, device)
+        for k in KERNEL_NAMES:
+            launches[k] += rec["counts"][k]
+            replayed[k] += rec["replayed"].get(k, 0)
+        torch.cuda.empty_cache()
+        log(f"{preset} scan forms at {time.monotonic() - t0:.1f} s")
+        if not cfg.remat:  # the B=4 steps once the helper's are ready
+            rec = phase_train_vs_cpu(cut, device,
+                                     host.ref(f"rgb step {preset}"),
+                                     bf16_cfg=cut16, bf16_start=warm)
+            del warm
+            check_train_vs_cpu(label, rec, RGB_CARD_VS_CPU_ROUNDING)
+            check_bf16_dml_step(label, rec)
+            log(f"{preset} B=4 steps at {time.monotonic() - t0:.1f} s")
     return launches, replayed
 
 
@@ -3585,15 +4058,17 @@ def rgb_cli_train(label: str, preset: str, workdir: str, scan: bool) -> dict:
 
 def phase_rgb_cli(workdir: str, device) -> tuple:
     """The entry points on the RGB presets at full width, as subprocesses
-    with exact launch counts, two chains at once (``run_concurrently``):
-    ``cifar10_dml`` trains 1 epoch, samples (``--mode sample``, RGB PNGs)
-    and scores (``--mode test --debug --eval_attempts 1``,
-    EVAL_FID_SAMPLES), then in process one request goes through a
-    ``BatchingSampler`` over its checkpoint; meanwhile ``cifar10_dml``
-    trains 1 epoch on the scan path, and ``celeba64`` (remat) 1 epoch per
-    step and 1 on the scan path (a CUDA graph of the remat'd step).  Each
-    run's directory is removed after its checks (a celeba64 checkpoint
-    holds ~8.5 GB).  Returns the runs' (launches, replayed)."""
+    with exact launch counts, three chains at once (``run_concurrently``):
+    ``cifar10_dml`` trains 1 epoch and scores (``--mode test --debug
+    --eval_attempts 1``, EVAL_FID_SAMPLES), then in process one request
+    goes through a ``BatchingSampler`` over its checkpoint; beside the
+    scoring, ``--mode sample`` (RGB PNGs) over the same checkpoint;
+    meanwhile ``cifar10_dml`` and ``celeba64`` (remat) train 1 epoch each
+    on the scan path (a CUDA graph of the remat'd step).  celeba64's step
+    through the CLI is its scan run's: its per-step loop is phase 11's in
+    process, and the CLI's per-step loop is cifar10_dml's.  Each run's
+    directory is removed after its checks (a celeba64 checkpoint holds
+    ~8.5 GB).  Returns the runs' (launches, replayed)."""
     from nvae_torch import cli
     from nvae_torch.serving import Sampler, variables_from_state
     from nvae_torch.serving_runtime import BatchingSampler
@@ -3603,6 +4078,12 @@ def phase_rgb_cli(workdir: str, device) -> tuple:
     counts = dict.fromkeys(KERNEL_NAMES, 0)
     replayed = dict.fromkeys(KERNEL_NAMES, 0)
     lock = threading.Lock()
+    cfgs, batch = rgb_configs("cifar10_dml")
+    cfg = cfgs["cifar10_dml"]
+    wd = os.path.join(workdir, "cifar10_dml")
+    os.makedirs(wd)
+    args = rgb_cli_args("cifar10_dml", wd)
+    trained = threading.Event()  # cifar10_dml's train run has ended
 
     def add(rec):
         with lock:
@@ -3611,31 +4092,17 @@ def phase_rgb_cli(workdir: str, device) -> tuple:
                 replayed[k] += rec["replayed"][k]
 
     def cifar10_dml() -> None:
-        cfgs, batch = rgb_configs("cifar10_dml")
-        cfg = cfgs["cifar10_dml"]
-        wd = os.path.join(workdir, "cifar10_dml")
-        os.makedirs(wd)
-        rec = rgb_cli_train("train cifar10_dml", "cifar10_dml", wd, False)
+        try:
+            rec = rgb_cli_train("train cifar10_dml", "cifar10_dml", wd, False)
+        finally:
+            trained.set()
         add(rec)
         report_cli(rec, batch)
-        args = rgb_cli_args("cifar10_dml", wd)
-        rec = run_cli("sample cifar10_dml", ["--mode", "sample",
-                                             "--n_samples", str(batch),
-                                             *args], wd)
-        check_cli_counts("sample cifar10_dml", rec["counts"],
-                         expected_launches(cfg), 0, 1)
-        add(rec)
-        for t in SAMPLE_TEMPERATURES:
-            d = os.path.join(wd, "results", f"t_{t}")
-            files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
-            with open(os.path.join(d, files[0]), "rb") as f:
-                shape = decode_png(f.read()).shape
-            if len(files) != batch or shape != (32, 32, 3):
-                raise AssertionError(f"cli sample cifar10_dml: {len(files)} "
-                                     f"PNGs of {shape} in {d}")
+        logs = os.path.join(wd, "test_logs")
+        os.makedirs(logs)
         rec = run_cli("test cifar10_dml", [
             "--mode", "test", "--eval_attempts", "1", "--fid_sample_size",
-            str(EVAL_FID_SAMPLES), *args], wd)
+            str(EVAL_FID_SAMPLES), *args, "--tensorboard_log_dir", logs], wd)
         want = dict.fromkeys(KERNEL_NAMES, 0)
         want["fused_swish_depthwise5x5"] = eval_launches(
             cfg, 1, EVAL_TEMPERATURES, EVAL_FID_SAMPLES, batch)
@@ -3643,7 +4110,7 @@ def phase_rgb_cli(workdir: str, device) -> tuple:
             raise AssertionError(f"cli test cifar10_dml: launches "
                                  f"{rec['counts']}, expected {want}")
         add(rec)
-        with open(os.path.join(wd, "logs", "evaluation.json")) as f:
+        with open(os.path.join(logs, "evaluation.json")) as f:
             check_evaluation("test cifar10_dml", json.load(f),
                              EVAL_TEMPERATURES, 1.0)
         log(f"test cifar10_dml: {rec['seconds']:.1f} s")
@@ -3674,21 +4141,37 @@ def phase_rgb_cli(workdir: str, device) -> tuple:
         log(f"serve cifar10_dml: {n} rows in one dispatch, launches "
             f"{ {k: v for k, v in served.items() if v} }")
         del sampler
-        shutil.rmtree(wd, ignore_errors=True)
 
-    def the_other_trains() -> None:
-        for preset, scan in (("cifar10_dml", True), ("celeba64", False),
-                             ("celeba64", True)):
-            label = f"train {preset}{' scan' if scan else ''}"
-            wd = os.path.join(workdir, label.replace(" ", "_"))
-            os.makedirs(wd)
-            rec = rgb_cli_train(label, preset, wd, scan)
+    def cifar10_dml_sample() -> None:
+        trained.wait()
+        rec = run_cli("sample cifar10_dml", [
+            "--mode", "sample", "--n_samples", str(batch), *args,
+            "--tensorboard_log_dir", os.path.join(wd, "sample_logs")], wd)
+        check_cli_counts("sample cifar10_dml", rec["counts"],
+                         expected_launches(cfg), 0, 1)
+        add(rec)
+        for t in SAMPLE_TEMPERATURES:
+            d = os.path.join(wd, "results", f"t_{t}")
+            files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+            with open(os.path.join(d, files[0]), "rb") as f:
+                shape = decode_png(f.read()).shape
+            if len(files) != batch or shape != (32, 32, 3):
+                raise AssertionError(f"cli sample cifar10_dml: {len(files)} "
+                                     f"PNGs of {shape} in {d}")
+
+    def the_scan_trains() -> None:
+        for preset in ("cifar10_dml", "celeba64"):
+            label = f"train {preset} scan"
+            run_wd = os.path.join(workdir, label.replace(" ", "_"))
+            os.makedirs(run_wd)
+            rec = rgb_cli_train(label, preset, run_wd, True)
             add(rec)
             report_cli(rec, rgb_configs(preset)[1])
-            shutil.rmtree(wd, ignore_errors=True)
+            shutil.rmtree(run_wd, ignore_errors=True)
 
     torch.cuda.empty_cache()  # the subprocesses need the card's memory
-    run_concurrently(cifar10_dml, the_other_trains)
+    run_concurrently(cifar10_dml, cifar10_dml_sample, the_scan_trains)
+    shutil.rmtree(wd, ignore_errors=True)
     return counts, replayed
 
 
@@ -3719,7 +4202,7 @@ def phase_rgb_timing(device) -> dict:
 # ---- phase 12: data parallelism -------------------------------------------
 
 DP_RANKS = 2
-DP_STEPS = 3
+DP_STEPS = 2  # cut from 3: the whole run must end in 1200 s
 # 12a holds the data-parallel step against the single one from a state
 # warmed by DP_WARM_STEPS Adamax steps, stepping with plain SGD at DP_LR.
 # From the seeded init the full-width fp32 step is chaotic: the single run
@@ -4097,14 +4580,16 @@ def dp_over_limits(r: dict) -> list:
         ("params", r["params"] > DP_PARAMS_ATOL)) if bad]
 
 
-def phase_dp_steps(device, workdir: str) -> dict:
+def phase_dp_steps(device, workdir: str, meanwhile=None) -> dict:
     """12a: two ranks on the one card over gloo against DP_STEPS single SGD
     steps here, from the same warm start, on the same batches and noise,
     all under deterministic cuDNN: every step's loss and grad_norm and the
     parameters at JAX's lockstep limits; the single run on its batches with
     the halves swapped (a sound reordering) within them too, and each
     planted fault outside them; both ranks' states equal bit for bit and
-    exactly 14 launches of each of #2, #3 and #4 per step on each rank."""
+    exactly 14 launches of each of #2, #3 and #4 per step on each rank.
+    ``meanwhile()``, if given, runs here once the references are done,
+    while the ranks step; its result is the record's ``meanwhile``."""
     cfg = configs()["default"]
     # The ranks start up meanwhile, and wait for the start.
     port = free_port()
@@ -4124,6 +4609,11 @@ def phase_dp_steps(device, workdir: str) -> dict:
                             state.model.state_dict().items()},
                      "step": state.step}
             del state, step
+        path = os.path.join(workdir, "dp_start.pt")
+        torch.save(start, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        # The references while the ranks step.
+        with deterministic_cudnn():
             runs = SGDSteps(device)
             single = runs.run(start, DP_STEPS)
             swapped = runs.run(start, DP_STEPS, swap=True)
@@ -4134,9 +4624,7 @@ def phase_dp_steps(device, workdir: str) -> dict:
             swapped_sn = runs.run(start, DP_STEPS, swap=True)
         del runs, single_sn["state"], swapped_sn["state"]
         torch.cuda.empty_cache()
-        path = os.path.join(workdir, "dp_start.pt")
-        torch.save(start, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        later = meanwhile() if meanwhile is not None else None
         rcs = [p.wait(timeout=600) for p in procs]
     finally:
         for p in procs:
@@ -4204,7 +4692,8 @@ def phase_dp_steps(device, workdir: str) -> dict:
         + f"; per-rank launches {ranks[0]['counts']}")
     return {"ranks": ranks, "readings": readings, "fsdp": fsdp,
             "counts": {k: sum(r["counts"][k] + r["fsdp"]["counts"][k]
-                              for r in ranks) for k in KERNEL_NAMES}}
+                              for r in ranks) for k in KERNEL_NAMES},
+            "meanwhile": later}
 
 
 def check_fsdp_ranks(ranks: list, params: dict, single: dict,
@@ -4520,14 +5009,16 @@ def dp_serve(workdir: str, device, per_fwd: int) -> dict:
     sd = {k[len("model/"):]: v for k, v in payload.items()
           if k.startswith("model/")}
     cfg = get_preset("mnist_step_sn")[0]
-    sampler = Sampler(dataclasses.replace(cfg, use_pallas_kernels=True), sd,
-                      BATCH, device=device)
     diffs, bitwise = [], []
-    for d, (t, got) in enumerate(zip(DP_SERVE_TEMPERATURES, served)):
-        ref = sampler(dispatch_seed(seed, d), torch.full((BATCH,), t))
-        ref = ref.cpu().numpy()
-        diffs.append(float(np.abs(got - ref).max()))
-        bitwise.append(bool(np.array_equal(got, ref)))
+    with IN_PROCESS:  # 12d-3 samples in this process too
+        sampler = Sampler(dataclasses.replace(cfg, use_pallas_kernels=True),
+                          sd, BATCH, device=device)
+        for d, (t, got) in enumerate(zip(DP_SERVE_TEMPERATURES, served)):
+            ref = sampler(dispatch_seed(seed, d), torch.full((BATCH,), t))
+            ref = ref.cpu().numpy()
+            diffs.append(float(np.abs(got - ref).max()))
+            bitwise.append(bool(np.array_equal(got, ref)))
+        del sampler
     log(f"dp 12c serve: up in {up:.1f} s over {info['weights']}; "
         f"{len(served)} requests of {BATCH} rows at T="
         f"{DP_SERVE_TEMPERATURES}: bitwise against the single-rank sampler "
@@ -4543,10 +5034,10 @@ def phase_fsdp_cli(workdir: str, device) -> dict:
     full width (gloo; at the default min_size the large tensors shard): an
     epoch with eval and image hooks, then a resume for a second, exact
     launch counts on each rank, checkpoints of the replicated layout's
-    keys and shapes; then a world-1 ``--mode sample`` from the last one (a
-    subprocess), whose PNGs equal bit for bit those this process writes
-    through the CLI's sampling path from the same checkpoint restored in
-    the replicated layout."""
+    keys and shapes; beside the resume, a world-1 ``--mode sample`` (a
+    subprocess) over a copy of the first epoch's checkpoint, whose PNGs
+    equal bit for bit those this process writes through the CLI's sampling
+    path from the same checkpoint restored in the replicated layout."""
     from nvae_torch import cli
     from nvae_torch.train import checkpoint as ckpt
     from nvae_torch.train.trainer import Trainer
@@ -4555,11 +5046,10 @@ def phase_fsdp_cli(workdir: str, device) -> dict:
     per_fwd = expected_launches(configs()["default"])
     args = [*cli_args(workdir), "--data_parallel", str(DP_RANKS), "--fsdp"]
     models = os.path.join(workdir, "models")
+    copy = os.path.join(workdir, "sample_models")
     counts = dict.fromkeys(KERNEL_NAMES, 0)
-    for label, epochs, hooks in (
-            ("fsdp_train", 1, []),
-            ("fsdp_resume", 2, ["--evaluate_frequency", "0",
-                                "--sample_frequency", "0"])):
+
+    def train(label: str, epochs: int, hooks: list) -> None:
         per_rank = run_torchrun(label, ["--mode", "train", "--epochs",
                                         str(epochs), *args, *hooks], workdir)
         # Each rank: its rows of 4 steps and 4 eval batches; rank 0 also
@@ -4574,29 +5064,45 @@ def phase_fsdp_cli(workdir: str, device) -> dict:
                                       for e in range(1, epochs + 1)]:
             raise AssertionError(f"dp {label}: checkpoints "
                                  f"{ckpt.all_steps(models)}")
-    payload = ckpt.load_payload(models, ckpt.all_steps(models)[-1])
-    sample = run_cli("fsdp_sample", ["--mode", "sample", "--n_samples",
-                                     str(BATCH), *cli_args(workdir)],
-                     workdir)
+
+    train("fsdp_train", 1, [])
+    # The sample reads a copy of the first checkpoint while the resume
+    # writes the second beside it.
+    shutil.copytree(models, copy)
+    _, sample = run_concurrently(
+        lambda: train("fsdp_resume", 2, ["--evaluate_frequency", "0",
+                                         "--sample_frequency", "0"]),
+        lambda: run_cli("fsdp_sample", [
+            "--mode", "sample", "--n_samples", str(BATCH),
+            *cli_args(workdir), "--model_save_dir", copy,
+            "--tensorboard_log_dir", copy + "_logs"], workdir))
     check_cli_counts("fsdp sample", sample["counts"], per_fwd, 0, 1)
     for k, v in sample["counts"].items():
         counts[k] += v
+    payloads = [ckpt.load_payload(d, ckpt.all_steps(d)[-1])
+                for d in (models, copy)]
+    entries = len(payloads[-1])
     ref_dir = os.path.join(workdir, "replicated")
     a = cli.parse_args(["--mode", "sample", "--n_samples", str(BATCH),
-                        *cli_args(workdir), "--sample_dir", ref_dir])
+                        *cli_args(workdir), "--sample_dir", ref_dir,
+                        "--model_save_dir", copy])
     model_cfg, train_cfg, _ = cli.configs_from_args(a)
-    trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
-    want = ckpt.flatten_state(trainer.state)
-    shapes = {k: tuple(v.shape) for k, v in want.items()
-              if isinstance(v, torch.Tensor)}
-    if set(payload) != set(want) or any(
-            tuple(payload[k].shape) != s for k, s in shapes.items()):
-        raise AssertionError("dp 12d-3: the FSDP checkpoint's keys or shapes "
-                             "differ from the replicated layout's")
-    del want
-    cli._sample(a, trainer)
-    del trainer
+    with IN_PROCESS:  # 12c's serve check samples in this process too
+        trainer = Trainer(model_cfg, train_cfg, CLI_BATCHES, device=device)
+        want = ckpt.flatten_state(trainer.state)
+        shapes = {k: tuple(v.shape) for k, v in want.items()
+                  if isinstance(v, torch.Tensor)}
+        for p in payloads:  # the train's and the resume's checkpoints
+            if set(p) != set(want) or any(
+                    tuple(p[k].shape) != s for k, s in shapes.items()):
+                raise AssertionError("dp 12d-3: an FSDP checkpoint's keys "
+                                     "or shapes differ from the replicated "
+                                     "layout's")
+        del want, payloads
+        cli._sample(a, trainer)
+        del trainer
     torch.cuda.empty_cache()
+
     def pngs_in(d: str) -> list:
         # The PNGs' names are uuid4s: compare their bytes, sorted.
         out = []
@@ -4616,9 +5122,10 @@ def phase_fsdp_cli(workdir: str, device) -> dict:
         pngs += len(got)
     seconds = time.monotonic() - t0
     log(f"dp 12d-3: torchrun --data_parallel {DP_RANKS} --fsdp train and "
-        f"resume, then a world-1 --mode sample: {pngs} PNGs bit for bit "
-        f"equal to those of the replicated restore: {same}; checkpoint "
-        f"{len(payload)} entries of the replicated layout's shapes; "
+        f"resume, beside the resume a world-1 --mode sample of the first "
+        f"checkpoint: {pngs} PNGs bit for bit equal to those of the "
+        f"replicated restore: {same}; checkpoints of {entries} entries of "
+        f"the replicated layout's shapes; "
         f"{seconds:.1f} s beside 12c")
     if not same:
         raise AssertionError("dp 12d-3: the samples differ from the "
@@ -4628,16 +5135,25 @@ def phase_fsdp_cli(workdir: str, device) -> dict:
 
 def phase_data_parallel(device) -> dict:
     """Phase 12: 12a, 12b and 12c, and 12d (FSDP) beside them: 12d-1 on
-    12a's ranks, 12d-2 in 12b's group, 12d-3 at the same time as 12c; with
-    the seconds of each."""
+    12a's ranks, 12b with 12d-2 here while 12a's ranks step (its counts
+    are this process's, the ranks count theirs), 12d-3 at the same time
+    as 12c; with the seconds of each."""
     t0 = time.monotonic()
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_dp_")
     fsdp_dir = tempfile.mkdtemp(prefix="nvae_chip_smoke_fsdp_")
+    timed = {}
+
+    def graph_phase():
+        t = time.monotonic()
+        out = phase_dp_graph(device)
+        timed["graph"] = time.monotonic() - t
+        return out
+
     try:
-        steps = phase_dp_steps(device, workdir)
+        steps = phase_dp_steps(device, workdir, meanwhile=graph_phase)
+        graph = steps["meanwhile"]
         t1 = time.monotonic()
-        graph = phase_dp_graph(device)
-        t2 = time.monotonic()
+        torch.cuda.empty_cache()  # the subprocesses need the card's memory
         cli, fsdp_cli = run_concurrently(
             lambda: phase_dp_cli(workdir, device),
             lambda: phase_fsdp_cli(fsdp_dir, device))
@@ -4646,10 +5162,11 @@ def phase_data_parallel(device) -> dict:
         shutil.rmtree(fsdp_dir, ignore_errors=True)
     seconds = time.monotonic() - t0
     rank_fsdp = max(r["fsdp"]["seconds"] for r in steps["ranks"])
-    log(f"phase 12 (data parallel) took {seconds:.1f} s: 12a with 12d-1 "
-        f"{t1 - t0:.1f} (12d-1 {rank_fsdp:.1f} of it on the ranks), 12b "
-        f"with 12d-2 {t2 - t1:.1f} (12d-2 {graph['fsdp_seconds']:.1f}), "
-        f"12c with 12d-3 beside it {t0 + seconds - t2:.1f} (12d-3 "
+    log(f"phase 12 (data parallel) took {seconds:.1f} s: 12a with 12d-1, "
+        f"and 12b with 12d-2 beside 12a's ranks, {t1 - t0:.1f} (12d-1 "
+        f"{rank_fsdp:.1f} of it on the ranks, 12b with 12d-2 "
+        f"{timed['graph']:.1f}, 12d-2 {graph['fsdp_seconds']:.1f}), 12c "
+        f"with 12d-3 beside it {t0 + seconds - t1:.1f} (12d-3 "
         f"{fsdp_cli['seconds']:.1f}); 12d's own: "
         f"{rank_fsdp + graph['fsdp_seconds']:.1f} s besides 12d-3's launches")
     return {"counts": {k: steps["counts"][k] + graph["counts"][k]
@@ -4955,7 +5472,12 @@ def main(argv=None) -> int:
     parser.add_argument("--dp-rank", metavar="DIR",
                         help="run one rank of phases 12a and 12d-1 (started "
                              "by phase 12 itself), writing its record to DIR")
+    parser.add_argument("--host-refs", metavar="DIR",
+                        help="run the CPU references of DIR's jobs (started "
+                             "by the run itself)")
     args = parser.parse_args(argv)
+    if args.host_refs:
+        return host_refs(args.host_refs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -4974,7 +5496,17 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     phase_build()
+    # The CPU references of phases 5 and 11 from a helper process.
+    host = HostRefs()
+    add_host_jobs(host)
+    try:
+        return run_phases(device, host, t_start)
+    finally:
+        host.close()
 
+
+def run_phases(device, host: HostRefs, t_start: float) -> int:
+    """Every phase after the build, in order; the result lines."""
     errs = checked_kernel_errors(device, PATH_SHAPES, FWD_BATCHES,
                                  BWD_BATCHES)
     phase_function_grads(device)
@@ -5053,18 +5585,14 @@ def main(argv=None) -> int:
         if name in ("default", "depthwise", "depthwise bf16"):
             trainers[name] = rec  # profiled in phase 10
         del rec
+    # Phase 5: the B=4 steps on the card now, held to the CPU's (from the
+    # helper, started here) after phase 5b.
+    host.start()
+    card_steps = {}
     for name, cfg in configs().items():
         bf16_cfg = bf16_configs()["depthwise bf16"] if name == "depthwise" \
             else None
-        rec = phase_train_vs_cpu(cfg, device, bf16_cfg)
-        check_train_vs_cpu(name, rec)
-        # bf16: the card no further from float64 than 1.5 times the CPU's
-        # bf16 step (the kernels' plain versions) is.
-        if bf16_cfg is not None and not (
-                rec["bf16_card_vs_f64"]["grad_rel_l2"] <= CARD_VS_CPU_ROUNDING
-                * rec["bf16_cpu_vs_f64"]["grad_rel_l2"]):
-            raise AssertionError(f"train {name} bf16: card vs CPU {rec}")
-
+        card_steps[name] = train_vs_cpu_card(cfg, device, bf16_cfg)
     log(f"training done at {time.monotonic() - t_start:.1f} s")
     replayed = dict.fromkeys(KERNEL_NAMES, 0)
     scans = {}
@@ -5098,6 +5626,16 @@ def main(argv=None) -> int:
         scans[name] = rec  # a replay profiled in phase 10
     del data
     log(f"scan path done at {time.monotonic() - t_start:.1f} s")
+    for name, (card, card16) in card_steps.items():
+        rec = train_vs_cpu_record(card, card16, host.ref(f"train {name}")())
+        check_train_vs_cpu(name, rec)
+        # bf16: the card no further from float64 than 1.5 times the CPU's
+        # bf16 step (the kernels' plain versions) is.
+        if card16 is not None and not (
+                rec["bf16_card_vs_f64"]["grad_rel_l2"] <= CARD_VS_CPU_ROUNDING
+                * rec["bf16_cpu_vs_f64"]["grad_rel_l2"]):
+            raise AssertionError(f"train {name} bf16: card vs CPU {rec}")
+    del card_steps
     for k, v in phase_se_entry(device).items():
         launches[k] += v
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_")
@@ -5118,13 +5656,8 @@ def main(argv=None) -> int:
             replayed[k] += v
         report_cli(cli_scan)
         log(f"cli done at {time.monotonic() - t_start:.1f} s")
-        trainer = phase_restored_state(workdir, device)
-        phase_nll(trainer, device)
-        log(f"nll done at {time.monotonic() - t_start:.1f} s")
-        for rec in (phase_serve(workdir), phase_artifact(workdir, trainer)):
-            for k, v in rec["counts"].items():
-                launches[k] += v
-        del trainer
+        for k, v in phase_serving(workdir, device).items():
+            launches[k] += v
         log(f"serving done at {time.monotonic() - t_start:.1f} s")
         for k, v in phase_eval(workdir, device)["counts"].items():
             launches[k] += v
@@ -5132,6 +5665,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    host.open_gate("rgb")  # the helper's RGB jobs from here on
     timing = phase_timing(device, samplers)
     bwd_timing = phase_backward_timing(device)
     bf16_timing = phase_bf16_timing(device)
@@ -5148,7 +5682,7 @@ def main(argv=None) -> int:
         errs[k].update(v)
     rgb_bf16 = phase_rgb_bf16_kernels(device)
     log(f"RGB kernels checked at {time.monotonic() - t_start:.1f} s")
-    rgb_launches, rgb_replayed = phase_rgb_models(device)
+    rgb_launches, rgb_replayed = phase_rgb_models(device, host)
     log(f"RGB models done at {time.monotonic() - t_start:.1f} s")
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_rgb_")
     try:

@@ -634,13 +634,17 @@ class NVAE(nn.Module):
         meta = torch.device(device).type == "meta"
         dev = None if meta else resolve_device(device)
         self.cfg = cfg
-        with torch.device("meta") if meta else contextlib.nullcontext():
+        # Built without storage: ``reset_parameters`` draws every parameter
+        # and buffer from the seed, so the modules' own initial draws would
+        # be thrown away (half of a full-width init's seconds).
+        with torch.device("meta"):
             self.preprocess = Preprocess(cfg)
             self.encoder = Encoder(cfg)
             self.decoder = Decoder(cfg)
             self.postprocess = Postprocess(cfg)
         set_dtypes(self, cfg)
         if not meta:
+            self.to_empty(device="cpu")
             self.reset_parameters(seed)
             self.to(device=dev, memory_format=torch.channels_last)
         self.eval()

@@ -136,13 +136,19 @@ class ServerStats:
     rows_served: int = 0
     rows_padded: int = 0
     requests: int = 0
-    # How many dispatches ran at each batch size.
+    # How many dispatches ran at each batch size, and the rows they served.
     dispatch_shapes: dict = field(default_factory=dict)
+    rows_by_shape: dict = field(default_factory=dict)
 
     @property
     def occupancy(self) -> float:
         total = self.rows_served + self.rows_padded
         return self.rows_served / total if total else 0.0
+
+    def occupancy_by_shape(self) -> dict:
+        """Each batch size's served rows over the rows its dispatches ran."""
+        return {b: self.rows_by_shape.get(b, 0) / (b * n)
+                for b, n in sorted(self.dispatch_shapes.items())}
 
 
 class BatchingSampler:
@@ -317,6 +323,8 @@ class BatchingSampler:
         self.stats.dispatch_shapes[B] = (
             self.stats.dispatch_shapes.get(B, 0) + 1
         )
+        self.stats.rows_by_shape[B] = (
+            self.stats.rows_by_shape.get(B, 0) + filled)
         row = 0
         for p in pendings:
             take = min(p.rows_left, B - row)

@@ -56,7 +56,9 @@ def test_port_imports_no_jax():
                  ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",),
                  ("serving.py",), ("serving_http.py",),
                  ("export_serving.py",), ("parallel", "__init__.py"),
-                 ("parallel", "mesh.py"), ("parallel", "multihost.py")):
+                 ("parallel", "mesh.py"), ("parallel", "multihost.py"),
+                 ("tools", "profile_step.py"), ("tools", "memory_report.py"),
+                 ("tools", "bench_serving_http.py")):
         assert os.path.join("nvae_torch", *path) in rel
     bad = [
         (os.path.relpath(f, ROOT), mod)
@@ -77,7 +79,15 @@ def test_importing_the_port_loads_no_jax():
         "nvae_torch.eval, nvae_torch.eval.fid, "
         "nvae_torch.utils.logging, nvae_torch.kernels.se_gate, "
         "nvae_torch.cli, nvae_torch.presets, nvae_torch.serving_http, "
-        "nvae_torch.export_serving\n"
+        "nvae_torch.export_serving, nvae_torch.tools, "
+        "nvae_torch.tools.common, nvae_torch.tools.profile_step, "
+        "nvae_torch.tools.memory_report, nvae_torch.tools.parity_run, "
+        "nvae_torch.tools.bench_eval_protocol, "
+        "nvae_torch.tools.reproduce_baseline, "
+        "nvae_torch.tools.bench_serving_runtime, "
+        "nvae_torch.tools.bench_serving_http, "
+        "nvae_torch.tools.bench_async_ckpt, "
+        "nvae_torch.tools.bench_serving_artifact\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

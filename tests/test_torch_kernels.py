@@ -383,17 +383,12 @@ def test_ring_probe_variants_find_their_source_text():
 
 def test_profile_counts_both_depthwise_kernels_by_name():
     """``chip_smoke.py``'s profile phase counts the depthwise launches of a
-    traced replay by kernel name: the row ring's (fp32) and the
+    traced replay by kernel name, through the package's profiler tool
+    (``nvae_torch.tools.profile_step``): the row ring's (fp32) and the
     sliding-row kernel's (bf16 forward, dx and dW/db), each under its
     wrapper's name, the dW/db reduction not counted again."""
-    import importlib.util
-    import pathlib
+    from nvae_torch.tools.profile_step import depthwise_launches
 
-    root = pathlib.Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     ns = "void (anonymous namespace)::"
     rows = [(0.0, 20, ns + "dw5x5_bf16<0, true, true, 256>(Args)"),
             (0.0, 20, ns + "dw5x5_bf16<2, true, false, 256>(Args)"),
@@ -402,7 +397,7 @@ def test_profile_counts_both_depthwise_kernels_by_name():
             (0.0, 3, ns + "dw5x5_ring<2, true, false, false>(Args)"),
             (0.0, 23, "dw5x5_dw_reduce(float const*, float*, float*, int, "
                       "int)")]
-    assert smoke.ring_launches(rows) == {
+    assert depthwise_launches(rows) == {
         "fused_swish_depthwise5x5": 7, "depthwise_conv5x5": 0,
         "fused_swish_depthwise5x5_dx": 0, "fused_swish_depthwise5x5_dw": 3,
         "fused_swish_depthwise5x5_bf16": 20,

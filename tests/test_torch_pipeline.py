@@ -94,8 +94,18 @@ def _copy(state):
                       copy.deepcopy(state.opt_state), state.seed)
 
 
-def _batches(n, batch=8):
+# The RGB preset's form at debug size: the mixture-of-logistics head on 3
+# channels, every cell rematerialized.
+DML_REMAT = dict(likelihood="dml", in_channels=3, n_mix=4, remat=True)
+
+
+def _batches(n, batch=8, channels=1):
+    """Binarized greyscale batches, or for ``channels=3`` RGB batches on
+    the 256 levels the data pipeline gives."""
     rng = np.random.RandomState(42)
+    if channels == 3:
+        return [(rng.randint(0, 256, (batch, 32, 32, 3)) / 255.0).astype(
+            np.float32) for _ in range(n)]
     return [(rng.rand(batch, 32, 32, 1) < 0.4).astype(np.float32)
             for _ in range(n)]
 
@@ -179,6 +189,46 @@ def test_lockstep_with_grad_accum_step(S, M, mode):
             np.testing.assert_allclose(m_p[k], m_r[k], rtol=LOSS_RTOL,
                                        err_msg=k)
         assert _max_delta(sd_r, sd_p) <= STATE_ATOL
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_lockstep_dml_remat_rgb(S):
+    """The DML head, remat and RGB together (``cifar10_dml``'s and
+    ``celeba64``'s forms at debug size), M=2: the remat cells run again
+    inside a stage's recompute, the DML loss sits in the last stage, and
+    the pipeline equals the ``grad_accum=2`` step over 3 SGD steps (every
+    metric, parameter and BatchNorm statistic after each step).  A remat
+    cell's second run updates no buffer: a second BatchNorm update would
+    move the statistics by far more than the limit."""
+    M = 2
+    tc, state, tx = _setup(M=M, **DML_REMAT)
+    assert state.model.cfg.remat and state.model.cfg.likelihood == "dml"
+    pp = _pipeline(_copy(state), tc, S, M, _sgd_chain("projection"))
+    batches = _batches(3, channels=3)
+    _, ref = _run_single(_copy(state), tx, tc, batches)
+    got = _run_pipeline(pp, batches)
+    _assert_losses(ref, got)
+    for (m_r, sd_r), (m_p, sd_p) in zip(ref, got):
+        assert set(m_r) == set(m_p)
+        for k in m_r:
+            np.testing.assert_allclose(m_p[k], m_r[k], rtol=LOSS_RTOL,
+                                       err_msg=k)
+        assert _max_delta(sd_r, sd_p) <= STATE_ATOL
+    # The same model without remat (the same seed, so the same weights)
+    # reaches the same state: no cell's second run updated a buffer.
+    tc0, state0, tx0 = _setup(M=M, **{**DML_REMAT, "remat": False})
+    assert _max_delta(state0.model.state_dict(),
+                      state.model.state_dict()) == 0.0
+    _, plain = _run_single(state0, tx0, tc0, batches)
+    _assert_losses(plain, got)
+    for (_, sd_r), (_, sd_p) in zip(plain, got):
+        assert _max_delta(sd_r, sd_p) <= STATE_ATOL
+    # The statistics moved (each step updates them once): the equality
+    # above is not that of untouched buffers.
+    start = state.model.state_dict()
+    stats = [k for k in start if k.endswith("running_var")]
+    assert stats and max(float((got[0][1][k] - start[k]).abs().max())
+                         for k in stats) > 100 * STATE_ATOL
 
 
 def _opt_delta(a, b):
