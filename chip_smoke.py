@@ -1610,13 +1610,16 @@ def port_env() -> dict:
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
 
 
-def run_cli(label: str, argv, workdir: str) -> dict:
-    """``python -m nvae_torch.cli`` as a user runs it, in a subprocess that
-    writes its kernel launch counts to a file; fails on a non-zero exit."""
-    counts_path = os.path.join(workdir, f"{label}_counts.json")
+def run_cli(label: str, argv, workdir: str,
+            module: str = "nvae_torch.cli") -> dict:
+    """``python -m nvae_torch.cli`` (or another ``module``) as a user runs
+    it, in a subprocess that writes its kernel launch counts to a file;
+    fails on a non-zero exit."""
+    counts_path = os.path.join(workdir,
+                               f"{label.replace(' ', '_')}_counts.json")
     t0 = time.monotonic()
     proc = subprocess.run(
-        module_command("nvae_torch.cli", counts_path, argv),
+        module_command(module, counts_path, argv),
         cwd=workdir, env=port_env(), capture_output=True, text=True,
         timeout=900)
     seconds = time.monotonic() - t0
@@ -1744,9 +1747,13 @@ def phase_cli(workdir: str) -> dict:
     check_cli_counts("sample", sample["counts"], per_fwd, 0, 1)
     for t in SAMPLE_TEMPERATURES:
         d = os.path.join(workdir, "results", f"t_{t}")
-        n = len([f for f in os.listdir(d) if f.endswith(".png")])
-        if n != BATCH:
-            raise AssertionError(f"cli sample: {n} PNGs in {d}")
+        pngs = [f for f in os.listdir(d) if f.endswith(".png")]
+        if len(pngs) != BATCH:
+            raise AssertionError(f"cli sample: {len(pngs)} PNGs in {d}")
+        # The native batch writer wrote them (nvae_torch/utils/native_png.py).
+        if not all(png_written_natively(os.path.join(d, f)) for f in pngs):
+            raise AssertionError(f"cli sample: PNGs in {d} not written by "
+                                 "the native writer")
     counts = {k: train["counts"][k] + resume["counts"][k] + sample["counts"][k]
               for k in KERNEL_NAMES}
     return {"train": train, "resume": resume, "sample": sample,
@@ -2985,11 +2992,13 @@ def phase_serve(workdir: str) -> dict:
             "counts": end["counts"]}
 
 
-def phase_serving(workdir: str, device) -> dict:
+def phase_serving(workdir: str, device, programs: "ProgramHelper") -> dict:
     """Phases 8 and 8's NLL over the CLI phase's checkpoints: the restored
     state (``phase_restored_state``); ``--mode serve`` over HTTP (its own
-    process) while this process runs the IWAE NLL, then the artifact.
-    Returns the launches of the servers."""
+    process) and the program artifacts' checks (``phase_programs``) while
+    this process runs the IWAE NLL, then the weights-file artifact.
+    Returns the launches of these paths."""
+    t0 = time.monotonic()
     trainer = phase_restored_state(workdir, device)
 
     def nll_then_artifact():
@@ -2997,20 +3006,246 @@ def phase_serving(workdir: str, device) -> dict:
         log("nll done")
         return phase_artifact(workdir, trainer)
 
+    serve, _, program = run_concurrently(
+        lambda: phase_serve(workdir), nll_then_artifact,
+        lambda: phase_programs(programs))
+    log(f"serving phase {time.monotonic() - t0:.1f} s")
+    return {k: serve["counts"][k] + program["counts"][k]
+            for k in KERNEL_NAMES}
+
+
+PROGRAM_RUNNER = """
+import json, sys, torch
+import nvae_torch.kernels
+from nvae_torch.kernels import depthwise as dw
+path, seed, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+extra = {"nvae_torch_sampler.json": ""}
+ep = torch.export.load(path, extra_files=extra)
+meta = json.loads(extra["nvae_torch_sampler.json"])
+dev = torch.device("cuda", 0)
+if not meta["device"].startswith("cuda"):
+    from torch.export.passes import move_to_device_pass
+    ep = move_to_device_pass(ep, dev)
+gen = torch.Generator(dev).manual_seed(seed)
+eps = [torch.randn(s, generator=gen, device=dev) for s in meta["noise_shapes"]]
+t = torch.full((meta["batch"],), 0.8, device=dev)
+cudnn = torch.backends.cudnn
+cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+cudnn.deterministic, cudnn.benchmark = True, False
+with torch.inference_mode():
+    images = ep.module()(t, eps)
+torch.save(images.cpu(), out)
+print(json.dumps({"launches": dw.launch_counts(), "modules": sorted(
+    m for m in sys.modules if m.split(".")[0] == "nvae_torch")}))
+"""
+
+
+def png_written_natively(path: str) -> bool:
+    """Whether a PNG's image data is stored deflate blocks (zlib header
+    78 01), as the port's native writer writes them; the stdlib encoder
+    compresses (78 9c)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    i = data.index(b"IDAT")
+    return data[i + 4:i + 6] == b"\x78\x01"
+
+
+def program_exports() -> list:
+    """(label, export_serving flags, counted wrapper, calls) of the program
+    artifacts at B=144, seeded weights, each a per-sample-temperature
+    program checked with ``--check``: the default model in fp32 (traced on
+    the CPU, run on the card), bf16 and int8 with bf16 compute, and the
+    depthwise model in bf16 (bf16 BatchNorm apply).  ``--check`` calls the
+    program and the live sampler once each (int8: and the full-precision
+    sampler, for the quality line)."""
+    bf16 = ["--compute_dtype", "bfloat16"]
+    return [
+        ("fp32", ["--export_on_cpu"], "fused_swish_depthwise5x5", 2),
+        ("bf16", [*bf16, "--weights_dtype", "bfloat16"],
+         "fused_swish_depthwise5x5_bf16", 2),
+        ("int8", [*bf16, "--weights_dtype", "int8"],
+         "fused_swish_depthwise5x5_bf16", 3),
+        ("bf16 depthwise", ["--postprocess_depthwise", *bf16,
+                            "--bn_apply_dtype", "bfloat16",
+                            "--weights_dtype", "bfloat16"],
+         "fused_swish_depthwise5x5_bf16", 2),
+    ]
+
+
+def program_path(workdir: str, label: str) -> str:
+    return os.path.join(workdir, f"program_{label.replace(' ', '_')}.pt2")
+
+
+def program_helper(workdir: str) -> int:
+    """The helper process of ``ProgramHelper`` (``chip_smoke.py --programs
+    DIR``): ``python -m nvae_torch.export_serving``'s ``main`` for each of
+    ``program_exports`` (exported, saved, loaded on the card, held bitwise
+    against the live sampler by ``--check``), for an int8 weights file at
+    batch 72, and ``--load --run --save_png`` of the int8 program, each
+    with its stdout and launch counts, written to ``DIR/programs.json``."""
+    os.nice(10)  # the run's own phases go first
+    sys.path.insert(0, ROOT)
+    import contextlib
+
+    from nvae_torch import export_serving
+
+    common = ["--batch", str(BATCH), "--per_sample_temperature", "--check",
+              "--use_pallas", "--seed", "0"]
+    runs = [(label, ["--out", program_path(workdir, label), *common, *flags])
+            for label, flags, _, _ in program_exports()]
+    runs.append(("weights int8", [
+        "--out", os.path.join(workdir, "weights_int8.pt"), "--format",
+        "weights", *common[2:], "--batch", str(BATCH // 2),
+        "--compute_dtype", "bfloat16", "--weights_dtype", "int8"]))
+    runs.append(("load --run", [
+        "--load", program_path(workdir, "int8"), "--run", "--seed", "42",
+        "--temperature", "0.8", "--save_png",
+        os.path.join(workdir, "program_png")]))
+    recs = {}
+    for label, argv in runs:
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            result = export_serving.main(argv)
+        torch.cuda.synchronize()
+        recs[label] = {"stdout": out.getvalue(), "counts": read_counts(),
+                       "seconds": time.monotonic() - t0}
+        print(f"{label}: {recs[label]}", flush=True)
+        if label == "load --run":
+            np.save(os.path.join(workdir, "load_run.npy"), result)
+    with open(os.path.join(workdir, "programs.json.tmp"), "w") as f:
+        json.dump(recs, f)
+    os.replace(os.path.join(workdir, "programs.json.tmp"),
+               os.path.join(workdir, "programs.json"))
+    return 0
+
+
+class ProgramHelper:
+    """The program artifacts, made by a helper process started after the
+    build (``program_helper``) while this one goes on with the card: its
+    work is mostly the host's (tracing, saving, loading), niced, and it
+    counts its own launches.  ``records`` waits for it."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="nvae_chip_smoke_programs_")
+        self.log = open(os.path.join(self.dir, "programs.log"), "w")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--programs", self.dir], cwd=self.dir, env=port_env(),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def records(self, timeout: float = 900.0) -> dict:
+        t0 = time.monotonic()
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.log.flush()
+        if rc != 0:
+            with open(self.log.name) as f:
+                raise AssertionError(f"program helper: exit {rc}:\n"
+                                     f"{f.read()[-4000:]}")
+        with open(os.path.join(self.dir, "programs.json")) as f:
+            recs = json.load(f)
+        log(f"program helper: done {time.monotonic() - self.t0:.1f} s after "
+            f"its start, waited {time.monotonic() - t0:.1f} s")
+        return recs
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def check_programs(recs: dict) -> dict:
+    """The helper's tool runs: each program's ``--check`` passed with #2's
+    launches exact by instance (14 a call, 20 in the depthwise config) and
+    as many op nodes in its graph; the weights file's too; ``--load
+    --run`` one call.  Returns the launches and a record per program."""
     launches = dict.fromkeys(KERNEL_NAMES, 0)
-    for rec in run_concurrently(lambda: phase_serve(workdir),
-                                nll_then_artifact):
+    out = {}
+    runs = [(label, name, calls, "--postprocess_depthwise" in flags)
+            for label, flags, name, calls in program_exports()]
+    runs += [("weights int8", "fused_swish_depthwise5x5_bf16", 3, False),
+             ("load --run", "fused_swish_depthwise5x5_bf16", 1, False)]
+    for label, name, calls, depthwise in runs:
+        rec = recs[label]
+        per_call = expected_launches(configs()["depthwise" if depthwise
+                                               else "default"])
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want[name] = calls * per_call
+        lines = rec["stdout"].splitlines()
+        meta = next((json.loads(l) for l in lines
+                     if l.startswith(('{"exported"', '{"artifact"'))), {})
+        quality = [json.loads(l) for l in lines if "int8_vs_fp" in l]
+        out[label] = {"seconds": rec["seconds"],
+                      **{k: meta[k] for k in ("bytes", "op_nodes")
+                         if k in meta}, **(quality[0] if quality else {})}
+        checked = label == "load --run" or any(
+            l.startswith("check OK: ") for l in lines)
+        if (rec["counts"] != want or not checked
+                or ("op_nodes" in meta and meta["op_nodes"] != per_call)
+                or label.endswith("int8") != bool(quality)):
+            raise AssertionError(f"program helper {label}: {out[label]}, "
+                                 f"launches {rec['counts']}, want {want}")
         for k, v in rec["counts"].items():
             launches[k] += v
-    return launches
+    log(f"program artifacts (the helper's tool runs): {out}")
+    return {"counts": launches, "records": out}
+
+
+def phase_program_runner(workdir: str) -> dict:
+    """The int8 program run by a process that imports only torch and
+    ``nvae_torch.kernels`` (``PROGRAM_RUNNER``): bitwise the images of the
+    tool's ``--load --run`` on the same seed and temperature, whose PNGs
+    (the native writer's, stored deflate) decode to their pixels."""
+    from nvae_torch.utils.images import load_images_from_dir, to_uint8
+
+    t0 = time.monotonic()
+    out = os.path.join(workdir, "program_images.pt")
+    proc = subprocess.run(
+        [sys.executable, "-c", PROGRAM_RUNNER,
+         program_path(workdir, "int8"), "42", out],
+        cwd=workdir, env=port_env(), capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"program runner exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    ran = json.loads(proc.stdout.strip().splitlines()[-1])
+    images = np.load(os.path.join(workdir, "load_run.npy"))
+    bitwise = np.array_equal(torch.load(out).numpy(), images)
+    png_dir = os.path.join(workdir, "program_png")
+    files = sorted(os.listdir(png_dir))
+    native = all(png_written_natively(os.path.join(png_dir, f))
+                 for f in files)
+    # Files are uuid-named: compare the sets of images.
+    same_pixels = sorted(map(bytes, load_images_from_dir(png_dir))) == sorted(
+        map(bytes, to_uint8(images)))
+    counts = {k: v for k, v in ran["launches"].items() if v}
+    rec = {"seconds": time.monotonic() - t0, "modules": ran["modules"],
+           "launches": counts, "bitwise": bitwise, "pngs": len(files),
+           "pngs_native": native, "png_pixels_equal": same_pixels}
+    log(f"program runner (torch and nvae_torch.kernels only): {rec}")
+    if (not bitwise or counts != {"fused_swish_depthwise5x5_bf16":
+                                  expected_launches(configs()["default"])}
+            or any(m.startswith(("nvae_torch.models", "nvae_torch.nn"))
+                   for m in ran["modules"])
+            or len(files) != BATCH or not native or not same_pixels):
+        raise AssertionError(f"program runner: {rec}")
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    launches.update(ran["launches"])
+    return {"counts": launches, **rec}
 
 
 def phase_artifact(workdir: str, trainer) -> dict:
-    """The serving artifact of the CLI's checkpoint with bf16 compute: fp32,
-    bf16 and int8 exports and their bytes, the int8 one loaded on the card
-    and checked bitwise against the live sampler (weights and samples);
-    then ``python -m nvae_torch.serving_http --artifact`` answers one
-    request and drains on SIGTERM, with exact launch counts."""
+    """The weights-file artifact of the CLI's checkpoint with bf16 compute:
+    fp32, bf16 and int8 exports and their bytes, the int8 one loaded on the
+    card and checked bitwise against the live sampler (weights and
+    samples)."""
     import dataclasses
 
     from nvae_torch.serving import (
@@ -3044,31 +3279,63 @@ def phase_artifact(workdir: str, trainer) -> dict:
     t = torch.full((BATCH,), 0.8)
     if not torch.equal(served(42, t), live(42, t)):
         raise AssertionError("artifact: samples differ from the live ones")
-    del served, live
+    log(f"artifact: weights-file bytes {sizes} (fp32 / bf16 / int8 "
+        "weights), the int8 file checked bitwise against the live sampler")
+    return {"bytes": sizes}
+
+
+def phase_artifact_server(workdir: str) -> dict:
+    """``python -m nvae_torch.serving_http`` over the helper's int8
+    program at batch 144 and int8 weights file at 72, routed by batch: one
+    request on each, then SIGTERM drains it to exit 0, with exact launch
+    counts."""
     port = free_port()
     server = Server("artifact", "nvae_torch.serving_http",
-                    ["--artifact", path, "--port", str(port),
-                     "--max_delay_ms", "5", *SERVER_FLAGS], workdir, port)
+                    ["--artifact", program_path(workdir, "int8"),
+                     "--artifact", os.path.join(workdir, "weights_int8.pt"),
+                     "--port", str(port), "--max_delay_ms", "5",
+                     *SERVER_FLAGS], workdir, port)
     try:
         up = server.wait_ready()
-        status, _, body = http(port, "/sample", {"n": 100, "temperature": 0.8})
-        arr = np.load(io.BytesIO(body))
-        if status != 200 or arr.shape != (100, 32, 32, 1):
-            raise AssertionError(f"artifact server: {status} {arr.shape}")
-        weights = http_json(port, "/stats")["weights"]
+        # 100 rows: the program's batch (144); 50: the weights file's (72).
+        for n in (100, 50):
+            status, _, body = http(port, "/sample",
+                                   {"n": n, "temperature": 0.8})
+            arr = np.load(io.BytesIO(body))
+            if status != 200 or arr.shape != (n, 32, 32, 1):
+                raise AssertionError(f"artifact server: {status} {arr.shape}")
+        stats = http_json(port, "/stats")
         end = server.stop()
     finally:
         server.kill()
-    per_call = expected_launches(trainer.model_cfg)
+    per_call = expected_launches(configs()["default"])
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["fused_swish_depthwise5x5_bf16"] = 2 * per_call  # warm-up, request
-    if end["counts"] != want or weights["serve_dtype"] != "int8":
-        raise AssertionError(f"artifact server: {end} {weights}")
-    log(f"artifact: bytes {sizes} (fp32 / bf16 / int8 weights), int8 "
-        f"file checked bitwise against the live sampler, served one "
-        f"request after {up:.1f} s; SIGTERM exit {end['rc']}, launches "
-        f"{end['counts']}")
-    return {"bytes": sizes, "counts": end["counts"]}
+    # A warm-up call per artifact, then one dispatch on each.
+    want["fused_swish_depthwise5x5_bf16"] = 4 * per_call
+    shapes = {str(BATCH // 2): 1, str(BATCH): 1}
+    if (end["counts"] != want or stats["weights"]["serve_dtype"] != "int8"
+            or stats["weights"].get("form") != "program"
+            or stats.get("dispatch_shapes") != shapes):
+        raise AssertionError(f"artifact server: {end} {stats}")
+    log(f"artifact server over the int8 program (b{BATCH}) and weights "
+        f"file (b{BATCH // 2}): up in {up:.1f} s, one request on each, "
+        f"dispatch shapes {stats['dispatch_shapes']}; SIGTERM exit "
+        f"{end['rc']}, launches {end['counts']}")
+    return {"counts": end["counts"]}
+
+
+def phase_programs(programs: "ProgramHelper") -> dict:
+    """The program form: the helper's records (``check_programs``), then
+    the bare runner and the artifact server side by side."""
+    t0 = time.monotonic()
+    checked = check_programs(programs.records())
+    runner, server = run_concurrently(
+        lambda: phase_program_runner(programs.dir),
+        lambda: phase_artifact_server(programs.dir))
+    launches = {k: checked["counts"][k] + runner["counts"][k]
+                + server["counts"][k] for k in KERNEL_NAMES}
+    log(f"program artifact checks in {time.monotonic() - t0:.1f} s")
+    return {"counts": launches}
 
 
 # ---- phase 8b: the metric suite (--mode test) -------------------------------
@@ -5475,6 +5742,9 @@ def main(argv=None) -> int:
     parser.add_argument("--host-refs", metavar="DIR",
                         help="run the CPU references of DIR's jobs (started "
                              "by the run itself)")
+    parser.add_argument("--programs", metavar="DIR",
+                        help="make phase 8's program artifacts in DIR "
+                             "(started by the run itself)")
     args = parser.parse_args(argv)
     if args.host_refs:
         return host_refs(args.host_refs)
@@ -5482,6 +5752,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
         return 1
+    if args.programs:
+        return program_helper(args.programs)
     if args.dp_rank:
         return dp_rank(args.dp_rank)
     if args.kernel_times:
@@ -5496,16 +5768,20 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     phase_build()
+    # The program artifacts of phase 8 from a helper process, from now on.
+    programs = ProgramHelper()
     # The CPU references of phases 5 and 11 from a helper process.
     host = HostRefs()
     add_host_jobs(host)
     try:
-        return run_phases(device, host, t_start)
+        return run_phases(device, host, programs, t_start)
     finally:
         host.close()
+        programs.close()
 
 
-def run_phases(device, host: HostRefs, t_start: float) -> int:
+def run_phases(device, host: HostRefs, programs: ProgramHelper,
+               t_start: float) -> int:
     """Every phase after the build, in order; the result lines."""
     errs = checked_kernel_errors(device, PATH_SHAPES, FWD_BATCHES,
                                  BWD_BATCHES)
@@ -5656,7 +5932,7 @@ def run_phases(device, host: HostRefs, t_start: float) -> int:
             replayed[k] += v
         report_cli(cli_scan)
         log(f"cli done at {time.monotonic() - t_start:.1f} s")
-        for k, v in phase_serving(workdir, device).items():
+        for k, v in phase_serving(workdir, device, programs).items():
             launches[k] += v
         log(f"serving done at {time.monotonic() - t_start:.1f} s")
         for k, v in phase_eval(workdir, device)["counts"].items():
@@ -5724,6 +6000,10 @@ def run_phases(device, host: HostRefs, t_start: float) -> int:
     records.append(bf16_record(bf16_errs, launches, bf16_timing))
     records += bf16_backward_records(bf16_bwd_errs, launches, bf16_bwd_timing)
     records.append(se_record(se_errs, launches, se_timing))
+    for rec in records:  # #2 runs as this op, eager and in the programs
+        if rec["name"] in ("fused_swish_depthwise5x5",
+                           "fused_swish_depthwise5x5_bf16"):
+            rec["op"] = "nvae_torch::fused_swish_dw5x5"
     for rec in records:  # bf16 #2-#4 at the RGB shapes (phase 11)
         if rec["name"] in ("fused_swish_depthwise5x5_bf16",
                            "fused_swish_depthwise5x5_dx_bf16"):

@@ -1,26 +1,41 @@
 """Export the sampler as one serving artifact file (counterpart of
 ``tools/export_serving.py``).
 
-The artifact (:func:`nvae_torch.serving.export_sampler`) holds the model
-config, the serving batch, the temperature settings, the output dtype, and
-only the tensors ``NVAE.sample`` reads, already cast or quantized to the
-serving dtype.  A server loads it with the port and the file, no checkpoint
-tree (``python -m nvae_torch.serving_http --artifact FILE``).
+Two forms (``--format``):
 
-Produce (fresh-init weights, or ``--ckpt`` for a checkpoint directory of
-the port's trainer)::
+- ``program`` (the default, the JAX tool's only form):
+  :func:`nvae_torch.serving.export_program`, a ``torch.export`` program of
+  the sampler at ``--batch`` with the weights inside, cast or quantized to
+  ``--weights_dtype``, and the fused depthwise forward recorded as the op
+  ``nvae_torch::fused_swish_dw5x5``.  A host runs it with torch and
+  ``nvae_torch.kernels`` alone (``nvae_torch/serving_program.py``).  Its
+  inputs are the temperature and the sampler's Gaussian draws, which the
+  loader draws from the seed, so the caller's convention stays ``(seed,
+  temperature) -> images``;
+- ``weights``: :func:`nvae_torch.serving.export_sampler`, the model config
+  and only the tensors ``NVAE.sample`` reads, rebuilt into a ``Sampler`` by
+  the port's model code.
 
-    python -m nvae_torch.export_serving --out sampler.pt --batch 144 \\
+Either one is served by ``python -m nvae_torch.serving_http --artifact
+FILE``.  Produce (fresh-init weights, or ``--ckpt`` for a checkpoint
+directory of the port's trainer)::
+
+    python -m nvae_torch.export_serving --out sampler.pt2 --batch 144 \\
         --preset mnist_step_sn --use_pallas --per_sample_temperature \\
-        --ckpt models --weights_dtype int8
+        --ckpt models --weights_dtype int8 --check
 
 Run once (on the card; ``--cpu`` for the CPU)::
 
-    python -m nvae_torch.export_serving --load sampler.pt --run --temperature 0.8
+    python -m nvae_torch.export_serving --load sampler.pt2 --run \\
+        --temperature 0.8 --save_png samples
 
 A JSON line describes the file (``bytes``: its size) and writes it beside the
-artifact as ``<out>.json``.  ``--check`` reloads the file and compares it
-with the live sampler on the same weights, bitwise.
+artifact as ``<out>.json``.  ``--check`` loads the file and holds its images
+bitwise against the live sampler on the same weights and seed (the weights
+file: its tensors too); with ``--weights_dtype int8`` it also prints how far
+the int8 images lie from the full-precision sampler's.  The program is
+traced on the card, or with ``--cpu`` or ``--export_on_cpu`` on the CPU (it
+is moved to the card when loaded there).
 """
 
 from __future__ import annotations
@@ -58,11 +73,47 @@ def _configs(args):
     ), train_cfg
 
 
-def export_artifact(args) -> dict:
+def _check(args, cfg, sd, device) -> None:
+    """Load the file on ``device`` and hold it against the live sampler."""
+    import numpy as np
     import torch
 
+    from nvae_torch.serving import Sampler, load_artifact
+
+    served = load_artifact(args.out, device)
+    live = Sampler(cfg, sd, args.batch, args.scale_temperatures,
+                   args.output_dtype, device=device,
+                   serve_dtype=args.weights_dtype)
+    if args.format == "weights":
+        for k, v in live._weights.items():
+            w = served._weights[k]
+            same = (torch.equal(v.q, w.q) and torch.equal(v.scale, w.scale)
+                    if hasattr(v, "q") else torch.equal(v, w))
+            if not same:
+                raise SystemExit(f"check failed: the artifact's {k} differs "
+                                 "from the live sampler's")
+    t = torch.full((args.batch,), 0.8) if args.per_sample_temperature else 0.8
+    got = served(42, t)
+    if not torch.equal(got, live(42, t)):
+        raise SystemExit("check failed: the artifact's samples differ "
+                         "from the live sampler's")
+    what = "weights and samples" if args.format == "weights" else "samples"
+    print(f"check OK: {args.format} artifact == live sampler ({what} "
+          "bitwise)")
+    if args.weights_dtype == "int8":
+        # JAX's quality line: the int8 images against the full-precision
+        # sampler's, same seed and temperature.
+        full = Sampler(cfg, sd, args.batch, args.scale_temperatures,
+                       args.output_dtype, device=device)(42, t)
+        d = np.abs(full.cpu().numpy().astype(np.float64)
+                   - got.cpu().numpy().astype(np.float64))
+        print(json.dumps({"int8_vs_fp_max_abs": float(d.max()),
+                          "int8_vs_fp_mean_abs": float(d.mean())}))
+
+
+def export_artifact(args) -> dict:
     from nvae_torch.models.nvae import NVAE
-    from nvae_torch.serving import Sampler, export_sampler, load_artifact
+    from nvae_torch.serving import export_program, export_sampler
 
     cfg, train_cfg = _configs(args)
     step = -1
@@ -77,12 +128,24 @@ def export_artifact(args) -> dict:
         print(f"Restored checkpoint: {args.ckpt} (step {step})")
     else:
         sd = NVAE(cfg, device="cpu", seed=args.seed).state_dict()
-    n_bytes = export_sampler(
-        args.out, cfg, sd, args.batch, args.scale_temperatures,
-        per_sample_temperature=args.per_sample_temperature,
-        output_dtype=args.output_dtype, serve_dtype=args.weights_dtype,
-        step=step)
+    device = "cpu" if args.cpu else "cuda"
+    kw = dict(per_sample_temperature=args.per_sample_temperature,
+              output_dtype=args.output_dtype, serve_dtype=args.weights_dtype,
+              step=step)
+    extra = {}
+    if args.format == "program":
+        from nvae_torch.serving_program import read_meta
+
+        n_bytes = export_program(
+            args.out, cfg, sd, args.batch, args.scale_temperatures,
+            device="cpu" if args.export_on_cpu else device, **kw)
+        # How many times the graph calls the fused depthwise op (#2).
+        extra["op_nodes"] = read_meta(args.out)["op_nodes"]
+    else:
+        n_bytes = export_sampler(args.out, cfg, sd, args.batch,
+                                 args.scale_temperatures, **kw)
     meta = {
+        "format": args.format,
         "batch": args.batch,
         "image_size": cfg.image_size,
         "in_channels": cfg.in_channels,
@@ -99,30 +162,13 @@ def export_artifact(args) -> dict:
             else "(seed, temperature_f32) -> images"),
         "step": step,
         "bytes": n_bytes,
+        **extra,
     }
     with open(args.out + ".json", "w") as f:
         json.dump(meta, f, indent=2)
     print(json.dumps({"exported": args.out, **meta}))
     if args.check:
-        device = "cpu" if args.cpu else "cuda"
-        served = load_artifact(args.out, device)
-        live = Sampler(cfg, sd, args.batch, args.scale_temperatures,
-                       args.output_dtype, device=device,
-                       serve_dtype=args.weights_dtype)
-        for k, v in live._weights.items():
-            w = served._weights[k]
-            same = (torch.equal(v.q, w.q) and torch.equal(v.scale, w.scale)
-                    if hasattr(v, "q") else torch.equal(v, w))
-            if not same:
-                raise SystemExit(f"check failed: the artifact's {k} differs "
-                                 "from the live sampler's")
-        t = torch.full((args.batch,), 0.8)
-        a, b = served(42, t), live(42, t)
-        if not torch.equal(a, b):
-            raise SystemExit("check failed: the artifact's samples differ "
-                             "from the live sampler's")
-        print("check OK: artifact == live sampler (weights and samples "
-              "bitwise)")
+        _check(args, cfg, sd, device)
     return meta
 
 
@@ -151,7 +197,16 @@ def load_and_run(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--out", default="sampler.pt", help="Artifact to write")
+    p.add_argument("--out", default="",
+                   help="Artifact to write (default: sampler.pt2, or "
+                        "sampler.pt with --format weights)")
+    p.add_argument("--format", default="program",
+                   choices=["program", "weights"],
+                   help="program: a torch.export program with the weights "
+                        "inside; weights: the config and the tensors")
+    p.add_argument("--export_on_cpu", action="store_true",
+                   help="Trace the program on the CPU (it is moved to the "
+                        "card when loaded there)")
     p.add_argument("--load", default="",
                    help="Load an existing artifact instead of exporting")
     p.add_argument("--run", action="store_true",
@@ -195,6 +250,8 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (default: the CUDA card)")
     args = p.parse_args(argv)
+    args.out = args.out or ("sampler.pt2" if args.format == "program"
+                            else "sampler.pt")
     if args.load:
         return load_and_run(args)
     return export_artifact(args)

@@ -6,7 +6,8 @@ Counterpart of ``nvae_tpu/kernels/depthwise.py``:
 - :func:`fused_swish_depthwise5x5` is the op with its gradient
   (:class:`FusedSwishDepthwise5x5`, the counterpart of the ``jax.custom_vjp``
   of ``_make_fused_dw``).  Its forward replaces the Pallas
-  ``_fused_fwd_kernel`` (``fwd_call``);
+  ``_fused_fwd_kernel`` (``fwd_call``) and runs as the registered op
+  ``nvae_torch::fused_swish_dw5x5`` (``ops.py``);
 - :func:`fused_swish_depthwise5x5_dx` replaces ``_fused_dx_kernel`` and
   ``_fused_dx_nox_kernel`` (``dx_call``);
 - :func:`fused_swish_depthwise5x5_dw` replaces ``_fused_dw_kernel``
@@ -623,16 +624,15 @@ fused_swish_depthwise5x5_bf16.launches = 0
 
 def _forward(x: torch.Tensor, kernel: torch.Tensor,
              bias: Optional[torch.Tensor], fuse_swish: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return fused_swish_depthwise5x5_plain(
-            x, kernel, bias, fuse_swish=fuse_swish
-        )
-    if x.dtype == torch.bfloat16:
-        return fused_swish_depthwise5x5_bf16(x, kernel, bias,
-                                             fuse_swish=fuse_swish)
-    y = _launch(x, kernel, bias, fuse_swish)
-    fused_swish_depthwise5x5.launches += 1
-    return y
+    # The registered op (``ops.py``, imported with this package): its CPU
+    # implementation is the plain version, its CUDA one launches the fp32 or
+    # bf16 kernel and counts it, and a ``torch.export`` graph records it by
+    # name (tracing hands it fake tensors on the CPU or the card).  A tensor
+    # on any other device raises here, as the other wrappers do.
+    if x.device.type not in ("cpu", "cuda"):
+        _require_cuda(x)
+    return torch.ops.nvae_torch.fused_swish_dw5x5(x, kernel, bias,
+                                                  bool(fuse_swish))
 
 
 def _launch_dx(dy: torch.Tensor, kernel: torch.Tensor,

@@ -5,6 +5,13 @@ serving dtypes, and its one-file artifact (counterpart of
 ``variables_from_state``, ``ReloadableSampler``, ``make_checkpoint_reloader``,
 ``build_mesh_sampler``, ``export_sampler`` and ``load_artifact``).
 
+The artifact comes in two forms: the program (:func:`export_program`, a
+``torch.export`` graph with the weights inside, which a host runs with
+torch and ``nvae_torch.kernels`` alone, as JAX's serialized StableHLO runs
+with jax alone) and the weights file (:func:`export_sampler`, the config and
+the tensors, which :func:`load_artifact` rebuilds into a :class:`Sampler`
+with the model code).
+
 :class:`Sampler` is called as ``(seed, temperature) -> images``; a
 temperature vector's length sets the batch size, so one sampler backs
 several batch shapes.  It holds the tensors ``NVAE.sample`` reads
@@ -63,9 +70,17 @@ from nvae_torch.convert import channel_axes
 from nvae_torch.device import DeviceLike, fp32_math, resolve_device
 from nvae_torch.models.nvae import NVAE, decoder_noise_shapes
 from nvae_torch.parallel.multihost import is_primary
+from nvae_torch.serving_program import (
+    PROGRAM_FORMAT,
+    is_program,
+    load_program,
+    op_nodes,
+    save_program,
+)
 
 SERVE_DTYPES = ("", "bfloat16", "int8")  # "": as trained (float32)
 INT8_MIN_ELEMS = 4096
+# The weights file's format tag; the program's is PROGRAM_FORMAT.
 ARTIFACT_FORMAT = "nvae_torch.sampler/1"
 # The state-dict entries NVAE.sample reads: the decoder's cells, sample
 # combiners, rescalers, prior heads and constant input, and the postprocess.
@@ -528,10 +543,105 @@ def export_sampler(path: str, cfg: ModelConfig, state_dict: dict,
     return os.path.getsize(path)
 
 
-def load_artifact(path: str, device: DeviceLike = "cuda") -> Sampler:
-    """A :class:`Sampler` on ``device`` from an :func:`export_sampler` file.
-    Its ``artifact`` attribute holds the file's settings (batch,
-    per-sample temperature, dtypes, step)."""
+class _SamplerProgram(torch.nn.Module):
+    """``NVAE.sample`` at one batch over a staged :class:`Sampler`'s
+    weights, the module :func:`export_program` traces.  The weights are its
+    buffers (dots in their names become ``__``; an int8 leaf is two,
+    ``__q`` and ``__scale``, dequantized here as :meth:`QuantizedLeaf.
+    dequantize` does); the sampler, whose model lives on the meta device,
+    stays outside the module tree, and each call binds the buffers into its
+    model as :meth:`Sampler.apply` binds a snapshot."""
+
+    def __init__(self, sampler: Sampler):
+        super().__init__()
+        self._sampler = (sampler,)
+        self._plain, self._quantized = {}, {}
+        for k, v in sampler._weights.items():
+            name = k.replace(".", "__")
+            if isinstance(v, QuantizedLeaf):
+                self.register_buffer(f"{name}__q", v.q)
+                self.register_buffer(f"{name}__scale", v.scale)
+                self._quantized[k] = (name, v.orig_dtype)
+            else:
+                self.register_buffer(name, v)
+                self._plain[k] = name
+
+    def forward(self, temperature: torch.Tensor, eps: list) -> torch.Tensor:
+        sampler = self._sampler[0]
+        weights = {k: getattr(self, n) for k, n in self._plain.items()}
+        for k, (n, dtype) in self._quantized.items():
+            weights[k] = QuantizedLeaf(getattr(self, f"{n}__q"),
+                                       getattr(self, f"{n}__scale"),
+                                       dtype).dequantize()
+        with sampler._bound(weights) as model:
+            images, _, _, _ = model.sample(sampler.n_samples, temperature,
+                                           True, sampler._st, eps=eps)
+        return quantize_output(images, sampler.output_dtype)
+
+
+def export_program(path: str, cfg: ModelConfig, state_dict: dict,
+                   n_samples: int,
+                   scale_temperatures: Optional[Sequence[float]] = None,
+                   per_sample_temperature: bool = False,
+                   output_dtype: str = "", serve_dtype: str = "",
+                   step: int = -1, device: DeviceLike = "cuda") -> int:
+    """Write the sampler as a program (counterpart of JAX's
+    ``export_sampler``): ``torch.export`` of ``NVAE.sample`` at batch
+    ``n_samples``, with ``scale_temperatures`` and ``output_dtype`` in the
+    graph, the served weights (cast or quantized to ``serve_dtype``) as its
+    buffers, and #2 as the op ``nvae_torch::fused_swish_dw5x5``.  Its
+    inputs are a temperature, ``f32[n_samples]`` with
+    ``per_sample_temperature`` else ``f32[]``, and the sampler's Gaussian
+    draws (:mod:`nvae_torch.serving_program` loads and runs it without the
+    model code).  Traced on ``device`` (the card by default; a program
+    traced on the CPU is moved to the card when it is loaded there).
+    Returns the file's bytes."""
+    staged = Sampler(cfg, state_dict, n_samples, scale_temperatures,
+                     output_dtype, device=device, serve_dtype=serve_dtype)
+    dev = staged.device
+    shapes = decoder_noise_shapes(cfg, n_samples)
+    t = torch.ones((n_samples,) if per_sample_temperature else (),
+                   device=dev)
+    eps = [torch.zeros(s, device=dev) for s in shapes]
+    with torch.no_grad():
+        ep = torch.export.export(_SamplerProgram(staged), (t, eps))
+    # The example inputs would be saved with the program: the noise of a
+    # whole batch (tens of MB at batch 144).  The loader draws its own.
+    ep.example_inputs = None
+    # Export checks each dtype conversion at run time with an
+    # ``_assert_tensor_metadata`` node: hundreds a call, a host dispatch
+    # each, on a graph whose dtypes the export fixed.
+    assert_op = torch.ops.aten._assert_tensor_metadata.default
+    for node in list(ep.graph.nodes):
+        if node.op == "call_function" and node.target is assert_op:
+            ep.graph.erase_node(node)
+    ep.graph_module.recompile()
+    meta = {
+        "format": PROGRAM_FORMAT,
+        "config": _config_dict(cfg),
+        "batch": int(n_samples),
+        "scale_temperatures": list(staged._st) if staged._st else None,
+        "per_sample_temperature": bool(per_sample_temperature),
+        "output_dtype": output_dtype,
+        "serve_dtype": serve_dtype,
+        "step": int(step),
+        "noise_shapes": [list(s) for s in shapes],
+        "device": str(dev),
+        "op_nodes": op_nodes(ep),
+        "torch": torch.__version__,
+    }
+    return save_program(path, ep, meta)
+
+
+def load_artifact(path: str, device: DeviceLike = "cuda"):
+    """The sampler of an artifact on ``device``: a
+    :class:`~nvae_torch.serving_program.ProgramSampler` for an
+    :func:`export_program` file, a :class:`Sampler` for an
+    :func:`export_sampler` one.  Its ``artifact`` attribute holds the
+    file's settings (batch, per-sample temperature, dtypes, step) and
+    ``form``, ``"program"`` or ``"weights"``."""
+    if is_program(path):
+        return load_program(path, device)
     p = torch.load(path, map_location="cpu", weights_only=True)
     if p.get("format") != ARTIFACT_FORMAT:
         raise ValueError(f"{path}: not a {ARTIFACT_FORMAT} artifact")
@@ -544,7 +654,7 @@ def load_artifact(path: str, device: DeviceLike = "cuda") -> Sampler:
                       device=device, serve_dtype=p["serve_dtype"])
     sampler.step = int(p["step"])
     sampler.artifact = {
-        "path": path, "batch": int(p["n_samples"]),
+        "path": path, "form": "weights", "batch": int(p["n_samples"]),
         "per_sample_temperature": bool(p["per_sample_temperature"]),
         "serve_dtype": p["serve_dtype"] or "float32",
         "output_dtype": p["output_dtype"] or "float32",

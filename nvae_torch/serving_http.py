@@ -24,15 +24,20 @@ Endpoints
   reloads the latest step of the checkpoint directory configured at
   startup, never a client-supplied path.  ``SIGHUP`` does the same default
   reload, and ``--follow_s`` polls for newer steps.  An artifact server
-  re-reads its artifact files instead.
+  re-reads its artifact files instead (a program's weights are in its
+  file, as in JAX's artifact server).
 
 Run on the card (``--cpu`` runs on the CPU; nothing falls back silently)::
 
     python -m nvae_torch.serving_http --preset mnist_step_sn --use_pallas \\
         --ckpt models --serve_dtype int8 --compute_dtype bfloat16 --port 8000
-    python -m nvae_torch.export_serving --out sampler.pt --batch 144 \\
+    python -m nvae_torch.export_serving --out sampler.pt2 --batch 144 \\
         --per_sample_temperature --ckpt models --weights_dtype int8
-    python -m nvae_torch.serving_http --artifact sampler.pt --port 8000
+    python -m nvae_torch.serving_http --artifact sampler.pt2 --port 8000
+
+``--artifact`` takes either form of the artifact: the program
+(``torch.export``, the default of ``export_serving``), run without the model
+code, or the weights file (``--format weights``).
 
 Without ``--ckpt`` the server serves freshly initialized weights (load
 testing only).  SIGTERM and SIGINT stop accepting connections and drain
@@ -366,8 +371,9 @@ def _build_call(args, device):
 
 
 def _build_call_from_artifact(path: str, device):
-    """A sampler from an exported artifact and its batch: the artifact must
-    take a per-sample temperature vector, which the batching runtime packs."""
+    """A sampler from an exported artifact (a program or a weights file) and
+    its batch: the artifact must take a per-sample temperature vector, which
+    the batching runtime packs."""
     from nvae_torch.serving import load_artifact
 
     call = load_artifact(path, device)
@@ -449,9 +455,10 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--artifact", action="append", default=None,
-                    help="Serve an exported sampler (python -m "
-                         "nvae_torch.export_serving --per_sample_temperature);"
-                         " the batch comes from the artifact and --preset/"
+                    help="Serve an exported sampler, a program or a "
+                         "weights file (python -m nvae_torch.export_serving "
+                         "--per_sample_temperature); the batch comes from "
+                         "the artifact and --preset/"
                          "--ckpt/--batch are ignored.  Repeat with "
                          "different-batch exports for multi-shape serving")
     ap.add_argument("--preset", default="",

@@ -153,7 +153,8 @@ class ServerStats:
 
 class BatchingSampler:
     """Dynamic-batching front end over a ``(seed, f32[B]) -> images``
-    sampler, such as :class:`nvae_torch.serving.Sampler`.
+    sampler, such as :class:`nvae_torch.serving.Sampler` or a program
+    artifact's :class:`nvae_torch.serving_program.ProgramSampler`.
 
     Parameters
     ----------

@@ -1,14 +1,15 @@
 """Size and throughput of the port's serving artifact, bf16 against int8
-weights (twin of ``tools/bench_serving_artifact.py``).
+weights, in both its forms (twin of ``tools/bench_serving_artifact.py``).
 
-The artifact is the weights-file form, ``nvae_torch.serving.
-export_sampler`` (the model config and the tensors the sampler reads, cast
-or quantized to the serving dtype) read back by ``load_artifact`` into a
-``Sampler`` on the card; the int8 form (weight-only, per output channel)
-dequantizes each leaf with one multiply at call time.  The form that
-carries the program as well waits for ROADMAP.md Queue 1 #12.  This tool
-exports the sampler at ``--batch`` under both weight dtypes, loads each
-file and times its calls end to end (one sync after ``--iters`` calls).
+The program form (``nvae_torch.serving.export_program``, the JAX tool's
+only form: a ``torch.export`` program with the weights inside, run by
+``nvae_torch.serving_program.ProgramSampler``) fills the JAX tool's keys,
+``bf16`` and ``int8``; the weights-file form (``export_sampler``: the model
+config and the tensors the sampler reads, rebuilt into a ``Sampler``) goes
+beside them under ``weights_file``.  Either int8 form dequantizes each
+leaf with one multiply at call time.  This tool exports the sampler at
+``--batch`` in each form under both weight dtypes, loads each file on the
+card and times its calls end to end (one sync after ``--iters`` calls).
 
 Weight values do not change the time, so the model is a seeded init
 (``--ckpt`` serves trained weights).  The default model is the serving
@@ -18,7 +19,8 @@ apply, on the hand-written kernels.
 Prints one JSON line::
 
     {"metric": "serving_artifact_int8_vs_bf16", "batch": N,
-     "bf16": {"mb": ..., "img_per_s": ...}, "int8": {...}, ...}
+     "bf16": {"mb": ..., "img_per_s": ...}, "int8": {...},
+     "weights_file": {"bf16": {...}, "int8": {...}}, ...}
 
 Usage: ``python -m nvae_torch.tools.bench_serving_artifact [--batch 1152]
 [--quick] [--cpu]``
@@ -59,7 +61,11 @@ def main(argv=None):
 
     from nvae_torch.config import ModelConfig, TrainConfig, debug_config
     from nvae_torch.models.nvae import NVAE
-    from nvae_torch.serving import export_sampler, load_artifact
+    from nvae_torch.serving import (
+        export_program,
+        export_sampler,
+        load_artifact,
+    )
 
     device = tool_device(args)
     if args.quick:
@@ -85,12 +91,17 @@ def main(argv=None):
     log(f"init: {time.time() - t0:.1f}s")
     tmp = tempfile.mkdtemp(prefix="nvae_artifact_")
 
-    def bench(tag: str, serve_dtype: str):
-        path = os.path.join(tmp, f"{tag}.pt")
+    def bench(tag: str, serve_dtype: str, form: str):
+        path = os.path.join(tmp, f"{tag}_{form}.pt2" if form == "program"
+                            else f"{tag}_{form}.pt")
         t0 = time.time()
-        nbytes = export_sampler(path, model_cfg, state_dict, args.batch,
-                                serve_dtype=serve_dtype)
-        log(f"{tag}: exported {nbytes / 1e6:.1f} MB in "
+        if form == "program":
+            nbytes = export_program(path, model_cfg, state_dict, args.batch,
+                                    serve_dtype=serve_dtype, device=device)
+        else:
+            nbytes = export_sampler(path, model_cfg, state_dict, args.batch,
+                                    serve_dtype=serve_dtype)
+        log(f"{tag} {form}: exported {nbytes / 1e6:.1f} MB in "
             f"{time.time() - t0:.1f}s")
         call = load_artifact(path, device)
         imgs = None
@@ -104,18 +115,29 @@ def main(argv=None):
         sync(device)
         dt = time.time() - t0
         ips = args.batch * args.iters / dt
-        log(f"{tag}: {ips:.1f} img/s at b{args.batch} "
+        log(f"{tag} {form}: {ips:.1f} img/s at b{args.batch} "
             f"({dt / args.iters * 1e3:.1f} ms/call)")
-        return {"mb": round(nbytes / 1e6, 1), "img_per_s": round(ips, 1),
-                "ms_per_call": round(dt / args.iters * 1e3, 2),
-                "weights_mb_on_device": round(call.weights_bytes / 1e6, 1),
-                "ran_via": "load_artifact"}, imgs.float().cpu().numpy()
+        rec = {"mb": round(nbytes / 1e6, 1), "img_per_s": round(ips, 1),
+               "ms_per_call": round(dt / args.iters * 1e3, 2),
+               "weights_mb_on_device": round(call.weights_bytes / 1e6, 1),
+               "ran_via": "load_artifact", "form": form}
+        return rec, imgs.float().cpu().numpy()
 
+    runs = {}
     try:
-        r_bf16, img_bf16 = bench("bf16", "bfloat16")
-        r_int8, img_int8 = bench("int8", "int8")
+        for form in ("program", "weights"):
+            for tag, dtype in (("bf16", "bfloat16"), ("int8", "int8")):
+                runs[form, tag] = bench(tag, dtype, form)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    (r_bf16, img_bf16), (r_int8, img_int8) = (runs["program", "bf16"],
+                                              runs["program", "int8"])
+    for tag in ("bf16", "int8"):
+        # Both forms draw the same noise from the same seed.
+        if not np.array_equal(runs["program", tag][1],
+                              runs["weights", tag][1]):
+            raise AssertionError(f"{tag}: the program's images differ from "
+                                 "the weights file's")
     # The two artifacts on the same seed: mean |delta| of the Bernoulli
     # means (in [0, 1]).
     mad = float(np.mean(np.abs(img_bf16 - img_int8)))
@@ -129,6 +151,8 @@ def main(argv=None):
         "throughput_ratio": round(
             r_int8["img_per_s"] / max(r_bf16["img_per_s"], 1e-9), 3),
         "mean_abs_pixel_delta": round(mad, 5),
+        "weights_file": {"bf16": runs["weights", "bf16"][0],
+                         "int8": runs["weights", "int8"][0]},
         "device": device_info(device),
     }
     print(json.dumps(report))

@@ -3,12 +3,14 @@
 ``save_images_to_dir``, ``sample_to_dir``, ``sample_sweep_to_dirs``, and the
 metric suite's reader, ``ImageDirectory`` and ``load_images_from_dir``).
 
-PNGs are written and read by a small codec on the standard library
-(``zlib`` and ``struct``).  The encoder writes 8-bit greyscale or RGB, no
-interlace, filter 0 on every row.  The decoder reads 8-bit greyscale,
-greyscale + alpha, RGB and RGBA, every filter type (0-4), no interlace, and
-raises on any other PNG, naming what it is.  JPEGs need Pillow, and raise
-without it.
+PNGs are written by the port's batch writer (``native_png``, C++ through
+ctypes, built at first use) where a compiler exists, as the JAX package
+writes through its own; otherwise, and for one image, by a small codec on
+the standard library (``zlib`` and ``struct``), which also reads them.  The
+encoder writes 8-bit greyscale or RGB, no interlace, filter 0 on every row.
+The decoder reads 8-bit greyscale, greyscale + alpha, RGB and RGBA, every
+filter type (0-4), no interlace, and raises on any other PNG, naming what it
+is.  JPEGs need Pillow, and raise without it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import zlib
 from typing import Optional
 
 import numpy as np
+
+from nvae_torch.utils import native_png
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2}  # channels -> PNG colour type (grey, RGB)
@@ -72,11 +76,19 @@ def encode_png(image: np.ndarray) -> bytes:
 
 def save_images_to_dir(images, out_dir: str) -> None:
     """Write each image (N, H, W, C), floats in [0, 1] or uint8, as a
-    uuid4-named PNG (reference ``util.py:31-36``)."""
+    uuid4-named PNG (reference ``util.py:31-36``): one call of the native
+    batch writer where it is built, else the stdlib encoder, which also
+    writes any file the native writer missed."""
     os.makedirs(out_dir, exist_ok=True)
-    for img in to_uint8(np.asarray(images)):
-        with open(os.path.join(out_dir, f"{uuid.uuid4()}.png"), "wb") as f:
-            f.write(encode_png(img))
+    arr = to_uint8(np.asarray(images))
+    paths = [os.path.join(out_dir, f"{uuid.uuid4()}.png") for _ in arr]
+    if native_png.available() and native_png.write_batch(paths, arr) == len(
+            arr):
+        return
+    for img, path in zip(arr, paths):
+        if not os.path.exists(path):
+            with open(path, "wb") as f:
+                f.write(encode_png(img))
 
 
 def sample_to_dir(sample_fn, batch_size: int, sample_size: int,

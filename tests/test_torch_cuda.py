@@ -705,3 +705,76 @@ def test_cuda_evaluate_model_launches_the_kernel(cuda_device):
     assert [fn.launches for fn in fns] == [per_call * calls, 0, 0]
     assert all(np.isfinite(m.fid) for m in ev.sample_metrics)
     assert set(timings) >= {"sampling", "nll", "precision/recall"}
+
+
+# ---- #2 as the op nvae_torch::fused_swish_dw5x5, and the program artifact --
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_op_launches_the_kernel(cuda_device, dtype, monkeypatch):
+    """The op's CUDA implementation is the kernel's launch, counted once a
+    call in its instance's wrapper, and never the plain version; its
+    output has the fake's layout."""
+    x, k, b = _inputs((4, 16, 16, 384), cuda_device)
+    x, kt = x.to(dtype), k.to(dtype).permute(3, 2, 0, 1).contiguous()
+    taps = kt.permute(2, 3, 1, 0)  # DepthwiseConv's (5, 5, 1, C) view
+    want = tdw.fused_swish_depthwise5x5_plain(x, taps, b)
+    counted = (tdw.fused_swish_depthwise5x5_bf16 if dtype == torch.bfloat16
+               else tdw.fused_swish_depthwise5x5)
+    other = (tdw.fused_swish_depthwise5x5 if dtype == torch.bfloat16
+             else tdw.fused_swish_depthwise5x5_bf16)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(tdw, "fused_swish_depthwise5x5_plain", plain)
+    op = torch.ops.nvae_torch.fused_swish_dw5x5.default
+    before = (counted.launches, other.launches)
+    got = op(x, taps, b, True)
+    assert (counted.launches, other.launches) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= ATOL
+    else:
+        scale = tdw.bf16_sum_scale(x, taps, b)
+        assert float(tdw.bf16_sum_ulps(got, want, scale).max()) <= (
+            tdw.BF16_SUM_ULPS)
+    fake = op(x.to("meta"), taps.to("meta"), b.to("meta"), True)
+    assert (got.shape, got.dtype, got.stride()) == (
+        fake.shape, fake.dtype, fake.stride())
+    with pytest.raises(ValueError):  # what the kernel does not take raises
+        op(x.permute(0, 2, 1, 3), taps, b, True)
+
+
+@pytest.mark.parametrize("serve_dtype,compute", [
+    ("", "float32"), ("bfloat16", "bfloat16"), ("int8", "bfloat16")])
+def test_cuda_program_artifact_matches_the_sampler(cuda_device, tmp_path,
+                                                   serve_dtype, compute):
+    """A debug-size program traced on the card and one traced on the CPU
+    (moved to the card at load) give the live sampler's images bitwise,
+    with the op's launches per call as the eager call's."""
+    import dataclasses
+
+    from nvae_torch.serving import Sampler, export_program, load_artifact
+
+    cfg = dataclasses.replace(debug_config(use_pallas_kernels=True),
+                              compute_dtype=compute)
+    sd = NVAE(cfg, device="cpu", seed=0).state_dict()
+    live = Sampler(cfg, sd, 8, device=cuda_device, serve_dtype=serve_dtype)
+    counted = (tdw.fused_swish_depthwise5x5_bf16 if compute == "bfloat16"
+               else tdw.fused_swish_depthwise5x5)
+    t = torch.linspace(0.6, 1.0, 8)
+    before = counted.launches
+    want = live(3, t)
+    per_call = counted.launches - before
+    assert per_call == (cfg.n_total_groups - 1) * cfg.res_cells_per_group
+    for where in ("cuda", "cpu"):
+        path = str(tmp_path / f"{where}.pt2")
+        export_program(path, cfg, sd, 8, per_sample_temperature=True,
+                       serve_dtype=serve_dtype, device=where)
+        program = load_artifact(path, cuda_device)
+        assert program.artifact["op_nodes"] == per_call
+        before = counted.launches
+        got = program(3, t)
+        assert counted.launches - before == per_call
+        assert got.device.type == "cuda" and torch.equal(got, want), where

@@ -53,8 +53,10 @@ def test_port_imports_no_jax():
                  ("eval", "ppl.py"), ("eval", "precision_recall.py"),
                  ("utils", "images.py"),
                  ("utils", "logging.py"), ("utils", "seeds.py"),
-                 ("kernels", "se_gate.py"), ("cli.py",), ("presets.py",),
-                 ("serving.py",), ("serving_http.py",),
+                 ("kernels", "se_gate.py"), ("kernels", "ops.py"),
+                 ("utils", "native_png.py"), ("cli.py",), ("presets.py",),
+                 ("serving.py",), ("serving_program.py",),
+                 ("serving_http.py",),
                  ("export_serving.py",), ("parallel", "__init__.py"),
                  ("parallel", "mesh.py"), ("parallel", "multihost.py"),
                  ("tools", "profile_step.py"), ("tools", "memory_report.py"),
@@ -78,6 +80,8 @@ def test_importing_the_port_loads_no_jax():
         "nvae_torch.data, nvae_torch.eval.nll, nvae_torch.utils.images, "
         "nvae_torch.eval, nvae_torch.eval.fid, "
         "nvae_torch.utils.logging, nvae_torch.kernels.se_gate, "
+        "nvae_torch.kernels.ops, nvae_torch.serving_program, "
+        "nvae_torch.utils.native_png, "
         "nvae_torch.cli, nvae_torch.presets, nvae_torch.serving_http, "
         "nvae_torch.export_serving, nvae_torch.tools, "
         "nvae_torch.tools.common, nvae_torch.tools.profile_step, "

@@ -434,6 +434,7 @@ def test_export_tool_writes_checks_and_runs(tmp_path, capsys):
 
     out = str(tmp_path / "a.pt")
     meta = export_serving.main(["--out", out, "--debug", "--batch", "2",
+                                "--format", "weights",
                                 "--per_sample_temperature", "--cpu",
                                 "--weights_dtype", "int8", "--check"])
     assert meta["bytes"] == os.path.getsize(out)
