@@ -26,13 +26,19 @@ replicated layout, as in the JAX CLI.  --mode test, sample and serve read
 the checkpoint, which is whole in either layout, into the replicated
 layout: their results are those of the state gathered once, which equal
 JAX's in either layout.  --pp_stages S > 1 trains through the pipeline
-(parallel/pipeline.py: the four stage modules over S devices, the first S
-cards, or S times the CPU with --cpu; --pp_microbatches microbatches a step,
---pp_schedule 1f1b or gpipe); with --fsdp or --scan_epochs it stops with the
-JAX CLI's message, and with data parallelism (--data_parallel or a torchrun
-world above 1) it stops naming ROADMAP.md Queue 1 #14.  Its checkpoint is
-the whole model's: --mode test, sample and serve read it on one device
-whatever --pp_stages says.  bf16 (--compute_dtype,
+(parallel/pipeline.py: the four stage modules over S stages;
+--pp_microbatches microbatches a step, --pp_schedule 1f1b or gpipe), each
+stage over --data_parallel N ranks (default: the world's ranks, or in one
+process the cards, over the stages).  N = 1 is one process over the first
+S cards, or S times the CPU with --cpu; N > 1 is S*N processes, one per
+device, stage-major (ranks [s*N, (s+1)*N) hold stage s):
+  torchrun --nproc_per_node S*N -m nvae_torch.cli ... --pp_stages S \
+      --data_parallel N
+and any other world stops with that line.  With --fsdp or --scan_epochs it
+stops with the JAX CLI's message.  Its checkpoint is the whole model's:
+--mode test, sample and serve read it whatever --pp_stages says, in one
+process on one device, and in a world of ranks over the world's ranks as
+under --data_parallel.  bf16 (--compute_dtype,
 --bn_apply_dtype) trains, samples and serves, each flag composing with a
 preset as in the JAX CLI.  --scan_epochs stages the training set on the
 device and replays each step as one CUDA graph (with --cpu the same steps
@@ -125,7 +131,9 @@ def parse_args(argv=None):
                    help="bernoulli|dml; default picks by dataset")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="Ranks on the data axis: 0 or the launcher's world "
-                        "size (torchrun --nproc_per_node N)")
+                        "size (torchrun --nproc_per_node N); with "
+                        "--pp_stages S, the ranks of each stage (a world of "
+                        "S*N)")
     p.add_argument("--fsdp", action="store_true",
                    help="Train in the FSDP layout over the data axis")
     p.add_argument("--profile_dir", type=str, default="",
@@ -164,10 +172,10 @@ def parse_args(argv=None):
                    help="Microbatches per optimizer step")
     p.add_argument("--pp_stages", type=int, default=1,
                    help="Pipeline parallelism (GPipe): split the model's "
-                        "stage modules over this many devices (2-4); each "
-                        "stage holds 1/S of params+optimizer. Excludes "
-                        "--scan_epochs/--grad_accum/--fsdp and data "
-                        "parallelism")
+                        "stage modules over this many stages (2-4), each "
+                        "over --data_parallel ranks; each stage holds 1/S "
+                        "of params+optimizer. Excludes "
+                        "--scan_epochs/--grad_accum/--fsdp")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="GPipe microbatches per optimizer step (0 = "
                         "pp_stages); the pipeline's gradient accumulation")
@@ -237,23 +245,11 @@ def parse_args(argv=None):
 
 def refuse_unported(args) -> None:
     """Stop with ``SystemExit`` on a combination of flags the port does not
-    run: ``--pp_stages`` with ``--fsdp`` or ``--scan_epochs`` with the JAX
-    CLI's refusal (``nvae_tpu/cli.py:416-419``), and ``--pp_stages`` with
-    data parallelism, which waits for the pipeline's data-parallel stages
-    (ROADMAP.md Queue 1 #14)."""
-    if args.pp_stages <= 1:
-        return
-    from nvae_torch.parallel.pipeline import DP_WAITS
-
-    if args.fsdp or args.scan_epochs:
+    run: ``--pp_stages`` with ``--fsdp`` or ``--scan_epochs``, with the JAX
+    CLI's refusal (``nvae_tpu/cli.py:416-419``)."""
+    if args.pp_stages > 1 and (args.fsdp or args.scan_epochs):
         raise SystemExit("--pp_stages excludes --fsdp/--scan_epochs "
                          "(per-stage placement vs whole-mesh GSPMD layouts)")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.data_parallel > 1 or world > 1:
-        raise SystemExit(
-            f"not ported yet: --pp_stages with data parallelism "
-            f"(--data_parallel {args.data_parallel} in a world of {world}): "
-            f"{DP_WAITS}")
 
 
 def build_configs(args, bundle):
@@ -391,16 +387,34 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
 
-    from nvae_torch.parallel import initialize, is_primary, make_mesh
+    import torch
+
+    from nvae_torch.parallel import (
+        initialize,
+        is_primary,
+        make_mesh,
+        process_count,
+    )
+    from nvae_torch.parallel.pipeline import pipeline_dp
 
     # Before anything touches the card: binds this rank to its device.
     initialize(device="cpu" if args.cpu else "cuda")
+    pipeline = args.pp_stages > 1
     try:
-        # --data_parallel must be 0 or the launcher's world size.
-        mesh = make_mesh(args.data_parallel,
-                         device="cpu" if args.cpu else None)
+        if pipeline and args.mode == "train":
+            # The stages' ranks: --data_parallel is a stage's share of the
+            # world, which must be S*N.
+            pipeline_dp(args.pp_stages, args.data_parallel, process_count(),
+                        1 if args.cpu else torch.cuda.device_count())
+            mesh = None
+        else:
+            # --data_parallel must be 0 or the launcher's world size; the
+            # other modes read a pipeline's checkpoint over its world.
+            mesh = make_mesh(0 if pipeline else args.data_parallel,
+                             device="cpu" if args.cpu else None)
     except ValueError as e:
-        raise SystemExit(f"--data_parallel: {e}") from None
+        flag = "--pp_stages" if pipeline else "--data_parallel"
+        raise SystemExit(f"{flag}: {e}") from None
     primary = is_primary()
     if primary:
         print(f"Args: {vars(args)}")
@@ -454,10 +468,10 @@ def main(argv=None):
                           device=device, mesh=mesh,
                           param_sharding=param_sharding)
         pp = trainer.pipeline
-        if pp is not None:
-            # Data parallelism inside a stage stops the run (#14).
-            print(f"Pipeline: {pp.n_stages} stages x dp=1, {pp.schedule} "
-                  f"over {pp.n_microbatches} microbatches", flush=True)
+        if pp is not None and primary:
+            print(f"Pipeline: {pp.n_stages} stages x dp={pp.dp}, "
+                  f"{pp.schedule} over {pp.n_microbatches} microbatches",
+                  flush=True)
         if args.mode == "train":
             result = trainer.fit(train_iter, test_iter,
                                  profile_dir=args.profile_dir or None)

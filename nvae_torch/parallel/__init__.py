@@ -1,8 +1,8 @@
 """Data parallelism and the FSDP layout over ``torch.distributed``
 (counterpart of ``nvae_tpu/parallel``'s data axis: ``mesh.py`` and
 ``multihost.py``), and pipeline training over the stage modules
-(``pipeline.py``).  The pipeline's data-parallel stages wait for ROADMAP.md
-Queue 1 #14, the tensor-parallel layout for #9d."""
+(``pipeline.py``), in one process or over a world of stages x data ranks.
+The tensor-parallel layout waits for ROADMAP.md Queue 1 #9d."""
 
 from nvae_torch.parallel.mesh import (
     DataMesh,

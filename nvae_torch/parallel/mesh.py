@@ -8,9 +8,13 @@ the collectives are written out where the training step needs them
 (``train/step.py``, ``nn/blocks.py``, ``train/losses.py``,
 ``train/optim.py``): they are :class:`DataMesh`'s methods.
 
-- :func:`make_mesh` builds the data axis over the initialized group
-  (``parallel.multihost.initialize``); a ``model`` axis waits for the
+- :func:`make_mesh` builds the data axis over the initialized group's
+  world (``parallel.multihost.initialize``); a ``model`` axis waits for the
   tensor-parallel layout, ROADMAP.md Queue 1 #9d.
+- :func:`make_stage_mesh` builds, in a world of S x N ranks, the data axis
+  of this rank's pipeline stage: a process group of the N ranks that hold
+  the stage (``parallel/pipeline.py``), over which :class:`DataMesh`'s
+  collectives run.
 - :func:`shard_batch` gives a rank its rows of a global batch, in the
   microbatch-major layout a ``grad_accum`` step needs.
 - :func:`shard_state` replicates a train state from rank 0 and checks it
@@ -58,22 +62,23 @@ class _AllReduceSum(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The data axis: the ``size`` ranks of the world, this one ``rank``, its
-    tensors on ``device``.  Every rank calls each collective in the same
-    order."""
+    """The data axis: the ``size`` ranks of ``group`` (None: the world),
+    this one ``rank`` among them, its tensors on ``device``.  Every rank of
+    the group calls each collective in the same order."""
 
     rank: int
     size: int
     device: torch.device
+    group: Optional[dist.ProcessGroup] = None
 
     @property
     def backend(self) -> str:
-        return dist.get_backend()
+        return dist.get_backend(self.group)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it.  Every rank gets
         the same bits."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.group)
         return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,10 @@ class DataMesh:
         return _AllReduceSum.apply(t, self) / self.size
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        dist.broadcast(t, src)
+        """``t`` of the group's rank ``src`` on every rank, in place."""
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
+        dist.broadcast(t, src, group=self.group)
         return t
 
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -94,7 +102,7 @@ class DataMesh:
         the first axis in rank order."""
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts)
 
     def all_gather_into(self, out: torch.Tensor,
@@ -104,9 +112,10 @@ class DataMesh:
         ``out`` in one call (which a CUDA graph can capture); gloo
         gathers into its rows as views."""
         if self.backend == "nccl":
-            dist.all_gather_into_tensor(out, t)
+            dist.all_gather_into_tensor(out, t, group=self.group)
         else:
-            dist.all_gather(list(out.view(self.size, -1).unbind(0)), t)
+            dist.all_gather(list(out.view(self.size, -1).unbind(0)), t,
+                            group=self.group)
         return out
 
     def reduce_scatter_mean_(self, out: torch.Tensor,
@@ -117,14 +126,14 @@ class DataMesh:
         mean.  NCCL reduce-scatters; gloo all-reduces the whole of ``t``
         (in place) and keeps this rank's block.  Returns ``out``."""
         if self.backend == "nccl":
-            dist.reduce_scatter_tensor(out, t)
+            dist.reduce_scatter_tensor(out, t, group=self.group)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=self.group)
             out.copy_(t.view(self.size, -1)[self.rank])
         return out.div_(self.size)
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
 
     def rows(self, n_global: int) -> slice:
         """This rank's contiguous block of ``n_global`` rows
@@ -177,6 +186,30 @@ def make_mesh(n_data: int = 0, n_model: int = 1,
         device = torch.device("cuda", torch.cuda.current_device())
     device = resolve_device(device)
     return DataMesh(dist.get_rank(), size, device)
+
+
+def make_stage_mesh(n_stages: int, n_data: int,
+                    device=None) -> Tuple[int, DataMesh]:
+    """This rank's pipeline stage and its data axis, in a world of
+    ``n_stages * n_data`` ranks: stage s is held by world ranks
+    ``[s n_data, (s + 1) n_data)``, stage-major as JAX slices its devices
+    for stage s's submesh (``devices[s * dp:(s + 1) * dp]``), and the
+    returned :class:`DataMesh` runs its collectives over a process group of
+    those ranks.  Every rank calls it, since every rank must create every
+    group, in the same order.  ``device`` as for :func:`make_mesh`."""
+    world = dist.get_world_size()
+    if world != n_stages * n_data:
+        raise ValueError(f"{n_stages} stages x {n_data} ranks need a world "
+                         f"of {n_stages * n_data}, not {world}")
+    me = dist.get_rank()
+    groups = [dist.new_group(list(range(s * n_data, (s + 1) * n_data)))
+              for s in range(n_stages)]
+    stage = me // n_data
+    if device is None:
+        resolve_device("cuda")  # raises without a card
+        device = torch.device("cuda", torch.cuda.current_device())
+    return stage, DataMesh(me % n_data, n_data, resolve_device(device),
+                           groups[stage])
 
 
 def shard_batch(batch: torch.Tensor, mesh: DataMesh,

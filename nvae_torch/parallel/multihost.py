@@ -11,6 +11,12 @@ bit.
 
 As in JAX, each rank owns only its rows of the input: :func:`global_batch`
 puts them on the rank's device, and no data crosses ranks to build a batch.
+
+A pipeline of S stages with N ranks a stage (``parallel/pipeline.py``) is a
+world of S x N ranks, ``torchrun --nproc_per_node S*N``, stage-major: ranks
+``[s N, (s + 1) N)`` hold stage s (``parallel.mesh.make_stage_mesh``).
+There the state is replicated within a stage, and each stage's ranks hold
+only its share of it.
 """
 
 from __future__ import annotations

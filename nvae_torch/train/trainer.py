@@ -43,14 +43,20 @@ mesh ``"fsdp"`` is the replicated layout, as in JAX.
 
 ``pipeline_stages`` S > 1 trains through ``parallel.pipeline.PipelineTrainer``
 (GPipe or 1F1B over ``pipeline_microbatches`` microbatches), as JAX's trainer
-does: the stages live on the first S cards (on the CPU, S times the CPU),
-each step runs the pipeline, and once an epoch the stages are merged into
-``state`` (whose model is then the trainer's ``model``) before the image
-hooks, the held-out evaluation, the checkpoint and early stopping.  A
-checkpoint is the whole model's, and resuming splits it back into the stages
-with the optimizer state.  The pipeline excludes a data mesh and
-``scan_epochs``; data parallelism inside a stage waits for ROADMAP.md
-Queue 1 #14, and the tensor-parallel layout for #9d: their settings raise.
+does, with ``data_parallel`` N ranks a stage (default: the world's ranks, or
+in one process the cards, over the stages).  In one process (N = 1) the
+stages live on the first S cards (on the CPU, S times the CPU); in a world
+of S x N ranks (``torchrun --nproc_per_node S*N``) each rank runs its own
+stage on its rows, and every rank steps the same iterator over the global
+batches in lockstep.  Once an epoch the stages are merged into ``state``
+on every rank (whose model is then the trainer's ``model``) before the
+image hooks, the held-out evaluation, the checkpoint and early stopping,
+which read the whole model: rank 0 alone evaluates, dumps images and writes
+checkpoints, and the ranks meet only where every rank calls (the merge, the
+checkpoint writer's barrier, the interrupt).  A checkpoint is the whole
+model's, and resuming splits it back into the stages with the optimizer
+state.  The pipeline excludes a data mesh and ``scan_epochs``; the
+tensor-parallel layout waits for ROADMAP.md Queue 1 #9d: its setting raises.
 """
 
 from __future__ import annotations
@@ -67,9 +73,14 @@ import torch
 from nvae_torch.config import ModelConfig, TrainConfig
 from nvae_torch.data.pipeline import BatchIterator
 from nvae_torch.device import DeviceLike, fp32_math
-from nvae_torch.parallel import is_primary, shard_state, shard_state_fsdp
+from nvae_torch.parallel import (
+    is_primary,
+    process_count,
+    shard_state,
+    shard_state_fsdp,
+)
 from nvae_torch.parallel.mesh import gathered_params
-from nvae_torch.parallel.pipeline import PipelineTrainer
+from nvae_torch.parallel.pipeline import PipelineTrainer, pipeline_dp
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train.epoch_runner import (
     make_epoch_runner,
@@ -158,8 +169,12 @@ class Trainer:
             self.state = shard_state(self.state, mesh)
         self.device = self.model.decoder.h.device
         self.pipeline = None
+        # The ranks that step together: the data mesh, or the world of a
+        # pipeline's ranks.
+        self.sync = mesh
         if train_cfg.pipeline_stages > 1:
             self.pipeline = self._build_pipeline()
+            self.sync = self.pipeline.world
             # The stages own the training state; the merged one holds the
             # model that the hooks, evaluation and checkpoints read.
             self.state = self.pipeline.merged_state()
@@ -174,19 +189,28 @@ class Trainer:
         self._interrupted = False
 
     def _build_pipeline(self) -> PipelineTrainer:
-        """The pipeline over the first ``pipeline_stages`` cards (on the
-        CPU, the CPU for every stage), from this trainer's state, with
-        ``data_parallel`` (default: the cards over the stages) ranks a
-        stage: more than one raises (ROADMAP.md Queue 1 #14)."""
+        """The pipeline from this trainer's state, with ``data_parallel``
+        ranks a stage (``parallel.pipeline.pipeline_dp``: by default the
+        world's ranks, or in one process the cards, over the stages).  In
+        one process its stages live on the first ``pipeline_stages`` cards,
+        or on the CPU; in a world of ``S x dp`` ranks this rank holds its
+        stage on its device.  Another layout raises with the launcher's
+        command."""
         tc = self.train_cfg
         n = tc.pipeline_stages
         cpu = self.device.type == "cpu"
-        count = 1 if cpu else torch.cuda.device_count()
+        world = process_count()
+        dp = pipeline_dp(n, tc.data_parallel, world,
+                         1 if cpu else torch.cuda.device_count())
+        devices = None
+        if cpu:
+            devices = [self.device] * (world if world > 1 else n)
+        elif world > 1:
+            devices = [self.device] * world
         return PipelineTrainer(
             self.model, tc, self.total_steps, self.steps_per_epoch,
             n_stages=n, n_microbatches=tc.pipeline_microbatches,
-            devices=[self.device] * n if cpu else None,
-            dp=tc.data_parallel or max(count // n, 1), state=self.state)
+            devices=devices, dp=dp, state=self.state)
 
     # ---- EMA --------------------------------------------------------------
 
@@ -297,11 +321,12 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore the checkpoint of epoch ``resume_from``, else the latest
-        one, if present; returns the epoch to start from.  With a mesh
-        every rank restores, then waits for the others."""
+        one, if present; returns the epoch to start from.  With a mesh (or
+        a pipeline's ranks) every rank restores, then waits for the
+        others."""
         epoch = self._resume()
-        if self.mesh is not None:
-            self.mesh.barrier()
+        if self.sync is not None:
+            self.sync.barrier()
         return epoch
 
     def _resume(self) -> int:
@@ -327,8 +352,8 @@ class Trainer:
 
     def _any_rank(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is True on any."""
-        t = torch.tensor([float(flag)], device=self.mesh.device)
-        return bool(self.mesh.all_reduce_(t).item() > 0)
+        t = torch.tensor([float(flag)], device=self.sync.device)
+        return bool(self.sync.all_reduce_(t).item() > 0)
 
     # ---- main loop --------------------------------------------------------
 
@@ -343,7 +368,7 @@ class Trainer:
         history = []
         best_loss, best_state, patience_left = float("inf"), None, tc.patience
         start_epoch = self.maybe_resume()
-        writer = ckpt.AsyncCheckpointWriter(self.ckpt_dir, mesh=self.mesh)
+        writer = ckpt.AsyncCheckpointWriter(self.ckpt_dir, mesh=self.sync)
         # Preemption: on SIGTERM/SIGINT finish the step, save the full
         # state and return.  A handler can only be set from the main thread.
         self._interrupted = False
@@ -398,7 +423,7 @@ class Trainer:
                                                                batch)
                         n_batches += 1
                         _accumulate(sums, metrics)
-                        if self._interrupted and self.mesh is None:
+                        if self._interrupted and self.sync is None:
                             break
                     means = metric_means(sums, n_batches)  # one fetch
                     if self.pipeline is not None:
@@ -421,7 +446,7 @@ class Trainer:
                     self.logger.scalars(epoch, means, prefix="train/")
 
                 # Preemption exit: skip the hooks, drop to the final save.
-                if self.mesh is not None:
+                if self.sync is not None:
                     self._interrupted = self._any_rank(self._interrupted)
                 if self._interrupted:
                     break
@@ -472,8 +497,8 @@ class Trainer:
             writer.close()
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
-        if self.mesh is not None:
-            self.mesh.barrier()  # rank 0's checkpoints are on disk
+        if self.sync is not None:
+            self.sync.barrier()  # rank 0's checkpoints are on disk
         if self.logger:
             for step, blocking_ms, total_ms in writer.timings:
                 self.logger.scalars(step, {"blocking_ms": blocking_ms,

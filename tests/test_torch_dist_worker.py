@@ -1,6 +1,6 @@
-"""Ranks of the small gloo worlds that the port's data-parallel and FSDP
-tests spawn on the CPU (``tests/test_torch_parallel*.py``,
-``test_torch_serving_mesh.py``).
+"""Ranks of the small gloo worlds that the port's data-parallel, FSDP and
+pipeline tests spawn on the CPU (``tests/test_torch_parallel*.py``,
+``test_torch_serving_mesh.py``, ``test_torch_pipeline_dp.py``).
 
 Run as ``python -m tests.test_torch_dist_worker DIR RANK WORLD TASK...`` from
 the repository's root: the rank joins a gloo group over ``file://DIR/store``
@@ -12,6 +12,8 @@ starts the ranks; the tests do their JAX work while the ranks run.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import subprocess
 import sys
@@ -548,9 +550,130 @@ def task_eval(mesh, inputs):
     return out
 
 
+# ---- the pipeline's data-parallel stages (a world of 4) ---------------------
+
+PP_LAYOUTS = ((2, 2), (4, 1))  # (stages, ranks a stage)
+PP_M = 2
+PP_SEED = 3
+
+
+def pp_setup(optimizer: str, state_dict=None, ema_decay: float = 0.0):
+    """The TINY model's state on the CPU (seed PP_SEED, or ``state_dict``),
+    the ``grad_accum=PP_M`` training config (the production optimizer at
+    JAX's stable learning rate, SGD_LR), the whole model's optimizer
+    and the stage optimizer factory (None: ``make_optimizer``'s production
+    chain): ``(tc, state, tx, factory)``."""
+    from nvae_torch import TrainConfig, debug_config
+    from nvae_torch.train.state import create_train_state
+
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                     grad_accum=PP_M, ema_decay=ema_decay,
+                     learning_rate=SGD_LR)
+    tx = sgd(SGD_LR) if optimizer == "sgd" else None
+    _, state, tx = create_train_state(debug_config(**TINY), tc, 100,
+                                      device=CPU, tx=tx, seed=PP_SEED)
+    if state_dict is not None:
+        state.model.load_state_dict(state_dict)
+    factory = (lambda keys: sgd(SGD_LR)) if optimizer == "sgd" else None
+    return tc, state, tx, factory
+
+
+def pp_world_run(S: int, N: int, optimizer: str, n_steps: int,
+                 schedule: str = "1f1b", state_dict=None, eps=None,
+                 ema_decay: float = 0.0, checkpoint: str = "") -> dict:
+    """``n_steps`` of the pipeline over the world as S stages x N ranks
+    (every rank calls it) on :func:`batches`, with each step's global
+    noise from ``eps`` if given.  Returns each step's metrics, the merged
+    whole state (``model/...`` and ``opt/...`` as the checkpoint flattens
+    them), and this rank's stage, data index and its stage's checksums
+    after each step; ``checkpoint``, if given, is a directory where the
+    primary writes the merged state after the first step (through the
+    trainer's writer, over the world)."""
+    import dataclasses
+
+    from nvae_torch.parallel import PipelineTrainer
+    from nvae_torch.parallel.mesh import DataMesh, checksums
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.optim import state_tensors
+
+    tc, state, _, factory = pp_setup(optimizer, state_dict, ema_decay)
+    pp = PipelineTrainer(state.model, dataclasses.replace(tc, grad_accum=1),
+                         100, 50, n_stages=S, n_microbatches=PP_M,
+                         devices=[CPU] * (S * N), dp=N, state=state,
+                         tx_factory=factory, schedule=schedule)
+    out = {"stage": pp.stage, "index": pp.stage_mesh.rank, "metrics": [],
+           "states": [], "sums": []}
+    for i, b in enumerate(batches(n_steps)):
+        m = pp.step(torch.from_numpy(b), eps=None if eps is None else eps[i])
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        s = pp.stage
+        out["sums"].append(checksums(
+            list(pp.stages[s].state_dict().values())
+            + state_tensors(pp.opt[s])).tolist())
+        merged = pp.merged_state()
+        out["states"].append({k: v.clone() if isinstance(v, torch.Tensor)
+                              else v for k, v in
+                              ckpt.flatten_state(merged).items()})
+        if checkpoint and i == 0:
+            world = DataMesh(dist.get_rank(), dist.get_world_size(),
+                             torch.device(CPU))
+            with ckpt.AsyncCheckpointWriter(checkpoint, world) as w:
+                w.save(merged.step, merged)
+            world.barrier()
+    out["peak_stash"] = pp.peak_stash
+    return out
+
+
+def task_pipeline(mesh, inputs):
+    """The pipeline's data-parallel stages in a world of 4: each layout of
+    PP_LAYOUTS with the production optimizer (EMA on) for 2 steps, the
+    2 x 2 layout's merged state after its first step written as a
+    checkpoint; ``--mode train`` over torchrun's world layout through the
+    CLI (1 epoch, then a resume to 2, then ``--mode sample`` and ``--mode
+    test`` over the world); then, from
+    the JAX package's weights with its recorded noise (``DIR/jax_inputs.pt``,
+    written by the test while the ranks run), 3 SGD steps of each layout
+    under 1f1b and of 2 x 2 under gpipe."""
+    from nvae_torch import cli
+
+    out = {}
+    for S, N in PP_LAYOUTS:
+        out[f"adamax/{S}x{N}"] = pp_world_run(
+            S, N, "adamax", 2, ema_decay=0.9,
+            checkpoint=os.path.join(inputs["dir"], "pp_ckpt")
+            if (S, N) == (2, 2) else "")
+    sys.modules["torch.utils.tensorboard"] = None  # no TensorBoard mirror
+    d = os.path.join(inputs["dir"], "pp_cli")
+    argv = [*_cli_argv(d), "--pp_stages", "2", "--pp_microbatches", "2"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["--mode", "train", "--epochs", "1", *argv])
+        cli.main(["--mode", "train", "--epochs", "2", *argv])
+        cli.main(["--mode", "sample", "--n_samples", "4", *argv])
+        cli.main(["--mode", "test", "--eval_attempts", "1",
+                  "--eval_temperatures", "1.0", "--fid_sample_size", "8",
+                  "--feature_backbone", "random_conv", "--fid_backbone",
+                  "random_conv", *argv])
+    out["cli"] = {"dir": d, "stdout": printed.getvalue()}
+    path = os.path.join(inputs["dir"], "jax_inputs.pt")
+    deadline = time.monotonic() + 600
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.2)
+    jax_inputs = torch.load(path, weights_only=False)
+    for S, N in PP_LAYOUTS:
+        for schedule in ("1f1b", "gpipe") if N > 1 else ("1f1b",):
+            out[f"sgd/{S}x{N}/{schedule}"] = pp_world_run(
+                S, N, "sgd", len(jax_inputs["eps"]), schedule,
+                state_dict=jax_inputs["state_dict"], eps=jax_inputs["eps"])
+    return out
+
+
 TASKS = {"units": task_units, "steps": task_steps,
          "jax_steps": task_jax_steps, "scan": task_scan, "fsdp": task_fsdp,
-         "cli": task_cli, "serve": task_serve, "eval": task_eval}
+         "cli": task_cli, "serve": task_serve, "eval": task_eval,
+         "pipeline": task_pipeline}
 
 
 def main(argv) -> None:

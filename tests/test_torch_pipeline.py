@@ -23,7 +23,11 @@ from nvae_torch import cli
 from nvae_torch.config import TrainConfig, debug_config
 from nvae_torch.nn.spectral import sn_kernel_names
 from nvae_torch.parallel import PipelineTrainer, stage_names
-from nvae_torch.parallel.pipeline import merge_opt_states
+from nvae_torch.parallel.pipeline import (
+    check_layout,
+    merge_opt_states,
+    pipeline_dp,
+)
 from nvae_torch.train import checkpoint as ckpt
 from nvae_torch.train import optim as topt
 from nvae_torch.train.state import TrainState, create_train_state
@@ -343,9 +347,11 @@ def test_callers_state_is_left_untouched():
 
 def test_refusals(monkeypatch):
     """A schedule other than gpipe and 1f1b, ``grad_accum > 1``, ``dp > 1``
-    (ROADMAP.md Queue 1 #14) and fewer cards than stages raise, with the
-    JAX package's messages where it has them; so do the Trainer's
-    exclusions of a data mesh and ``scan_epochs``."""
+    in one process, a world that is not stages x dp, and fewer cards than
+    stages raise, the layouts with the launcher's command and the cards
+    with the JAX package's message; so do the Trainer's exclusions of a
+    data mesh and ``scan_epochs``, and the CLI's ``--data_parallel 2`` in
+    one process."""
     tc, state, _ = _setup(M=1)
     with pytest.raises(ValueError, match="pipeline_schedule"):
         _pipeline(state, tc, 2, 2, schedule="interleaved")
@@ -353,9 +359,29 @@ def test_refusals(monkeypatch):
         PipelineTrainer(state.model, dataclasses.replace(tc, grad_accum=4),
                         TOTAL_STEPS, STEPS_PER_EPOCH, n_stages=2,
                         devices=["cpu"] * 2, state=state)
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+    launch = (r"torchrun --nproc_per_node 4 -m nvae_torch.cli --mode train "
+              r"\.\.\. --pp_stages 2 --data_parallel 2")
+    with pytest.raises(ValueError, match=r"2 stages x dp=2 runs 4 "
+                       r"processes, one per device, not one: launch them "
+                       r"with " + launch):
         PipelineTrainer(state.model, tc, TOTAL_STEPS, STEPS_PER_EPOCH,
                         n_stages=2, dp=2, devices=["cpu"] * 4, state=state)
+    # JAX's default dp, the cards over the stages, in one process.
+    with pytest.raises(ValueError, match=launch):
+        pipeline_dp(2, 0, world=1, cards=4)
+    assert pipeline_dp(2, 0, world=1, cards=1) == 1
+    assert pipeline_dp(2, 0, world=4, cards=1) == 2
+    # A world that is not stages x dp.
+    with pytest.raises(ValueError, match=r"needs 4 ranks, one process per "
+                       r"device: launch them with " + launch
+                       + r" \(this is a world of 6\)"):
+        pipeline_dp(2, 2, world=6, cards=1)
+    with pytest.raises(ValueError, match=r"3 stages x dp=1 needs 3 ranks.*"
+                       r"--nproc_per_node 3 .*world of 4"):
+        check_layout(3, 1, 4)
+    with pytest.raises(SystemExit, match="--pp_stages: .*" + launch):
+        cli.main(["--mode", "train", "--cpu", "--pp_stages", "2",
+                  "--data_parallel", "2"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match=r"pipeline needs 2 devices "
                        r"\(2 stages x dp=1\), have 1"):

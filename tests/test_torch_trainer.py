@@ -455,9 +455,15 @@ def test_every_preset_builds_and_equals_jax_config(name):
      "torchrun --nproc_per_node 2"),
     # --fsdp trains (tests/test_torch_parallel.py), and so does
     # --pp_stages (tests/test_torch_pipeline.py); the pair stops with JAX's
-    # refusal, and the pipeline's data-parallel stages wait for #14.
+    # refusal.  The pipeline's data-parallel stages (ROADMAP.md Queue 1
+    # #14, the case's id) are S*N processes: in a world of 1 they stop
+    # with the launcher's line (tests/test_torch_pipeline_dp.py trains
+    # them in a world of 4).
     (["--fsdp", "--pp_stages", "2"], "excludes --fsdp/--scan_epochs"),
-    (["--pp_stages", "2", "--data_parallel", "2"], "Queue 1 #14"),
+    pytest.param(["--pp_stages", "2", "--data_parallel", "2"],
+                 "torchrun --nproc_per_node 4 -m nvae_torch.cli --mode train "
+                 r"\.\.\. --pp_stages 2 --data_parallel 2",
+                 id="extra3-Queue 1 #14"),
     (["--data_parallel", "2"], "torchrun --nproc_per_node 2"),
 ])
 def test_unported_modes_and_flags_stop_the_run(tmp_path, extra, match):
