@@ -37,6 +37,9 @@ each raising on failure (nothing is caught):
    bf16 ulp plus 32 fp32 ulps of |swish'(x)| sum |dy w|, at least 99.9%
    bitwise equal, bitwise across two runs; dW/db's fp32 sums at 1e-4 of
    the largest |dW|, bitwise across two runs;
+   and #1-#4 in fp32 and the bf16 instances of #2-#4 at the shapes phase
+   14's tensor-parallel step gives them (72 rows, 4x4x768 and 8x8x384: the
+   generative cells' halves of their hidden channels), at the same limits;
 3. sampler: the full-width MNIST sampler (``ModelConfig()``, seeded
    Flax-style init with random BatchNorm running statistics) in the default
    and the depthwise-postprocess configuration: the fused kernel's launches
@@ -276,6 +279,32 @@ each raising on failure (nothing is caught):
     stage's ranks bit for bit equal after each step, every rank's metrics
     equal, exactly its stage's launches on each rank (the first stage's
     none), the ms a step of both and the peak MB a rank.
+14. the tensor-parallel layout (a main path; states its seconds): four
+    gloo ranks on the card (``chip_smoke.py --tp-rank DIR``) as
+    ``make_mesh(0, 2)``'s 2 data x 2 model grid, started with phase 13:
+    once this process has made 13f's warm start (and from it the
+    one-process steps below, under deterministic cuDNN), the ranks build
+    the default configuration at full width from it in
+    ``shard_state_tp``'s layout (the 14 generative cells' expansion
+    kernels and depthwise taps split: #2-#4 on each rank's half of their
+    hidden channels, the projection summed over the model axis), with SGD
+    at lr 1e-3 and the spectral projection, and take one step beside 13f's
+    CLI: its loss within 1e-4 relative, grad_norm 1e-4, the parameters
+    (gathered whole) within 2e-6, the BatchNorm statistics within 1e-5 of
+    ``max(1, |value|)``, and its control, the one-process step with the
+    split kernels' gradient dropped, at least 2e-5 from the one-process
+    step.  Then they build it in fp32 and in bf16 (compute and BatchNorm
+    apply) with the production optimizer (Adamax and the spectral
+    projection) at lr 1e-5; once 13f is done, alone on the card, they take
+    2 fp32 steps and 1 bf16 step: the fp32 loss and grad_norm as above,
+    the parameters within 3 lr a step, the statistics after the first
+    step; the bf16 step no farther from the one-process fp32 step than 2x
+    the one-process bf16 step.  Each step on 72 rows a data index of 13f's
+    batches under deterministic cuDNN, against the one-process step from
+    the same start; every rank's metrics equal, no tensor differing across
+    the ranks that hold it alike, exactly 14 of each of #2-#4 a step on
+    each rank in the run's dtype; the ms a step beside phase 5's
+    one-process steps, at-rest and peak MB a rank.
 
 The last three lines of standard output are the card's name and power limit
 (``nvidia-smi``), one JSON object ``{"kernels": [...]}``, and
@@ -3740,8 +3769,29 @@ def phase_rgb_kernels(device) -> dict:
 
 
 def phase_rgb_bf16_kernels(device) -> dict:
+    """:func:`bf16_kernel_check` at every shape of the RGB presets' paths,
+    at RGB_BF16_BATCH rows."""
+    shapes = sorted({(h, c) for v in RGB_SHAPES.values()
+                     for h, c, _, _, _ in v})
+    return bf16_kernel_check(device, shapes, RGB_BF16_BATCH,
+                             "the RGB shapes")
+
+
+def phase_tp_kernels(device) -> tuple:
+    """#1-#4 in fp32 (:func:`checked_kernel_errors`) and the bf16
+    instances of #2-#4 (:func:`bf16_kernel_check`) against their plain
+    versions at the shapes phase 14's TP step gives them: TP_ROWS rows, the
+    generative cells' halves of their hidden channels.  Returns the fp32
+    errors per kernel and (H, C), and the bf16 check's record."""
+    errs = checked_kernel_errors(device, TP_SHAPES, (TP_ROWS,), (TP_ROWS,))
+    bf16 = bf16_kernel_check(device, [(h, c) for h, c, _, _, _ in TP_SHAPES],
+                             TP_ROWS, "TP's hidden slices")
+    return errs, bf16
+
+
+def bf16_kernel_check(device, shapes, n: int, what: str) -> dict:
     """The bf16 instances of #2, #3 and #4 against their plain versions at
-    every shape of the RGB presets' paths, at RGB_BF16_BATCH rows, with and
+    each (H, C) of ``shapes``, at ``n`` rows, with and
     without swish (swish') and bias, at the path shapes' limits: #2 and #3
     within ``BF16_SUM_ULPS`` (#3 of ``bf16_dx_scale``), at least
     ``BF16_MIN_EQUAL_SHARE`` bitwise equal where a shape has 10,000 outputs
@@ -3751,12 +3801,9 @@ def phase_rgb_bf16_kernels(device) -> dict:
     from nvae_torch.kernels import depthwise as dw
 
     t0 = time.monotonic()
-    n = RGB_BF16_BATCH
     out = {"fwd_err": 0.0, "fwd_sum_ulps": 0.0, "fwd_equal": 1.0,
            "dx_err": 0.0, "dx_sum_ulps": 0.0, "dx_equal": 1.0,
            "dw_err": 0.0, "shapes": []}
-    shapes = sorted({(h, c) for v in RGB_SHAPES.values()
-                     for h, c, _, _, _ in v})
     for h, c in shapes:
         out["shapes"].append([n, h, h, c])
         for kind in ("fwd", "dx", "dw"):
@@ -3839,7 +3886,7 @@ def phase_rgb_bf16_kernels(device) -> dict:
             if got.numel() >= 10_000:
                 out["dx_equal"] = min(out["dx_equal"], equal)
     out["seconds"] = time.monotonic() - t0
-    log(f"bf16 #2-#4 at the RGB shapes: {out['seconds']:.1f} s")
+    log(f"bf16 #2-#4 at {what}: {out['seconds']:.1f} s")
     return out
 
 
@@ -4156,24 +4203,64 @@ def phase_rgb_train(name: str, cfg, batch: int, device, profile: bool,
     return counts, weights
 
 
+def set_remat(model, remat: bool) -> None:
+    """``model``'s cells rematerialized or not, as in a model built with
+    ``remat`` so: the flag its towers' ``run_cell`` calls read (the
+    decoder's config, the other towers' ``remat``)."""
+    import dataclasses
+
+    model.cfg = model.decoder.cfg = dataclasses.replace(model.cfg,
+                                                        remat=remat)
+    for tower in (model.preprocess, model.encoder, model.postprocess):
+        tower.remat = remat
+
+
 def phase_remat(cfg, device) -> None:
     """One step with ``remat`` against the same step without, at batch
     REMAT_BATCH from the same weights, batch and noise, under deterministic
     cuDNN: loss, gradients and BatchNorm running statistics within
     REMAT_RTOL (a second statistics update would move them by ~5% of
-    their distance to the batch's)."""
-    import dataclasses
+    their distance to the batch's).  One model takes both steps, its
+    remat switched (:func:`set_remat`) and its weights and buffers put
+    back between them, and the results stay on the card: celeba64's
+    second model and its gradients' host copies cost ~20 s."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.models.nvae import NVAE, posterior_noise_shapes
+    from nvae_torch.train import optim
+    from nvae_torch.train.state import TrainState
+    from nvae_torch.train.step import make_train_step
 
-    from nvae_torch.models.nvae import posterior_noise_shapes
-
-    batch = train_batch(REMAT_BATCH, 3, cfg)
+    batch = train_batch(REMAT_BATCH, 3, cfg).to(device)
     rng = np.random.RandomState(4)
     eps = [[rng.randn(*s).astype(np.float32)
             for s in posterior_noise_shapes(cfg, REMAT_BATCH)]]
+    tc = TrainConfig(batch_size=REMAT_BATCH, step_based_warmup=True)
+    model = NVAE(cfg, device=device, seed=0)
+    model.train()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step_with(remat: bool):
+        set_remat(model, remat)
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(start[k])
+        grads = {}
+
+        def record(updates, state, params=None):
+            grads.update({k: g.detach().double()
+                          for k, g in updates.items()})
+            return {k: torch.zeros_like(g) for k, g in updates.items()}, state
+
+        step = make_train_step(model, optim.GradientTransformation(
+            lambda params: None, record), tc, 1000, 100)
+        _, m = step(TrainState(0, 0, model, None, 0), batch, eps=eps)
+        stats = {k: v.detach().double()
+                 for k, v in model.state_dict().items() if "running" in k}
+        return {k: float(v) for k, v in m.items()}, grads, stats
+
     with deterministic_cudnn():
-        a = one_step_grads(cfg, device, batch, eps)
-        b = one_step_grads(dataclasses.replace(cfg, remat=False), device,
-                           batch, eps)
+        a = step_with(True)
+        b = step_with(False)
     errs = grad_errors(a, b)
     errs["bitwise"] = (a[0] == b[0] and all(
         torch.equal(a[1][k], b[1][k]) for k in b[1]) and all(
@@ -4795,12 +4882,8 @@ def dp_rank(workdir: str) -> int:
     mesh = make_mesh()
     device = mesh.device
     runs = SGDSteps(device, mesh)
-    path, t0 = os.path.join(workdir, "dp_start.pt"), time.monotonic()
-    while not os.path.exists(path):
-        if time.monotonic() - t0 > 600:
-            raise AssertionError(f"dp rank: no {path} in 600 s")
-        time.sleep(0.1)
-    start = torch.load(path)
+    start = wait_for_file(os.path.join(workdir, "dp_start.pt"), torch.load,
+                          timeout=600)
     with deterministic_cudnn():
         torch.cuda.synchronize(device)
         reset_counts()
@@ -5497,6 +5580,41 @@ PP_DP_RANKS = PP_DP_STAGES * PP_DP
 # microbatch's halves swapped (the same function summed in another order)
 # moves them by 3.0e-6 of that (1.29e-5 absolute; H100 80GB HBM3, 700 W).
 PP_DP_BN_RTOL = 1e-5
+# Phase 14: the tensor-parallel layout, TP_DATA x TP_MODEL gloo ranks on the
+# one card (``chip_smoke.py --tp-rank DIR``, started with phase 13), from
+# 13f's warm start, against the one-process step from the same start, rows
+# and noise.  One fp32 step of SGD at TP_SGD_LR with the spectral
+# projection (13f's optimizer: a linear update, so the parameters track the
+# gradient) holds the gradient and the update of every element: the loss
+# at PP_LOSS_RTOL, grad_norm at TP_GRAD_NORM_RTOL (JAX's lockstep limit),
+# the parameters within PP_STATE_ATOL, the BatchNorm statistics within
+# PP_DP_BN_RTOL of their scale.  Its control: the one-process step with the
+# split kernels' gradient dropped must lie at least TP_CONTROL_MARGIN x
+# PP_STATE_ATOL from the true one (at 13f's lr, 1e-5, the blocks' update
+# is too small for that; at 1e-4 the control read 3.20e-5 and the error
+# 1.49e-8 on an H100 80GB HBM3, both in proportion to lr).  Then TP_STEPS production Adamax steps (the spectral
+# projection, at PP_LR) in fp32 and one in bf16: the fp32 loss and
+# grad_norm as above, the parameters within 3 PP_LR a step (Adamax moves
+# an element by about lr a step whatever its gradient: this holds the
+# projection's sigma, not the gradient), the statistics after the first
+# step (after it the parameters differ by the sign noise); the bf16 step's
+# loss at PP_LOSS_RTOL of the one-process bf16 step's (the loss sums in
+# fp32: both bf16 forms lie ~1e-6 from the fp32 loss, H100 80GB HBM3, 700
+# W), its grad_norm, parameters and statistics no farther from the
+# one-process fp32 step than TP_BF16_ROUNDING times the one-process bf16
+# step's (RGB_CARD_VS_CPU_ROUNDING: another order of bf16 sums).
+TP_DATA, TP_MODEL = 2, 2
+TP_RANKS = TP_DATA * TP_MODEL
+TP_ROWS = BATCH // TP_DATA
+TP_STEPS = 2
+TP_SGD_LR = 1e-3
+TP_CONTROL_MARGIN = 10.0
+TP_GRAD_NORM_RTOL = 1e-4
+TP_BF16_ROUNDING = 2.0
+# The shapes TP gives #2-#4 (the generative cells' halves of their hidden
+# channels, TP_ROWS rows a data index).
+TP_SHAPES = [(h, c // TP_MODEL, bias, n, d)
+             for h, c, bias, n, d in PATH_SHAPES if n]
 
 
 def pp_launches(cfg, n_stages: int, m: int, stage=None) -> dict:
@@ -5523,15 +5641,18 @@ def pp_launches(cfg, n_stages: int, m: int, stage=None) -> dict:
             dw_k: (cells + post) * m}
 
 
-def pp_sgd(sn_keys):
-    """SGD at ``PP_LR`` with the spectral projection (JAX's lockstep
-    optimizer): a linear update, so the parameters track the gradients."""
+def pp_sgd(sn_keys, lr: float = PP_LR, drop=()):
+    """SGD at ``lr`` with the spectral projection (JAX's lockstep
+    optimizer): a linear update, so the parameters track the gradients.
+    The parameters in ``drop`` get no update from their gradient (a
+    control)."""
     from nvae_torch.train import optim
 
     sgd = optim.GradientTransformation(
         lambda params: None,
         lambda updates, state, params=None: (
-            {k: -PP_LR * g for k, g in updates.items()}, None))
+            {k: g * (0.0 if k in drop else -lr) for k, g in updates.items()},
+            None))
     return optim.chain(sgd, optim.spectral_projection(sn_keys))
 
 
@@ -5631,19 +5752,25 @@ def pp_run(cfg, device, n_stages: int, m: int, schedule: str,
 def pp_errors(run: dict, ref: dict, params) -> dict:
     """The largest relative loss error, and the largest absolute error of
     the parameters and of the BatchNorm statistics, over the steps; and of
-    the statistics each over ``max(1, |value|)`` (``bn_stats_scaled``)."""
+    the statistics each over ``max(1, |value|)`` (``bn_stats_scaled``).
+    Each state's maxima are read back in one transfer: one read per
+    tensor, over a whole model's thousands, costs seconds."""
     loss = max(abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1.0)
                for a, b in zip(run["metrics"], ref["metrics"]))
     err = {"loss_rel": loss, "params": 0.0, "bn_stats": 0.0,
            "bn_stats_scaled": 0.0}
     for got, want in zip(run["states"], ref["states"]):
+        maxima = {kind: [] for kind in err if kind != "loss_rel"}
         for k, v in want.items():
             kind = "params" if k in params else "bn_stats"
             diff = (got[k] - v).abs()
-            err[kind] = max(err[kind], float(diff.max()))
+            maxima[kind].append(diff.max().to(torch.float64))
             if kind == "bn_stats":
-                err["bn_stats_scaled"] = max(err["bn_stats_scaled"], float(
-                    (diff / v.abs().clamp(min=1.0)).max()))
+                maxima["bn_stats_scaled"].append(
+                    (diff / v.abs().clamp(min=1.0)).max().to(torch.float64))
+        for kind, ms in maxima.items():
+            if ms:
+                err[kind] = max(err[kind], float(torch.stack(ms).max()))
     return err
 
 
@@ -5698,13 +5825,10 @@ def pp_rank(workdir: str) -> int:
     with fp32_math(deterministic=True):
         rec["seeded"], rec["seeded_ms"] = pp_step_record(
             lambda: pp.step(batches[0]), device)
-    path, t0 = os.path.join(workdir, "pp_start.pt"), time.monotonic()
-    while not os.path.exists(path):
-        if time.monotonic() - t0 > 900:
-            raise AssertionError(f"pp rank: no {path} in 900 s")
-        time.sleep(0.1)
+    torch.cuda.empty_cache()  # phase 14's ranks warm up meanwhile
+    warm = wait_for_file(os.path.join(workdir, "pp_start.pt"), torch.load)
     with torch.no_grad():
-        model.load_state_dict(torch.load(path))
+        model.load_state_dict(warm)
     pp.load_state(TrainState(0, 0, model, None, seed))
     states = []
     with fp32_math(deterministic=True):
@@ -5750,8 +5874,9 @@ def start_pp_ranks(workdir: str) -> tuple:
     return procs, logs
 
 
-def finish_pp_ranks(workdir: str, procs, logs) -> list:
-    """13f's ranks' records, once they have exited 0."""
+def finish_ranks(workdir: str, procs, logs, prefix: str) -> list:
+    """The records ``DIR/{prefix}_rank{r}.json`` of ranks that have exited
+    0."""
     try:
         rcs = [p.wait(timeout=900) for p in procs]
     finally:
@@ -5763,10 +5888,11 @@ def finish_pp_ranks(workdir: str, procs, logs) -> list:
             f.close()
     if any(rcs):
         tails = [open(f.name).read()[-3000:] for f in logs]
-        raise AssertionError(f"pp ranks exited {rcs}:\n" + "\n".join(tails))
+        raise AssertionError(f"{prefix} ranks exited {rcs}:\n"
+                             + "\n".join(tails))
     ranks = []
-    for r in range(PP_DP_RANKS):
-        with open(os.path.join(workdir, f"pp_rank{r}.json")) as f:
+    for r in range(len(procs)):
+        with open(os.path.join(workdir, f"{prefix}_rank{r}.json")) as f:
             ranks.append(json.load(f))
     return ranks
 
@@ -5905,13 +6031,17 @@ def pp_warm_start(device) -> dict:
             for k, v in state.model.state_dict().items()}
 
 
-def phase_pipeline(device) -> dict:
+def phase_pipeline(device, one_ms: dict) -> dict:
     """Phase 13 (see the module docstring): 13f's ranks start up and take
-    their seeded step, and its CLI runs, beside (a)-(e), the warm start
-    and its ``grad_accum=2`` reference in this process; then, alone on the
-    card, the one-process S=2 M=2 pipeline from the warm start and the
-    ranks' timed steps.  Returns the counts of the pipeline runs and the
-    seconds."""
+    their seeded step, and its CLI runs, beside (a)-(e), the warm start,
+    its ``grad_accum=2`` reference and phase 14's one-process reference in
+    this process; phase 14's ranks start with 13f's and, from the warm
+    start, take their SGD step and build their states beside the CLI;
+    then, alone on
+    the card, the one-process S=2 M=2 pipeline from the warm start and
+    13f's timed steps, then phase 14's (:func:`phase_tensor_parallel`,
+    its ms beside ``one_ms``).  Returns the counts of the pipeline and TP
+    runs and the seconds."""
     from nvae_torch.device import fp32_math
 
     t0 = time.monotonic()
@@ -5920,6 +6050,8 @@ def phase_pipeline(device) -> dict:
                for i in range(PP_STEPS)]
     workdir = tempfile.mkdtemp(prefix="nvae_chip_smoke_pp_")
     procs, logs = start_pp_ranks(workdir)
+    tp_procs, tp_logs = start_tp_ranks(workdir)
+    procs, logs = procs + tp_procs, logs + tp_logs
     try:
         def in_process():
             rec = phase_pipeline_one_process(device)
@@ -5931,6 +6063,10 @@ def phase_pipeline(device) -> dict:
                     pp_reference(cfg, device, PP_DP_M, batches, start=warm,
                                  swap=True), rec["warm_ref"],
                     rec["warm_ref"]["params"])
+            save_file(tp_reference(device, warm, batches),
+                      os.path.join(workdir, "tp_ref.pt"))
+            torch.cuda.empty_cache()
+            save_file(warm, os.path.join(workdir, "tp_start.pt"))
             rec["warm"] = warm
             return rec
 
@@ -5949,13 +6085,13 @@ def phase_pipeline(device) -> dict:
         if not pp_within(rec["swapped"], scaled=True):
             raise AssertionError(f"pipeline 13f: the halves swapped "
                                  f"{rec['swapped']}")
-        torch.save(rec.pop("warm"), os.path.join(workdir, "pp_start.pt.tmp"))
-        os.replace(os.path.join(workdir, "pp_start.pt.tmp"),
-                   os.path.join(workdir, "pp_start.pt"))
-        ranks = finish_pp_ranks(workdir, procs, logs)
+        save_file(rec.pop("warm"), os.path.join(workdir, "pp_start.pt"))
+        ranks = finish_ranks(workdir, procs[:PP_DP_RANKS],
+                             logs[:PP_DP_RANKS], "pp")
         check_pp_ranks(ranks, rec.pop("warm_ref"),
                              rec.pop("ref")["metrics"][0], one, cfg, device,
                              workdir)
+        tp = phase_tensor_parallel(workdir, one_ms, tp_procs, tp_logs)
     except BaseException:
         for p in procs:
             if p.poll() is None:
@@ -5968,11 +6104,34 @@ def phase_pipeline(device) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
     counts = rec["counts"]
     for k in KERNEL_NAMES:
-        counts[k] += (cli_counts[k] + one["counts"][k]
+        counts[k] += (cli_counts[k] + one["counts"][k] + tp["counts"][k]
                       + sum(r["counts"][k] for r in ranks))
     seconds = time.monotonic() - t0
     log(f"phase 13 (pipeline) took {seconds:.1f} s (the one-process run "
         f"from the warm start against its grad_accum=2 step: {err_one})")
+    return {"counts": counts, "seconds": seconds}
+
+
+def save_file(obj, path: str) -> None:
+    """``torch.save`` to ``path`` whole or not at all (a rank waits for
+    the file)."""
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def phase_tensor_parallel(workdir: str, one_ms: dict, procs, logs) -> dict:
+    """Phase 14 (see the module docstring), once 13f's ranks are done: the
+    TP ranks' Adamax steps alone on the card (the ranks took their SGD
+    step and built their states beside phase 13's CLI), checked by
+    :func:`check_tp_ranks`.  Returns their counts and its seconds."""
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    open(os.path.join(workdir, "tp_go"), "w").close()
+    ranks = finish_ranks(workdir, procs, logs, "tp")
+    counts = check_tp_ranks(ranks, one_ms)
+    seconds = time.monotonic() - t0
+    log(f"phase 14 (tensor parallel) took {seconds:.1f} s after 13f (its "
+        f"ranks built and took their SGD step beside phase 13's CLI)")
     return {"counts": counts, "seconds": seconds}
 
 
@@ -6059,6 +6218,324 @@ def phase_pipeline_one_process(device) -> dict:
     return {"counts": counts, "seconds": seconds, "ref": ref}
 
 
+# ---- phase 14: the tensor-parallel layout -----------------------------------
+
+
+def tp_state(cfg, device, warm: dict, mesh=None, sgd: bool = False,
+             drop=()):
+    """``cfg``'s seed-0 state on ``device`` with ``warm``'s weights, its
+    optimizer made from them (the production one, Adamax with the spectral
+    projection at PP_LR; with ``sgd``, :func:`pp_sgd` at TP_SGD_LR, with
+    no update from the gradient of ``drop``), and the train step; over
+    ``mesh`` in the TP layout."""
+    from nvae_torch.config import TrainConfig
+    from nvae_torch.nn.spectral import sn_kernel_names
+    from nvae_torch.parallel import shard_state_tp
+    from nvae_torch.train.state import create_train_state
+    from nvae_torch.train.step import make_train_step
+
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                     learning_rate=PP_LR)
+    model, state, tx = create_train_state(cfg, tc, 1000, device=device,
+                                          seed=0)
+    with torch.no_grad():
+        model.load_state_dict(warm)
+    if sgd:
+        tx = pp_sgd(sn_kernel_names(model), TP_SGD_LR, drop)
+    state.opt_state = tx.init(state.params())
+    if mesh is not None:
+        state = shard_state_tp(state, mesh)
+    return state, make_train_step(model, tx, tc, 1000, 100, mesh=mesh)
+
+
+def tp_configs() -> dict:
+    """Phase 14's runs: (configuration, steps, SGD or Adamax)."""
+    return {"sgd": (configs()["default"], 1, True),
+            "fp32": (configs()["default"], TP_STEPS, False),
+            "bf16": (bf16_configs()["default bf16"], 1, False)}
+
+
+def tp_step_errors(got: dict, metrics: dict, want: dict,
+                   want_metrics: dict, params) -> dict:
+    """One step's :func:`pp_errors` of the whole state ``got`` against
+    ``want`` (moved to ``got``'s device), and the grad_norm's relative
+    error."""
+    device = next(iter(got.values())).device
+    e = pp_errors({"metrics": [metrics], "states": [got]},
+                  {"metrics": [want_metrics],
+                   "states": [{k: v.to(device) for k, v in want.items()}]},
+                  params)
+    e["grad_norm_rel"] = (abs(metrics["grad_norm"] - want_metrics["grad_norm"])
+                          / abs(want_metrics["grad_norm"]))
+    return e
+
+
+def tp_reference(device, warm: dict, batches) -> dict:
+    """The one-process steps of :func:`tp_configs` from ``warm``, under
+    deterministic cuDNN: each step's metrics and state (on the host), the
+    parameters' names, the bf16 step's errors from the fp32 step; and the
+    SGD check's control: how far the SGD step with the split kernels'
+    gradient dropped lies from the SGD step on those kernels
+    (``sgd_control``)."""
+    from nvae_torch.device import fp32_math
+    from nvae_torch.parallel import tp_param_sharding
+
+    out = {}
+    with fp32_math(deterministic=True):
+        for name, (cfg, n, sgd) in tp_configs().items():
+            state, step = tp_state(cfg, device, warm, sgd=sgd)
+            rec = {"metrics": [], "states": []}
+            for b in batches[:n]:
+                state, metrics = step(state, b)
+                rec["metrics"].append({k: float(v)
+                                       for k, v in metrics.items()})
+                rec["states"].append(pp_snapshot(state.model))
+            out[name] = rec
+            out["params"] = {k for k, _ in state.model.named_parameters()}
+            if sgd:
+                split = tp_param_sharding(state.model, TP_MODEL)
+            del state, step
+        state, step = tp_state(configs()["default"], device, warm, sgd=True,
+                               drop=split)
+        state, _ = step(state, batches[0])
+        got, want = state.model.state_dict(), out["sgd"]["states"][0]
+        out["sgd_control"] = float(torch.stack(
+            [(got[k] - want[k]).abs().max() for k in split]).max())
+        out["split"] = len(split)
+        del state, step, got, want
+    out["one bf16 vs fp32"] = tp_step_errors(
+        out["bf16"]["states"][0], out["bf16"]["metrics"][0],
+        out["fp32"]["states"][0], out["fp32"]["metrics"][0], out["params"])
+    for name in tp_configs():
+        out[name]["states"] = [{k: v.to("cpu", copy=True)
+                                for k, v in s.items()}
+                               for s in out[name]["states"]]
+    return out
+
+
+def tp_rank(workdir: str) -> int:
+    """One rank of phase 14 (``chip_smoke.py --tp-rank DIR``, its rank and
+    coordinator in the environment), one host thread: the
+    ``make_mesh(0, TP_MODEL)`` grid over the gloo world; once
+    ``DIR/tp_start.pt`` holds 13f's warm start, the SGD run of
+    :func:`tp_configs` from it in the TP layout, beside phase 13's CLI
+    (the first step's cuDNN plans, gloo's connections and the kernels'
+    first launches happen there), then the Adamax states of
+    :func:`tp_configs`, one after the other; once ``DIR/tp_go`` exists
+    (the card free), their steps.  Each run takes its steps on this data
+    index's rows of 13f's batches under deterministic cuDNN, with the
+    counts set to 0 just before it and read just after: each step's
+    metrics and ms, the tensors that differ across ranks, this rank's
+    peak MB (and at-rest MB with the fp32 Adamax state).  After each step
+    the state is gathered whole, and rank 0 holds it to the one-process
+    step of ``DIR/tp_ref.pt`` (read mapped: one state at a time reaches
+    the card; :func:`tp_step_errors`)."""
+    import gc
+
+    sys.path.insert(0, ROOT)
+    from nvae_torch.device import fp32_math
+    from nvae_torch.parallel import initialize, make_mesh, shard_batch
+    from nvae_torch.parallel.mesh import replica_mismatches, whole
+
+    torch.set_num_threads(1)
+    # Below phase 13's CLI (its critical path), which runs beside this
+    # rank's build and its SGD step; its Adamax steps run alone on the card.
+    os.nice(10)
+    initialize()
+    mesh = make_mesh(0, TP_MODEL)
+    device = mesh.device
+    rank = torch.distributed.get_rank()
+    warm = wait_for_file(os.path.join(workdir, "tp_start.pt"), torch.load)
+    ref = None
+    if rank == 0:  # written before the warm start
+        ref = torch.load(os.path.join(workdir, "tp_ref.pt"), mmap=True)
+    batches = [shard_batch(train_batch(BATCH, 40 + i), mesh).to(device)
+               for i in range(TP_STEPS)]
+    rec = {"rank": rank, "grid": [mesh.rank, mesh.model.rank],
+           "device": str(device), "rows": batches[0].shape[0], "runs": {},
+           "errs": {}}
+
+    def check(name: str, i: int, full: dict, metrics: dict) -> None:
+        errs = rec["errs"]
+        e = tp_step_errors(full, metrics, ref[name]["states"][i],
+                           ref[name]["metrics"][i], ref["params"])
+        prev = errs.get(name, {})
+        errs[name] = {**prev, **{k: max(v, prev.get(k, 0.0))
+                                 for k, v in e.items()}}
+        if i == 0:
+            errs[name]["bn_stats_scaled_step0"] = e["bn_stats_scaled"]
+        if name == "bf16":
+            errs["bf16 vs fp32"] = tp_step_errors(
+                full, metrics, ref["fp32"]["states"][0],
+                ref["fp32"]["metrics"][0], ref["params"])
+
+    def run(name: str, state, step, n: int) -> None:
+        r = {"metrics": [], "ms": [], "mismatches": []}
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        for i, b in enumerate(batches[:n]):
+            def one(b=b):
+                nonlocal state
+                state, metrics = step(state, b)
+                return metrics
+            metrics, ms = pp_step_record(one, device)
+            r["metrics"].append(metrics)
+            r["ms"].append(ms)
+            r["mismatches"].append(replica_mismatches(state, mesh))
+            sd = state.model.state_dict(keep_vars=True)
+            with torch.no_grad():
+                full = dict(zip(sd, whole(list(sd.values()))))
+            if rank == 0:
+                check(name, i, full, metrics)
+            del sd, full
+        r["counts"] = read_counts()
+        r["peak_mb"] = torch.cuda.max_memory_allocated(device) / 1e6
+        rec["runs"][name] = r
+
+    runs = tp_configs()
+    with fp32_math(deterministic=True):
+        cfg, n, _ = runs.pop("sgd")
+        run("sgd", *tp_state(cfg, device, warm, mesh, sgd=True), n)
+    gc.collect()
+    states = {}
+    for name, (cfg, _, _) in runs.items():
+        states[name] = tp_state(cfg, device, warm, mesh)
+        if name == "fp32":
+            torch.cuda.synchronize(device)
+            rec["rest_mb"] = torch.cuda.memory_allocated(device) / 1e6
+    del warm
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()  # the card's memory, for 13f meanwhile
+    rec["ready_s"] = time.monotonic() - T_IMPORT
+    wait_for_file(os.path.join(workdir, "tp_go"))
+    with fp32_math(deterministic=True):
+        for name, (_, n, _) in runs.items():
+            run(name, *states.pop(name), n)
+    if rank == 0:
+        rec["errs"]["one bf16 vs fp32"] = ref["one bf16 vs fp32"]
+        rec["sgd_control"] = ref["sgd_control"]
+        rec["split"] = ref["split"]
+    with open(os.path.join(workdir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def wait_for_file(path: str, read=None, timeout: float = 900.0):
+    """Wait for ``path`` to exist; ``read(path)`` then, if given."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"no {path} in {timeout:.0f} s")
+        time.sleep(0.1)
+    return None if read is None else read(path)
+
+
+def start_tp_ranks(workdir: str) -> tuple:
+    """Phase 14's ranks, started now (they wait for ``tp_start.pt``, build
+    their states and warm up, then wait for ``tp_go``): the processes and
+    their log files."""
+    port = free_port()
+    logs = [open(os.path.join(workdir, f"tp_rank{r}.log"), "w")
+            for r in range(TP_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--tp-rank",
+         workdir], cwd=workdir, env=dp_env(port, r, TP_RANKS),
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(TP_RANKS)]
+    return procs, logs
+
+
+def check_tp_ranks(ranks: list, one_ms: dict) -> dict:
+    """Phase 14's checks: each rank's place in JAX's grid, exactly 14 of
+    each of #2-#4 a step in the run's dtype (the generative cells', on the
+    rank's half of their hidden channels) and none of the other, every
+    rank's metrics equal, no tensor differing across the ranks that must
+    hold it alike after any step; the SGD step and the fp32 Adamax run
+    against the one-process steps from the same start at the limits above,
+    the SGD check's control, and the bf16 step by its distance from the
+    one-process fp32 step (rank 0's errors, :func:`tp_step_errors`).  Logs
+    the ms a step beside ``one_ms`` (the one-process step's alone on the
+    card, phase 5's).  Returns the ranks' counts."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    errs, control = ranks[0]["errs"], ranks[0]["sgd_control"]
+    for name, (cfg, n, _) in tp_configs().items():
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update({k: expected_launches(cfg) * n
+                     for k in TRAIN_KERNELS[cfg.compute_dtype]})
+        for rec in ranks:
+            r = rec["runs"][name]
+            if rec["grid"] != [rec["rank"] // TP_MODEL,
+                               rec["rank"] % TP_MODEL]:
+                raise AssertionError(f"tp rank {rec['rank']}: grid "
+                                     f"{rec['grid']}")
+            if r["counts"] != want:
+                raise AssertionError(f"tp {name} rank {rec['rank']}: "
+                                     f"launches {r['counts']}, expected "
+                                     f"{want}")
+            if r["metrics"] != ranks[0]["runs"][name]["metrics"]:
+                raise AssertionError(f"tp {name} rank {rec['rank']}: "
+                                     f"metrics {r['metrics']} vs rank 0's")
+            if any(r["mismatches"]):
+                raise AssertionError(f"tp {name} rank {rec['rank']}: "
+                                     f"differ across ranks "
+                                     f"{r['mismatches']}")
+            for k, v in r["counts"].items():
+                counts[k] += v
+    r0 = ranks[0]["runs"]
+    log(f"tensor parallel (phase 14): {TP_DATA} data x {TP_MODEL} model "
+        f"gloo ranks on {ranks[0]['device']}, {ranks[0]['rows']} rows a "
+        f"data index, from 13f's warm start: the SGD step (lr {TP_SGD_LR}, "
+        f"beside 13f's CLI, the ranks' first) "
+        f"{[round(x, 1) for x in r0['sgd']['ms']]} ms; Adamax at lr "
+        f"{PP_LR}, ms a step fp32 {[round(x, 1) for x in r0['fp32']['ms']]}"
+        f" against the one process's {one_ms['fp32']:.1f}, bf16 (its first "
+        f"bf16 step) {[round(x, 1) for x in r0['bf16']['ms']]} against "
+        f"{one_ms['bf16']:.1f} (phase 5's B={BATCH} steps alone on the "
+        f"card; the ranks share the card and sum through the host: no "
+        f"scaling); MB a rank at rest "
+        f"{[round(r['rest_mb'], 1) for r in ranks]}, peak fp32 "
+        f"{[round(r['runs']['fp32']['peak_mb'], 1) for r in ranks]}, bf16 "
+        f"{[round(r['runs']['bf16']['peak_mb'], 1) for r in ranks]}; "
+        f"ranks ready (states built) {[round(r['ready_s'], 1) for r in ranks]}"
+        f" s after their start; errors {errs}; the SGD check's control (the "
+        f"{ranks[0]['split']} split kernels' gradient dropped): {control:.4g}"
+        f" from the SGD step, limit {TP_CONTROL_MARGIN * PP_STATE_ATOL:.3g}")
+    for name in r0:
+        for i, mt in enumerate(r0[name]["metrics"]):
+            log(f"  {name} step {i}: " + ", ".join(
+                f"{k} {v:.9g}" for k, v in sorted(mt.items())))
+    e = errs["sgd"]
+    if not (e["loss_rel"] <= PP_LOSS_RTOL
+            and e["grad_norm_rel"] <= TP_GRAD_NORM_RTOL
+            and e["params"] <= PP_STATE_ATOL
+            and e["bn_stats_scaled"] <= PP_DP_BN_RTOL):
+        raise AssertionError(f"tensor parallel SGD: {e}")
+    if not control >= TP_CONTROL_MARGIN * PP_STATE_ATOL:
+        raise AssertionError(f"tensor parallel SGD: the check cannot fail: "
+                             f"the split kernels' update dropped moves the "
+                             f"parameters by {control}")
+    e = errs["fp32"]
+    if not (e["loss_rel"] <= PP_LOSS_RTOL
+            and e["grad_norm_rel"] <= TP_GRAD_NORM_RTOL
+            and e["params"] <= 3 * PP_LR * TP_STEPS
+            and e["bn_stats_scaled_step0"] <= PP_DP_BN_RTOL):
+        raise AssertionError(f"tensor parallel fp32: {e}")
+    if errs["bf16"]["loss_rel"] > PP_LOSS_RTOL:
+        raise AssertionError(f"tensor parallel bf16: {errs['bf16']}")
+    got, one = errs["bf16 vs fp32"], errs["one bf16 vs fp32"]
+    far = {k: (got[k], one[k]) for k in ("grad_norm_rel", "params",
+                                         "bn_stats_scaled")
+           if got[k] > TP_BF16_ROUNDING * one[k]}
+    if far:
+        raise AssertionError(f"tensor parallel bf16: farther from the fp32 "
+                             f"step than {TP_BF16_ROUNDING} x the one "
+                             f"process's bf16 step: {far}")
+    return counts
+
+
 def kernel_records(errs, launches, entries) -> list:
     """One record per kernel of ``entries`` (name, timing rows, the rows'
     key, the TPU kernel it replaces, the path call it times).  Times and
@@ -6143,6 +6620,9 @@ def main(argv=None) -> int:
     parser.add_argument("--pp-rank", metavar="DIR",
                         help="run one rank of phase 13f (started by phase "
                              "13 itself), writing its record to DIR")
+    parser.add_argument("--tp-rank", metavar="DIR",
+                        help="run one rank of phase 14 (started by phase "
+                             "13 itself), writing its record to DIR")
     parser.add_argument("--host-refs", metavar="DIR",
                         help="run the CPU references of DIR's jobs (started "
                              "by the run itself)")
@@ -6162,6 +6642,8 @@ def main(argv=None) -> int:
         return dp_rank(args.dp_rank)
     if args.pp_rank:
         return pp_rank(args.pp_rank)
+    if args.tp_rank:
+        return tp_rank(args.tp_rank)
     if args.kernel_times:
         kernel_times(args.kernel_times)
         return 0
@@ -6195,6 +6677,9 @@ def run_phases(device, host: HostRefs, programs: ProgramHelper,
     se_errs = phase_se_gate(device)
     bf16_errs = phase_bf16_kernel(device)
     bf16_bwd_errs = phase_bf16_backward_kernels(device)
+    tp_errs, tp_bf16 = phase_tp_kernels(device)
+    for k, v in tp_errs.items():
+        errs[k].update(v)
     log(f"kernels checked at {time.monotonic() - t_start:.1f} s")
 
     samplers = {}
@@ -6234,9 +6719,10 @@ def run_phases(device, host: HostRefs, programs: ProgramHelper,
         for k, v in rec["launches"].items():
             launches[k] += v
     log(f"samplers and matrix done at {time.monotonic() - t_start:.1f} s")
-    trainers = {}
+    trainers, train_ms = {}, {}
     for name, cfg in {**configs(), **bf16_configs()}.items():
         rec = phase_train(cfg, device)
+        train_ms[name] = rec["ms_per_step"]
         want = expected_launches(cfg) * TRAIN_STEPS
         log(f"train {name}: {TRAIN_STEPS} steps, counts {rec['counts']}, "
             f"first step {rec['first_step_ms']:.1f} ms, then "
@@ -6380,7 +6866,8 @@ def run_phases(device, host: HostRefs, programs: ProgramHelper,
         launches[k] += dp["counts"][k]
         replayed[k] += dp["replayed"][k]
     log(f"data parallel done at {time.monotonic() - t_start:.1f} s")
-    for k, v in phase_pipeline(device)["counts"].items():
+    one_ms = {"fp32": train_ms["default"], "bf16": train_ms["default bf16"]}
+    for k, v in phase_pipeline(device, one_ms)["counts"].items():
         launches[k] += v
     log(f"pipeline done at {time.monotonic() - t_start:.1f} s")
     for k in (*TRAIN_KERNELS["float32"], *TRAIN_KERNELS["bfloat16"],
@@ -6422,6 +6909,13 @@ def run_phases(device, host: HostRefs, programs: ProgramHelper,
         elif rec["name"] == "fused_swish_depthwise5x5_dw_bf16":
             rec["rgb_check"] = {"shapes": rgb_bf16["shapes"],
                                 "max_abs_err": rgb_bf16["dw_err"]}
+    for rec in records:  # bf16 #2-#4 at TP's shapes (phase 14)
+        kind = {"fused_swish_depthwise5x5_bf16": "fwd",
+                "fused_swish_depthwise5x5_dx_bf16": "dx",
+                "fused_swish_depthwise5x5_dw_bf16": "dw"}.get(rec["name"])
+        if kind is not None:
+            rec["tp_check"] = {"shapes": tp_bf16["shapes"],
+                               "max_abs_err": tp_bf16[f"{kind}_err"]}
     for rec in records:
         rec["replayed_launches"] = replayed.get(rec["name"], 0)
         if rec["name"] in rgb_timing:

@@ -36,6 +36,7 @@ from nvae_torch.nn.spectral import (
     glorot_uniform_,
     swish,
 )
+from nvae_torch.parallel.tp import block_of
 
 
 BN_EPS = 1e-5
@@ -66,6 +67,13 @@ class BatchNorm(nn.Module):
     running statistics stay the same on every rank.  Over one rank the
     statistics are those of the plain path, bit for bit.
 
+    ``tp`` (the model axis, set by ``parallel.mesh.shard_state_tp`` on the
+    BatchNorms of an expansion cell's hidden channels) normalizes this
+    rank's slice of the channels: x holds that slice, and the scale, bias
+    and running statistics are read as their block.  The batch statistics
+    are taken over the data axis alone (``mesh``); the running statistics
+    stay whole on every rank, updated from every rank's slice, gathered.
+
     ``apply_dtype`` bf16 is JAX's ``_SplitPrecisionBN``: ``mul = scale *
     rsqrt(var + eps)`` and ``add = bias - mean * mul`` from the fp32
     statistics (the batch's in training, gradients flowing through them),
@@ -81,6 +89,7 @@ class BatchNorm(nn.Module):
         self.apply_dtype = apply_dtype
         self.update_buffers = True
         self.mesh = None
+        self.tp = None
         self.weight = nn.Parameter(torch.empty(channels))
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
@@ -94,20 +103,25 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def _read(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as this module reads it: whole, or under TP its block."""
+        return t if self.tp is None else block_of(t, self.tp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self._read(self.weight), self._read(self.bias)
         if not self.training:
             st = self.running_mean.dtype
+            r_mean = self._read(self.running_mean)
+            r_var = self._read(self.running_var)
             if self.apply_dtype is not None:
-                mul = self.weight.to(st) * torch.rsqrt(self.running_var
-                                                       + BN_EPS)
-                add = self.bias.to(st) - self.running_mean * mul
+                mul = weight.to(st) * torch.rsqrt(r_var + BN_EPS)
+                add = bias.to(st) - r_mean * mul
                 dt = self.apply_dtype
                 return (x.to(dt) * mul.to(dt)[:, None, None]
                         + add.to(dt)[:, None, None])
             return F.batch_norm(
-                x.to(st), self.running_mean, self.running_var,
-                self.weight.to(st), self.bias.to(st), training=False,
-                eps=BN_EPS,
+                x.to(st), r_mean, r_var, weight.to(st), bias.to(st),
+                training=False, eps=BN_EPS,
             )
         dims = (0, 2, 3)
         st = self.running_mean.dtype
@@ -118,18 +132,22 @@ class BatchNorm(nn.Module):
         var = torch.clamp(sq - mean * mean, min=0.0)
         if self.update_buffers:
             with torch.no_grad():
+                new_mean, new_var = mean, var
+                if self.tp is not None:  # every rank's channels, in order
+                    new_mean, new_var = self.tp.all_gather_rows(
+                        torch.stack([mean, var]).t()).t()
                 m = self.MOMENTUM
-                self.running_mean.mul_(m).add_((1.0 - m) * mean)
-                self.running_var.mul_(m).add_((1.0 - m) * var)
+                self.running_mean.mul_(m).add_((1.0 - m) * new_mean)
+                self.running_var.mul_(m).add_((1.0 - m) * new_var)
         if self.apply_dtype is not None:
-            mul = self.weight * torch.rsqrt(var + BN_EPS)
-            add = self.bias - mean * mul
+            mul = weight * torch.rsqrt(var + BN_EPS)
+            add = bias - mean * mul
             dt = self.apply_dtype
             return (x.to(dt) * mul.to(dt)[:, None, None]
                     + add.to(dt)[:, None, None])
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        mul = torch.rsqrt(var + BN_EPS) * weight
         return ((xf - mean[:, None, None]) * mul[:, None, None]
-                + self.bias[:, None, None])
+                + bias[:, None, None])
 
 
 class SqueezeExcitation(nn.Module):

@@ -21,6 +21,15 @@ JAX's ``y + bias.astype(dtype)``); ``DepthwiseConv`` casts its input and
 taps to it and hands the kernel an fp32 bias.  With ``dtype`` None the
 convolution runs in the promoted dtype of input and weights, so bf16
 serving weights run in fp32 and a float64 copy of the model in float64.
+
+Under the tensor-parallel layout (``parallel.mesh.shard_state_tp``) a
+module's ``tp`` is the model axis and it computes on this rank's part:
+an ``SNConv`` by its ``tp_role`` (``"column"``: its block of output
+channels, from the replicated input; ``"row"``: its block of input
+channels, then the sum over the axis, then the bias; ``"gather"``: column,
+then every rank's channels gathered), a ``DepthwiseConv`` on its block of
+channels.  Sigma of a forward-mode kernel is the whole kernel's, gathered
+where the weight is a block.
 """
 
 from __future__ import annotations
@@ -36,6 +45,13 @@ from nvae_torch.kernels.depthwise import (
     depthwise5x5_conv,
     fused_swish_depthwise5x5,
     fused_swish_depthwise5x5_plain,
+)
+from nvae_torch.parallel.mesh import shard_of, whole
+from nvae_torch.parallel.tp import (
+    block_of,
+    copy_to_model,
+    gather_channels,
+    sum_over_model,
 )
 
 
@@ -104,6 +120,8 @@ class SNConv(nn.Module):
         self.update_buffers = True  # False: a rematerialized second run
         self.stride = int(stride)
         self.dtype = dtype
+        self.tp = None  # the model axis, under the TP layout
+        self.tp_role = None
         self.weight = nn.Parameter(
             torch.empty(out_ch, in_ch, kernel_size, kernel_size)
         )
@@ -128,8 +146,19 @@ class SNConv(nn.Module):
         """The kernel the convolution uses.  In forward mode: the weight over
         the sigma of one power iteration from the stored ``u``; while
         training, ``u`` then takes the new estimate (the sigma of this call
-        comes from the old ``u``, as in JAX)."""
+        comes from the old ``u``, as in JAX).  Under TP, this rank's part of
+        it (see the module docstring)."""
         w = self.weight
+        if self.tp is None:
+            return self._normalized(w)
+        block = shard_of(w) is not None
+        if self.mode == "forward" or (block and self.tp_role == "row"):
+            w = self._normalized(whole([w])[0] if block else w)
+        elif block:
+            return w
+        return block_of(w, self.tp, 1 if self.tp_role == "row" else 0)
+
+    def _normalized(self, w: torch.Tensor) -> torch.Tensor:
         if self.mode == "forward":
             # bf16 serving weights: sigma in the dtype of u, as JAX promotes.
             w = w.to(torch.promote_types(w.dtype, self.u.dtype))
@@ -142,18 +171,31 @@ class SNConv(nn.Module):
         return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.weight.shape[-1], self.stride
+        if self.tp is None:
+            return self._conv(x, self.kernel(), self.bias)
+        if self.tp_role == "row":
+            y = sum_over_model(self._conv(x, self.kernel(), None), self.tp)
+            if self.bias is None:
+                return y
+            return y + self.bias.to(y.dtype)[:, None, None]
+        x = copy_to_model(x, self.tp)
+        bias = None if self.bias is None else block_of(self.bias, self.tp)
+        y = self._conv(x, self.kernel(), bias)
+        return gather_channels(y, self.tp) if self.tp_role == "gather" else y
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+        k, s = w.shape[-1], self.stride
         if k == 1 and s > 1:
             # A strided 1x1 conv reads every s-th pixel: take them first.
             # (The same result; PyTorch 2.13's CPU backward of a strided
             # 1x1 conv on a channels_last input crashes.)
             x, s = x[:, :, ::s, ::s], 1
-        w = self.kernel()
         dt = compute_dtype(self.dtype, x, w)
         x, w = x.to(dt), w.to(dt)
         # Under a set compute dtype the bias comes after the convolution's
         # rounding, as in JAX; otherwise it folds into the convolution.
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if bias is None else bias.to(dt)
         fold = self.dtype is None
         top, bottom = _same_pad(x.shape[2], k, s)
         left, right = _same_pad(x.shape[3], k, s)
@@ -185,6 +227,7 @@ class DepthwiseConv(nn.Module):
         self.use_pallas = use_pallas
         self.fuse_swish = fuse_swish
         self.dtype = dtype
+        self.tp = None  # the model axis, under the TP layout
         self.weight = nn.Parameter(torch.empty(channels, 1, 5, 5))
         self.bias = nn.Parameter(torch.empty(channels)) if use_bias else None
         self.reset_parameters()
@@ -199,11 +242,15 @@ class DepthwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.dtype, x, self.weight)
+        # Under TP the weight is this rank's block of channels, and x the
+        # same channels: the bias is read as its block.
+        own_bias = (self.bias if self.bias is None or self.tp is None
+                    else block_of(self.bias, self.tp))
         if self.use_pallas or dt != torch.bfloat16:
             # The kernel's arguments as JAX passes them: x and the taps in
             # the compute dtype, the bias in fp32 (its dtype in float64).
-            bias = (None if self.bias is None else
-                    self.bias.to(torch.promote_types(dt, torch.float32)))
+            bias = (None if own_bias is None else
+                    own_bias.to(torch.promote_types(dt, torch.float32)))
             x, s = x.to(dt), self.fuse_swish
         else:
             # JAX's XLA path in bf16: swish in x's dtype, then the
@@ -219,8 +266,8 @@ class DepthwiseConv(nn.Module):
             y = fused_swish_depthwise5x5(x, taps, bias, fuse_swish=s)
         elif dt == torch.bfloat16:
             y = depthwise5x5_conv(x, taps)
-            if self.bias is not None:
-                y = y + self.bias.to(dt)
+            if own_bias is not None:
+                y = y + own_bias.to(dt)
         else:
             y = fused_swish_depthwise5x5_plain(x, taps, bias, fuse_swish=s)
         return y.permute(0, 3, 1, 2)

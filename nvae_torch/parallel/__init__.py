@@ -1,8 +1,8 @@
-"""Data parallelism and the FSDP layout over ``torch.distributed``
-(counterpart of ``nvae_tpu/parallel``'s data axis: ``mesh.py`` and
-``multihost.py``), and pipeline training over the stage modules
-(``pipeline.py``), in one process or over a world of stages x data ranks.
-The tensor-parallel layout waits for ROADMAP.md Queue 1 #9d."""
+"""Data parallelism, the FSDP and the tensor-parallel layouts over
+``torch.distributed`` (counterpart of ``nvae_tpu/parallel``'s
+``mesh.py`` and ``multihost.py``; the TP collectives in ``tp.py``), and
+pipeline training over the stage modules (``pipeline.py``), in one process
+or over a world of stages x data ranks."""
 
 from nvae_torch.parallel.mesh import (
     DataMesh,
@@ -13,6 +13,8 @@ from nvae_torch.parallel.mesh import (
     shard_batch,
     shard_state,
     shard_state_fsdp,
+    shard_state_tp,
+    tp_param_sharding,
 )
 from nvae_torch.parallel.multihost import (
     global_batch,
@@ -27,7 +29,8 @@ __all__ = ["DataMesh", "PipelineTrainer", "assert_replicated",
            "fsdp_sharding", "gathered_params", "global_batch", "initialize",
            "is_primary", "make_mesh", "process_count", "process_index",
            "process_local_rows", "shard_batch", "shard_state",
-           "shard_state_fsdp", "stage_names"]
+           "shard_state_fsdp", "shard_state_tp", "stage_names",
+           "tp_param_sharding"]
 
 
 def __getattr__(name):

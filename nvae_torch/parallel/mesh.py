@@ -9,8 +9,12 @@ the collectives are written out where the training step needs them
 ``train/optim.py``): they are :class:`DataMesh`'s methods.
 
 - :func:`make_mesh` builds the data axis over the initialized group's
-  world (``parallel.multihost.initialize``); a ``model`` axis waits for the
-  tensor-parallel layout, ROADMAP.md Queue 1 #9d.
+  world (``parallel.multihost.initialize``), and with ``n_model > 1`` the
+  ``("data", "model")`` grid of JAX's ``make_mesh``: world rank r is data
+  index ``r // n_model`` and model index ``r % n_model``, and the returned
+  :class:`DataMesh` (the data axis, a process group of the ranks that share
+  a model index) carries the model axis as its ``model``, a
+  :class:`DataMesh` over the ranks that share a data index.
 - :func:`make_stage_mesh` builds, in a world of S x N ranks, the data axis
   of this rank's pipeline stage: a process group of the N ranks that hold
   the stage (``parallel/pipeline.py``), over which :class:`DataMesh`'s
@@ -25,10 +29,16 @@ the collectives are written out where the training step needs them
   :func:`fsdp_sharding`); :func:`gathered_params` makes the model read them
   whole for a pass, through :func:`whole`'s one all-gather, whose backward
   reduce-scatters the gradients.
+- :func:`shard_state_tp` is the tensor-parallel layout over a mesh with a
+  model axis: each conv kernel that :func:`tp_param_sharding` selects (JAX's
+  rule: a kernel of at least ``min_features`` output channels) is held as
+  this rank's block of output channels, with its Adamax moments and EMA,
+  and the modules that read it compute on this rank's slice of the
+  channels (``parallel/tp.py`` has the collectives between the slices).
 
 JAX's ``data_sharding`` and ``replicated`` are ``NamedSharding``s, a layout
 that the compiler reads; a tensor here has no such layout, so they are not
-kept.  The TP layout (``shard_state_tp``, ``tp_param_sharding``) is #9d's.
+kept.
 """
 
 from __future__ import annotations
@@ -64,12 +74,16 @@ class _AllReduceSum(torch.autograd.Function):
 class DataMesh:
     """The data axis: the ``size`` ranks of ``group`` (None: the world),
     this one ``rank`` among them, its tensors on ``device``.  Every rank of
-    the group calls each collective in the same order."""
+    the group calls each collective in the same order.  In a data x model
+    world (:func:`make_mesh` with ``n_model > 1``) ``model`` is the model
+    axis, a mesh of its own over the ranks that share this rank's data
+    index; the methods here run over the data axis alone."""
 
     rank: int
     size: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    model: Optional["DataMesh"] = None
 
     @property
     def backend(self) -> str:
@@ -118,19 +132,24 @@ class DataMesh:
                             group=self.group)
         return out
 
-    def reduce_scatter_mean_(self, out: torch.Tensor,
-                             t: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter_sum_(self, out: torch.Tensor,
+                            t: torch.Tensor) -> torch.Tensor:
         """``out`` (1-D, ``t.numel() / size`` entries) becomes this rank's
-        block of the mean of ``t`` over the ranks: the sum, then divided by
-        the rank count, as the data-parallel step's all-reduce takes its
-        mean.  NCCL reduce-scatters; gloo all-reduces the whole of ``t``
-        (in place) and keeps this rank's block.  Returns ``out``."""
+        block of the sum of ``t`` over the ranks.  NCCL reduce-scatters;
+        gloo all-reduces the whole of ``t`` (in place) and keeps this
+        rank's block.  Returns ``out``."""
         if self.backend == "nccl":
             dist.reduce_scatter_tensor(out, t, group=self.group)
         else:
             dist.all_reduce(t, group=self.group)
             out.copy_(t.view(self.size, -1)[self.rank])
-        return out.div_(self.size)
+        return out
+
+    def reduce_scatter_mean_(self, out: torch.Tensor,
+                             t: torch.Tensor) -> torch.Tensor:
+        """:meth:`reduce_scatter_sum_`, then divided by the rank count, as
+        the data-parallel step's all-reduce takes its mean."""
+        return self.reduce_scatter_sum_(out, t).div_(self.size)
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
@@ -160,32 +179,64 @@ class DataMesh:
         return tuple(gathered) if isinstance(out, tuple) else gathered[0]
 
 
+def _rank_device(device) -> torch.device:
+    """``device``, or the rank's card (the one ``initialize`` bound; raises
+    if there is no card)."""
+    if device is None:
+        resolve_device("cuda")  # raises without a card
+        device = torch.device("cuda", torch.cuda.current_device())
+    return resolve_device(device)
+
+
 def make_mesh(n_data: int = 0, n_model: int = 1,
               device=None) -> Optional[DataMesh]:
     """The data axis over the initialized process group's world, on
     ``device`` (default: the rank's card, the one
     ``initialize`` bound; raises if there is no card).  ``n_data`` 0 means
-    every rank; any other value must be the world size: each rank is a
-    process of its own, started by a launcher, and none may sit idle.  A
-    process with no group is a world of 1 without a data axis: None."""
-    if n_model > 1:
-        raise NotImplementedError(
-            "a model axis waits for the tensor-parallel layout "
-            "(ROADMAP.md Queue 1 #9d)")
+    every rank (over ``n_model``); any other value times ``n_model`` must be
+    the world size: each rank is a process of its own, started by a
+    launcher, and none may sit idle.  A process with no group is a world
+    of 1 without a data axis: None.
+
+    With ``n_model > 1`` the world is JAX's ``(n_data, n_model)`` grid,
+    ``devices.reshape(n_data, n_model)``: world rank r is data index
+    ``r // n_model`` and model index ``r % n_model``.  The returned mesh is
+    the data axis, over a process group of the ranks of r's model index,
+    and its ``model`` the model axis, over a group of the ranks of r's data
+    index.  Every rank calls it, since every rank must create every group,
+    in the same order.  The layout of such a mesh is
+    :func:`shard_state_tp`'s."""
+    if n_model < 1:
+        raise ValueError(f"a model axis of {n_model}")
     size = dist.get_world_size() if dist.is_initialized() else 1
-    if n_data not in (0, size):
+    if n_model == 1 and n_data not in (0, size):
         raise ValueError(
             f"a data axis of {n_data} needs {n_data} ranks, one process per "
             f"device: launch them with torchrun --nproc_per_node {n_data} -m "
             f"nvae_torch.cli ... --data_parallel {n_data} (this is a world "
             f"of {size}), or pass 0")
+    if n_model > 1:
+        n_data = n_data or max(size // n_model, 1)
+        if n_data * n_model != size:
+            n = n_data * n_model
+            raise ValueError(
+                f"a data axis of {n_data} x a model axis of {n_model} needs "
+                f"{n} ranks, one process per device: launch them with "
+                f"torchrun --nproc_per_node {n} (this is a world of {size})")
     if not dist.is_initialized():
         return None
-    if device is None:
-        resolve_device("cuda")  # raises without a card
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = resolve_device(device)
-    return DataMesh(dist.get_rank(), size, device)
+    device = _rank_device(device)
+    me = dist.get_rank()
+    if n_model == 1:
+        return DataMesh(me, size, device)
+    data_groups = [dist.new_group(list(range(m, size, n_model)))
+                   for m in range(n_model)]
+    model_groups = [dist.new_group(list(range(d * n_model,
+                                              (d + 1) * n_model)))
+                    for d in range(n_data)]
+    d, m = divmod(me, n_model)
+    return DataMesh(d, n_data, device, data_groups[m],
+                    model=DataMesh(m, n_model, device, model_groups[d]))
 
 
 def make_stage_mesh(n_stages: int, n_data: int,
@@ -205,10 +256,7 @@ def make_stage_mesh(n_stages: int, n_data: int,
     groups = [dist.new_group(list(range(s * n_data, (s + 1) * n_data)))
               for s in range(n_stages)]
     stage = me // n_data
-    if device is None:
-        resolve_device("cuda")  # raises without a card
-        device = torch.device("cuda", torch.cuda.current_device())
-    return stage, DataMesh(me % n_data, n_data, resolve_device(device),
+    return stage, DataMesh(me % n_data, n_data, _rank_device(device),
                            groups[stage])
 
 
@@ -253,13 +301,8 @@ def checksums(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(out) if out else torch.zeros(0, dtype=torch.int64)
 
 
-def replica_mismatches(state, mesh: DataMesh) -> List[str]:
-    """The names of the state's tensors and counters that are not the same
-    on every rank (by :func:`checksums`); empty when the state is
-    replicated.  FSDP's shards (:func:`shard_of`), a block of its own on
-    each rank, are not compared."""
-    named = {k: t for k, t in state_tensors_named(state).items()
-             if shard_of(t) is None}
+def _mismatches(named: Dict[str, torch.Tensor], state,
+                mesh: DataMesh) -> List[str]:
     names = list(named) + ["step", "epoch", "seed"]
     sums = checksums(list(named.values())).to(mesh.device)
     counters = torch.tensor([state.step, state.epoch, state.seed],
@@ -270,11 +313,39 @@ def replica_mismatches(state, mesh: DataMesh) -> List[str]:
     return [n for n, d in zip(names, differ.tolist()) if d]
 
 
+def replica_mismatches(state, mesh: DataMesh) -> List[str]:
+    """The names of the state's tensors and counters that are not the same
+    on every rank (by :func:`checksums`); empty when the state is
+    replicated.  A shard (:func:`shard_of`), a block of its own on each
+    rank of its axis, is not compared over that axis: FSDP's over the data
+    axis; a TP block over the model axis, while the ranks of a model index
+    hold the same block and are compared.  Every rank of the world calls
+    it."""
+    named = state_tensors_named(state)
+    bad = _mismatches({k: t for k, t in named.items()
+                       if shard_axis(t) != "data"},
+                      state, mesh)
+    if mesh.model is not None:
+        bad += [k for k in _mismatches(
+            {k: t for k, t in named.items() if shard_of(t) is None},
+            state, mesh.model) if k not in bad]
+    return bad
+
+
 def assert_replicated(state, mesh: DataMesh) -> None:
     bad = replica_mismatches(state, mesh)
     if bad:
         raise AssertionError(f"the state differs across ranks in "
                              f"{len(bad)} tensors: {bad[:5]}")
+
+
+def _refuse_model_axis(mesh: DataMesh, layout: str) -> None:
+    """JAX's ``shard_state`` and ``shard_state_fsdp`` refuse a mesh with a
+    model axis, whose layout is ``shard_state_tp``'s; so do the port's."""
+    if mesh.model is not None and mesh.model.size > 1:
+        raise ValueError(
+            f"{layout}; this mesh has a model axis of size "
+            f"{mesh.model.size}. Use shard_state_tp")
 
 
 def shard_state(state, mesh: DataMesh):
@@ -283,7 +354,16 @@ def shard_state(state, mesh: DataMesh):
     tensors in place, and its counters and seed into the returned state,
     which is then checked to be the same on every rank.  The tensors go
     in one broadcast per dtype (a few thousand small collectives would each
-    pay a round trip)."""
+    pay a round trip).  A mesh with a model axis raises, as in JAX."""
+    _refuse_model_axis(mesh, "shard_state is the pure-DP layout")
+    state = _replicate(state, mesh)
+    assert_replicated(state, mesh)
+    return state
+
+
+def _replicate(state, mesh: DataMesh):
+    """The state of the axis's rank 0 on each of its ranks (see
+    :func:`shard_state`), unchecked."""
     groups: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in state_tensors_named(state).values():
         groups.setdefault(t.dtype, []).append(t.data)
@@ -295,10 +375,8 @@ def shard_state(state, mesh: DataMesh):
     counters = mesh.broadcast_(torch.tensor(
         [state.step, state.epoch, state.seed], dtype=torch.int64,
         device=mesh.device)).tolist()
-    state = dataclasses.replace(state, step=counters[0], epoch=counters[1],
-                                seed=counters[2])
-    assert_replicated(state, mesh)
-    return state
+    return dataclasses.replace(state, step=counters[0], epoch=counters[1],
+                               seed=counters[2])
 
 
 @contextlib.contextmanager
@@ -375,14 +453,17 @@ def fsdp_sharding(shapes: Mapping[str, Sequence[int]], n_shard: int,
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """What a tensor of the FSDP layout holds: of the whole tensor of
-    ``shape``, this rank's block of ``shape[dim] / mesh.size`` entries along
-    ``dim``, block ``mesh.rank``.  A sharded tensor carries it as its
-    ``fsdp_shard`` attribute (:func:`shard_of`)."""
+    """What a tensor of the FSDP or the TP layout holds: of the whole
+    tensor of ``shape``, this rank's block of ``shape[dim] / mesh.size``
+    entries along ``dim``, block ``mesh.rank``, over the ``axis``
+    (``"data"``: FSDP's, ``mesh`` the data axis; ``"model"``: TP's, ``mesh``
+    the model axis).  A sharded tensor carries it as its ``fsdp_shard``
+    attribute (:func:`shard_of`)."""
 
     mesh: DataMesh
     dim: int
     shape: Tuple[int, ...]
+    axis: str = "data"
 
     @property
     def block(self) -> int:
@@ -405,9 +486,15 @@ class Shard:
 
 
 def shard_of(t) -> Optional[Shard]:
-    """The :class:`Shard` a tensor of the FSDP layout holds; None for a
-    whole tensor."""
+    """The :class:`Shard` a tensor of the FSDP or TP layout holds; None for
+    a whole tensor."""
     return getattr(t, "fsdp_shard", None)
+
+
+def shard_axis(t) -> str:
+    """The axis a tensor's :class:`Shard` splits it over (``"data"``:
+    FSDP, ``"model"``: TP); ``""`` for a whole tensor."""
+    return getattr(shard_of(t), "axis", "")
 
 
 def _shard_(t: torch.Tensor, spec: Shard) -> None:
@@ -439,8 +526,10 @@ def _reduce_scatter(specs: Sequence[Shard], grads: Sequence[torch.Tensor]
                     ) -> List[torch.Tensor]:
     """The transpose of :func:`_gather`: the whole tensors' gradients,
     packed as the gather packed the shards, in one reduce-scatter whose
-    blocks are the mean over the ranks; each shard's gradient is a view
-    of this rank's block."""
+    blocks are the mean over the ranks (FSDP's: each data rank's gradient
+    is of its rows) or the sum (TP's: each model rank's is its share of
+    the one loss); each shard's gradient is a view of this rank's
+    block."""
     mesh = specs[0].mesh
     packed = []
     for spec, g in zip(specs, grads):
@@ -448,17 +537,19 @@ def _reduce_scatter(specs: Sequence[Shard], grads: Sequence[torch.Tensor]
         split = (*spec.shape[:d], mesh.size, spec.block, *spec.shape[d + 1:])
         packed.append(g.reshape(split).movedim(d, 0).reshape(mesh.size, -1))
     packed = torch.cat(packed, dim=1)
-    mine = mesh.reduce_scatter_mean_(packed.new_empty(packed.shape[1]),
-                                     packed.view(-1))
+    reduce = (mesh.reduce_scatter_mean_ if specs[0].axis == "data"
+              else mesh.reduce_scatter_sum_)
+    mine = reduce(packed.new_empty(packed.shape[1]), packed.view(-1))
     return [v.view(spec.shard_shape) for v, spec in zip(
         mine.split([math.prod(spec.shard_shape) for spec in specs]), specs)]
 
 
 class _GatherShards(torch.autograd.Function):
     """Shards in, whole tensors out, by one all-gather; the backward
-    reduce-scatters the whole tensors' gradients back to the shards, the
-    mean over the ranks, as the data-parallel step's all-reduce takes it
-    for the replicated parameters."""
+    reduce-scatters the whole tensors' gradients back to the shards
+    (:func:`_reduce_scatter`: over the data axis the mean, as the
+    data-parallel step's all-reduce takes it for the replicated
+    parameters; over the model axis the sum)."""
 
     @staticmethod
     def forward(ctx, specs, *shards):
@@ -478,15 +569,17 @@ def whole(tensors: Sequence[torch.Tensor],
     shards of one dtype go in one all-gather, a collective that every rank
     must call with the same tensors.  With gradients enabled and a shard
     that requires them, the gather is differentiable (:class:`_GatherShards`:
-    the backward reduce-scatters)."""
+    the backward reduce-scatters).  The shards of each axis are gathered
+    over it, the data axis's first."""
     tensors = list(tensors)
     if specs is None:
         specs = [shard_of(t) for t in tensors]
     out = list(tensors)
-    groups: Dict[torch.dtype, List[int]] = {}
+    groups: Dict[Tuple[str, torch.dtype], List[int]] = {}
     for i, (t, spec) in enumerate(zip(tensors, specs)):
         if spec is not None:
-            groups.setdefault(t.dtype, []).append(i)
+            groups.setdefault((spec.axis, t.dtype), []).append(i)
+    groups = dict(sorted(groups.items(), key=lambda kv: kv[0][0]))
     for idx in groups.values():
         ss = tuple(specs[i] for i in idx)
         ts = [tensors[i] for i in idx]
@@ -511,9 +604,10 @@ def gathered_params(model: torch.nn.Module
     pass).  Under autograd the backward pass reduce-scatters the gradients
     into the shards' ``.grad``.  Yields ``{name: whole tensor}``; with no
     shard it gathers nothing and yields ``{}``, and so does a nested
-    opening (the attributes are whole already)."""
+    opening (the attributes are whole already).  A TP block stays a block:
+    its modules compute on it (:func:`shard_state_tp`)."""
     named = [(k, p) for k, p in model.named_parameters()
-             if shard_of(p) is not None]
+             if shard_axis(p) == "data"]
     if not named:
         yield {}
         return
@@ -563,7 +657,10 @@ def shard_state_fsdp(state, mesh: DataMesh, min_size: int = FSDP_MIN_SIZE):
     in every preset), the update counts and the counters stay replicated,
     which is checked as :func:`shard_state` checks the whole state.  Shard
     a state before its first step: the step's gradient buffers take the
-    shapes of the parameters it first sees."""
+    shapes of the parameters it first sees.  A mesh with a model axis
+    raises, as in JAX."""
+    _refuse_model_axis(mesh, "shard_state_fsdp shards over the data axis "
+                             "only")
     state = shard_state(state, mesh)
     params = dict(state.model.named_parameters())
     specs = {k: Shard(mesh, d, tuple(params[k].shape)) for k, d in
@@ -584,3 +681,137 @@ def state_bytes(state) -> int:
     optimizer state (a shard's block, not the whole)."""
     return sum(t.numel() * t.element_size()
                for t in state_tensors_named(state).values())
+
+
+# ---- TP: the wide kernels split over the model axis -------------------------
+
+TP_MIN_FEATURES = 512
+
+
+def tp_param_sharding(model: torch.nn.Module, n_model: int,
+                      min_features: int = TP_MIN_FEATURES) -> Dict[str, int]:
+    """The parameters of ``model`` (any device, ``meta`` too) that the TP
+    layout splits over a model axis of ``n_model`` ranks, each with the
+    dimension it splits along (JAX's ``tp_param_sharding``): JAX's rule
+    applied to each parameter's Flax leaf, found through
+    ``nvae_torch.convert``'s map: a 4-D leaf (a conv's HWIO kernel, a
+    depthwise conv's (5, 5, 1, C) taps) whose last dimension, its output
+    channels, is at least ``min_features`` and divisible by ``n_model``.
+    That dimension is the port tensor's dimension 0 (OIHW, (C, 1, 5, 5))."""
+    import numpy as np
+
+    from nvae_torch.convert import _flax_layout
+
+    if n_model <= 1:
+        return {}
+    own = model.state_dict()
+    out = {}
+    for path, (key, (_, to_flax)) in _flax_layout(model).items():
+        shape = tuple(own[key].shape)
+        if path[0] != "params" or len(shape) != 4:
+            continue
+        flax = to_flax(np.broadcast_to(np.float32(0), shape)).shape
+        if flax[-1] >= min_features and flax[-1] % n_model == 0:
+            assert shape[0] == flax[-1], (key, shape, flax)
+            out[key] = 0
+    return out
+
+
+def _tp_roles(model: torch.nn.Module, specs: Mapping[str, Shard],
+              tp: DataMesh) -> None:
+    """Give each module that reads a TP block its part (``tp``: the model
+    axis; an ``SNConv``'s ``tp_role``), and mark each whole parameter that
+    a module reads in slices ``tp_partial`` (the model axis): this rank's
+    gradient of it is its share, which the step sums over the model axis.
+
+    (a) An expansion cell (``GenerativeResidualCell``, and
+    ``PostprocessNode`` in its depthwise form) whose expansion kernel is
+    split: the 1x1 expansion is column-parallel (``"column"``: this rank's
+    output channels), the BatchNorms between it and the projection, and
+    the fused swish -> depthwise 5x5 (#2-#4), run on this rank's slice of
+    the hidden channels, and the projection is row-parallel (``"row"``:
+    this rank's input channels, then one sum over the model axis, then the
+    bias).  (b) Any other split conv is column-parallel with its output
+    channels gathered (``"gather"``)."""
+    from nvae_torch.nn.blocks import (BatchNorm, GenerativeResidualCell,
+                                      PostprocessNode)
+    from nvae_torch.nn.spectral import DepthwiseConv, SNConv
+
+    roles: Dict[torch.nn.Module, Tuple[str, str]] = {}
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, GenerativeResidualCell):
+            parts = (("expand", "column"), ("bn1", "slice"), ("dw", "slice"),
+                     ("bn2", "slice"), ("project", "row"))
+        elif isinstance(m, PostprocessNode) and m.dw is not None:
+            parts = (("expand.conv", "column"), ("expand.bn", "slice"),
+                     ("dw", "slice"), ("bn_mid", "slice"),
+                     ("project", "row"))
+        else:
+            continue
+        if f"{pre}{parts[0][0]}.weight" not in specs:
+            continue
+        if f"{pre}dw.weight" not in specs:
+            raise ValueError(f"{pre}dw.weight is not split with its "
+                             f"expansion")
+        for sub, role in parts:
+            roles[m.get_submodule(sub)] = (f"{pre}{sub}", role)
+    for name, m in model.named_modules():
+        if f"{name}.weight" in specs and m not in roles:
+            if not isinstance(m, SNConv):
+                raise ValueError(f"{name}.weight is split outside an "
+                                 f"expansion cell")
+            roles[m] = (name, "gather")
+
+    def partial(p) -> None:
+        if p is not None and shard_of(p) is None:
+            p.tp_partial = tp
+
+    for m, (name, role) in roles.items():
+        m.tp = tp
+        if isinstance(m, SNConv):
+            m.tp_role = role
+            partial(m.weight)
+            if role != "row":
+                partial(m.bias)
+        elif isinstance(m, (BatchNorm, DepthwiseConv)):
+            partial(m.weight)
+            partial(m.bias)
+
+
+def shard_state_tp(state, mesh: DataMesh,
+                   min_features: int = TP_MIN_FEATURES):
+    """The tensor-parallel layout of a train state over a data x model mesh
+    (JAX's ``shard_state_tp``): the state is replicated from world rank 0
+    first (over the model axis, then the data axis), then each parameter
+    that :func:`tp_param_sharding` selects becomes this rank's block of its
+    output channels on the model axis (:class:`Shard` with ``axis="model"``,
+    the same tensor object), and so do its two Adamax moments and its EMA,
+    whose elementwise updates then run on the blocks.  JAX places the
+    moments replicated and lets GSPMD re-shard them; here they follow their
+    parameter.  The modules that read a block compute on this rank's
+    channels (:func:`_tp_roles`), so a pass over the model calls the model
+    axis's collectives (``parallel/tp.py``) on every rank in one order.
+
+    The BatchNorm statistics, the spectral ``u`` vectors and sigmas, the
+    update counts and every other parameter stay whole, the same on all
+    ranks, which is checked (:func:`assert_replicated`).  Shard a state
+    before its first step."""
+    if mesh is None or mesh.model is None:
+        raise ValueError("shard_state_tp needs a mesh with a model axis: "
+                         "make_mesh(n_data, n_model) with n_model > 1")
+    tp = mesh.model
+    state = _replicate(_replicate(state, tp), mesh)
+    params = dict(state.model.named_parameters())
+    specs = {k: Shard(tp, d, tuple(params[k].shape), axis="model")
+             for k, d in tp_param_sharding(state.model, tp.size,
+                                           min_features).items()}
+    with torch.no_grad():
+        for k, spec in specs.items():
+            _shard_(params[k], spec)
+        for d, k in list(_param_keyed(state.opt_state, specs)):
+            if tuple(d[k].shape) == specs[k].shape:
+                _shard_(d[k], specs[k])
+    _tp_roles(state.model, specs, tp)
+    assert_replicated(state, mesh)
+    return state

@@ -8,19 +8,25 @@
   (every rank holds every byte), ``fsdp`` (each parameter that
   ``nvae_torch.parallel.mesh.fsdp_sharding`` selects at ``--min_size``,
   its two Adamax moments and its EMA as a 1/N block: what
-  ``shard_state_fsdp`` leaves on a rank).  ``tp`` waits for the
-  tensor-parallel layout (ROADMAP.md Queue 1 #9d) and raises.
+  ``shard_state_fsdp`` leaves on a rank), ``tp`` (N ranks as JAX's tool
+  lays them out, ``max(N / 2, 1)`` data x ``M`` model: each kernel that
+  ``nvae_torch.parallel.mesh.tp_param_sharding`` selects (at least 512
+  output channels), its two Adamax moments and its EMA as a 1/M block:
+  what ``shard_state_tp`` leaves on a rank; beside it
+  ``state_bytes_device0_jax_placement``, the bytes of JAX's placement, which
+  splits the kernels alone and holds the optimizer state replicated).
 - **Step working set:** ``torch.cuda.max_memory_allocated`` over one
   training step on the card (the state, gradients and activations at a
   rank's rows of the batch), in ``single`` and ``replicated``; null on the
   CPU, as the JAX tool reports null where XLA gives no analysis, and in
-  ``fsdp``, whose step gathers over a world of N processes.
+  ``fsdp`` and ``tp``, whose step runs over a world of N processes.
 
 Usage::
 
     python -m nvae_torch.tools.memory_report --layout replicated \\
         --data_parallel 8
     ... --layout fsdp --data_parallel 8
+    ... --layout tp --data_parallel 8    # 4 data x 2 model
     ... --preset celeba64 --batch_size 64 --layout single
     ... --debug --cpu --no_compile          # tiny model, state bytes only
 
@@ -36,19 +42,28 @@ import json
 from nvae_torch.tools.common import add_cpu_flag, device_info, tool_device
 
 
-def state_bytes_by_kind(state, n_shard: int = 1, min_size: int = 65536
-                        ) -> dict:
+def state_bytes_by_kind(state, n_shard: int = 1, min_size: int = 65536,
+                        tp: bool = False, opt_sharded: bool = True) -> dict:
     """``{"params", "opt_state", "batch_stats", "spectral"}`` bytes a rank
     holds of ``state`` when the tensors that FSDP shards over ``n_shard``
     ranks at ``min_size`` are 1/``n_shard`` blocks (``n_shard=1``: the
-    whole state)."""
-    from nvae_torch.parallel.mesh import _param_keyed, fsdp_sharding
+    whole state); with ``tp`` those that the TP layout splits over a model
+    axis of ``n_shard`` ranks at ``min_features`` ``min_size``.
+    ``opt_sharded`` False counts the optimizer state whole (JAX's TP
+    placement)."""
+    from nvae_torch.parallel.mesh import (_param_keyed, fsdp_sharding,
+                                          tp_param_sharding)
     from nvae_torch.train.optim import state_tensors
 
     model = state.model
     params = dict(model.named_parameters())
-    sharded = (fsdp_sharding({k: p.shape for k, p in params.items()},
-                             n_shard, min_size) if n_shard > 1 else {})
+    if n_shard <= 1:
+        sharded = {}
+    elif tp:
+        sharded = tp_param_sharding(model, n_shard, min_size)
+    else:
+        sharded = fsdp_sharding({k: p.shape for k, p in params.items()},
+                                n_shard, min_size)
 
     def nbytes(t, name=None):
         n = t.numel() * t.element_size()
@@ -58,7 +73,8 @@ def state_bytes_by_kind(state, n_shard: int = 1, min_size: int = 65536
 
     out = {"params": sum(nbytes(p, k) for k, p in params.items()),
            "opt_state": 0, "batch_stats": 0, "spectral": 0}
-    keyed = {id(d[k]): k for d, k in _param_keyed(state.opt_state, params)}
+    keyed = ({id(d[k]): k for d, k in _param_keyed(state.opt_state, params)}
+             if opt_sharded else {})
     for t in state_tensors(state.opt_state):
         out["opt_state"] += nbytes(t, keyed.get(id(t)))
     for name, b in model.named_buffers():
@@ -108,8 +124,7 @@ def main(argv=None):
     p.add_argument("--layout", default="replicated",
                    choices=["replicated", "fsdp", "tp", "single"],
                    help="Parameter layout: replicated DP, FSDP/ZeRO-3, "
-                        "tensor-parallel wide kernels (not ported), or a "
-                        "single rank")
+                        "tensor-parallel wide kernels, or a single rank")
     p.add_argument("--preset", default="",
                    help="Named preset (nvae_torch/presets.py); default is "
                         "the reference MNIST config")
@@ -134,12 +149,9 @@ def main(argv=None):
     import torch
 
     from nvae_torch.config import ModelConfig, TrainConfig
+    from nvae_torch.parallel.mesh import TP_MIN_FEATURES
     from nvae_torch.train.state import create_train_state
 
-    if args.layout == "tp":
-        raise NotImplementedError(
-            "not ported yet: the tensor-parallel layout (ROADMAP.md Queue 1 "
-            "#9d)")
     device = tool_device(args)
     if args.preset:
         from nvae_torch.presets import get_preset
@@ -169,6 +181,16 @@ def main(argv=None):
     total = state_bytes_by_kind(state)
     rank = (state_bytes_by_kind(state, n, args.min_size)
             if layout == "fsdp" else dict(total))
+    extra = {}
+    if layout == "tp":
+        # The JAX tool's grid: max(N / 2, 1) data ranks, the rest model.
+        n_data = max(n // 2, 1)
+        m = n // n_data
+        rank = state_bytes_by_kind(state, m, TP_MIN_FEATURES, tp=True)
+        extra = {"n_data": n_data, "n_model": m,
+                 "state_bytes_device0_jax_placement": state_bytes_by_kind(
+                     state, m, TP_MIN_FEATURES, tp=True,
+                     opt_sharded=False)}
     report = {
         "layout": layout,
         "n_devices": n,
@@ -178,11 +200,12 @@ def main(argv=None):
         "state_bytes_total": total,
         "state_bytes_device0": rank,
         "int64_counters": int64_counters(state),
+        **extra,
         "device": device_info(device),
     }
     if not args.no_compile:
         mem = None
-        if device.type == "cuda" and layout != "fsdp":
+        if device.type == "cuda" and layout not in ("fsdp", "tp"):
             rows = train_cfg.batch_size // (n if layout == "replicated"
                                             else 1)
             mem = step_memory(model, state, tx, train_cfg, rows, device)

@@ -18,11 +18,12 @@ raises when the two differ (a checkpoint written with an EMA slot into a run
 without one, say).  A write goes to a temporary directory beside the step's
 and is renamed into place, so a step directory is whole or absent.
 
-A state in the FSDP layout (``parallel.mesh.shard_state_fsdp``) is written
-whole: :func:`flatten_state` gathers every shard (a collective, which every
-rank calls), so the file is the replicated layout's, and
-:func:`load_flat_state` copies each rank's block of a whole tensor into its
-shard.  A checkpoint restores into either layout at any world size.
+A state in the FSDP or the TP layout (``parallel.mesh.shard_state_fsdp``,
+``shard_state_tp``) is written whole: :func:`flatten_state` gathers every
+shard over its axis (a collective, which every rank calls), so the file is
+the replicated layout's, and :func:`load_flat_state` copies each rank's
+block of a whole tensor into its shard.  A checkpoint restores into any
+layout at any world size (under TP, any model axis).
 """
 
 from __future__ import annotations
@@ -256,9 +257,10 @@ class AsyncCheckpointWriter:
 
     With a data ``mesh`` (``parallel.mesh.DataMesh``) every rank calls
     ``save``: the ranks meet at a barrier and skip the same steps; in the
-    FSDP layout every rank then joins the snapshot's gather; rank 0 alone
-    writes (the state is the same on every rank) and the others return
-    False.
+    FSDP or TP layout every rank then joins the snapshot's gather (under
+    TP the mesh is the world's, over which rank 0 is data rank 0 of model
+    rank 0); rank 0 alone writes (the whole state is the same on every
+    rank) and the others return False.
     """
 
     def __init__(self, ckpt_dir: str, mesh=None):

@@ -104,6 +104,13 @@ class EpochRunner:
                  steps_per_epoch: int, target_size: int = 32, *,
                  graph: Optional[bool] = None, mesh=None):
         refuse_grad_accum(train_cfg)
+        if getattr(mesh, "model", None) is not None:
+            # No JAX entry point runs the epoch runner on a TP state, and a
+            # CUDA graph cannot capture the gloo collectives a TP world of
+            # ranks on one card runs.
+            raise NotImplementedError("the epoch runner takes no model "
+                                      "axis: step a TP state through "
+                                      "make_train_step")
         self.body = StepBody(model, tx, train_cfg, total_steps,
                              steps_per_epoch, train=True, mesh=mesh)
         self.mesh = mesh

@@ -18,6 +18,7 @@ from nvae_torch.ops import (
     diagonal_gaussian_kl,
     dml_log_prob,
 )
+from nvae_torch.parallel.tp import once_over_model
 
 
 def kl_per_group(latents: List[LatentParams]) -> torch.Tensor:
@@ -85,7 +86,10 @@ def bn_gamma_penalty(model: nn.Module, sr_lambda: float) -> torch.Tensor:
     encoder and decoder towers only (not preprocess, postprocess), the scope
     of ``losses.py:99-113``.  ``model`` is the NVAE or a pipeline stage's
     modules (``parallel/pipeline.py``), which may hold neither tower: the
-    penalty is then 0.0."""
+    penalty is then 0.0.  Under TP the scale of a BatchNorm that reads its
+    block (``tp``) is whole on every rank, and its gradient, this rank's
+    share, is summed over the model axis: its term reaches it once
+    (``parallel.tp.once_over_model``)."""
     total = 0.0
     for name in ("encoder", "decoder"):
         tower = getattr(model, name, None)
@@ -93,7 +97,9 @@ def bn_gamma_penalty(model: nn.Module, sr_lambda: float) -> torch.Tensor:
             continue
         for m in tower.modules():
             if isinstance(m, BatchNorm):
-                total = total + m.weight.abs().max()
+                g = m.weight.abs().max()
+                total = total + (g if m.tp is None
+                                 else once_over_model(g, m.tp))
     return sr_lambda * total
 
 

@@ -26,7 +26,9 @@ parameter, its update and its Adamax moments and EMA are this rank's block
 of each: the elementwise transforms run on the blocks unchanged, and the
 spectral strategies take sigma and ``u`` from the whole kernel, gathered
 (``parallel.mesh.whole``, one all-gather for all the kernels), so that
-every rank scales its block by the single device's sigma.
+every rank scales its block by the single device's sigma.  Under the TP
+layout (``parallel.mesh.shard_state_tp``) the same holds of a split kernel
+over the model axis.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ import torch
 
 from nvae_torch.config import TrainConfig
 from nvae_torch.nn.spectral import power_iteration
-from nvae_torch.parallel.mesh import shard_of, whole
+from nvae_torch.parallel.mesh import shard_axis, shard_of, whole
+from nvae_torch.parallel.tp import once_over_model
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -246,11 +249,21 @@ def spectral_tracking(sn_keys: Iterable[str]) -> GradientTransformation:
 def spectral_penalty(params: Tensors, u: Tensors,
                      sr_lambda: float) -> torch.Tensor:
     """``sr_lambda * sum sigma(W)`` with each ``u`` from the tracking state,
-    differentiable in the kernels (``u`` and ``v`` are constants)."""
+    differentiable in the kernels (``u`` and ``v`` are constants).  Under
+    TP a split kernel is gathered whole (one all-gather, whose backward
+    sums over the model axis), and the sigma of a kernel whose gradient
+    the step sums over the model axis (a block, or ``tp_partial``) reaches
+    it once (``parallel.tp.once_over_model``)."""
+    keys = list(u)
+    ws = whole([params[k] for k in keys],
+               [shard_of(params[k]) if shard_axis(params[k]) == "model"
+                else None for k in keys])
     total = 0.0
-    for k, uk in u.items():
-        sigma, _ = power_iteration(_w2d(params[k]), uk)
-        total = total + sigma
+    for k, w in zip(keys, ws):
+        sigma, _ = power_iteration(_w2d(w), u[k])
+        tp = (getattr(shard_of(params[k]), "mesh", None)
+              or getattr(params[k], "tp_partial", None))
+        total = total + (sigma if tp is None else once_over_model(sigma, tp))
     return sr_lambda * total
 
 
@@ -337,20 +350,25 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
     torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
 
 
-def global_norm(tensors: Tensors, mesh=None,
-                sharded: Iterable[str] = ()) -> torch.Tensor:
+def global_norm(tensors: Tensors, mesh=None, sharded: Iterable[str] = (),
+                model_sharded: Iterable[str] = ()) -> torch.Tensor:
     """L2 norm of all the tensors together (``optax.global_norm``).  With a
     ``mesh`` the tensors named in ``sharded`` are this rank's blocks of
     theirs (the FSDP layout): their squares are summed over the ranks, in
     one all-reduce, and the others counted once, so every rank gets the
-    norm of the whole tensors."""
-    sharded = set(sharded) if mesh is not None else set()
+    norm of the whole tensors.  Those named in ``model_sharded`` are blocks
+    over the mesh's model axis (the TP layout), summed over it alike."""
+    axes = []
+    if mesh is not None:
+        axes = [(set(sharded), mesh), (set(model_sharded), mesh.model)]
+    split = set().union(*(keys for keys, _ in axes))
     total = sum(torch.sum(t * t) for k, t in tensors.items()
-                if k not in sharded)
-    if sharded:
-        total = total + mesh.all_reduce_(torch.stack(
-            [torch.sum(t * t) for k, t in tensors.items()
-             if k in sharded]).sum())
+                if k not in split)
+    for keys, axis in axes:
+        if keys:
+            total = total + axis.all_reduce_(torch.stack(
+                [torch.sum(t * t) for k, t in tensors.items()
+                 if k in keys]).sum())
     return torch.sqrt(total)
 
 

@@ -24,7 +24,7 @@ from nvae_torch.models.nvae import (
 from nvae_torch.parallel.mesh import (
     batch_stats_over,
     gathered_params,
-    shard_of,
+    shard_axis,
 )
 from nvae_torch.train import losses
 from nvae_torch.train.optim import (
@@ -105,6 +105,19 @@ class StepBody:
     replicated gradients once (``optim.global_norm``), so it is the single
     device's norm, and the optimizer runs on the blocks (``optim.py``: the
     spectral strategies take sigma from the whole kernel).
+
+    Under the TP layout (``parallel.mesh.shard_state_tp``: a mesh whose
+    ``model`` is the model axis) the data axis is ``mesh`` as above: the
+    rows, the noise, the BatchNorm statistics, the KL coefficients and the
+    gradient's mean are the data index's, the same for every model rank of
+    it.  A split kernel is this rank's block, and the modules that read it
+    call the model axis's collectives in the pass.  The gradients stay in
+    the one flat buffer; those of the whole parameters that the modules
+    read in slices (``tp_partial``), this rank's share, lead it and are
+    summed over the model axis first.  ``grad_norm`` sums the blocks'
+    squares over the model axis and counts the whole gradients once; the
+    penalties count each term once (``losses.bn_gamma_penalty``,
+    ``optim.spectral_penalty``).
     """
 
     # The metrics that depend on the batch; the others are the same on
@@ -136,7 +149,14 @@ class StepBody:
         self._flat: Optional[torch.Tensor] = None
         self._flat_shards: Optional[torch.Tensor] = None
         self.sharded = tuple(k for k, p in self.params.items()
-                             if shard_of(p) is not None)
+                             if shard_axis(p) == "data")
+        self.tp = getattr(mesh, "model", None)
+        self.tp_sharded = tuple(
+            k for k, p in self.params.items()
+            if shard_axis(p) == "model")
+        self.partial = tuple(k for k, p in self.params.items()
+                             if getattr(p, "tp_partial", None) is not None)
+        self._n_partial = sum(self.params[k].numel() for k in self.partial)
         self.alphas = losses.kl_alphas(self.model_cfg.n_latent_scales,
                                        self.model_cfg.n_groups_per_scale,
                                        device=self.device)
@@ -155,13 +175,15 @@ class StepBody:
 
     def _bind_grads(self) -> Dict[str, torch.Tensor]:
         """The body's own gradient buffers, views of one flat buffer for the
-        replicated parameters (one all-reduce sums them) and one for the
-        shards, zeroed and bound as each parameter's ``.grad``, so that the
-        backward pass adds into them."""
+        replicated parameters (one all-reduce sums them; under TP the
+        ``tp_partial`` ones lead it) and one for the FSDP shards, zeroed and
+        bound as each parameter's ``.grad``, so that the backward pass adds
+        into them."""
         if self._grads is None:
             self._grads = {}
-            self._flat = self._flat_views(
-                [k for k in self.params if k not in self.sharded])
+            self._flat = self._flat_views(list(self.partial) + [
+                k for k in self.params
+                if k not in self.sharded and k not in self.partial])
             self._flat_shards = self._flat_views(self.sharded)
             self._grads = {k: self._grads[k] for k in self.params}
         for k, p in self.params.items():
@@ -223,6 +245,8 @@ class StepBody:
                     v = v.detach()
                     totals[k] = v if k not in totals else totals[k] + v
             with record_function("train_step.update"):
+                if self.partial:
+                    self.tp.all_reduce_(self._flat[:self._n_partial])
                 if mesh is not None:
                     if self._flat.numel():
                         mesh.all_reduce_(self._flat).div_(mesh.size)
@@ -233,7 +257,8 @@ class StepBody:
                     grads = {k: g / self.grad_accum for k, g in grads.items()}
                     totals = {k: v / self.grad_accum
                               for k, v in totals.items()}
-                totals["grad_norm"] = global_norm(grads, mesh, self.sharded)
+                totals["grad_norm"] = global_norm(grads, mesh, self.sharded,
+                                                  self.tp_sharded)
                 updates, opt_state = self.tx.update(grads, opt_state,
                                                     self.params)
                 apply_updates(self.params, updates)
@@ -351,7 +376,9 @@ def make_eval_step(model: NVAE, train_cfg: TrainConfig,
     posterior pass's order).  With a ``mesh``, as in the train step: the
     batch is this rank's rows, the noise and the BatchNorm statistics are
     the global batch's, and so are the returned means; under the FSDP
-    layout the pass reads the parameters gathered whole.
+    layout the pass reads the parameters gathered whole, and under the TP
+    layout each rank computes on its part of the split kernels, as in the
+    train step.
     """
     model_cfg: ModelConfig = model.cfg
 

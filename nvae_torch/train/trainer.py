@@ -55,8 +55,13 @@ which read the whole model: rank 0 alone evaluates, dumps images and writes
 checkpoints, and the ranks meet only where every rank calls (the merge, the
 checkpoint writer's barrier, the interrupt).  A checkpoint is the whole
 model's, and resuming splits it back into the stages with the optimizer
-state.  The pipeline excludes a data mesh and ``scan_epochs``; the
-tensor-parallel layout waits for ROADMAP.md Queue 1 #9d: its setting raises.
+state.  The pipeline excludes a data mesh and ``scan_epochs``.
+
+The trainer runs no tensor-parallel layout: ``model_parallel > 1`` and a
+mesh with a model axis raise, where JAX's trainer ignores the first and
+refuses the second (its ``shard_state``).  TP runs through the API:
+``parallel.make_mesh(n_model=...)``, ``parallel.shard_state_tp``,
+``train.step.make_train_step``.
 """
 
 from __future__ import annotations
@@ -111,11 +116,14 @@ class TrainResult:
     interrupted: bool = False
 
 
+TP_ROUTE = ("the trainer runs no tensor-parallel layout, as JAX's runs "
+            "none: train over a model axis through the API, "
+            "make_mesh(n_model=...) -> shard_state_tp -> make_train_step")
+
+
 def _check_supported(tc: TrainConfig, param_sharding: str, mesh) -> None:
-    if tc.model_parallel > 1:
-        raise NotImplementedError(
-            "not ported yet: model_parallel > 1 (the tensor-parallel "
-            "layout, ROADMAP.md Queue 1 #9d)")
+    if tc.model_parallel > 1 or getattr(mesh, "model", None) is not None:
+        raise NotImplementedError(f"model_parallel > 1: {TP_ROUTE}")
     if tc.pipeline_stages > 1 and mesh is not None:
         raise ValueError(
             "pipeline_stages>1 does its own placement; pass mesh=None")

@@ -1,6 +1,7 @@
-"""Ranks of the small gloo worlds that the port's data-parallel, FSDP and
-pipeline tests spawn on the CPU (``tests/test_torch_parallel*.py``,
-``test_torch_serving_mesh.py``, ``test_torch_pipeline_dp.py``).
+"""Ranks of the small gloo worlds that the port's data-parallel, FSDP,
+pipeline and tensor-parallel tests spawn on the CPU
+(``tests/test_torch_parallel*.py``, ``test_torch_serving_mesh.py``,
+``test_torch_pipeline_dp.py``, ``test_torch_tp.py``).
 
 Run as ``python -m tests.test_torch_dist_worker DIR RANK WORLD TASK...`` from
 the repository's root: the rank joins a gloo group over ``file://DIR/store``
@@ -105,8 +106,24 @@ def sgd_sn(lr, cfg):
         sn_kernel_names(NVAE(cfg, device="meta"))))
 
 
-def batches(n_steps: int, seed: int = 0):
+def sgd_track(lr, cfg):
+    """:func:`sgd`, then the spectral tracking of every spectral kernel:
+    penalty mode's SGD, whose loss then holds the spectral penalty."""
+    from nvae_torch.models.nvae import NVAE
+    from nvae_torch.nn.spectral import sn_kernel_names
+    from nvae_torch.train import optim as topt
+
+    return topt.chain(sgd(lr), topt.spectral_tracking(
+        sn_kernel_names(NVAE(cfg, device="meta"))))
+
+
+def batches(n_steps: int, seed: int = 0, channels: int = 1):
+    """Binarized greyscale batches; with 3 channels, RGB ones on the 256
+    levels the data pipeline gives."""
     rng = np.random.RandomState(seed)
+    if channels == 3:
+        return [(rng.randint(0, 256, (BATCH, 32, 32, 3)) / 255.0).astype(
+            np.float32) for _ in range(n_steps)]
     return [(rng.rand(BATCH, 32, 32, 1) > 0.5).astype(np.float32)
             for _ in range(n_steps)]
 
@@ -131,26 +148,32 @@ def _moments(state) -> dict:
 
 def train_run(mesh, optimizer: str, accum: int, n_steps: int,
               state_dict=None, eps=None, seed: int = 0,
-              fsdp: bool = False, remat: bool = False) -> dict:
+              fsdp: bool = False, remat: bool = False,
+              overrides=None, tp: int = 0, ema_decay: float = 0.0) -> dict:
     """``n_steps`` of the debug model (with ``remat``, its rematerialized
-    form) from ``state_dict`` (else its seeded init) on :func:`batches`;
-    with a mesh each rank steps on its rows, in the FSDP layout
-    (``min_size`` FSDP_MIN) if ``fsdp``.  ``eps`` injects
+    form; ``overrides`` of its config) from ``state_dict`` (else its seeded
+    init) on :func:`batches`; with a mesh each rank steps on its rows, in
+    the FSDP layout (``min_size`` FSDP_MIN) if ``fsdp``, in the TP layout
+    (``min_features`` ``tp``) if ``tp``.  ``eps`` injects
     each step's global noise (one list per microbatch).  Returns each
     step's metrics, the state after each step (whole), and with a mesh the
     tensors that differ across ranks after each step; with Adamax, the
     moments after the first and the last step as this rank holds them,
-    and the dimension of each sharded parameter."""
+    and the dimension of each sharded parameter; with ``ema_decay``, the
+    EMA after the last step (whole)."""
     from nvae_torch import TrainConfig, debug_config
-    from nvae_torch.parallel import shard_batch, shard_state_fsdp
-    from nvae_torch.parallel.mesh import replica_mismatches, shard_of
+    from nvae_torch.parallel import (shard_batch, shard_state_fsdp,
+                                     shard_state_tp)
+    from nvae_torch.parallel.mesh import replica_mismatches, shard_of, whole
+    from nvae_torch.train.optim import find_ema_params
     from nvae_torch.train.state import create_train_state
     from nvae_torch.train.step import make_train_step
 
-    cfg = debug_config(**TINY, remat=remat)
+    cfg = debug_config(**{**TINY, "remat": remat, **(overrides or {})})
     tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
-                     grad_accum=accum)
+                     grad_accum=accum, ema_decay=ema_decay)
     tx = {"sgd": lambda: sgd(SGD_LR), "sgd_sn": lambda: sgd_sn(SGD_LR, cfg),
+          "sgd_track": lambda: sgd_track(SGD_LR, cfg),
           "adamax": lambda: None}[optimizer]()
     model, state, tx = create_train_state(cfg, tc, 100, device=CPU, tx=tx,
                                           seed=seed)
@@ -158,11 +181,13 @@ def train_run(mesh, optimizer: str, accum: int, n_steps: int,
         model.load_state_dict(state_dict)
     if fsdp:
         state = shard_state_fsdp(state, mesh, FSDP_MIN)
+    if tp:
+        state = shard_state_tp(state, mesh, tp)
     step = make_train_step(model, tx, tc, 100, 50, mesh=mesh)
     out = {"metrics": [], "states": [], "mismatches": [], "moments": [],
            "dims": {k: shard_of(p).dim for k, p in model.named_parameters()
                     if shard_of(p) is not None}}
-    for i, b in enumerate(batches(n_steps)):
+    for i, b in enumerate(batches(n_steps, channels=cfg.in_channels)):
         b = torch.from_numpy(b)
         if mesh is not None:
             b = shard_batch(b, mesh, accum)
@@ -173,6 +198,11 @@ def train_run(mesh, optimizer: str, accum: int, n_steps: int,
             out["mismatches"].append(replica_mismatches(state, mesh))
         if optimizer == "adamax" and i in (0, n_steps - 1):
             out["moments"].append(_moments(state))
+    if ema_decay:
+        ema = find_ema_params(state.opt_state)
+        with torch.no_grad():
+            out["ema"] = {k: v.clone() for k, v in zip(
+                ema, whole(list(ema.values())))}
     return out
 
 
@@ -274,12 +304,29 @@ def task_units(mesh, inputs):
     out = {"rows": process_local_rows(144), "primary": is_primary()}
     for name, fn in (("odd_rows", lambda: process_local_rows(143)),
                      ("n_data_3", lambda: make_mesh(3, device=CPU)),
-                     ("n_model_2", lambda: make_mesh(0, 2, device=CPU))):
+                     ("n_data_2_n_model_2",
+                      lambda: make_mesh(2, 2, device=CPU))):
         try:
             fn()
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
+    # A model axis of 2 over the world of 2: one data index, and the
+    # layouts of the data axis refuse it, as JAX's do.
+    tp = make_mesh(0, 2, device=CPU)
+    out["n_model_2"] = (tp.rank, tp.size, tp.model.rank, tp.model.size)
+    _, st, _ = create_train_state(debug_config(**TINY),
+                                  TrainConfig(batch_size=BATCH), 4,
+                                  device=CPU)
+    from nvae_torch.parallel import shard_state_fsdp
+
+    for name, fn in (("shard_state", shard_state),
+                     ("shard_state_fsdp", shard_state_fsdp)):
+        try:
+            fn(st, tp)
+            out[f"{name}_tp"] = None
+        except ValueError as e:
+            out[f"{name}_tp"] = str(e)
     out["global_batch"] = global_batch(np.full((3, 2), mesh.rank), mesh)
     # Each rank inits from its own seed; shard_state makes rank 0's win.
     _, state, _ = create_train_state(debug_config(**TINY),
@@ -670,10 +717,182 @@ def task_pipeline(mesh, inputs):
     return out
 
 
+# ---- the tensor-parallel layout ---------------------------------------------
+
+# JAX's TP tests' min_features: the debug model's one generative cell
+# (hidden 96) splits, and so do its postprocess cells' 1x1 and 5x5 convs
+# (48 features), the layout's two compute patterns.  At 8, 26 kernels
+# split: the projections too (read whole, gathered), the combiners, the
+# stem, the encoder's and the rescalers' convs, strided ones among them.
+TP_MIN = 48
+TP_RUNS = {  # name: (optimizer, grad_accum, steps, overrides, ema_decay,
+    #               min_features)
+    "adamax": ("adamax", 1, 2, {}, 0.9, TP_MIN),
+    "accum2": ("sgd_sn", 2, 1, {}, 0.0, TP_MIN),
+    "forward": ("sgd", 1, 1, {"spectral_mode": "forward"}, 0.0, TP_MIN),
+    "penalty": ("sgd_track", 1, 1, {"spectral_mode": "penalty"}, 0.0,
+                TP_MIN),
+    "bf16": ("sgd_sn", 1, 1, {"compute_dtype": "bfloat16",
+                              "bn_apply_dtype": "bfloat16"}, 0.0, TP_MIN),
+    "rgb_dml_remat": ("sgd_sn", 1, 1, {"likelihood": "dml", "in_channels": 3,
+                                       "n_mix": 4, "remat": True}, 0.0,
+                      TP_MIN),
+    "split8": ("sgd_sn", 1, 1, {}, 0.0, 8),
+    "split8_forward": ("sgd", 1, 1, {"spectral_mode": "forward"}, 0.0, 8),
+}
+
+
+@contextlib.contextmanager
+def kernel_channels():
+    """While open, the channel count of every call of the plain versions
+    of #2 (forward), #3 (dx) and #4 (dW/db), by kernel: what the wrappers
+    hand the kernels on a CUDA tensor."""
+    from nvae_torch.kernels import depthwise as dw
+
+    seen = {"fwd": [], "dx": [], "dw": []}
+    names = {"fwd": "fused_swish_depthwise5x5_plain",
+             "dx": "fused_swish_depthwise5x5_dx_plain",
+             "dw": "fused_swish_depthwise5x5_dw_plain"}
+    real = {k: getattr(dw, n) for k, n in names.items()}
+
+    def counting(kind):
+        def fn(x, *args, **kwargs):
+            seen[kind].append(int(x.shape[-1]))
+            return real[kind](x, *args, **kwargs)
+        return fn
+
+    for k, n in names.items():
+        setattr(dw, n, counting(k))
+    try:
+        yield seen
+    finally:
+        for k, n in names.items():
+            setattr(dw, n, real[k])
+
+
+def _wait_for(path: str):
+    deadline = time.monotonic() + 600
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.2)
+    return torch.load(path, weights_only=False)
+
+
+def tp_eval(tp) -> dict:
+    """The eval step of the TINY model's seeded state on a batch, in the TP
+    layout over ``tp`` and on one device, the noise from one seeded
+    generator each."""
+    from nvae_torch import TrainConfig, debug_config
+    from nvae_torch.parallel import shard_batch, shard_state_tp
+    from nvae_torch.train.state import create_train_state
+    from nvae_torch.train.step import make_eval_step
+
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True)
+    b = torch.from_numpy(batches(1, seed=9)[0])
+    out = {}
+    for name, mesh in (("tp", tp), ("single", None)):
+        model, st, _ = create_train_state(debug_config(**TINY), tc, 4,
+                                          device=CPU)
+        rows = b
+        if mesh is not None:
+            st = shard_state_tp(st, mesh, TP_MIN)
+            rows = shard_batch(b, mesh)
+        m = make_eval_step(model, tc, mesh=mesh)(
+            st, rows, generator=torch.Generator().manual_seed(3))
+        out[name] = {k: float(v) for k, v in m.items()}
+    return out
+
+
+def tp_checkpoints(world, tp, directory: str) -> dict:
+    """Checkpoints across layouts: a TP state after one Adamax step (EMA
+    on), written whole by the primary alone (every rank joins the gather),
+    then restored into one device; and one device's state restored into
+    the TP layout.  Each read back whole and compared bit for bit."""
+    from nvae_torch import TrainConfig, debug_config
+    from nvae_torch.parallel import shard_batch, shard_state_tp
+    from nvae_torch.train import checkpoint as ckpt
+    from nvae_torch.train.state import create_train_state
+    from nvae_torch.train.step import make_train_step
+
+    tc = TrainConfig(batch_size=BATCH, step_based_warmup=True,
+                     ema_decay=0.9)
+
+    def state(layout, seed=0):
+        model, st, tx = create_train_state(debug_config(**TINY), tc, 4,
+                                           device=CPU, seed=seed)
+        if layout == "tp":
+            st = shard_state_tp(st, tp, TP_MIN)
+        return st, tx
+
+    st, tx = state("tp")
+    step = make_train_step(st.model, tx, tc, 4, 4, mesh=tp)
+    st, _ = step(st, shard_batch(torch.from_numpy(batches(1)[0]), tp))
+    trips = {}
+    with ckpt.AsyncCheckpointWriter(os.path.join(directory, "tp"),
+                                    world) as w:
+        w.save(1, st)
+    world.barrier()
+    written = ckpt.flatten_state(st)
+    trips["tp_file"] = _same(ckpt.load_payload(
+        os.path.join(directory, "tp"), 1), written)
+    if world.rank == 0:
+        got = ckpt.restore_checkpoint(os.path.join(directory, "tp"),
+                                      state(None, seed=7)[0])
+        trips["tp_to_one"] = _same(ckpt.flatten_state(got), written)
+        single, _ = state(None, seed=5)
+        ckpt.save_checkpoint(os.path.join(directory, "one"), 1, single)
+    world.barrier()
+    got = ckpt.restore_checkpoint(os.path.join(directory, "one"),
+                                  state("tp", seed=world.rank)[0])
+    trips["one_to_tp"] = _same(ckpt.flatten_state(got), ckpt.load_payload(
+        os.path.join(directory, "one"), 1))
+    return trips
+
+
+def task_tp(mesh, inputs):
+    """The tensor-parallel layout over ``make_mesh(0, inputs["n_model"])``
+    in this world: its grid; with ``inputs["variants"]``, each of TP_RUNS
+    in the layout (the kernels' channel counts recorded) and on one device
+    (the single runs split between the ranks), the eval step and the
+    checkpoint round trips; then, from the JAX package's weights with its
+    recorded noise (``DIR/jax_inputs.pt``, written by the test while the
+    ranks run), 3 SGD steps in the layout."""
+    from nvae_torch.parallel import make_mesh
+
+    tp = make_mesh(0, inputs["n_model"], device=CPU)
+    out = {"grid": (dist.get_rank(), tp.rank, tp.size, tp.model.rank,
+                    tp.model.size)}
+    if inputs.get("variants"):
+        with kernel_channels() as seen:
+            for name, (opt, accum, n, ov, ema, mf) in TP_RUNS.items():
+                out[name] = train_run(tp, opt, accum, n, overrides=ov,
+                                      tp=mf, ema_decay=ema)
+                if mf == TP_MIN:
+                    out["channels"] = {k: list(v) for k, v in seen.items()}
+        # The bf16 run's fp32 twin: how far bf16 puts a step.
+        singles = {**TP_RUNS,
+                   "bf16_fp32": ("sgd_sn", 1, 1, {}, 0.0, TP_MIN)}
+        for i, (name, (opt, accum, n, ov, ema, _)) in enumerate(
+                singles.items()):
+            if i % mesh.size == mesh.rank:
+                out[f"single/{name}"] = train_run(None, opt, accum, n,
+                                                  overrides=ov,
+                                                  ema_decay=ema)
+        out["eval"] = tp_eval(tp)
+        out["ckpt"] = tp_checkpoints(mesh, tp, os.path.join(inputs["dir"],
+                                                            "ckpt"))
+    jax_inputs = _wait_for(os.path.join(inputs["dir"], "jax_inputs.pt"))
+    out["jax"] = train_run(tp, "sgd", 1, len(jax_inputs["eps"]),
+                           state_dict=jax_inputs["state_dict"],
+                           eps=jax_inputs["eps"], tp=TP_MIN)
+    return out
+
+
 TASKS = {"units": task_units, "steps": task_steps,
          "jax_steps": task_jax_steps, "scan": task_scan, "fsdp": task_fsdp,
          "cli": task_cli, "serve": task_serve, "eval": task_eval,
-         "pipeline": task_pipeline}
+         "pipeline": task_pipeline, "tp": task_tp}
 
 
 def main(argv) -> None:

@@ -182,11 +182,13 @@ def test_initialize_single_process_is_noop():
 
 
 def test_make_mesh_refuses_what_waits_and_needs_a_group():
-    """A model axis waits for the tensor-parallel layout, #9d; a process
-    with no group has no data axis, and a data axis of 2 needs a
-    launcher's 2 ranks."""
-    with pytest.raises(NotImplementedError, match="#9d"):
+    """A model axis of 2 needs a launcher's 2 ranks (``make_mesh(0, 2)``
+    lays N ranks out as N / 2 x 2); a process with no group has no data
+    axis, and a data axis of 2 needs a launcher's 2 ranks."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         make_mesh(0, 2, device="cpu")
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        make_mesh(2, 2, device="cpu")
     assert make_mesh(device="cpu") is None and make_mesh(1) is None
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         make_mesh(2, device="cpu")
@@ -228,7 +230,8 @@ def test_data_parallel_settings_are_checked():
     """``--data_parallel 2`` in a world of 1 stops the CLI naming the
     launcher (``make_mesh``'s check); ``param_sharding="fsdp"`` without a
     mesh is the replicated layout, as in JAX; ``model_parallel > 1`` waits
-    for #9d; ``--pp_stages 2 --fsdp`` stops with JAX's message."""
+    for the API (the trainer runs no TP layout, as JAX's runs none);
+    ``--pp_stages 2 --fsdp`` stops with JAX's message."""
     from nvae_torch import cli
     from nvae_torch.parallel.mesh import shard_of
     from nvae_torch.train.trainer import Trainer
@@ -240,7 +243,8 @@ def test_data_parallel_settings_are_checked():
                 param_sharding="fsdp")
     assert not t.fsdp and all(shard_of(p) is None
                               for p in t.model.parameters())
-    with pytest.raises(NotImplementedError, match="#9d"):
+    with pytest.raises(NotImplementedError,
+                       match=r"make_mesh\(n_model=\.\.\.\) -> shard_state_tp"):
         Trainer(cfg, tcfg.TrainConfig(model_parallel=2), 4, device="cpu")
     with pytest.raises(SystemExit, match=r"^--pp_stages excludes --fsdp"):
         cli.main(["--mode", "train", "--cpu", "--fsdp", "--pp_stages", "2"])
@@ -255,7 +259,14 @@ def test_world2_multihost_and_mesh_units(world):
     assert (u0["rows"], u1["rows"]) == ((0, 72), (72, 144))
     assert u0["primary"] and not u1["primary"]
     assert "not divisible by 2" in u0["odd_rows"]
-    assert "needs 3 ranks" in u0["n_data_3"] and "#9d" in u0["n_model_2"]
+    assert "needs 3 ranks" in u0["n_data_3"]
+    # A model axis of 2 is the world of 2 as 1 x 2, which the data axis's
+    # layouts refuse, as JAX's do; 2 x 2 needs 4 ranks.
+    assert "needs 4 ranks" in u0["n_data_2_n_model_2"]
+    assert (u0["n_model_2"], u1["n_model_2"]) == ((0, 1, 0, 2), (0, 1, 1, 2))
+    for u in (u0, u1):
+        assert "Use shard_state_tp" in u["shard_state_tp"]
+        assert "Use shard_state_tp" in u["shard_state_fsdp_tp"]
     assert u1["global_batch"].tolist() == [[1, 1]] * 3
     # Ranks that start apart are replicated from rank 0, and a changed
     # value on one rank is found.

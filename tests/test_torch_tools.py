@@ -320,13 +320,65 @@ def test_memory_report_fsdp_matches_jax():
     assert got["params"] < total["params"] / 2  # most bytes sharded
 
 
+def test_memory_report_tp_matches_jax():
+    """TP at the default min_features (512) over JAX's tool's grid of 8
+    ranks (4 x 2), on the debug model wide enough that its widest
+    expansion kernels split: JAX's placement in the port's count equals
+    the bytes the JAX tool counts on device 0 of JAX's TP layout (the
+    kernels split, the optimizer state replicated), and the port's layout
+    splits the kernels' Adamax moments too."""
+    import jax
+
+    from nvae_torch import config as tcfg
+    from nvae_torch.tools.memory_report import (
+        int64_counters,
+        state_bytes_by_kind,
+    )
+    from nvae_torch.train.state import create_train_state
+    from nvae_tpu import config as jcfg
+    from nvae_tpu.parallel import make_mesh, shard_state_tp
+    from nvae_tpu.train.state import create_train_state as jax_state
+
+    assert len(jax.devices()) == 8
+    arch = dict(n_encoder_channels=64, n_decoder_channels=64,
+                n_groups_per_scale=(1, 1), n_latent_per_group=2)
+    jax_tool = _load_jax_tool("memory_report")
+    _, js, _ = jax_state(jcfg.debug_config(**arch),
+                         jcfg.TrainConfig(batch_size=16,
+                                          step_based_warmup=True), 100)
+    js = shard_state_tp(js, make_mesh(n_data=4, n_model=2))
+    want = {k: jax_tool._device0_bytes(getattr(js, k)) for k in KINDS}
+    _, state, _ = create_train_state(
+        tcfg.debug_config(**arch),
+        tcfg.TrainConfig(batch_size=16, step_based_warmup=True), 100,
+        device="cpu")
+    n = int64_counters(state)
+    jaxs = state_bytes_by_kind(state, 2, 512, tp=True, opt_sharded=False)
+    _same_bytes(jaxs, want, n)
+    port = state_bytes_by_kind(state, 2, 512, tp=True)
+    total = state_bytes_by_kind(state)
+    assert jaxs["params"] < total["params"]  # some kernels split
+    assert total["opt_state"] - port["opt_state"] == 2 * (
+        total["params"] - port["params"])
+
+
 def test_memory_report_refuses_tp_and_measures_no_cpu_step(capsys):
+    """(The tool used to refuse ``--layout tp``.)  ``--layout tp`` over 2
+    and 8 ranks lays them out as the JAX tool's grid, 1 x 2 and 4 x 2; at
+    debug size no kernel reaches 512 output channels, so a rank holds the
+    whole state in both placements (the split bytes:
+    ``test_memory_report_tp_matches_jax``); no step reading on the CPU."""
     from nvae_torch.tools import memory_report
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #9d"):
-        memory_report.main(["--debug", "--cpu", "--layout", "tp"])
+    for n, grid in ((2, (1, 2)), (8, (4, 2))):
+        r = memory_report.main(["--debug", "--cpu", "--layout", "tp",
+                                "--data_parallel", str(n)])
+        assert (r["layout"], r["n_data"], r["n_model"]) == ("tp", *grid)
+        assert (r["state_bytes_device0"] == r["state_bytes_total"]
+                == r["state_bytes_device0_jax_placement"])
+        assert r["step_memory_analysis"] is None  # no card: no reading
     r = memory_report.main(["--debug", "--cpu", "--layout", "single"])
-    assert r["step_memory_analysis"] is None  # no card: no reading
+    assert r["step_memory_analysis"] is None
 
 
 # ---- the training-run tools --------------------------------------------------
